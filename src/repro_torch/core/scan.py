@@ -1,0 +1,121 @@
+"""Associative scan with combine-impl dispatch.
+
+torch has no ``lax.associative_scan``, so :func:`associative_scan` runs
+the same odd/even recursion (``jax/_src/lax/control_flow/loops.py``):
+combine adjacent pairs ``x[0:-1:2]`` with ``x[1::2]``, scan the half-size
+result recursively (the odd outputs), combine those with ``x[2::2]`` (the
+even outputs), prepend ``x[0]`` and interleave. Every level therefore
+combines exactly the pairs the JAX scan combines, in the same order: two
+combine calls per level, the second of the n=2 level with zero pairs.
+
+A *combine* takes ``(earlier, later)`` elements (time order). A reverse
+(suffix) scan flips the time axis, scans with the argument-swapped
+operator, and flips back — the JAX package's convention, so callers
+always write the combine in ``(earlier, later)`` form.
+
+Batching contract: element tuples may carry ``batch_dims`` leading batch
+axes before the time axis (``[B..., T, ...]``). A combine that takes one
+flat batch axis (the CUDA kernels) gets every level's ``[B..., P]`` pairs
+flattened into one contiguous ``[B*...*P]`` call — one launch per level
+for the whole fleet; combines that broadcast over leading axes (the plain
+versions) get the strided slices as they are.
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+
+def _batched_combine(combine: Callable, combine_impl: str
+                     ) -> Tuple[Callable, bool]:
+    """Return ``(op, flat_only)``: the operator for ``combine`` under
+    ``combine_impl``, and whether it takes exactly one flat leading batch
+    axis (so the scan must flatten and pack each level's pairs)."""
+    # Late import: the kernels' oracles depend on core.
+    from repro_torch.kernels.kalman_combine import ops as kc_ops
+
+    if combine_impl == "jnp":
+        return combine, False
+    if combine_impl == "fused":
+        return kc_ops.plain_batched_combine_for(combine), False
+    if combine_impl == "pallas" or combine_impl.startswith("pallas:"):
+        kc_ops.resolve_backend(combine_impl.partition(":")[2] or None)
+        return kc_ops.batched_combine_for(combine)
+    raise ValueError(f"unknown combine_impl {combine_impl!r}")
+
+
+def _flattening_op(batched: Callable, nlead: int) -> Callable:
+    """Wrap a flat-batched operator so it accepts ``nlead`` leading axes:
+    each level's ``[B..., P, ...]`` pairs are packed into one contiguous
+    ``[B*...*P, ...]`` batch (a copy for strided slices) and restored."""
+
+    def op(a, b):
+        lead = a[0].shape[:nlead]
+        flat = lambda x: x.reshape((-1,) + x.shape[nlead:]).contiguous()  # noqa: E731
+        out = batched(type(a)(*map(flat, a)), type(b)(*map(flat, b)))
+        return type(out)(*(x.reshape(lead + x.shape[1:]) for x in out))
+
+    return op
+
+
+def _slice(x: torch.Tensor, axis: int, start, stop, step=None) -> torch.Tensor:
+    return x[(slice(None),) * axis + (slice(start, stop, step),)]
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor, axis: int
+                ) -> torch.Tensor:
+    """``out[0::2] = even``, ``out[1::2] = odd`` along ``axis``."""
+    shape = list(even.shape)
+    shape[axis] = even.shape[axis] + odd.shape[axis]
+    out = even.new_empty(shape)
+    out[(slice(None),) * axis + (slice(0, None, 2),)] = even
+    out[(slice(None),) * axis + (slice(1, None, 2),)] = odd
+    return out
+
+
+def _scan(op: Callable, elems, axis: int):
+    num = elems[0].shape[axis]
+    if num < 2:
+        return elems
+    cls = type(elems)
+    sl = lambda start, stop, step=None: cls(*(  # noqa: E731
+        _slice(x, axis, start, stop, step) for x in elems))
+    reduced = op(sl(0, -1, 2), sl(1, None, 2))
+    odd = _scan(op, reduced, axis)
+    if num % 2 == 0:
+        even = op(cls(*(_slice(x, axis, 0, -1) for x in odd)),
+                  sl(2, None, 2))
+    else:
+        even = op(odd, sl(2, None, 2))
+    even = cls(*(torch.cat([_slice(x, axis, 0, 1), e], dim=axis)
+                 for x, e in zip(elems, even)))
+    return cls(*(_interleave(e, o, axis) for e, o in zip(even, odd)))
+
+
+def associative_scan(combine: Callable, elems, *, reverse: bool = False,
+                     combine_impl: str = "jnp", batch_dims: int = 0):
+    """Inclusive associative scan over the time axis of ``elems``.
+
+    Args:
+      combine: pair combine in ``(earlier, later)`` order, broadcasting
+        over leading axes (`repro_torch.core.parallel`'s combines, or any
+        user operator written that way).
+      elems: a NamedTuple of tensors ``[B..., T, ...]``.
+      reverse: suffix scan (e.g. smoothing) instead of prefix scan.
+      combine_impl: "jnp" (``combine`` as given — the textbook combines),
+        "fused" (the plain versions of the kernel math), or "pallas" /
+        "pallas:gpu" (the CUDA kernels on CUDA tensors, their plain
+        versions on CPU tensors).
+      batch_dims: number of leading batch axes before the time axis.
+    """
+    batched, flat_only = _batched_combine(combine, combine_impl)
+    if flat_only:
+        batched = _flattening_op(batched, batch_dims + 1)
+    axis = batch_dims
+    if reverse:
+        op = lambda later_agg, earlier: batched(earlier, later_agg)  # noqa: E731
+        flipped = type(elems)(*(torch.flip(x, (axis,)) for x in elems))
+        out = _scan(op, flipped, axis)
+        return type(out)(*(torch.flip(x, (axis,)) for x in out))
+    return _scan(batched, elems, axis)

@@ -1,0 +1,61 @@
+"""Static per-call-site dispatch of the batched Kalman combines.
+
+The choice is made once per scan (every Blelloch level of one scan takes
+the same path), from the spec's ``combine_impl``/``backend``:
+
+  * ``combine_impl="pallas"`` (or ``"auto"`` resolved by
+    `IteratedConfig.resolved_combine_impl`) with backend "auto"/"gpu" —
+    the hand-written CUDA kernels. The wrapper decides from the tensor:
+    a CUDA tensor launches the kernel, a CPU tensor takes the plain
+    version;
+  * ``"fused"`` (``backend="jnp"``) — the plain PyTorch versions of the
+    kernel math, on either device;
+  * ``backend="tpu"`` — no lowering exists in the port: raises.
+
+The port has no autotuner yet, so ``backend="auto"`` means "kernel on the
+card"; the JAX package's measured kernel-vs-fused choice comes later.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+from repro_torch.core.parallel import filtering_combine, smoothing_combine
+
+from . import kalman_combine as _k
+
+#: Backends a ``"pallas:<backend>"`` combine_impl may name.
+KERNEL_BACKENDS = ("gpu",)
+
+
+def resolve_backend(requested: Optional[str] = None) -> str:
+    """The kernel backend for a ``"pallas[:backend]"`` combine_impl:
+    ``None`` means the card's kernels ("gpu"); anything else raises."""
+    if requested is None or requested == "gpu":
+        return "gpu"
+    if requested == "tpu":
+        raise ValueError('backend "tpu" has no lowering in the PyTorch '
+                         'port; use backend="auto" or "gpu"')
+    raise ValueError(f"unknown kernel backend {requested!r}; "
+                     f"available: {list(KERNEL_BACKENDS)}")
+
+
+def plain_batched_combine_for(combine: Callable) -> Callable:
+    """The plain PyTorch version of a core combine's kernel math
+    (broadcasting over any leading axes); unknown combines run as given."""
+    if combine is filtering_combine:
+        return _k.filtering_combine_plain
+    if combine is smoothing_combine:
+        return _k.smoothing_combine_plain
+    return combine
+
+
+def batched_combine_for(combine: Callable) -> Tuple[Callable, bool]:
+    """Map a core combine to its kernel wrapper: ``(op, flat_only)``.
+
+    The kernel wrappers take one flat, contiguous batch axis; unknown
+    (user) combines have no kernel and run as given, broadcasting."""
+    if combine is filtering_combine:
+        return _k.filtering_combine_cuda, True
+    if combine is smoothing_combine:
+        return _k.smoothing_combine_cuda, True
+    return combine, False

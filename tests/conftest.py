@@ -8,3 +8,10 @@ process and is unaffected.
 import jax
 
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); the test "
+        "skips itself where torch.cuda.is_available() is False")
