@@ -8,18 +8,36 @@ package ``repro``, and exits non-zero with no result line when there is no
 CUDA device or no ``src/repro_torch`` beside it. Phases:
 
   1. environment: the card's name and power limit (``nvidia-smi``);
-  2. build: the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``), with
-     the ``-Xptxas -v`` registers/spills of the nx=5 instances;
-  3. kernel parity: each kernel against its plain PyTorch version on the
-     card — the main path's top scan level (B=16,384 pairs, nx=5) in f64
-     and f32, edge shapes and B=0 — then CUDA-event timings of kernel and
-     plain version beside the memory/compute bound;
-  4. main path: ``serve_smoother`` on 64 coordinated-turn requests (n up
-     to 512, launch width 64, f64) on the card, with the launch counters
-     zeroed just before and read just after; then checks against the same
-     fleet served with the plain versions (``backend="jnp"``) and against
-     the sequential smoother at the same linearization;
-  5. the ``kernels`` JSON line, then the device JSON line, last.
+  2. build: the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``), all
+     sources' parts at once, with the ``-Xptxas -v`` registers/spills of
+     the nx=5 combine instances and of the ssm_scan and flash attention
+     instances;
+  3. combine kernel parity: each combine against its plain PyTorch
+     version on the card — the main path's top scan level (B=16,384
+     pairs, nx=5) in f64 and f32, edge shapes and B=0 — then CUDA-event
+     timings of kernel and plain version beside the memory/compute bound;
+  4. smoother path: ``serve_smoother`` on 64 coordinated-turn requests (n
+     up to 512, launch width 64, f64) on the card, with the launch
+     counters zeroed just before and read just after; then checks against
+     the same fleet served with the plain versions (``backend="jnp"``) and
+     against the sequential smoother at the same linearization; then a
+     profile of one bucket launch;
+  5. ``[ssm_scan]``: the linear-recurrence entry points at Hymba-1.5B's SSM
+     width (``ops.ssm_scan`` on B=2, T=4096, D=51,200 and
+     ``linear_recurrence_scan(combine_impl="pallas")`` on [4096, 2, 3200,
+     16], f32) with the counters zeroed before and read after; each held
+     against the plain version in f32, f64 and bf16, with edge shapes,
+     T=0 and ``h0``; CUDA-event times of kernel and plain version, and of
+     a few-channel, long-T call with T split across threads and unsplit;
+  6. ``[flash]``: the flash attention entry point at Llama-3.2-3B's
+     attention width (Hq=24, Hkv=8, Dh=128): prefill B=2, T=4096, causal,
+     and decode B=16, Tq=1, Tk=4096, bf16, with the counters zeroed before
+     and read after; each held against the plain version (prefill also in
+     f32), with edge cases (MQA, T=100, non-causal, Dh 16/32/64/256,
+     Tq > Tk against the oracle); CUDA-event times of kernel, plain
+     version and ``scaled_dot_product_attention`` (timed only, never on
+     the port's path);
+  7. the ``kernels`` JSON line, then the device JSON line, last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
 """
@@ -46,15 +64,27 @@ PATH_TOL = dict(rtol=1e-7, atol=1e-8)
 #: f64 tolerance for that comparison).
 SEQ_TOL = dict(rtol=1e-6, atol=1e-8)
 
-#: NVIDIA H100 SXM data sheet: HBM3 bandwidth and non-tensor-core peaks.
+#: NVIDIA H100 SXM data sheet: HBM3 bandwidth, the non-tensor-core f32/f64
+#: peaks and the dense bf16 tensor-core peak.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
+ITEMSIZE = {"float32": 4, "float64": 8, "bfloat16": 2}
 
 MAIN_PAIRS, MAIN_NX = 64 * 256, 5
 EDGE_SHAPES = [(1, 1), (513, 8), (7, 16), (0, 5)]
+#: name -> (TPU kernel it replaces, CUDA source of the port).
 KERNELS = {
-    "filtering_combine": "src/repro/kernels/kalman_combine/kalman_combine.py:118",
-    "smoothing_combine": "src/repro/kernels/kalman_combine/kalman_combine.py:142",
+    "filtering_combine": (
+        "src/repro/kernels/kalman_combine/kalman_combine.py:118",
+        "src/repro_torch/csrc/kalman_combine.cu"),
+    "smoothing_combine": (
+        "src/repro/kernels/kalman_combine/kalman_combine.py:142",
+        "src/repro_torch/csrc/kalman_combine.cu"),
+    "ssm_scan": ("src/repro/kernels/ssm_scan/ssm_scan.py:62",
+                 "src/repro_torch/csrc/ssm_scan.cu"),
+    "flash_attention": (
+        "src/repro/kernels/flash_attention/flash_attention.py:77",
+        "src/repro_torch/csrc/flash_attention.cu"),
 }
 
 
@@ -114,18 +144,15 @@ def phase_environment(torch) -> dict:
 
 
 def _ptxas_summary(lines):
-    """``{(kernel, dtype, nx): {registers, stack, spill_stores,
-    spill_loads}}`` from ``-Xptxas -v`` output."""
+    """``{kernel symbol: {registers, stack, spill_stores, spill_loads}}``
+    from ``-Xptxas -v`` output."""
     import re
 
     out, cur = {}, None
     for ln in lines:
-        m = re.search(r"(filtering|smoothing)_combine_kernelI([df])Li(\d+)E",
-                      ln)
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            cur = (f"{m.group(1)}_combine",
-                   "float64" if m.group(2) == "d" else "float32",
-                   int(m.group(3)))
+            cur = m.group(1)
             out.setdefault(cur, {})
             continue
         if cur is None:
@@ -142,26 +169,43 @@ def _ptxas_summary(lines):
     return out
 
 
-def phase_build() -> dict:
-    from repro_torch.kernels.build import build
-    from repro_torch.kernels.kalman_combine.kalman_combine import BUILD_PARTS
+#: ptxas lines printed: the main path's instances of each kernel.
+_PTXAS_SHOWN = {"kalman_combine": r"_combine_kernelI[df]Li5E",
+                "ssm_scan": r"_ZN2ss",
+                "flash_attention": r"flash_attention_kernel"}
 
-    say(f"[build] compiling {len(BUILD_PARTS)} nvcc parts ...")
+
+def phase_build() -> dict:
+    import re
+
+    from repro_torch.kernels.build import build_many
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        BUILD_PARTS as FA_PARTS
+    from repro_torch.kernels.kalman_combine.kalman_combine import \
+        BUILD_PARTS as KC_PARTS
+
+    specs = [("kalman_combine", KC_PARTS), ("ssm_scan", ((),)),
+             ("flash_attention", FA_PARTS)]
+    nparts = sum(len(p) for _, p in specs)
+    say(f"[build] compiling {len(specs)} sources as {nparts} nvcc parts "
+        "at once ...")
     t0 = time.perf_counter()
-    built = build("kalman_combine", BUILD_PARTS)
+    built = build_many(specs)
     wall = time.perf_counter() - t0
-    say(f"[build] {built.path.name}: nvcc {built.seconds:.1f}s for "
-        f"{len(BUILD_PARTS)} parts in parallel (build+load {wall:.1f}s), "
-        f"{len(built.ptxas)} ptxas lines")
-    summary = _ptxas_summary(built.ptxas)
-    for (kind, dtype, nx), info in sorted(summary.items()):
-        if nx == MAIN_NX:
-            say(f"[build] ptxas {kind} {dtype} nx={nx}: {info}")
-    return {"nvcc_s": built.seconds, "build_load_s": wall,
-            "ptxas_lines": built.ptxas,
-            "ptxas_nx5": {f"{k}/{d}/nx={n}": v
-                          for (k, d, n), v in summary.items()
-                          if n == MAIN_NX}}
+    report = {"build_load_s": wall}
+    for name, parts in specs:
+        lib = built[name]
+        say(f"[build] {lib.path.name}: nvcc {lib.seconds:.1f}s for "
+            f"{len(parts)} parts, {len(lib.ptxas)} ptxas lines")
+        summary = _ptxas_summary(lib.ptxas)
+        shown = {k: v for k, v in summary.items()
+                 if re.search(_PTXAS_SHOWN[name], k)}
+        for sym, info in sorted(shown.items()):
+            say(f"[build] ptxas {sym}: {info}")
+        report[name] = {"nvcc_s": lib.seconds, "ptxas_lines": lib.ptxas,
+                        "ptxas": shown}
+    say(f"[build] all sources built and loaded in {wall:.1f}s")
+    return report
 
 
 def _elements(torch, kind, B, nx, dtype, gen):
@@ -286,6 +330,28 @@ def phase_pack(torch) -> dict:
     return {"filtering_top_level_ms": ms}
 
 
+def _counted_modules():
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.kalman_combine import kalman_combine as kc
+    from repro_torch.kernels.ssm_scan import ssm_scan as ss
+
+    return kc, ss, fa
+
+
+def reset_counts() -> None:
+    """Zero every kernel's launch counter (just before a path runs)."""
+    for mod in _counted_modules():
+        mod.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Every kernel's launches since `reset_counts`."""
+    out = {}
+    for mod in _counted_modules():
+        out.update(mod.LAUNCHES)
+    return out
+
+
 def sc_model(torch):
     from repro_torch.scenarios import get_scenario
 
@@ -310,11 +376,12 @@ def phase_main_path(torch) -> dict:
 
     cfg = SmootherServeConfig(requests=64, n=512, max_batch=64, f64=True)
     torch.cuda.synchronize()
-    kc.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     stats = serve_smoother(cfg, emit=say, device="cuda")
     torch.cuda.synchronize()
-    launches = dict(kc.LAUNCHES)
+    counts = read_counts()
+    launches = {k: counts.pop(k) for k in kc.LAUNCHES}
     total_s = time.perf_counter() - t0
     say(f"[main] serve_smoother: {total_s:.2f}s end to end incl. fleet "
         f"simulation; serve {stats['wall_s']:.3f}s, "
@@ -324,6 +391,8 @@ def phase_main_path(torch) -> dict:
     for kind, count in launches.items():
         if count == 0:
             fail(f"the main path launched no {kind} kernel")
+    if any(counts.values()):
+        fail(f"the smoother path launched other kernels: {counts}")
     if launches["filtering_combine"] != launches["smoothing_combine"]:
         fail(f"filtering/smoothing launch counts differ: {launches}")
     diverged = sum(c == LANE_DIVERGED for c in stats["codes"])
@@ -464,6 +533,315 @@ def phase_profile(torch) -> dict:
             "combine_kernels_s": {k: v / 1e6 for k, v in ours.items()}}
 
 
+# ---------------------------------------------------------------------------
+# ssm_scan and flash attention paths
+# ---------------------------------------------------------------------------
+
+#: Hymba-1.5B's SSM (src/repro/configs/hymba_1p5b.py): d_model 1600,
+#: ssm_expand 2, ssm_state 16, so ``models/ssm.py`` scans din*n = 51,200
+#: channels of ``[B, T, din*n]``.
+SSM_B, SSM_T, SSM_D = 2, 4096, 2 * 1600 * 16
+SSM_4D = (SSM_T, 2, 3200, 16)
+SSM_EDGES = [(1, 1, 1), (3, 257, 40), (1, 4096, 16), (2, 0, 8)]
+#: The JAX kernel suite's TOL (bf16 against an f32-carried reference).
+SSM_TOL = {"float32": dict(rtol=2e-4, atol=1e-5),
+           "float64": dict(rtol=1e-10, atol=1e-11),
+           "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+
+#: Llama-3.2-3B's attention (src/repro/configs/llama3p2_3b.py): 24 query
+#: heads, 8 key/value heads, head_dim 128.
+FA_HQ, FA_HKV, FA_DH = 24, 8, 128
+FA_PREFILL_B, FA_PREFILL_T = 2, 4096
+FA_DECODE_B, FA_DECODE_TK = 16, 4096
+FA_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+          "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+#: (B, Hq, Hkv, Tq, Tk, Dh, causal, what)
+FA_EDGES = [(1, 8, 1, 512, 512, 128, True, "MQA Hkv=1"),
+            (1, 4, 2, 100, 100, 64, True, "T=100"),
+            (1, 2, 2, 64, 80, 32, False, "non-causal Tq=64 Tk=80"),
+            (2, 4, 2, 200, 200, 16, True, "Dh=16"),
+            (2, 4, 2, 200, 200, 32, True, "Dh=32"),
+            (2, 4, 2, 200, 200, 64, True, "Dh=64"),
+            (1, 4, 2, 130, 130, 256, True, "Dh=256"),
+            (3, 6, 2, 7, 300, 64, True, "decode Tq=7"),
+            (1, 2, 1, 40, 24, 16, True, "Tq>Tk")]
+
+
+def _dtypes(torch) -> dict:
+    return {"float32": torch.float32, "float64": torch.float64,
+            "bfloat16": torch.bfloat16}
+
+
+def _compare(torch, got, want, tol, what) -> float:
+    """Max abs error of ``got`` against ``want``; fails outside ``tol``."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: output {tuple(got.shape)}/{got.dtype}, expected "
+             f"{tuple(want.shape)}/{want.dtype}")
+    if got.numel() == 0:
+        return 0.0
+    g, w = got.double(), want.double()
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{what}: non-finite output")
+    err = (g - w).abs().max().item()
+    if not torch.allclose(g, w, **tol):
+        fail(f"{what} disagrees with its reference: max abs err {err:.3e}")
+    return err
+
+
+def _bound(n_bytes: float, n_ops: float, op_dtype: str):
+    """Least time in ms (bytes over HBM bandwidth or operations over the
+    peak of their type, the larger) and which of the two it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / PEAK_FLOPS[op_dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _ssm_inputs(torch, shape, dtype, gen):
+    # Decays in (0.2, 1.0): stable recurrences, like trained SSM gates.
+    kw = dict(device="cuda", generator=gen)
+    a = torch.rand(shape, **kw) * 0.8 + 0.2
+    return a.to(dtype), torch.randn(shape, **kw).to(dtype)
+
+
+def phase_ssm_scan(torch) -> dict:
+    from repro_torch.core import linear_recurrence_scan
+    from repro_torch.kernels.ssm_scan import ops, ref
+    from repro_torch.kernels.ssm_scan import ssm_scan as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    main_shape = (SSM_B, SSM_T, SSM_D)
+    flat = (1, SSM_T, -1)
+    a, b = _ssm_inputs(torch, main_shape, torch.float32, gen)
+    a4, b4 = _ssm_inputs(torch, SSM_4D, torch.float32, gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    h = ops.ssm_scan(a, b)
+    h4 = linear_recurrence_scan(a4, b4, combine_impl="pallas")
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = read_counts()
+    launches = counts.pop("ssm_scan")
+    say(f"[ssm_scan] path: ops.ssm_scan {main_shape} + "
+        f"linear_recurrence_scan(pallas) {SSM_4D}, f32: {path_s * 1e3:.2f} "
+        f"ms, kernel launches {launches}")
+    if launches != 2:
+        fail(f"the ssm_scan path launched its kernel {launches} times, "
+             "expected 2")
+    if any(counts.values()):
+        fail(f"the ssm_scan path launched other kernels: {counts}")
+
+    checks = []
+
+    def check(what, got, want, dname):
+        err = _compare(torch, got, want, SSM_TOL[dname], f"ssm_scan {what}")
+        checks.append({"what": what, "dtype": dname, "max_abs_err": err})
+        say(f"[ssm_scan] {what} {dname}: ok, max abs err {err:.3e}")
+
+    check(f"main {main_shape} vs plain", h, ss.ssm_scan_plain(a, b),
+          "float32")
+    check(f"4-D {SSM_4D} vs plain", h4, ss.ssm_scan_plain(
+        a4.reshape(flat), b4.reshape(flat)).reshape(SSM_4D), "float32")
+    check(f"4-D {SSM_4D} vs jnp path (scan over the leading axis)", h4,
+          linear_recurrence_scan(a4, b4, combine_impl="jnp"), "float32")
+    del h, h4
+    torch.cuda.empty_cache()
+    for dname in ("float64", "bfloat16"):
+        dt = _dtypes(torch)[dname]
+        x, y = a.to(dt), b.to(dt)
+        check(f"main {main_shape} vs plain", ss.ssm_scan_cuda(x, y),
+              ss.ssm_scan_plain(x, y), dname)
+        x, y = a4.to(dt), b4.to(dt)
+        check(f"4-D {SSM_4D} vs plain",
+              linear_recurrence_scan(x, y, combine_impl="pallas"),
+              ss.ssm_scan_plain(x.reshape(flat), y.reshape(flat)
+                                ).reshape(SSM_4D), dname)
+        del x, y
+        torch.cuda.empty_cache()
+    for dname, dt in _dtypes(torch).items():
+        for shape in SSM_EDGES:
+            x, y = _ssm_inputs(torch, shape, dt, gen)
+            before = ss.LAUNCHES["ssm_scan"]
+            got = ops.ssm_scan(x, y)
+            want_launches = 1 if x.numel() else 0
+            if ss.LAUNCHES["ssm_scan"] - before != want_launches:
+                fail(f"ssm_scan {shape}: expected {want_launches} launches")
+            check(f"edge {shape} vs plain", got, ss.ssm_scan_plain(x, y),
+                  dname)
+        x, y = _ssm_inputs(torch, (3, 257, 40), dt, gen)
+        h0 = torch.randn((3, 40), device="cuda", generator=gen).to(dt)
+        work = torch.float32 if dt == torch.bfloat16 else dt
+        want = ref.ssm_scan_ref(x.to(work), y.to(work), h0.to(work)).to(dt)
+        check("h0 (3, 257, 40) vs sequential ref", ops.ssm_scan(x, y, h0),
+              want, dname)
+        check("h0, 2-D (257, 40) vs sequential ref",
+              ops.ssm_scan(x[0], y[0], h0[0]), want[0], dname)
+
+    timing = {}
+    n = a.numel()
+    for dname, dt in _dtypes(torch).items():
+        x, y = (a, b) if dt == torch.float32 else (a.to(dt), b.to(dt))
+        ms = _time_ms(torch, ss.ssm_scan_cuda, [(x, y)], iters=20,
+                      warmup=3)
+        plain_ms = (_time_ms(torch, ss.ssm_scan_plain, [(x, y)], iters=3,
+                             warmup=1) if dname == "float32" else None)
+        op_dtype = "float32" if dname == "bfloat16" else dname
+        b_ms, b_by = _bound(3 * n * ITEMSIZE[dname], 2 * n, op_dtype)
+        timing[dname] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by}
+        say(f"[time] ssm_scan {dname} {main_shape}: kernel {ms:.3f} ms, "
+            + (f"plain {plain_ms:.3f} ms, " if plain_ms else "")
+            + f"bound {b_ms:.3f} ms ({b_by}), kernel/bound {ms / b_ms:.2f}")
+        del x, y
+    # Few channels, long T: the kernel splits T across threads (three
+    # passes); the same call unsplit (one thread walks each channel's T).
+    shape = SSM_EDGES[2]
+    x, y = _ssm_inputs(torch, shape, torch.float32, gen)
+    b_ms, b_by = _bound(3 * x.numel() * 4, 2 * x.numel(), "float32")
+    split = {"chunks": ss.time_chunks(*shape), "ms": _time_ms(
+        torch, ss.ssm_scan_cuda, [(x, y)], iters=20, warmup=3)}
+    saved = ss.SPLIT_BELOW_CHANNELS
+    ss.SPLIT_BELOW_CHANNELS = 0
+    try:
+        unsplit = ss.ssm_scan_cuda(x, y)
+        check(f"edge {shape} unsplit vs plain", unsplit,
+              ss.ssm_scan_plain(x, y), "float32")
+        unsplit_ms = _time_ms(torch, ss.ssm_scan_cuda, [(x, y)], iters=20,
+                              warmup=3)
+    finally:
+        ss.SPLIT_BELOW_CHANNELS = saved
+    timing["float32 small B*D"] = {"shape": shape, **split,
+                                   "unsplit_ms": unsplit_ms,
+                                   "bound_ms": b_ms, "bound_by": b_by}
+    say(f"[time] ssm_scan float32 {shape} ({shape[0] * shape[2]} "
+        f"channels): kernel split into {split['chunks']} chunks "
+        f"{split['ms']:.4f} ms, unsplit {unsplit_ms:.4f} ms, bound "
+        f"{b_ms * 1e3:.3f} us ({b_by})")
+    torch.cuda.empty_cache()
+    t = timing["float32"]
+    return {"launches": launches, "path_s": path_s, "checks": checks,
+            "timing": timing, "max_abs_err": max(
+                c["max_abs_err"] for c in checks if c["dtype"] == "float32"),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None}
+
+
+def _qkv(torch, B, Hq, Hkv, Tq, Tk, Dh, dt, gen):
+    kw = dict(device="cuda", generator=gen)
+    return (torch.randn((B, Hq, Tq, Dh), **kw).to(dt),
+            torch.randn((B, Hkv, Tk, Dh), **kw).to(dt),
+            torch.randn((B, Hkv, Tk, Dh), **kw).to(dt))
+
+
+def flash_bound(B, Hq, Hkv, Tq, Tk, Dh, causal, dname):
+    """Least time of one attention call: q, k, v read and o written once
+    against 4 Dh operations per (query, key) pair the mask lets through
+    (a row that sees no key averages all Tk keys)."""
+    if causal:
+        pairs = sum(min(Tk, max(Tk - Tq + i + 1, 0)) or Tk
+                    for i in range(Tq))
+    else:
+        pairs = Tq * Tk
+    n_bytes = ITEMSIZE[dname] * (2 * B * Hq * Tq * Dh + 2 * B * Hkv * Tk * Dh)
+    return _bound(n_bytes, 4 * B * Hq * Dh * pairs, dname)
+
+
+def phase_flash(torch) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    pre = (FA_PREFILL_B, FA_HQ, FA_HKV, FA_PREFILL_T, FA_PREFILL_T, FA_DH)
+    dec = (FA_DECODE_B, FA_HQ, FA_HKV, 1, FA_DECODE_TK, FA_DH)
+    qp, kp, vp = _qkv(torch, *pre, bf16, gen)
+    qd, kd, vd = _qkv(torch, *dec, bf16, gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    o_pre = ops.flash_attention(qp, kp, vp, causal=True)
+    o_dec = ops.flash_attention(qd, kd, vd, causal=True)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = read_counts()
+    launches = counts.pop("flash_attention")
+    say(f"[flash] path: prefill B={pre[0]} T={pre[3]} + decode B={dec[0]} "
+        f"Tk={dec[4]}, Hq={FA_HQ} Hkv={FA_HKV} Dh={FA_DH}, bf16, causal: "
+        f"{path_s * 1e3:.2f} ms, kernel launches {launches}")
+    if launches != 2:
+        fail(f"the flash path launched its kernel {launches} times, "
+             "expected 2")
+    if any(counts.values()):
+        fail(f"the flash path launched other kernels: {counts}")
+
+    checks = []
+
+    def check(what, got, want, dname):
+        err = _compare(torch, got, want, FA_TOL[dname], f"flash {what}")
+        checks.append({"what": what, "dtype": dname, "max_abs_err": err})
+        say(f"[flash] {what} {dname}: ok, max abs err {err:.3e}")
+
+    check("prefill vs plain", o_pre, fa.flash_attention_plain(qp, kp, vp),
+          "bfloat16")
+    check("decode vs plain", o_dec, fa.flash_attention_plain(qd, kd, vd),
+          "bfloat16")
+    sdpa_diff = (o_pre.float() - F.scaled_dot_product_attention(
+        qp, kp, vp, is_causal=True, enable_gqa=True).float()).abs().max()
+    say(f"[flash] prefill bf16: max |kernel - sdpa| {sdpa_diff.item():.3e} "
+        "(information only)")
+    qf, kf, vf = qp.float(), kp.float(), vp.float()
+    check("prefill vs plain", ops.flash_attention(qf, kf, vf),
+          fa.flash_attention_plain(qf, kf, vf), "float32")
+    for B, Hq, Hkv, Tq, Tk, Dh, causal, what in FA_EDGES:
+        for dname, dt in (("float32", f32), ("bfloat16", bf16)):
+            q, k, v = _qkv(torch, B, Hq, Hkv, Tq, Tk, Dh, dt, gen)
+            before = fa.LAUNCHES["flash_attention"]
+            got = ops.flash_attention(q, k, v, causal=causal)
+            if fa.LAUNCHES["flash_attention"] != before + 1:
+                fail(f"flash {what}: expected one launch")
+            check(f"{what} vs plain", got, fa.flash_attention_plain(
+                q, k, v, causal=causal), dname)
+            check(f"{what} vs attention_ref", got, ops.attention_ref(
+                q, k, v, causal=causal), dname)
+
+    def sdpa(causal):
+        return lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+
+    timing = {}
+    cases = [("prefill", "bfloat16", (qp, kp, vp), pre, True, (5, 2, 20)),
+             ("prefill", "float32", (qf, kf, vf), pre, True, (3, 2, 5)),
+             ("decode", "bfloat16", (qd, kd, vd), dec, False, (50, 10, 50))]
+    for name, dname, qkv, shape, sdpa_causal, (ik, ip, il) in cases:
+        ms = _time_ms(torch, fa.flash_attention_cuda, [qkv], iters=ik,
+                      warmup=1)
+        plain_ms = _time_ms(torch, fa.flash_attention_plain, [qkv],
+                            iters=ip, warmup=1)
+        lib_ms = _time_ms(torch, sdpa(sdpa_causal), [qkv], iters=il,
+                          warmup=2)
+        b_ms, b_by = flash_bound(*shape, True, dname)
+        timing[f"{name}/{dname}"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+        say(f"[time] flash {name} {dname} {shape}: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), kernel/bound {ms / b_ms:.1f}, "
+            f"kernel/sdpa {ms / lib_ms:.1f}")
+    torch.cuda.empty_cache()
+    t = timing["prefill/bfloat16"]
+    return {"launches": launches, "path_s": path_s, "checks": checks,
+            "sdpa_prefill_bf16_max_abs_diff": sdpa_diff.item(),
+            "timing": timing, "max_abs_err": max(
+                c["max_abs_err"] for c in checks if c["dtype"] == "bfloat16"),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -479,26 +857,33 @@ def main() -> int:
     pack = phase_pack(torch)
     main_path = phase_main_path(torch)
     prof = phase_profile(torch)
+    ssm = phase_ssm_scan(torch)
+    flash = phase_flash(torch)
 
     rows = []
-    for kind, replaces in KERNELS.items():
+    for kind in ("filtering_combine", "smoothing_combine"):
         t = kernels[kind]["timing"]["float64"]
         err = max(c["max_abs_err"] for c in kernels[kind]["checks"]
                   if c["dtype"] == "float64")
-        rows.append({"name": kind, "route": "cuda",
-                     "source": "src/repro_torch/csrc/kalman_combine.cu",
-                     "replaces": replaces,
-                     "launches": main_path["launches"][kind],
+        rows.append({"launches": main_path["launches"][kind],
                      "max_abs_err": err, "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": None})
+    for res in (ssm, flash):
+        rows.append({k: res[k] for k in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")})
+    rows = [{"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, **row}
+            for (name, (replaces, source)), row in zip(KERNELS.items(), rows)]
     say("[kernels] " + ", ".join(
         f"{r['name']}: parity ok, {r['ms'] * 1e3:.2f} us/launch "
         f"(bound {r['bound_ms'] * 1e3:.2f} us)" for r in rows))
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"env": env, "build": build, "kernels": kernels, "pack": pack,
-         "main_path": main_path, "profile": prof,
+         "main_path": main_path, "profile": prof, "ssm_scan": ssm,
+         "flash_attention": flash,
          "seconds": time.perf_counter() - t_start}, indent=1))
     say(f"[chip_smoke] all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")

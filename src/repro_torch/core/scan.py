@@ -19,10 +19,14 @@ flat batch axis (the CUDA kernels) gets every level's ``[B..., P]`` pairs
 flattened into one contiguous ``[B*...*P]`` call — one launch per level
 for the whole fleet; combines that broadcast over leading axes (the plain
 versions) get the strided slices as they are.
+
+`linear_recurrence_scan` is the diagonal special case used by SSM layers;
+its "pallas" path runs the ssm_scan kernel instead of the recursion.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import math
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -119,3 +123,59 @@ def associative_scan(combine: Callable, elems, *, reverse: bool = False,
         out = _scan(op, flipped, axis)
         return type(out)(*(torch.flip(x, (axis,)) for x in out))
     return _scan(batched, elems, axis)
+
+
+# ---------------------------------------------------------------------------
+# Diagonal linear recurrences (the deterministic special case used by SSMs)
+# ---------------------------------------------------------------------------
+
+class LinearRecurrenceElement(NamedTuple):
+    """Element of ``h_k = a_k * h_{k-1} + b_k`` (elementwise/diagonal)."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+
+
+def linear_recurrence_combine(ei: LinearRecurrenceElement,
+                              ej: LinearRecurrenceElement
+                              ) -> LinearRecurrenceElement:
+    """Compose two diagonal affine maps, ``i`` earlier than ``j``.
+
+    This is the paper's smoothing combine (Eq. 19) with diagonal ``E`` and
+    the covariance dropped — the degenerate case powering SSM layers.
+    """
+    return LinearRecurrenceElement(a=ei.a * ej.a, b=ej.a * ei.b + ej.b)
+
+
+def linear_recurrence_scan(a: torch.Tensor, b: torch.Tensor, *,
+                           h0: Optional[torch.Tensor] = None,
+                           axis_name: Optional[str] = None,
+                           combine_impl: str = "jnp") -> torch.Tensor:
+    """All states of ``h_k = a_k * h_{k-1} + b_k`` along the leading axis.
+
+    ``a`` and ``b`` are ``[T, ...]``; optional initial state ``h0 [...]``
+    is folded into the first element. Returns ``h [T, ...]``.
+
+    ``combine_impl``: "jnp"/"fused" run `associative_scan` with
+    `linear_recurrence_combine`; "pallas"/"pallas:gpu" flatten the trailing
+    axes to ``[1, T, prod(...)]`` and run the ssm_scan kernel (its plain
+    version on CPU tensors), for inputs of any rank.
+    """
+    if axis_name is not None:
+        raise NotImplementedError(
+            "linear_recurrence_scan(axis_name=...): the sharded scan is not "
+            "ported yet (ROADMAP A, item 6)")
+    if h0 is not None and a.shape[0] > 0:
+        b = torch.cat([(a[0] * h0 + b[0])[None], b[1:]])
+    if combine_impl == "pallas" or combine_impl.startswith("pallas:"):
+        from repro_torch.kernels.kalman_combine import ops as kc_ops
+        from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+        kc_ops.resolve_backend(combine_impl.partition(":")[2] or None)
+        flat = (1, a.shape[0], math.prod(a.shape[1:]))
+        return ssm_ops.ssm_scan(a.reshape(flat), b.reshape(flat)
+                                ).reshape(a.shape)
+    if combine_impl not in ("jnp", "fused"):
+        raise ValueError(f"unknown combine_impl {combine_impl!r}")
+    return associative_scan(linear_recurrence_combine,
+                            LinearRecurrenceElement(a=a, b=b)).b

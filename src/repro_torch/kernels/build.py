@@ -5,7 +5,8 @@ It is compiled at first use with ``nvcc`` for ``sm_90a`` into a shared
 library under ``<repo>/build/kernels/`` and loaded with ``ctypes`` (no
 PyTorch headers, so no minutes-long extension build). A source may be
 compiled as several parts — one ``nvcc -c`` each, all started together,
-then linked — so its template instances build in parallel. The library
+then linked — so its template instances build in parallel, and
+`build_many` starts the parts of several sources together. The library
 name carries a hash of the source, flags and parts, so an edited source
 is rebuilt and a stale library is never loaded. Nothing here runs at
 import time.
@@ -20,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Sequence
 
@@ -113,3 +115,13 @@ def build(name: str, parts: Sequence[Sequence[str]] = ((),)) -> BuiltLibrary:
                          _ptxas_lines(log))
     _LOADED[name] = built
     return built
+
+
+def build_many(specs: Sequence[tuple]) -> Dict[str, BuiltLibrary]:
+    """`build` several sources at once: ``specs`` is a sequence of
+    ``(name, parts)``; every part of every source compiles at the same
+    time (one thread waits on each source's ``nvcc`` processes)."""
+    with ThreadPoolExecutor(max_workers=max(1, len(specs))) as pool:
+        futures = {name: pool.submit(build, name, parts)
+                   for name, parts in specs}
+        return {name: f.result() for name, f in futures.items()}
