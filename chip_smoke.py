@@ -27,16 +27,15 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      ``linear_recurrence_scan(combine_impl="pallas")`` on [4096, 2, 3200,
      16], f32) with the counters zeroed before and read after; each held
      against the plain version in f32, f64 and bf16, with edge shapes,
-     T=0 and ``h0``; CUDA-event times of kernel and plain version, and of
-     a few-channel, long-T call with T split across threads and unsplit;
+     T=0 and ``h0``; CUDA-event times of kernel and plain version;
   6. ``[flash]``: the flash attention entry point at Llama-3.2-3B's
      attention width (Hq=24, Hkv=8, Dh=128): prefill B=2, T=4096, causal,
      and decode B=16, Tq=1, Tk=4096, bf16, with the counters zeroed before
-     and read after; each held against the plain version (prefill also in
-     f32), with edge cases (MQA, T=100, non-causal, Dh 16/32/64/256,
-     Tq > Tk against the oracle); CUDA-event times of kernel, plain
-     version and ``scaled_dot_product_attention`` (timed only, never on
-     the port's path);
+     and read after; each held against the plain version (prefill and
+     decode also in f32), with edge cases (MQA, T=100, non-causal, Dh
+     16/32/64/256, Tq > Tk against the oracle); CUDA-event times of
+     kernel, plain version and ``scaled_dot_product_attention`` (timed
+     only, never on the port's path);
   7. the ``kernels`` JSON line, then the device JSON line, last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
@@ -694,30 +693,6 @@ def phase_ssm_scan(torch) -> dict:
             + (f"plain {plain_ms:.3f} ms, " if plain_ms else "")
             + f"bound {b_ms:.3f} ms ({b_by}), kernel/bound {ms / b_ms:.2f}")
         del x, y
-    # Few channels, long T: the kernel splits T across threads (three
-    # passes); the same call unsplit (one thread walks each channel's T).
-    shape = SSM_EDGES[2]
-    x, y = _ssm_inputs(torch, shape, torch.float32, gen)
-    b_ms, b_by = _bound(3 * x.numel() * 4, 2 * x.numel(), "float32")
-    split = {"chunks": ss.time_chunks(*shape), "ms": _time_ms(
-        torch, ss.ssm_scan_cuda, [(x, y)], iters=20, warmup=3)}
-    saved = ss.SPLIT_BELOW_CHANNELS
-    ss.SPLIT_BELOW_CHANNELS = 0
-    try:
-        unsplit = ss.ssm_scan_cuda(x, y)
-        check(f"edge {shape} unsplit vs plain", unsplit,
-              ss.ssm_scan_plain(x, y), "float32")
-        unsplit_ms = _time_ms(torch, ss.ssm_scan_cuda, [(x, y)], iters=20,
-                              warmup=3)
-    finally:
-        ss.SPLIT_BELOW_CHANNELS = saved
-    timing["float32 small B*D"] = {"shape": shape, **split,
-                                   "unsplit_ms": unsplit_ms,
-                                   "bound_ms": b_ms, "bound_by": b_by}
-    say(f"[time] ssm_scan float32 {shape} ({shape[0] * shape[2]} "
-        f"channels): kernel split into {split['chunks']} chunks "
-        f"{split['ms']:.4f} ms, unsplit {unsplit_ms:.4f} ms, bound "
-        f"{b_ms * 1e3:.3f} us ({b_by})")
     torch.cuda.empty_cache()
     t = timing["float32"]
     return {"launches": launches, "path_s": path_s, "checks": checks,
@@ -796,6 +771,9 @@ def phase_flash(torch) -> dict:
     qf, kf, vf = qp.float(), kp.float(), vp.float()
     check("prefill vs plain", ops.flash_attention(qf, kf, vf),
           fa.flash_attention_plain(qf, kf, vf), "float32")
+    qdf, kdf, vdf = qd.float(), kd.float(), vd.float()
+    check("decode vs plain", ops.flash_attention(qdf, kdf, vdf),
+          fa.flash_attention_plain(qdf, kdf, vdf), "float32")
     for B, Hq, Hkv, Tq, Tk, Dh, causal, what in FA_EDGES:
         for dname, dt in (("float32", f32), ("bfloat16", bf16)):
             q, k, v = _qkv(torch, B, Hq, Hkv, Tq, Tk, Dh, dt, gen)

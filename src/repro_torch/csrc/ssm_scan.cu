@@ -23,23 +23,10 @@
 // and float64 compute in their own type; bfloat16 loads and stores
 // bfloat16 and carries the state in float32.
 //
-// Few channels, long T (the wrapper picks `chunks` > 1 when B D is too
-// small to fill the card): T is split into chunks of L steps, one thread
-// per (chunk, channel), in three launches:
-//   1. each thread folds its chunk into one affine map h -> A h + B
-//      (A = product of a, B = the chunk's scan from 0), into scratch;
-//   2. one thread per channel scans those maps in chunk order and leaves
-//      in the scratch the state that enters each chunk;
-//   3. each thread walks its chunk again from that state and stores every
-//      state (the unsplit scan is this pass with one chunk and state 0).
-// Passes 1 and 3 both read a and b, so the split moves 5 arrays' bytes
-// instead of 3; it is used only where latency, not bytes, bounds the scan.
-//
-// C interface (loaded with ctypes): ss_scan(dtype, B, T, D, chunks, a, b,
-// h, scratch, stream) with dtype 0 = float32, 1 = float64, 2 = bfloat16;
-// densely packed [B, T, D] arrays; scratch holds 2 chunks B D values of
-// the carry type (float32 for bfloat16), or is null when chunks = 1. It
-// launches on that stream and returns cudaGetLastError().
+// C interface (loaded with ctypes): ss_scan(dtype, B, T, D, a, b, h,
+// stream) with dtype 0 = float32, 1 = float64, 2 = bfloat16 and densely
+// packed [B, T, D] arrays. It launches on that stream and returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,16 +51,19 @@ __device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// Walks n steps of one channel from its step at offset o, carrying the
-// state; kStore writes every state to h, otherwise the product of a is
-// accumulated into prod.
-template <bool kStore, typename T, typename A>
-__device__ __forceinline__ void walk(const T* __restrict__ a,
-                                     const T* __restrict__ b,
-                                     T* __restrict__ h, int64_t o, int64_t D,
-                                     int64_t n, A& carry, A& prod) {
+// Thread i walks channel (i / D, i % D) over all `steps` states.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssm_scan_kernel(
+    int64_t BD, int64_t steps, int64_t D, const T* __restrict__ a,
+    const T* __restrict__ b, T* __restrict__ h) {
+  using A = typename Acc<T>::type;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= BD) return;
+  const int64_t bi = i / D;
+  const int64_t o = bi * steps * D + (i - bi * D);
+  A carry = A(0);
   int64_t t = 0;
-  for (; t + kUnroll <= n; t += kUnroll) {
+  for (; t + kUnroll <= steps; t += kUnroll) {
     A av[kUnroll], bv[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -83,123 +73,35 @@ __device__ __forceinline__ void walk(const T* __restrict__ a,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       carry = av[u] * carry + bv[u];
-      if (kStore)
-        narrow(h + o + (t + u) * D, carry);
-      else
-        prod *= av[u];
+      narrow(h + o + (t + u) * D, carry);
     }
   }
-  for (; t < n; ++t) {
-    const A at = widen(a[o + t * D]);
-    carry = at * carry + widen(b[o + t * D]);
-    if (kStore)
-      narrow(h + o + t * D, carry);
-    else
-      prod *= at;
+  for (; t < steps; ++t) {
+    carry = widen(a[o + t * D]) * carry + widen(b[o + t * D]);
+    narrow(h + o + t * D, carry);
   }
 }
 
-// Thread i handles channel i % BD over chunk i / BD (steps [c L, c L + L)).
-struct Chunk {
-  int64_t offset, steps;
-};
-__device__ __forceinline__ Chunk chunk_of(int64_t i, int64_t BD,
-                                          int64_t steps, int64_t D,
-                                          int64_t L) {
-  const int64_t ch = i % BD, c = i / BD, bi = ch / D;
-  const int64_t t0 = c * L;
-  const int64_t n = steps - t0 < L ? steps - t0 : L;
-  return {bi * steps * D + (ch - bi * D) + t0 * D, n > 0 ? n : 0};
-}
-
-// Pass 1 of the split: each chunk's affine map (A, B) into scratch.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) chunk_maps_kernel(
-    int64_t BD, int64_t steps, int64_t D, int64_t L, int64_t chunks,
-    const T* __restrict__ a, const T* __restrict__ b,
-    typename Acc<T>::type* __restrict__ map_a,
-    typename Acc<T>::type* __restrict__ map_b) {
-  using A = typename Acc<T>::type;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= BD * chunks) return;
-  const Chunk k = chunk_of(i, BD, steps, D, L);
-  A carry = A(0), prod = A(1);
-  walk<false>(a, b, static_cast<T*>(nullptr), k.offset, D, k.steps, carry,
-              prod);
-  map_a[i] = prod;
-  map_b[i] = carry;
-}
-
-// Pass 2 of the split: per channel, the state entering each chunk
-// (written over map_b).
-template <typename A>
-__global__ void __launch_bounds__(kThreads) chunk_carries_kernel(
-    int64_t BD, int64_t chunks, const A* __restrict__ map_a,
-    A* __restrict__ map_b) {
-  const int64_t ch = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (ch >= BD) return;
-  A h = A(0);
-  for (int64_t c = 0; c < chunks; ++c) {
-    const int64_t k = c * BD + ch;
-    const A next = map_a[k] * h + map_b[k];
-    map_b[k] = h;
-    h = next;
-  }
-}
-
-// The scan (pass 3 of the split): every state of each chunk, from the
-// state entering it (0 without a split).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ssm_scan_kernel(
-    int64_t BD, int64_t steps, int64_t D, int64_t L, int64_t chunks,
-    const typename Acc<T>::type* __restrict__ carry_in,
-    const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ h) {
-  using A = typename Acc<T>::type;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= BD * chunks) return;
-  const Chunk k = chunk_of(i, BD, steps, D, L);
-  A carry = carry_in ? carry_in[i] : A(0), prod = A(1);
-  walk<true>(a, b, h, k.offset, D, k.steps, carry, prod);
-}
-
-template <typename T>
-int launch(int64_t B, int64_t steps, int64_t D, int64_t chunks,
-           const void* a, const void* b, void* h, void* scratch,
-           cudaStream_t s) {
-  using A = typename Acc<T>::type;
+int launch(int64_t B, int64_t steps, int64_t D, const void* a, const void* b,
+           void* h, cudaStream_t s) {
   const int64_t BD = B * D;
-  const int64_t L = (steps + chunks - 1) / chunks;
   const unsigned blocks =
-      static_cast<unsigned>((BD * chunks + kThreads - 1) / kThreads);
-  const T* ta = static_cast<const T*>(a);
-  const T* tb = static_cast<const T*>(b);
-  A* map_a = static_cast<A*>(scratch);
-  A* map_b = chunks > 1 ? map_a + BD * chunks : nullptr;
-  if (chunks > 1) {
-    chunk_maps_kernel<T><<<blocks, kThreads, 0, s>>>(BD, steps, D, L, chunks,
-                                                     ta, tb, map_a, map_b);
-    chunk_carries_kernel<A>
-        <<<static_cast<unsigned>((BD + kThreads - 1) / kThreads), kThreads,
-           0, s>>>(BD, chunks, map_a, map_b);
-  }
+      static_cast<unsigned>((BD + kThreads - 1) / kThreads);
   ssm_scan_kernel<T><<<blocks, kThreads, 0, s>>>(
-      BD, steps, D, L, chunks, map_b, ta, tb, static_cast<T*>(h));
+      BD, steps, D, static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<T*>(h));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ss
 
 extern "C" int ss_scan(int dtype, long long B, long long T, long long D,
-                       long long chunks, const void* a, const void* b,
-                       void* h, void* scratch, void* stream) {
+                       const void* a, const void* b, void* h, void* stream) {
   if (B <= 0 || T <= 0 || D <= 0) return static_cast<int>(cudaSuccess);
-  if (chunks < 1 || chunks > T || (chunks > 1 && scratch == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return ss::launch<float>(B, T, D, chunks, a, b, h, scratch, s);
-  if (dtype == 1)
-    return ss::launch<double>(B, T, D, chunks, a, b, h, scratch, s);
-  if (dtype == 2)
-    return ss::launch<__nv_bfloat16>(B, T, D, chunks, a, b, h, scratch, s);
+  if (dtype == 0) return ss::launch<float>(B, T, D, a, b, h, s);
+  if (dtype == 1) return ss::launch<double>(B, T, D, a, b, h, s);
+  if (dtype == 2) return ss::launch<__nv_bfloat16>(B, T, D, a, b, h, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

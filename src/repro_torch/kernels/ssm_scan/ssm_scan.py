@@ -4,9 +4,7 @@ hand-written CUDA kernel for Hopper and its plain PyTorch version.
 The kernel (``src/repro_torch/csrc/ssm_scan.cu``) replaces the Pallas TPU
 kernel ``ssm_scan_batched`` of ``repro/kernels/ssm_scan/ssm_scan.py``: one
 thread per ``(b, d)`` channel walks the time axis with the carry in a
-register. With too few channels to fill the card (`time_chunks`), it
-splits T into chunks across threads in three passes (see the source note
-in the ``.cu`` file).
+register.
 
 ``ssm_scan_plain`` computes the same function with tensor ops, in the TPU
 kernel's schedule: a Hillis-Steele doubling scan inside time chunks of
@@ -15,8 +13,7 @@ It serves CPU tensors and is the on-card reference.
 
 ``ssm_scan_cuda`` is the kernel wrapper over contiguous ``[B, T, D]``
 tensors. A CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises — never a fallback. Each call that launches the scan (one
-kernel, or the three passes of a split) adds one to
+kernel or raises — never a fallback. Each launch adds one to
 ``LAUNCHES["ssm_scan"]``.
 
 float32 and float64 compute in their own type; bfloat16 is carried in
@@ -36,12 +33,6 @@ LAUNCHES: Dict[str, int] = {"ssm_scan": 0}
 #: kernel's default ``CT``).
 CHUNK = 128
 
-#: Below this many channels (B·D) one thread per channel leaves most of
-#: the card idle, so the kernel splits T across threads.
-SPLIT_BELOW_CHANNELS = 32768
-#: The shortest time chunk of a split.
-MIN_CHUNK = 64
-
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
@@ -52,19 +43,6 @@ def reset_launch_counts() -> None:
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype == torch.bfloat16 else dtype
-
-
-def time_chunks(B: int, T: int, D: int) -> int:
-    """Chunks the kernel splits T into: 1 (each channel's thread walks all
-    of T) unless ``B·D < SPLIT_BELOW_CHANNELS``; then about enough chunks
-    of at least ``MIN_CHUNK`` steps for ``SPLIT_BELOW_CHANNELS`` threads,
-    none of them empty."""
-    channels = B * D
-    if channels >= SPLIT_BELOW_CHANNELS or T < 2 * MIN_CHUNK:
-        return 1
-    want = min(T // MIN_CHUNK, -(-SPLIT_BELOW_CHANNELS // channels))
-    length = -(-T // want)
-    return -(-T // length)
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +92,8 @@ def _library():
     lib = build("ssm_scan").lib
     if not getattr(lib, "_ss_bound", False):
         ll, ptr = ctypes.c_longlong, ctypes.c_void_p
-        lib.ss_scan.argtypes = [ctypes.c_int, ll, ll, ll, ll, ptr, ptr, ptr,
-                                ptr, ptr]
+        lib.ss_scan.argtypes = [ctypes.c_int, ll, ll, ll, ptr, ptr, ptr,
+                                ptr]
         lib.ss_scan.restype = ctypes.c_int
         lib._ss_bound = True
     return lib
@@ -147,16 +125,10 @@ def ssm_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     h = torch.empty_like(a)
     if B * T * D == 0:
         return h
-    chunks = time_chunks(B, T, D)
-    # The split's chunk maps: 2 x chunks x B·D values of the carry type.
-    scratch = (torch.empty((2, chunks, B * D),
-                           dtype=_compute_dtype(a.dtype), device=a.device)
-               if chunks > 1 else None)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _library().ss_scan(
-        _DTYPE_CODE[a.dtype], B, T, D, chunks,
+        _DTYPE_CODE[a.dtype], B, T, D,
         *(ctypes.c_void_p(t.data_ptr()) for t in (a, b, h)),
-        ctypes.c_void_p(None if scratch is None else scratch.data_ptr()),
         ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")

@@ -156,18 +156,17 @@ def test_empty_inputs(shape):
     assert kss.LAUNCHES == before
 
 
-@pytest.mark.parametrize("shape,chunks", [
-    ((2, 4096, 51200), 1), ((1, 4096, 16), 64), ((3, 257, 40), 4),
-    ((2, 1000, 3), 15), ((1, 127, 3), 1), ((1, 1, 1), 1)])
-def test_time_split_policy(shape, chunks):
-    """Only few channels with a long T split T (chunks of >= MIN_CHUNK
-    steps, none empty); the main path's 102,400 channels do not."""
-    got = kss.time_chunks(*shape)
-    assert got == chunks
-    T = shape[1]
-    length = -(-T // got)
-    assert (got - 1) * length < T
-    assert got == 1 or length >= kss.MIN_CHUNK
+@pytest.mark.parametrize("B,T,D", [(1, 4096, 16), (2, 1000, 3),
+                                   (3, 257, 40)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_plain_matches_sequential_ref(B, T, D, dtype):
+    """The plain version (the on-card reference of the kernel) against the
+    port's sequential oracle at the card tests' few-channel, long-T
+    shapes."""
+    a, b = _rand(np.random.default_rng(B * T + D), (B, T, D))
+    ta, tb = _t(a, dtype), _t(b, dtype)
+    np.testing.assert_allclose(_np(kss.ssm_scan_plain(ta, tb)),
+                               _np(ref.ssm_scan_ref(ta, tb)), **TOL[dtype])
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -273,8 +272,8 @@ def cuda():
                                    (2, 100, 130), (2, 0, 8), (2, 1000, 3),
                                    (1, 600, 32768)])
 def test_kernel_matches_plain_on_card(cuda, dtype, B, T, D):
-    """Unsplit and split scans (`time_chunks` > 1 for the few-channel,
-    long-T shapes) against the plain version."""
+    """The kernel against the plain version, from one channel to many and
+    from few channels with a long T to many with a short one."""
     a, b = _rand(np.random.default_rng(B + T + D), (B, T, D))
     ta, tb = _t(a, dtype, cuda), _t(b, dtype, cuda)
     before = kss.LAUNCHES["ssm_scan"]
