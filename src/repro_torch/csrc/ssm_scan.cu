@@ -17,11 +17,14 @@
 // independent channels, not from the time axis. A warp holds 32
 // neighbouring channels, so each step's loads of a[b, t, d0:d0+32] are one
 // coalesced request (128 bytes in float32). The loads of a step do not
-// depend on the carry, so the thread loads kUnroll steps of a and b into
+// depend on the carry, so the thread loads U steps of a and b into
 // registers before it runs them: that keeps enough bytes in flight to
-// cover the memory latency at the main path's 102,400 channels. float32
-// and float64 compute in their own type; bfloat16 loads and stores
-// bfloat16 and carries the state in float32.
+// cover the memory latency at the main path's 102,400 channels. A
+// bfloat16 step is half the bytes of a float32 one, so bfloat16 loads 16
+// steps ahead where float32 and float64 load 8: no type has fewer bytes
+// in flight per thread than float32. float32 and float64 compute in their
+// own type; bfloat16 loads and stores bfloat16 and carries the state in
+// float32.
 //
 // C interface (loaded with ctypes): ss_scan(dtype, B, T, D, a, b, h,
 // stream) with dtype 0 = float32, 1 = float64, 2 = bfloat16 and densely
@@ -35,7 +38,6 @@
 namespace ss {
 
 constexpr int kThreads = 128;
-constexpr int kUnroll = 8;
 
 template <typename T> struct Acc { using type = T; };
 template <> struct Acc<__nv_bfloat16> { using type = float; };
@@ -63,15 +65,16 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(
   const int64_t o = bi * steps * D + (i - bi * D);
   A carry = A(0);
   int64_t t = 0;
-  for (; t + kUnroll <= steps; t += kUnroll) {
-    A av[kUnroll], bv[kUnroll];
+  constexpr int U = sizeof(T) == 2 ? 16 : 8;
+  for (; t + U <= steps; t += U) {
+    A av[U], bv[U];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
       av[u] = widen(a[o + (t + u) * D]);
       bv[u] = widen(b[o + (t + u) * D]);
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
       carry = av[u] * carry + bv[u];
       narrow(h + o + (t + u) * D, carry);
     }
