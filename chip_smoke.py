@@ -31,11 +31,18 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
   6. ``[flash]``: the flash attention entry point at Llama-3.2-3B's
      attention width (Hq=24, Hkv=8, Dh=128): prefill B=2, T=4096, causal,
      and decode B=16, Tq=1, Tk=4096, bf16, with the counters zeroed before
-     and read after; each held against the plain version (prefill and
-     decode also in f32), with edge cases (MQA, T=100, non-causal, Dh
-     16/32/64/256, Tq > Tk against the oracle); CUDA-event times of
-     kernel, plain version and ``scaled_dot_product_attention`` (timed
-     only, never on the port's path);
+     and read after: the prefill must launch the ``wgmma`` kernel once and
+     the decode the split-K kernel once, and nothing else. Each is held
+     against the plain version (prefill and decode also in f32, through
+     the FMA and decode kernels), against the plain version in f32 on
+     peaked bf16 inputs at a tolerance derived from bf16 rounding, and on
+     edge cases (MQA, T=100/130 at Dh 64/128, non-causal, Dh 16/32/256,
+     ragged decode splits, Tk=1, Tq > Tk against the oracle), each edge
+     asserting which kernel served it; CUDA-event times of the new
+     kernels, of the FMA kernel on the same inputs, of the plain version
+     and of ``scaled_dot_product_attention`` (timed only, never on the
+     port's path), profiler device times, and the decode/``wgmma``
+     crossover over the rows per kv head;
   7. the ``kernels`` JSON line, then the device JSON line, last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
@@ -171,7 +178,26 @@ def _ptxas_summary(lines):
 #: ptxas lines printed: the main path's instances of each kernel.
 _PTXAS_SHOWN = {"kalman_combine": r"_combine_kernelI[df]Li5E",
                 "ssm_scan": r"_ZN2ss",
-                "flash_attention": r"flash_attention_kernel"}
+                "flash_attention": r"flash_attention_kernel|wgmma_kernel|"
+                                   r"decode_kernelI\w+Li128ELi3E|"
+                                   r"merge_kernelI\w+Li128E"}
+
+
+def _sass_counts(lib_path, opcode: str) -> dict:
+    """``{kernel symbol: lines of SASS holding opcode}`` of a built library
+    (``cuobjdump -sass``, from the toolkit beside ``nvcc``)."""
+    from repro_torch.kernels.build import nvcc_path
+
+    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump failed: {out.stderr.strip()[:500]}")
+    counts = {}
+    for section in out.stdout.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        counts[name] = section.count(opcode)
+    return counts
 
 
 def phase_build() -> dict:
@@ -203,6 +229,13 @@ def phase_build() -> dict:
             say(f"[build] ptxas {sym}: {info}")
         report[name] = {"nvcc_s": lib.seconds, "ptxas_lines": lib.ptxas,
                         "ptxas": shown}
+    hgmma = {k: n for k, n in _sass_counts(
+        built["flash_attention"].path, "HGMMA").items() if n}
+    wgmma = {k: n for k, n in hgmma.items() if "wgmma_kernel" in k}
+    say(f"[build] SASS lines with HGMMA (cuobjdump -sass): {hgmma}")
+    if len(wgmma) != 2 or set(hgmma) != set(wgmma):
+        fail(f"HGMMA expected in the two wgmma_kernel instances only: {hgmma}")
+    report["flash_attention"]["sass_hgmma"] = hgmma
     say(f"[build] all sources built and loaded in {wall:.1f}s")
     return report
 
@@ -563,7 +596,24 @@ FA_EDGES = [(1, 8, 1, 512, 512, 128, True, "MQA Hkv=1"),
             (2, 4, 2, 200, 200, 64, True, "Dh=64"),
             (1, 4, 2, 130, 130, 256, True, "Dh=256"),
             (3, 6, 2, 7, 300, 64, True, "decode Tq=7"),
-            (1, 2, 1, 40, 24, 16, True, "Tq>Tk")]
+            (1, 2, 1, 40, 24, 16, True, "Tq>Tk"),
+            (1, 4, 2, 130, 130, 64, True, "T=130 Dh=64"),
+            (1, 4, 2, 100, 100, 128, True, "T=100 Dh=128"),
+            (1, 4, 2, 130, 130, 128, True, "T=130 Dh=128"),
+            (1, 2, 2, 100, 230, 128, False, "non-causal Dh=128"),
+            (1, 6, 2, 300, 200, 128, True, "Tq>Tk Dh=128"),
+            (2, 6, 2, 1, 300, 128, True, "decode Tk=300, ragged last split"),
+            (2, 6, 2, 2, 1, 128, True, "decode Tk=1, Tq=2>Tk"),
+            (2, 6, 2, 5, 300, 64, True, "decode Tq=5, 15 rows"),
+            (1, 8, 1, 1, 1000, 256, True, "decode MQA Dh=256")]
+#: The tight bf16 check: q scaled by this, so that each row's weights
+#: peak on a few keys and the outputs are O(1) (rows of v).
+FA_PEAK = 8.0
+#: P rounded to bf16 (wgmma kernel) moves each weight by at most 2^-8 of
+#: itself, so the output by at most 2^-8 sum_j p_j |v_j| / l; the output's
+#: own rounding to bf16 adds 2^-8 |o|. f32 sums add ~1e-6.
+FA_BF16_REL = 2.0 ** -8
+FA_BF16_ABS = 1e-5
 
 
 def _dtypes(torch) -> dict:
@@ -723,6 +773,23 @@ def flash_bound(B, Hq, Hkv, Tq, Tk, Dh, causal, dname):
     return _bound(n_bytes, 4 * B * Hq * Dh * pairs, dname)
 
 
+def _device_ms(torch, fn, args, iters):
+    """Kernel time per call on the card: ``torch.profiler``'s device time
+    of every kernel ``iters`` calls launch, over ``iters``; None when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn(*args)
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages())
+    return us / iters / 1e3 if us > 0 else None
+
+
 def phase_flash(torch) -> dict:
     import torch.nn.functional as F
 
@@ -743,13 +810,16 @@ def phase_flash(torch) -> dict:
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     counts = read_counts()
-    launches = counts.pop("flash_attention")
+    by_kernel = {k: counts.pop(k) for k in fa.LAUNCHES}
+    launches = sum(by_kernel.values())
     say(f"[flash] path: prefill B={pre[0]} T={pre[3]} + decode B={dec[0]} "
         f"Tk={dec[4]}, Hq={FA_HQ} Hkv={FA_HKV} Dh={FA_DH}, bf16, causal: "
-        f"{path_s * 1e3:.2f} ms, kernel launches {launches}")
-    if launches != 2:
-        fail(f"the flash path launched its kernel {launches} times, "
-             "expected 2")
+        f"{path_s * 1e3:.2f} ms, kernel launches {by_kernel}")
+    want = {"flash_attention_wgmma": 1, "flash_attention_decode": 1,
+            "flash_attention": 0}
+    if by_kernel != want:
+        fail(f"the flash path launched {by_kernel}, expected {want}: the "
+             "prefill on the wgmma kernel, the decode on the split-K kernel")
     if any(counts.values()):
         fail(f"the flash path launched other kernels: {counts}")
 
@@ -760,60 +830,137 @@ def phase_flash(torch) -> dict:
         checks.append({"what": what, "dtype": dname, "max_abs_err": err})
         say(f"[flash] {what} {dname}: ok, max abs err {err:.3e}")
 
-    check("prefill vs plain", o_pre, fa.flash_attention_plain(qp, kp, vp),
-          "bfloat16")
-    check("decode vs plain", o_dec, fa.flash_attention_plain(qd, kd, vd),
-          "bfloat16")
+    check("prefill (wgmma) vs plain", o_pre,
+          fa.flash_attention_plain(qp, kp, vp), "bfloat16")
+    check("decode (split-K) vs plain", o_dec,
+          fa.flash_attention_plain(qd, kd, vd), "bfloat16")
     sdpa_diff = (o_pre.float() - F.scaled_dot_product_attention(
         qp, kp, vp, is_causal=True, enable_gqa=True).float()).abs().max()
     say(f"[flash] prefill bf16: max |kernel - sdpa| {sdpa_diff.item():.3e} "
         "(information only)")
+    del o_pre, o_dec
     qf, kf, vf = qp.float(), kp.float(), vp.float()
-    check("prefill vs plain", ops.flash_attention(qf, kf, vf),
+    check("prefill (fma) vs plain", ops.flash_attention(qf, kf, vf),
           fa.flash_attention_plain(qf, kf, vf), "float32")
     qdf, kdf, vdf = qd.float(), kd.float(), vd.float()
-    check("decode vs plain", ops.flash_attention(qdf, kdf, vdf),
+    check("decode (split-K) vs plain", ops.flash_attention(qdf, kdf, vdf),
           fa.flash_attention_plain(qdf, kdf, vdf), "float32")
+    del qf, kf, vf, qdf, kdf, vdf
+    torch.cuda.empty_cache()
+
+    # Tight bf16 check: peaked rows, O(1) outputs, against the plain
+    # version in f32 on the same bf16 values.
+    tight = []
+    for name, (q, k, v) in (("prefill", (qp, kp, vp)),
+                            ("decode", (qd, kd, vd))):
+        qs = (q.float() * FA_PEAK).to(bf16)
+        got = ops.flash_attention(qs, k, v).float()
+        want = fa.flash_attention_plain(qs.float(), k.float(), v.float())
+        spread = fa.flash_attention_plain(qs.float(), k.float(),
+                                          v.float().abs())
+        tol = FA_BF16_REL * (spread + want.abs()) + FA_BF16_ABS
+        excess = ((got - want).abs() / tol).max().item()
+        err = (got - want).abs().max().item()
+        typical = want.abs().median().item()
+        say(f"[flash] tight bf16 {name} (q x {FA_PEAK:g}): max abs err "
+            f"{err:.3e}, median |o| {typical:.3f}, max err/tol {excess:.3f}")
+        if not excess <= 1.0 or not bool(torch.isfinite(got).all()):
+            fail(f"flash tight bf16 {name}: error {err:.3e} exceeds 2^-8 "
+                 f"(sum p|v|/l + |o|) + {FA_BF16_ABS:g} (ratio {excess:.3f})")
+        tight.append({"what": name, "max_abs_err": err, "median_abs_out":
+                      typical, "max_err_over_tol": excess})
+        del qs, got, want, spread, tol
+    torch.cuda.empty_cache()
+
+    edge_kernels = {}
     for B, Hq, Hkv, Tq, Tk, Dh, causal, what in FA_EDGES:
         for dname, dt in (("float32", f32), ("bfloat16", bf16)):
             q, k, v = _qkv(torch, B, Hq, Hkv, Tq, Tk, Dh, dt, gen)
-            before = fa.LAUNCHES["flash_attention"]
+            kernel = fa.select_kernel(q, k)
+            counter = fa.KERNEL_COUNTERS[kernel]
+            before = dict(fa.LAUNCHES)
             got = ops.flash_attention(q, k, v, causal=causal)
-            if fa.LAUNCHES["flash_attention"] != before + 1:
-                fail(f"flash {what}: expected one launch")
-            check(f"{what} vs plain", got, fa.flash_attention_plain(
-                q, k, v, causal=causal), dname)
-            check(f"{what} vs attention_ref", got, ops.attention_ref(
-                q, k, v, causal=causal), dname)
+            moved = {n: fa.LAUNCHES[n] - before[n] for n in before}
+            if moved != {n: int(n == counter) for n in before}:
+                fail(f"flash {what} {dname}: launches {moved}, expected one "
+                     f"of {counter}")
+            edge_kernels[kernel] = edge_kernels.get(kernel, 0) + 1
+            check(f"{what} [{kernel}] vs plain", got,
+                  fa.flash_attention_plain(q, k, v, causal=causal), dname)
+            check(f"{what} [{kernel}] vs attention_ref", got,
+                  ops.attention_ref(q, k, v, causal=causal), dname)
+    if set(edge_kernels) != set(fa.KERNEL_COUNTERS):
+        fail(f"the edges reached only {edge_kernels}")
 
     def sdpa(causal):
         return lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True)
 
+    def kernel(name):
+        return lambda q, k, v: fa.flash_attention_cuda(q, k, v, kernel=name)
+
     timing = {}
-    cases = [("prefill", "bfloat16", (qp, kp, vp), pre, True, (5, 2, 20)),
+    qf, kf, vf = qp.float(), kp.float(), vp.float()
+    qdf, kdf, vdf = qd.float(), kd.float(), vd.float()
+    cases = [("prefill", "bfloat16", (qp, kp, vp), pre, True, (20, 2, 20)),
              ("prefill", "float32", (qf, kf, vf), pre, True, (3, 2, 5)),
-             ("decode", "bfloat16", (qd, kd, vd), dec, False, (50, 10, 50))]
+             ("decode", "bfloat16", (qd, kd, vd), dec, False, (100, 10, 100)),
+             ("decode", "float32", (qdf, kdf, vdf), dec, False,
+              (100, 10, 100))]
     for name, dname, qkv, shape, sdpa_causal, (ik, ip, il) in cases:
-        ms = _time_ms(torch, fa.flash_attention_cuda, [qkv], iters=ik,
-                      warmup=1)
+        chosen = fa.select_kernel(qkv[0], qkv[1])
+        ms = _time_ms(torch, kernel(chosen), [qkv], iters=ik, warmup=2)
+        dev_ms = _device_ms(torch, kernel(chosen), qkv, 10)
+        # The FMA kernel (PR 12's, unchanged) on the same inputs.
+        fma_ms = ms if chosen == "fma" else _time_ms(
+            torch, kernel("fma"), [qkv], iters=3 if name == "prefill" else 10,
+            warmup=1)
         plain_ms = _time_ms(torch, fa.flash_attention_plain, [qkv],
                             iters=ip, warmup=1)
         lib_ms = _time_ms(torch, sdpa(sdpa_causal), [qkv], iters=il,
                           warmup=2)
+        lib_dev_ms = _device_ms(torch, sdpa(sdpa_causal), qkv, 10)
         b_ms, b_by = flash_bound(*shape, True, dname)
         timing[f"{name}/{dname}"] = {
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
-        say(f"[time] flash {name} {dname} {shape}: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), kernel/bound {ms / b_ms:.1f}, "
-            f"kernel/sdpa {ms / lib_ms:.1f}")
+            "kernel": chosen, "ms": ms, "device_ms": dev_ms,
+            "fma_ms": fma_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_dev_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+        dev = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa: E731
+        say(f"[time] flash {name} {dname} {shape}: {chosen} kernel "
+            f"{ms:.4f} ms (device {dev(dev_ms)}), fma kernel {fma_ms:.3f} "
+            f"ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms (device "
+            f"{dev(lib_dev_ms)}), bound {b_ms:.4f} ms ({b_by}), "
+            f"kernel/bound {ms / b_ms:.2f}, kernel/sdpa {ms / lib_ms:.2f}")
+    del qf, kf, vf, qdf, kdf, vdf
+    torch.cuda.empty_cache()
+
+    # Which kernel should take bf16 decode-like calls: rows per kv head.
+    crossover = []
+    for tq in (1, 2, 3, 4, 5):
+        q, k, v = _qkv(torch, FA_DECODE_B, FA_HQ, FA_HKV, tq, FA_DECODE_TK,
+                       FA_DH, bf16, gen)
+        row = {"rows": FA_HQ // FA_HKV * tq, "chosen": fa.select_kernel(q, k)}
+        for name in ("decode", "wgmma"):
+            row[name] = _time_ms(torch, kernel(name), [(q, k, v)], iters=50,
+                                 warmup=2)
+        crossover.append(row)
+        say(f"[time] flash bf16 B={FA_DECODE_B} Tk={FA_DECODE_TK}, "
+            f"{row['rows']} rows per kv head: decode {row['decode']:.4f} ms, "
+            f"wgmma {row['wgmma']:.4f} ms; dispatch takes {row['chosen']}")
+    smem = {"wgmma Dh=128": fa.smem_bytes("wgmma", bf16, FA_DH),
+            "decode bf16 Dh=128, 3 rows, 512 keys": fa.smem_bytes(
+                "decode", bf16, FA_DH, 3, 512),
+            "fma Dh=128": fa.smem_bytes("fma", f32, FA_DH)}
+    say(f"[flash] dynamic shared memory per CTA (bytes): {smem}")
     torch.cuda.empty_cache()
     t = timing["prefill/bfloat16"]
-    return {"launches": launches, "path_s": path_s, "checks": checks,
+    return {"launches": launches, "launches_by_kernel": by_kernel,
+            "path_s": path_s, "checks": checks, "tight_bf16": tight,
+            "edge_kernels": edge_kernels,
             "sdpa_prefill_bf16_max_abs_diff": sdpa_diff.item(),
-            "timing": timing, "max_abs_err": max(
+            "timing": timing, "crossover": crossover, "smem_bytes": smem,
+            "max_abs_err": max(
                 c["max_abs_err"] for c in checks if c["dtype"] == "bfloat16"),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -851,6 +998,7 @@ def main() -> int:
         rows.append({k: res[k] for k in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")})
+    rows[-1]["launches_by_kernel"] = flash["launches_by_kernel"]
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, **row}
             for (name, (replaces, source)), row in zip(KERNELS.items(), rows)]

@@ -2,7 +2,8 @@
 
 `state_space_model` turns a JAX ``StateSpaceModel``'s arrays (``Q``,
 ``R``, ``m0``, ``P0``, as numpy) and the scenario name into the port's
-`StateSpaceModel` on a given device and dtype. ``f`` and ``h`` are
+`StateSpaceModel` on a given device (the card unless the caller names
+another, as every entry point of the port) and dtype. ``f`` and ``h`` are
 rebuilt from the port's registered scenario config (callables do not
 cross frameworks), so both packages compute on the same model.
 """
@@ -13,15 +14,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.types import Device, StateSpaceModel
+from repro_torch.core.types import Device, StateSpaceModel, resolve_device
 from repro_torch.scenarios import get_scenario
 
 
 def state_space_model(scenario: str, Q: np.ndarray, R: np.ndarray,
                       m0: np.ndarray, P0: np.ndarray, *,
-                      device: Device = "cpu",
+                      device: Device = None,
                       dtype: torch.dtype = torch.float64) -> StateSpaceModel:
-    """The port's model for ``scenario`` with the given noise and prior."""
+    """The port's model for ``scenario`` with the given noise and prior, on
+    ``device`` (`resolve_device`: the card by default; raises without one
+    unless ``device="cpu"``)."""
+    device = resolve_device(device)
     base = get_scenario(scenario).make_model(dtype, device)
     as_t = lambda a: torch.tensor(np.asarray(a), dtype=dtype,  # noqa: E731
                                      device=device)

@@ -1,47 +1,84 @@
-"""Blocked causal GQA attention with an online softmax: a hand-written CUDA
-kernel for Hopper and its plain PyTorch version.
+"""Blocked causal GQA attention with an online softmax: three hand-written
+CUDA kernels for Hopper and their plain PyTorch version.
 
-The kernel (``src/repro_torch/csrc/flash_attention.cu``) replaces the
-Pallas TPU kernel ``flash_attention_batched`` of
-``repro/kernels/flash_attention/flash_attention.py``: one CTA per (query
-tile, query head, batch) streams the key/value tiles of its GQA head
-through shared memory and keeps the running max, denominator and
-accumulator in float32 (see the source note in the ``.cu`` file).
+The kernels (``src/repro_torch/csrc/flash_attention.cu``, whose source note
+gives their designs) replace the Pallas TPU kernel
+``flash_attention_batched`` of
+``repro/kernels/flash_attention/flash_attention.py``. `select_kernel`
+picks one from the shapes and the type alone:
+
+=========================================  ==========================
+CUDA input (rows = ``group * Tq``)         kernel (``LAUNCHES`` key)
+=========================================  ==========================
+bfloat16, ``Dh`` in `WGMMA_HEAD_DIMS`:     split-K decode + its merge
+rows <= `WGMMA_DECODE_MAX_ROWS`;           (``flash_attention_decode``)
+otherwise rows <= `DECODE_MAX_ROWS`
+bfloat16, ``Dh`` in `WGMMA_HEAD_DIMS`,     ``wgmma`` + TMA prefill
+more rows                                  (``flash_attention_wgmma``)
+everything else (float32, other ``Dh``)    the FMA kernel
+                                           (``flash_attention``)
+=========================================  ==========================
 
 ``flash_attention_plain`` computes the same function with tensor ops, one
 query block at a time with an online softmax over key blocks, in float32,
 so its memory stays O(block_q · block_k) per head. It serves CPU tensors
 and is the on-card reference.
 
-Conventions of both (and of the oracle ``ref.attention_ref``): queries are
+Conventions of all (and of the oracle ``ref.attention_ref``): queries are
 right-aligned to the keys (query ``i`` at position ``Tk - Tq + i``);
 causal masking uses -1e30; a row that sees no key (causal, ``Tq > Tk``)
 averages ``v`` over the ``Tk`` real keys. The JAX kernel averages its
 block padding there too, so for those rows it differs from its own oracle.
+The ``wgmma`` kernel rounds the softmax weights to bfloat16 before the
+second product (the TPU kernel keeps them in float32).
 
-``flash_attention_cuda`` is the kernel wrapper. A CPU tensor takes the
-plain version; a CUDA tensor launches the kernel or raises — never a
-fallback. Each launch adds one to ``LAUNCHES["flash_attention"]``.
+``flash_attention_cuda`` is the kernels' wrapper. A CPU tensor takes the
+plain version; a CUDA tensor launches the selected kernel or raises —
+never a fallback to another kernel or to the plain version. Each launch
+adds one to its kernel's ``LAUNCHES`` entry (the decode's merge pass is
+part of its launch).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
 
-#: Kernel launches since the last `reset_launch_counts`.
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+#: Kernel launches since the last `reset_launch_counts`, per kernel.
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_wgmma": 0,
+                            "flash_attention_decode": 0}
+#: The kernel names `select_kernel` returns, and their `LAUNCHES` keys.
+KERNEL_COUNTERS = {"fma": "flash_attention", "wgmma": "flash_attention_wgmma",
+                   "decode": "flash_attention_decode"}
 
-#: Head dims with a compiled kernel instance (the repo's configs and the
-#: JAX suite use 16, 32, 64 and 128).
+#: Head dims with compiled FMA and decode instances (the repo's configs
+#: and the JAX suite use 16, 32, 64 and 128).
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: Head dims of the bfloat16 ``wgmma`` prefill kernel.
+WGMMA_HEAD_DIMS = (64, 128)
+#: Query rows per kv head (``group * Tq``) the decode kernel takes at most.
+DECODE_MAX_ROWS = 16
+#: ... and at most this many where the ``wgmma`` kernel takes the input:
+#: past 8 rows the decode kernel runs its 16-row instance and loses to
+#: ``wgmma`` (``chip_smoke.py``'s crossover lines, bf16 at Llama-3.2-3B
+#: width: decode 0.10-0.14 ms at 3-6 rows, 0.27-0.28 ms at 9-15, ``wgmma``
+#: 0.23 ms throughout; NVIDIA H100 80GB HBM3, 700 W).
+WGMMA_DECODE_MAX_ROWS = 8
+#: Keys per split of the decode kernel: at most this many ...
+DECODE_MAX_SPLIT = 512
+#: ... and at least this many, halving from the most while the grid has
+#: fewer than ``DECODE_CTAS_PER_SM`` CTAs per SM.
+DECODE_MIN_SPLIT = 64
+DECODE_CTAS_PER_SM = 4
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 
 #: ``nvcc`` parts of ``csrc/flash_attention.cu``, compiled at the same
-#: time: one per head_dim (both dtypes), and the C entry point.
+#: time: one per head_dim (its FMA and decode instances in both dtypes,
+#: and at 64 and 128 its ``wgmma`` instance), and the C entry points.
 BUILD_PARTS = tuple((f"-DFA_HEAD_DIM={d}",) for d in HEAD_DIMS) + (
     ("-DFA_ENTRY_POINTS",),)
 
@@ -69,6 +106,27 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"Hq={Hq}")
     if Tk < 1 and q.numel():
         raise ValueError("flash_attention: no keys (Tk = 0)")
+
+
+def select_kernel(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The kernel a CUDA input of these shapes and type takes: "decode",
+    "wgmma" or "fma" (see the module's table)."""
+    Hq, Tq, Dh = q.shape[1:]
+    rows = (Hq // k.shape[1]) * Tq
+    if q.dtype == torch.bfloat16 and Dh in WGMMA_HEAD_DIMS:
+        return "decode" if rows <= WGMMA_DECODE_MAX_ROWS else "wgmma"
+    return "decode" if rows <= DECODE_MAX_ROWS else "fma"
+
+
+def decode_split_keys(B: int, Hkv: int, Tk: int, n_sm: int) -> int:
+    """Keys per split of the decode kernel: `DECODE_MAX_SPLIT`, halved
+    (not below `DECODE_MIN_SPLIT`) while ``B * Hkv * splits`` CTAs give
+    fewer than `DECODE_CTAS_PER_SM` per SM."""
+    split = DECODE_MAX_SPLIT
+    while (split > DECODE_MIN_SPLIT and
+           B * Hkv * -(-Tk // split) < DECODE_CTAS_PER_SM * n_sm):
+        split //= 2
+    return split
 
 
 def _key_end(first_qpos: int, end_qpos: int, Tk: int, causal: bool) -> int:
@@ -135,27 +193,57 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _library():
-    """Build (first call) and bind the kernel's C interface."""
+    """Build (first call) and bind the kernels' C interface."""
     from repro_torch.kernels.build import build
 
     lib = build("flash_attention", BUILD_PARTS).lib
     if not getattr(lib, "_fa_bound", False):
-        i, ll, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        lib.fa_attention.argtypes = [i, i, ll, i, i, ll, ll, i,
-                                     ctypes.c_float, ptr, ptr, ptr, ptr, ptr]
-        lib.fa_attention.restype = ctypes.c_int
+        i, ll, f, ptr = (ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                         ctypes.c_void_p)
+        lib.fa_attention.argtypes = [i, i, ll, i, i, ll, ll, i, f,
+                                     ptr, ptr, ptr, ptr, ptr]
+        lib.fa_decode.argtypes = [i, i, ll, i, i, ll, ll, i, f, i,
+                                  ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+        lib.fa_wgmma.argtypes = [i, ll, i, i, ll, ll, i, f,
+                                 ptr, ptr, ptr, ptr, ptr]
+        for fn in (lib.fa_attention, lib.fa_decode, lib.fa_wgmma):
+            fn.restype = ctypes.c_int
+        lib.fa_smem_bytes.argtypes = [i, i, i, i, i]
+        lib.fa_smem_bytes.restype = ll
         lib._fa_bound = True
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def smem_bytes(kernel: str, dtype: torch.dtype, head_dim: int, rows: int = 1,
+               split_keys: int = DECODE_MAX_SPLIT) -> int:
+    """Dynamic shared memory of one CTA of ``kernel`` ("fma", "decode"
+    with ``rows`` per kv head and ``split_keys``, or "wgmma"), from the
+    built library."""
+    return _library().fa_smem_bytes(("fma", "decode", "wgmma").index(kernel),
+                                    _DTYPE_CODE[dtype], head_dim, rows,
+                                    split_keys)
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         kernel: Optional[str] = None) -> torch.Tensor:
     """Attention over contiguous ``q [B, Hq, Tq, Dh]``, ``k/v [B, Hkv, Tk,
     Dh]``, float32 or bfloat16, ``Dh`` in `HEAD_DIMS`.
 
     CPU tensors take `flash_attention_plain`; CUDA tensors launch the
-    hand-written kernel (nothing for an empty output) or raise."""
+    kernel `select_kernel` picks (nothing for an empty output) or raise.
+    ``kernel`` ("decode", "wgmma" or "fma") names one instead, for timing
+    and tests, and raises if that kernel does not take these inputs."""
     check_shapes(q, k, v)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
@@ -172,18 +260,44 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention: non-contiguous input; the kernel "
                          "reads densely packed [B, H, T, Dh] arrays")
+    chosen = select_kernel(q, k) if kernel is None else kernel
+    rows = (Hq // Hkv) * Tq
+    if chosen not in KERNEL_COUNTERS:
+        raise ValueError(f"flash_attention: unknown kernel {chosen!r}; "
+                         f"one of {tuple(KERNEL_COUNTERS)}")
+    if chosen == "decode" and rows > DECODE_MAX_ROWS:
+        raise ValueError(f"flash_attention: the decode kernel takes at most "
+                         f"{DECODE_MAX_ROWS} rows per kv head, not {rows}")
+    if chosen == "wgmma" and (q.dtype != torch.bfloat16
+                              or Dh not in WGMMA_HEAD_DIMS):
+        raise ValueError(f"flash_attention: the wgmma kernel takes bfloat16 "
+                         f"with head_dim in {WGMMA_HEAD_DIMS}, not {q.dtype} "
+                         f"and {Dh}")
     if scale is None:
         scale = 1.0 / (Dh ** 0.5)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _library().fa_attention(
-        _DTYPE_CODE[q.dtype], Dh, B, Hq, Hkv, Tq, Tk, int(causal),
-        float(scale), *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)),
-        ctypes.c_void_p(stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    lib = _library()
+    common = (B, Hq, Hkv, Tq, Tk, int(causal), float(scale))
+    if chosen == "decode":
+        split_keys = decode_split_keys(B, Hkv, Tk, _sm_count(q.device))
+        # Per (b, kv head, split, row): m and l, then the Dh accumulator.
+        n_part = B * Hkv * -(-Tk // split_keys) * rows
+        part = torch.empty(n_part * (2 + Dh), dtype=torch.float32,
+                           device=q.device)
+        err = lib.fa_decode(_DTYPE_CODE[q.dtype], Dh, *common,
+                            int(split_keys), *map(_ptr, (q, k, v, out, part)),
+                            ctypes.c_void_p(part.data_ptr() + 4 * 2 * n_part),
+                            stream)
+    elif chosen == "wgmma":
+        err = lib.fa_wgmma(Dh, *common, *map(_ptr, (q, k, v, out)), stream)
+    else:
+        err = lib.fa_attention(_DTYPE_CODE[q.dtype], Dh, *common,
+                               *map(_ptr, (q, k, v, out)), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    LAUNCHES["flash_attention"] += 1
+        raise RuntimeError(f"flash_attention {chosen} kernel launch failed: "
+                           f"CUDA error {err}")
+    LAUNCHES[KERNEL_COUNTERS[chosen]] += 1
     return out

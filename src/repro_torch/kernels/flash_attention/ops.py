@@ -21,7 +21,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     to ``Dh ** -0.5``.
 
     ``block_q``/``block_k`` are the tile sizes of the plain version (and of
-    the TPU kernel); the CUDA kernel uses its own compiled tiles. They
+    the TPU kernel); the CUDA kernels use their own compiled tiles. They
     change results only by rounding.
     """
     if block_q < 1 or block_k < 1:

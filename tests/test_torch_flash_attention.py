@@ -8,8 +8,11 @@ Tq in {1, 7}, non-causal, block sizes, scale — at the suite's TOL, and the
 port's oracle against the JAX oracle. For Tq > Tk (causal rows that see
 no key) the port follows the oracle ``attention_ref``, not the JAX kernel,
 which averages its block padding there; one test pins that difference.
-The CUDA kernel runs only on a card: those tests carry the `cuda` marker
-and skip here. JAX is imported on first use, not at module level, so on a
+The split-K decode kernel's two passes (per-split partials, then the
+merge) are mirrored by a test-only plain function, held against the JAX
+kernel and the oracle, and the dispatch between the three CUDA kernels is
+a function of shapes and type, checked here. The CUDA kernels run only on
+a card: those tests carry the `cuda` marker and skip here. JAX is imported on first use, not at module level, so on a
 card's machine without JAX the marked tests run with
 ``pytest --noconftest -m cuda``.
 """
@@ -171,6 +174,109 @@ def test_empty_and_bad_shapes():
 
 
 # ---------------------------------------------------------------------------
+# The decode kernel's algorithm: per-split partials, then the merge
+# ---------------------------------------------------------------------------
+
+_LOG2E = 1.4426950408889634
+
+
+def _split_k_decode(q, k, v, *, causal, split):
+    """What ``csrc/flash_attention.cu``'s decode and merge kernels compute,
+    in float32 tensor ops: the keys in splits of ``split``; per split and
+    query row, m = the max of the log2-scaled scores (causally masked ones
+    at -1e30), l = sum exp2(s - m) and acc = sum exp2(s - m) v; then each
+    split weighted by exp2(m - max m) and the sum divided by the weighted
+    l (a row with no key in any split: every weight 1, the Tk-average)."""
+    B, Hq, Tq, Dh = q.shape
+    Hkv, Tk = k.shape[1:3]
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, Tq, Dh)
+    qpos = (Tk - Tq) + torch.arange(Tq)[:, None]
+    ms, ls, accs = [], [], []
+    for s0 in range(0, Tk, split):
+        ks, vs = k[:, :, None, s0:s0 + split].float(), \
+            v[:, :, None, s0:s0 + split].float()
+        s = (qf @ ks.mT) * (Dh ** -0.5 * _LOG2E)
+        if causal:
+            kpos = torch.arange(s0, s0 + ks.shape[3])[None, :]
+            s = torch.where(qpos >= kpos, s, s.new_tensor(-1e30))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp2(s - m)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(p @ vs)
+    m_all = torch.stack(ms)
+    w = torch.exp2(m_all - m_all.amax(dim=0))
+    l = (w * torch.stack(ls)).sum(dim=0)
+    acc = (w * torch.stack(accs)).sum(dim=0)
+    out = acc / torch.where(l > 0, l, torch.ones_like(l))
+    return out.reshape(B, Hq, Tq, Dh).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_case(Tq, Tk, Hq, Hkv):
+    """Inputs and the JAX kernel's output (interpret mode) for one decode
+    shape, and the JAX oracle's."""
+    arrays = _rand_qkv(np.random.default_rng(Tq * 1000 + Tk + Hq), 2, Hq,
+                       Hkv, Tq, Tk, 32)
+    jq = _jax(arrays, np.float32)
+    pallas = None
+    if Tq <= Tk:  # the JAX kernel averages its padding for rows seeing no key
+        pallas = _np(jx().pallas(*jq, causal=True, block_q=32, block_k=32,
+                                 interpret=True))
+    return arrays, pallas, _np(jx().ref.attention_ref(*jq, causal=True))
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(6, 2), (4, 1)])  # GQA group 3, MQA
+@pytest.mark.parametrize("split", [4, 64, 256])
+@pytest.mark.parametrize("Tk", [1, 300, 513])
+@pytest.mark.parametrize("Tq", [1, 7])
+def test_split_k_decode_matches_jax(Tq, Tk, split, Hq, Hkv):
+    """Ragged last splits (300 = 4 x 64 + 44, 513 = 2 x 256 + 1), splits
+    fully masked for some rows (split 4: row 0 of Tq=7 sees no key of the
+    last split) and rows seeing no key at all (Tq=7 > Tk=1, against the
+    oracle)."""
+    arrays, pallas, oracle = _decode_case(Tq, Tk, Hq, Hkv)
+    got = _np(_split_k_decode(*_torch(arrays, np.float32), causal=True,
+                              split=split))
+    np.testing.assert_allclose(got, oracle, **TOL[np.float32])
+    if pallas is not None:
+        np.testing.assert_allclose(got, pallas, **TOL[np.float32])
+    np.testing.assert_allclose(got, _np(ref.attention_ref(
+        *_torch(arrays, np.float32), causal=True)), **TOL[np.float32])
+
+
+@pytest.mark.parametrize("shape,dtype,kernel", [
+    ((16, 24, 8, 1, 4096, 128), torch.bfloat16, "decode"),
+    ((2, 4, 2, 7, 128, 64), torch.float32, "decode"),   # 14 rows
+    ((2, 4, 2, 7, 128, 64), torch.bfloat16, "wgmma"),
+    ((2, 4, 2, 4, 128, 64), torch.bfloat16, "decode"),  # 8 rows
+    ((2, 4, 2, 7, 128, 256), torch.bfloat16, "decode"),
+    ((1, 16, 1, 1, 50, 16), torch.float32, "decode"),    # MQA, 16 rows
+    ((1, 17, 1, 1, 50, 16), torch.float32, "fma"),       # 17 rows
+    ((3, 6, 2, 7, 300, 64), torch.bfloat16, "wgmma"),    # 21 rows
+    ((2, 24, 8, 4096, 4096, 128), torch.bfloat16, "wgmma"),
+    ((1, 4, 2, 100, 100, 64), torch.bfloat16, "wgmma"),
+    ((1, 4, 2, 100, 100, 32), torch.bfloat16, "fma"),
+    ((1, 4, 2, 100, 100, 256), torch.bfloat16, "fma"),
+    ((2, 24, 8, 4096, 4096, 128), torch.float32, "fma"),
+])
+def test_kernel_dispatch(shape, dtype, kernel):
+    B, Hq, Hkv, Tq, Tk, Dh = shape
+    q = torch.empty((B, Hq, Tq, Dh), dtype=dtype, device="meta")
+    k = torch.empty((B, Hkv, Tk, Dh), dtype=dtype, device="meta")
+    assert kfa.select_kernel(q, k) == kernel
+
+
+@pytest.mark.parametrize("B,Hkv,Tk,want", [
+    (16, 8, 4096, 512),   # 1,024 CTAs of 512 keys
+    (1, 8, 4096, 64),     # 512 CTAs of 64 keys: as many as it gets
+    (4, 8, 4096, 128),    # 256 keys give 512 CTAs (< 4 x 132): 1,024
+    (1, 1, 300, 64)])
+def test_decode_split_keys(B, Hkv, Tk, want):
+    assert kfa.decode_split_keys(B, Hkv, Tk, 132) == want
+
+
+# ---------------------------------------------------------------------------
 # On the card (marker `cuda`; skipped where there is none)
 # ---------------------------------------------------------------------------
 
@@ -181,25 +287,102 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
-@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,Dh,causal", [
+#: Card cases: (B, Hq, Hkv, Tq, Tk, Dh, causal). Every kernel serves some
+#: of them in each dtype it takes (`test_card_cases_reach_every_kernel`).
+CARD_CASES = [
     (2, 4, 2, 96, 96, 64, True), (1, 8, 1, 100, 100, 128, True),
     (3, 4, 2, 1, 300, 32, True), (1, 2, 2, 64, 80, 16, False),
-    (1, 2, 1, 40, 24, 16, True), (1, 4, 2, 70, 70, 256, True)])
+    (1, 2, 1, 40, 24, 16, True), (1, 4, 2, 70, 70, 256, True),
+    # bf16 wgmma at both head dims, ragged and long T
+    (1, 4, 2, 100, 100, 64, True), (1, 4, 2, 130, 130, 64, True),
+    (1, 4, 2, 130, 130, 128, True), (1, 2, 1, 4096, 4096, 64, True),
+    (1, 2, 1, 4096, 4096, 128, True),
+    (1, 2, 2, 100, 230, 128, False),    # non-causal
+    (1, 24, 1, 200, 200, 128, True),    # MQA
+    (1, 6, 2, 300, 200, 64, True),      # Tq > Tk
+    # decode (group 3): Tk 1 (no key for rows 0-3 of Tq=5), ragged, long
+    (2, 6, 2, 1, 1, 128, True), (2, 6, 2, 5, 1, 64, True),
+    (2, 6, 2, 1, 300, 128, True), (2, 6, 2, 2, 300, 64, True),
+    (2, 6, 2, 5, 300, 64, True), (1, 8, 1, 2, 1, 64, True),
+    (4, 24, 8, 1, 4096, 128, True), (2, 4, 1, 4, 777, 256, False),
+]
+
+
+def _expected_kernel(dtype, Hq, Hkv, Tq, Dh):
+    rows = Hq // Hkv * Tq
+    if dtype == "bfloat16" and Dh in (64, 128):
+        return "decode" if rows <= 8 else "wgmma"
+    return "decode" if rows <= 16 else "fma"
+
+
+def test_card_cases_reach_every_kernel():
+    for dtype, kernels in (("bfloat16", {"decode", "wgmma", "fma"}),
+                           (np.float32, {"decode", "fma"})):
+        assert {_expected_kernel(dtype, c[1], c[2], c[3], c[5])
+                for c in CARD_CASES} == kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,Dh,causal", CARD_CASES)
 def test_kernel_matches_plain_on_card(cuda, dtype, B, Hq, Hkv, Tq, Tk, Dh,
                                       causal):
+    """The kernel the dispatch picks — and only it — serves the call, and
+    agrees with the plain version and the oracle."""
     arrays = _rand_qkv(np.random.default_rng(Tq + Dh), B, Hq, Hkv, Tq, Tk,
                        Dh)
     tq = _torch(arrays, dtype, cuda)
-    before = kfa.LAUNCHES["flash_attention"]
+    kernel = _expected_kernel(dtype, Hq, Hkv, Tq, Dh)
+    before = dict(kfa.LAUNCHES)
     got = ops.flash_attention(*tq, causal=causal)
     torch.cuda.synchronize()
-    assert kfa.LAUNCHES["flash_attention"] == before + 1
+    assert {k: kfa.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == kfa.KERNEL_COUNTERS[kernel]) for k in before}
     want = kfa.flash_attention_plain(*tq, causal=causal)
     np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
     np.testing.assert_allclose(_np(got), _np(ref.attention_ref(
         *tq, causal=causal)), **TOL[dtype])
+
+
+def _force_split(monkeypatch, split):
+    monkeypatch.setattr(kfa, "DECODE_MAX_SPLIT", split)
+    monkeypatch.setattr(kfa, "DECODE_MIN_SPLIT", split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 7, 64, 512])
+def test_decode_splits_on_card(cuda, monkeypatch, split):
+    """Any split size gives the plain version's output (ragged last
+    splits, splits fully masked for some rows)."""
+    _force_split(monkeypatch, split)
+    arrays = _rand_qkv(np.random.default_rng(split), 2, 6, 2, 5, 300, 64)
+    tq = _torch(arrays, np.float32, cuda)
+    got = kfa.flash_attention_cuda(*tq, kernel="decode")
+    np.testing.assert_allclose(_np(got), _np(kfa.flash_attention_plain(*tq)),
+                               **TOL[np.float32])
+
+
+@pytest.mark.cuda
+def test_failed_launches_raise_on_card(cuda, monkeypatch):
+    """A kernel that cannot take its inputs raises; nothing falls back."""
+    q = torch.zeros(1, 6, 1, 64, device=cuda)
+    with monkeypatch.context() as m:
+        _force_split(m, 1024)  # over the kernel's 512-key limit
+        with pytest.raises(RuntimeError, match="decode kernel launch failed"):
+            kfa.flash_attention_cuda(q, q[:, :2], q[:, :2])
+    q = torch.zeros(1, 65536, 1, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(1, 1, 1, 64, device=cuda, dtype=torch.bfloat16)
+    before = dict(kfa.LAUNCHES)
+    with pytest.raises(RuntimeError, match="wgmma kernel launch failed"):
+        kfa.flash_attention_cuda(q, k, k)  # grid out of range (Hq > 65535)
+    with pytest.raises(RuntimeError, match="fma kernel launch failed"):
+        kfa.flash_attention_cuda(q.float(), k.float(), k.float())
+    assert kfa.LAUNCHES == before
+    q = torch.zeros(1, 8, 100, 64, device=cuda)
+    with pytest.raises(ValueError, match="wgmma"):
+        kfa.flash_attention_cuda(q, q, q, kernel="wgmma")  # float32
+    with pytest.raises(ValueError, match="decode"):
+        kfa.flash_attention_cuda(q, q, q, kernel="decode")  # 100 rows
 
 
 @pytest.mark.cuda

@@ -113,7 +113,7 @@ def test_warmup_runs_each_bucket_shape():
 def test_fleet_is_seeded():
     model = convert.state_space_model(
         "coordinated_turn", *(np.asarray(getattr(jax_side()[0], k))
-                              for k in ("Q", "R", "m0", "P0")))
+                              for k in ("Q", "R", "m0", "P0")), device="cpu")
     cfg = tserve.SmootherServeConfig(requests=4, n=16)
     a, ta = tserve.make_fleet(cfg, model)
     b, _ = tserve.make_fleet(cfg, model)
@@ -137,6 +137,18 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.SmootherServer(model, cfg)
     assert tapi.build_smoother(device="cpu").device.type == "cpu"
+
+
+def test_convert_model_needs_a_card_unless_asked_for_cpu(monkeypatch):
+    """`convert.state_space_model` without ``device`` resolves to the
+    card, and raises without one, as every entry point of the port."""
+    arrays = [np.asarray(getattr(jax_side()[0], k))
+              for k in ("Q", "R", "m0", "P0")]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.state_space_model("coordinated_turn", *arrays)
+    assert convert.state_space_model("coordinated_turn", *arrays,
+                                     device="cpu").Q.device.type == "cpu"
 
 
 def test_package_imports_no_jax_and_no_repro():
