@@ -10,18 +10,24 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
   1. environment: the card's name and power limit (``nvidia-smi``);
   2. build: the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``), all
      sources' parts at once, with the ``-Xptxas -v`` registers/spills of
-     the nx=5 combine instances and of the ssm_scan and flash attention
-     instances;
+     the nx=5 combine instances (which must not spill) and of the ssm_scan
+     and flash attention instances;
   3. combine kernel parity: each combine against its plain PyTorch
      version on the card — the main path's top scan level (B=16,384
-     pairs, nx=5) in f64 and f32, edge shapes and B=0 — then CUDA-event
-     timings of kernel and plain version beside the memory/compute bound;
+     pairs, nx=5) in f64 and f32, edge shapes and B=0 on packed input, and
+     scan levels read in place: a [64, 512] element set's first and second
+     calls, an odd-T slice that is only 8-byte aligned, nx=1/8/16 — then
+     timings (CUDA events over back-to-back calls, and device time by CUDA
+     graph replay) on packed and in-place input beside the memory/compute
+     bound, the packing cost the scan no longer pays, and a sweep over the
+     service's level sizes (64 rows x 256 ... 1 pairs);
   4. smoother path: ``serve_smoother`` on 64 coordinated-turn requests (n
      up to 512, launch width 64, f64) on the card, with the launch
-     counters zeroed just before and read just after; then checks against
-     the same fleet served with the plain versions (``backend="jnp"``) and
-     against the sequential smoother at the same linearization; then a
-     profile of one bucket launch;
+     counters zeroed just before and read just after (and no packing copy
+     in its scans); then checks against the same fleet served with the
+     plain versions (``backend="jnp"``) and against the sequential
+     smoother at the same linearization; then a profile of one bucket
+     launch;
   5. ``[ssm_scan]``: the linear-recurrence entry points at Hymba-1.5B's SSM
      width (``ops.ssm_scan`` on B=2, T=4096, D=51,200 and
      ``linear_recurrence_scan(combine_impl="pallas")`` on [4096, 2, 3200,
@@ -76,8 +82,19 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 ITEMSIZE = {"float32": 4, "float64": 8, "bfloat16": 2}
 
-MAIN_PAIRS, MAIN_NX = 64 * 256, 5
+MAIN_ROWS, MAIN_T, MAIN_NX = 64, 512, 5
+MAIN_PAIRS = MAIN_ROWS * MAIN_T // 2
 EDGE_SHAPES = [(1, 1), (513, 8), (7, 16), (0, 5)]
+#: Scan levels read in place: (what, L, T, nx). Each runs the level's first
+#: call (``x[:, 0:-1:2]`` with ``x[:, 1::2]``) and its second (the first's
+#: result ``odd``, trimmed to ``odd[:, :-1]`` for even T, with
+#: ``x[:, 2::2]``). At T = 513, ``x[:, 1::2]`` starts one element past the
+#: allocation's start, so its base is only 8-byte aligned at f64 (4 at f32).
+STRIDED_LEVELS = [("top level", 64, 512, 5), ("odd T", 64, 513, 5),
+                  ("nx=1", 8, 33, 1), ("nx=8", 8, 33, 8),
+                  ("nx=16", 4, 33, 16)]
+#: Pairs per row of the level sizes the service's scans launch at n=512.
+SWEEP_P = (256, 128, 64, 32, 16, 8, 4, 2, 1)
 #: name -> (TPU kernel it replaces, CUDA source of the port).
 KERNELS = {
     "filtering_combine": (
@@ -229,6 +246,12 @@ def phase_build() -> dict:
             say(f"[build] ptxas {sym}: {info}")
         report[name] = {"nvcc_s": lib.seconds, "ptxas_lines": lib.ptxas,
                         "ptxas": shown}
+    combine = report["kalman_combine"]["ptxas"]
+    spilled = {k: v for k, v in combine.items()
+               if v.get("spill_stores", 1) or v.get("spill_loads", 1)}
+    if len(combine) != 4 or spilled:
+        fail(f"the four nx=5 combine instances must build without spills: "
+             f"found {len(combine)}, spilling {spilled}")
     hgmma = {k: n for k, n in _sass_counts(
         built["flash_attention"].path, "HGMMA").items() if n}
     wgmma = {k: n for k, n in hgmma.items() if "wgmma_kernel" in k}
@@ -275,6 +298,51 @@ def _time_ms(torch, fn, sets, iters=200, warmup=10):
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(torch, fn, sets, iters=100, replays=3):
+    """Device ms per call: ``iters`` calls, rotating through input
+    ``sets``, captured in one CUDA graph and replayed, so that the host's
+    dispatch (the wrapper's Python takes longer than a small launch) is
+    out of the time."""
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def _level_set(torch, kind, L, T, nx, dtype, gen):
+    """An ``[L, T]`` element set: the elements of one scan level."""
+    e = _elements(torch, kind, L * T, nx, dtype, gen)
+    return type(e)(*(t.reshape((L, T) + t.shape[1:]) for t in e))
+
+
+def _sl(x, start, stop, step=None):
+    """Every field of ``x`` sliced along the pair axis (a view)."""
+    return type(x)(*(t[:, start:stop:step] for t in x))
+
+
+def scan_level_pairs(n: int) -> list:
+    """Pairs per row of each combine call of one scan over ``n`` elements,
+    in order (the recursion of ``core/scan.py::_scan``)."""
+    if n < 2:
+        return []
+    return ([n // 2] + scan_level_pairs(n // 2)
+            + [n // 2 - 1 if n % 2 == 0 else n // 2])
+
+
 def phase_kernels(torch) -> dict:
     from repro_torch.kernels.kalman_combine import kalman_combine as kc
 
@@ -287,63 +355,102 @@ def phase_kernels(torch) -> dict:
     report = {}
     for kind, (kernel, plain) in wrappers.items():
         checks = []
-        shapes = [(MAIN_PAIRS, MAIN_NX)] + EDGE_SHAPES
+
+        def check(ei, ej, what, dname):
+            """One launch (none for no pairs) against the plain version."""
+            before = kc.LAUNCHES[kind]
+            got = kernel(ei, ej)
+            torch.cuda.synchronize()
+            pairs, nx = got[1].shape[:-1].numel(), got[1].shape[-1]
+            launched = kc.LAUNCHES[kind] - before
+            if launched != (1 if pairs else 0):
+                fail(f"{kind} {what}: {launched} launches, expected "
+                     f"{1 if pairs else 0}")
+            want = plain(ei, ej)
+            err = 0.0
+            for g, w in zip(got, want):
+                if g.shape != w.shape or g.dtype != w.dtype:
+                    fail(f"{kind} {dname} {what}: output {tuple(g.shape)}/"
+                         f"{g.dtype}, expected {tuple(w.shape)}/{w.dtype}")
+                if pairs and not torch.allclose(g, w, **TOL[dname]):
+                    fail(f"{kind} {dname} {what} disagrees with its plain "
+                         f"version: max abs err "
+                         f"{(g - w).abs().max().item():.3e}")
+                if pairs:
+                    err = max(err, (g - w).abs().max().item())
+            checks.append({"what": what, "dtype": dname, "pairs": pairs,
+                           "nx": nx, "max_abs_err": err})
+            say(f"[parity] {kind} {dname} {what}: ok, max abs err {err:.3e}")
+            return got
+
         for dname, dtype in dtypes.items():
-            for B, nx in shapes:
-                ei = _elements(torch, kind, B, nx, dtype, gen)
-                ej = _elements(torch, kind, B, nx, dtype, gen)
-                before = kc.LAUNCHES[kind]
-                got = kernel(ei, ej)
-                torch.cuda.synchronize()
-                launched = kc.LAUNCHES[kind] - before
-                if launched != (1 if B else 0):
-                    fail(f"{kind} B={B}: {launched} launches, expected "
-                         f"{1 if B else 0}")
-                want = plain(ei, ej)
-                err = 0.0
-                for g, w in zip(got, want):
-                    if g.shape != w.shape or g.dtype != w.dtype:
-                        fail(f"{kind} {dname} B={B} nx={nx}: output "
-                             f"{tuple(g.shape)}/{g.dtype}, expected "
-                             f"{tuple(w.shape)}/{w.dtype}")
-                    if B and not torch.allclose(g, w, **TOL[dname]):
-                        fail(f"{kind} {dname} B={B} nx={nx} disagrees with "
-                             f"its plain version: max abs err "
-                             f"{(g - w).abs().max().item():.3e}")
-                    if B:
-                        err = max(err, (g - w).abs().max().item())
-                checks.append({"dtype": dname, "B": B, "nx": nx,
-                               "max_abs_err": err})
-                say(f"[parity] {kind} {dname} B={B} nx={nx}: ok, "
-                    f"max abs err {err:.3e}")
+            for B, nx in [(MAIN_PAIRS, MAIN_NX)] + EDGE_SHAPES:
+                check(_elements(torch, kind, B, nx, dtype, gen),
+                      _elements(torch, kind, B, nx, dtype, gen),
+                      f"packed B={B} nx={nx}", dname)
+            for what, L, T, nx in STRIDED_LEVELS:
+                x = _level_set(torch, kind, L, T, nx, dtype, gen)
+                odd = check(_sl(x, 0, -1, 2), _sl(x, 1, None, 2),
+                            f"{what} [{L}, {T}] nx={nx}: x[:, 0:-1:2], "
+                            "x[:, 1::2]", dname)
+                check(odd if T % 2 else _sl(odd, 0, -1), _sl(x, 2, None, 2),
+                      f"{what} [{L}, {T}] nx={nx}: "
+                      f"{'odd' if T % 2 else 'odd[:, :-1]'}, x[:, 2::2]",
+                      dname)
+                del x, odd
         timing = {}
         for dname, dtype in dtypes.items():
-            sets = [(_elements(torch, kind, MAIN_PAIRS, MAIN_NX, dtype, gen),
-                     _elements(torch, kind, MAIN_PAIRS, MAIN_NX, dtype, gen))
-                    for _ in range(3)]
+            packed = [(_elements(torch, kind, MAIN_PAIRS, MAIN_NX, dtype, gen),
+                       _elements(torch, kind, MAIN_PAIRS, MAIN_NX, dtype, gen))
+                      for _ in range(3)]
+            in_place = [(_sl(x, 0, -1, 2), _sl(x, 1, None, 2)) for x in (
+                _level_set(torch, kind, MAIN_ROWS, MAIN_T, MAIN_NX, dtype,
+                           gen) for _ in range(3))]
             before = kc.LAUNCHES[kind]
-            ms = _time_ms(torch, kernel, sets)
-            plain_ms = _time_ms(torch, plain, sets, iters=50)
+            t = {"ms": _time_ms(torch, kernel, packed),
+                 "graph_ms": _graph_ms(torch, kernel, packed),
+                 "in_place_ms": _time_ms(torch, kernel, in_place),
+                 "in_place_graph_ms": _graph_ms(torch, kernel, in_place),
+                 "plain_ms": _time_ms(torch, plain, packed, iters=50)}
             if kc.LAUNCHES[kind] == before:
                 fail(f"{kind}: timing loop launched no kernel")
-            b_ms, b_by = bound(kind, MAIN_PAIRS, MAIN_NX, dname)
-            timing[dname] = {"ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by}
+            t["bound_ms"], t["bound_by"] = bound(kind, MAIN_PAIRS, MAIN_NX,
+                                                 dname)
+            timing[dname] = t
+            us = {k: v * 1e3 for k, v in t.items() if k.endswith("ms")}
             say(f"[time] {kind} {dname} B={MAIN_PAIRS} nx={MAIN_NX}: kernel "
-                f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
-                f"{b_ms * 1e3:.2f} us ({b_by}), kernel/bound "
-                f"{ms / b_ms:.2f}")
-        report[kind] = {"checks": checks, "timing": timing}
+                f"packed {us['ms']:.2f} us (graph {us['graph_ms']:.2f}), in "
+                f"place {us['in_place_ms']:.2f} us (graph "
+                f"{us['in_place_graph_ms']:.2f}), plain {us['plain_ms']:.2f} "
+                f"us, bound {us['bound_ms']:.2f} us ({t['bound_by']}), in "
+                f"place (graph)/bound "
+                f"{t['in_place_graph_ms'] / t['bound_ms']:.2f}")
+            del packed, in_place
+            torch.cuda.empty_cache()
+        sweep = []
+        for P in SWEEP_P:
+            sets = [(_sl(x, 0, -1, 2), _sl(x, 1, None, 2)) for x in (
+                _level_set(torch, kind, MAIN_ROWS, 2 * P, MAIN_NX,
+                           torch.float64, gen) for _ in range(3))]
+            g_ms = _graph_ms(torch, kernel, sets)
+            b_ms, _ = bound(kind, MAIN_ROWS * P, MAIN_NX, "float64")
+            sweep.append({"rows": MAIN_ROWS, "pairs_per_row": P,
+                          "graph_ms": g_ms, "bound_ms": b_ms})
+            say(f"[time] {kind} float64 level {MAIN_ROWS} x {P} pairs in "
+                f"place: {g_ms * 1e3:.2f} us per launch (graph), bound "
+                f"{b_ms * 1e3:.3f} us")
+        report[kind] = {"checks": checks, "timing": timing, "sweep": sweep}
     return report
 
 
 def phase_pack(torch) -> dict:
-    """Cost of packing one scan level's strided ``x[:, 0:-1:2]`` /
-    ``x[:, 1::2]`` slices into the contiguous ``[B*P]`` batch the kernels
-    read (the top filtering level of a width-64, n=512 bucket, f64)."""
+    """What packing one scan level's strided ``x[:, 0:-1:2]`` /
+    ``x[:, 1::2]`` slices into a contiguous ``[B*P]`` batch cost (the top
+    filtering level of a width-64, n=512 bucket, f64): the copies the scan
+    made before the kernels read levels in place, and no longer makes."""
     from repro_torch.core.types import FilteringElement
 
-    B, n, nx = 64, 512, MAIN_NX
+    B, n, nx = MAIN_ROWS, MAIN_T, MAIN_NX
     kw = dict(dtype=torch.float64, device="cuda")
     elems = FilteringElement(torch.randn(B, n, nx, nx, **kw),
                              torch.randn(B, n, nx, **kw),
@@ -357,8 +464,9 @@ def phase_pack(torch) -> dict:
                 x[:, sl].reshape((-1,) + x.shape[2:]).contiguous()
 
     ms = _time_ms(torch, pack, [(elems,)], iters=50)
-    say(f"[pack] strided level slices -> contiguous, filtering top level "
-        f"B=64 n=512 f64: {ms * 1e3:.2f} us per level")
+    say(f"[pack] strided level slices -> contiguous (no longer on the "
+        f"path), filtering top level B=64 n=512 f64: {ms * 1e3:.2f} us per "
+        "level")
     return {"filtering_top_level_ms": ms}
 
 
@@ -397,6 +505,7 @@ def _rmse(torch, mean, truth) -> float:
 def phase_main_path(torch) -> dict:
     import dataclasses
 
+    from repro_torch.core import scan as scan_lib
     from repro_torch.core.api import build_smoother
     from repro_torch.core.iterated import LANE_DIVERGED, _augment_lm
     from repro_torch.core.linearization import linearize_model_taylor_batched
@@ -408,6 +517,7 @@ def phase_main_path(torch) -> dict:
 
     cfg = SmootherServeConfig(requests=64, n=512, max_batch=64, f64=True)
     torch.cuda.synchronize()
+    copies = scan_lib.PACK_COPIES
     reset_counts()
     t0 = time.perf_counter()
     stats = serve_smoother(cfg, emit=say, device="cuda")
@@ -415,11 +525,14 @@ def phase_main_path(torch) -> dict:
     counts = read_counts()
     launches = {k: counts.pop(k) for k in kc.LAUNCHES}
     total_s = time.perf_counter() - t0
+    copies = scan_lib.PACK_COPIES - copies
     say(f"[main] serve_smoother: {total_s:.2f}s end to end incl. fleet "
         f"simulation; serve {stats['wall_s']:.3f}s, "
         f"{stats['traj_per_s']:.1f} traj/s, {stats['launches']} bucket "
         f"launches, {stats['mean_iterations']:.2f} mean iters; kernel "
-        f"launches {launches}")
+        f"launches {launches}; scan packing copies {copies}")
+    if copies:
+        fail(f"the service's scans made {copies} packing copies, expected 0")
     for kind, count in launches.items():
         if count == 0:
             fail(f"the main path launched no {kind} kernel")
@@ -506,7 +619,7 @@ def phase_main_path(torch) -> dict:
             "tracked_below_0.1": tracked, "plain_wall_s": plain["wall_s"],
             "warm_wall_s": warm["wall_s"],
             "warm_traj_per_s": warm["traj_per_s"],
-            "kernel_vs_plain_max_abs": worst,
+            "pack_copies": copies, "kernel_vs_plain_max_abs": worst,
             "parallel_vs_sequential_max_abs": seq_diff}
 
 
@@ -548,13 +661,23 @@ def phase_profile(torch) -> dict:
     (OUT / "profile_bucket.txt").write_text(
         ka.table(sort_by="self_device_time_total", row_limit=40) + "\n"
         + ka.table(sort_by="cpu_time_total", row_limit=40))
-    ours = {k: sum(e.self_device_time_total for e in kernels if k in e.key)
-            for k in ("filtering_combine_kernel", "smoothing_combine_kernel")}
+    ours, bounds = {}, {}
+    levels = [P for P in scan_level_pairs(512) if P]
+    for kind in ("filtering_combine", "smoothing_combine"):
+        evs = [e for e in kernels if f"{kind}_kernel" in e.key]
+        ours[kind] = sum(e.self_device_time_total for e in evs) / 1e3
+        scans = sum(e.count for e in evs) / len(levels)
+        bounds[kind] = scans * sum(bound(kind, 64 * P, MAIN_NX, "float64")[0]
+                                   for P in levels)
+    copies = sum(e.count for e in kernels
+                 if "at::native::elementwise_kernel<128, 2" in e.key)
     say(f"[profile] one 64 x 512 bucket launch: wall {wall * 1e3:.1f} ms "
         f"(unprofiled), device busy {busy_us / 1e3:.1f} ms in {launches} "
-        f"kernel launches, {ops} aten ops; combine kernels "
-        f"{ours['filtering_combine_kernel'] / 1e3:.2f} + "
-        f"{ours['smoothing_combine_kernel'] / 1e3:.2f} ms; device idle "
+        f"kernel launches ({copies} strided copies, "
+        f"elementwise_kernel<128, 2>), {ops} aten ops; combine kernels "
+        f"{ours['filtering_combine']:.3f} + {ours['smoothing_combine']:.3f} "
+        f"ms against summed bounds {bounds['filtering_combine']:.3f} + "
+        f"{bounds['smoothing_combine']:.3f} ms; device idle "
         f"{1 - busy_us / 1e6 / wall:.1%} of the unprofiled wall")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     say("[profile] top device time: " + "; ".join(
@@ -562,7 +685,8 @@ def phase_profile(torch) -> dict:
         for e in top))
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "kernel_launches": launches, "aten_ops": ops,
-            "combine_kernels_s": {k: v / 1e6 for k, v in ours.items()}}
+            "strided_copy_launches": copies,
+            "combine_kernels_ms": ours, "combine_bounds_ms": bounds}
 
 
 # ---------------------------------------------------------------------------
@@ -991,9 +1115,10 @@ def main() -> int:
         err = max(c["max_abs_err"] for c in kernels[kind]["checks"]
                   if c["dtype"] == "float64")
         rows.append({"launches": main_path["launches"][kind],
-                     "max_abs_err": err, "ms": t["ms"],
+                     "max_abs_err": err, "ms": t["in_place_graph_ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"], "library_ms": None})
+                     "bound_by": t["bound_by"], "library_ms": None,
+                     "packed_ms": t["graph_ms"], "event_ms": t["ms"]})
     for res in (ssm, flash):
         rows.append({k: res[k] for k in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

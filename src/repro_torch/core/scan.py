@@ -14,11 +14,14 @@ operator, and flips back — the JAX package's convention, so callers
 always write the combine in ``(earlier, later)`` form.
 
 Batching contract: element tuples may carry ``batch_dims`` leading batch
-axes before the time axis (``[B..., T, ...]``). A combine that takes one
-flat batch axis (the CUDA kernels) gets every level's ``[B..., P]`` pairs
-flattened into one contiguous ``[B*...*P]`` call — one launch per level
-for the whole fleet; combines that broadcast over leading axes (the plain
-versions) get the strided slices as they are.
+axes before the time axis (``[B..., T, ...]``). A combine that takes a
+grid of pairs (the CUDA kernels) gets every level's ``[B..., P]`` pairs
+as views of ``[L, P]`` pairs, ``L = prod(B...)``: the strided level slices
+themselves, with no packing copy — one launch per level for the whole
+fleet. Merging the batch axes into ``L`` is a view wherever their strides
+allow (every call of the smoother's scans); where they do not, the level
+is copied and the copy counted in `PACK_COPIES`. Combines that broadcast
+over leading axes (the plain versions) get the slices as they are.
 
 `linear_recurrence_scan` is the diagonal special case used by SSM layers;
 its "pallas" path runs the ssm_scan kernel instead of the recursion.
@@ -31,11 +34,16 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 
+#: Copies `_pair_grid_op` made because a level's leading batch axes did
+#: not merge into one view (none on the smoother's path).
+PACK_COPIES = 0
+
+
 def _batched_combine(combine: Callable, combine_impl: str
                      ) -> Tuple[Callable, bool]:
-    """Return ``(op, flat_only)``: the operator for ``combine`` under
-    ``combine_impl``, and whether it takes exactly one flat leading batch
-    axis (so the scan must flatten and pack each level's pairs)."""
+    """Return ``(op, on_pair_grid)``: the operator for ``combine`` under
+    ``combine_impl``, and whether it takes an ``[L, P]`` grid of pairs (so
+    the scan must merge each level's leading batch axes into ``L``)."""
     # Late import: the kernels' oracles depend on core.
     from repro_torch.kernels.kalman_combine import ops as kc_ops
 
@@ -49,16 +57,30 @@ def _batched_combine(combine: Callable, combine_impl: str
     raise ValueError(f"unknown combine_impl {combine_impl!r}")
 
 
-def _flattening_op(batched: Callable, nlead: int) -> Callable:
-    """Wrap a flat-batched operator so it accepts ``nlead`` leading axes:
-    each level's ``[B..., P, ...]`` pairs are packed into one contiguous
-    ``[B*...*P, ...]`` batch (a copy for strided slices) and restored."""
+def _as_pair_grid(x: torch.Tensor, nlead: int) -> torch.Tensor:
+    """``x [B..., P, ...]`` (``nlead`` leading axes, the last one the
+    pairs) as ``[L, P, ...]``: a view when the batch axes merge, else a
+    copy counted in `PACK_COPIES`."""
+    global PACK_COPIES
+    shape = ((math.prod(x.shape[:nlead - 1]), x.shape[nlead - 1])
+             + tuple(x.shape[nlead:]))
+    try:
+        return x.view(shape)
+    except RuntimeError:  # the batch axes' strides do not merge
+        PACK_COPIES += 1
+        return x.reshape(shape)
+
+
+def _pair_grid_op(batched: Callable, nlead: int) -> Callable:
+    """Wrap an operator on ``[L, P]`` pair grids so it accepts ``nlead``
+    leading axes: each level's ``[B..., P, ...]`` slices are handed over
+    as ``[L, P, ...]`` views (no packing) and the results restored."""
 
     def op(a, b):
         lead = a[0].shape[:nlead]
-        flat = lambda x: x.reshape((-1,) + x.shape[nlead:]).contiguous()  # noqa: E731
-        out = batched(type(a)(*map(flat, a)), type(b)(*map(flat, b)))
-        return type(out)(*(x.reshape(lead + x.shape[1:]) for x in out))
+        out = batched(type(a)(*(_as_pair_grid(x, nlead) for x in a)),
+                      type(b)(*(_as_pair_grid(x, nlead) for x in b)))
+        return type(out)(*(x.reshape(lead + x.shape[2:]) for x in out))
 
     return op
 
@@ -113,9 +135,9 @@ def associative_scan(combine: Callable, elems, *, reverse: bool = False,
         versions on CPU tensors).
       batch_dims: number of leading batch axes before the time axis.
     """
-    batched, flat_only = _batched_combine(combine, combine_impl)
-    if flat_only:
-        batched = _flattening_op(batched, batch_dims + 1)
+    batched, on_pair_grid = _batched_combine(combine, combine_impl)
+    if on_pair_grid:
+        batched = _pair_grid_op(batched, batch_dims + 1)
     axis = batch_dims
     if reverse:
         op = lambda later_agg, earlier: batched(earlier, later_agg)  # noqa: E731

@@ -1,5 +1,5 @@
 // Batched Kalman combine kernels for Hopper (sm_90a): paper Eq. 15 and
-// Eq. 19, one Blelloch scan level per launch.
+// Eq. 19, one Blelloch scan level per launch, read in place.
 //
 // Replaces: the Pallas TPU kernels of the JAX package,
 //   src/repro/kernels/kalman_combine/kalman_combine.py
@@ -9,305 +9,449 @@
 //
 // What bounds it: every element pair is read once and its result written
 // once, and the nx x nx algebra in between is a few thousand flops per pair
-// (about 3k for the filtering combine at nx = 5). At the main path's shapes
-// (B = 16,384 pairs, nx = 5, float64) that is 33 MB moved against 50 MFLOP,
-// so the combine is bound by memory bandwidth by a wide margin: the floor
-// is the HBM time of 2 element reads + 1 element write per pair.
+// (about 3k for the filtering combine at nx = 5). At the smoother's top
+// scan level (64 x 256 pairs, nx = 5, float64) that is 33 MB moved against
+// 50 MFLOP, so the combine is bound by memory bandwidth by a wide margin:
+// the floor is the HBM time of 2 element reads + 1 element write per pair
+// (9.98 us filtering, 6.46 us smoothing at 3.35 TB/s). The small levels
+// (64 to 2,048 pairs) are bound by latency: launch, one round trip to
+// memory and one pair's chain of dependent products.
 //
-// Design: one thread per element pair. The thread loads both elements
-// into local arrays once, runs the whole combine over the static NX
-// (template parameter, 1..16; loops fully unrolled up to NX = 8), and
-// stores each output value once, so no intermediate is written to device
-// memory. The four solves of Eq. 15 share
-// one no-pivot Gauss-Jordan inverse of W = I + J_j C_i (the spectrum of
-// I + PSD @ PSD lies right of 1), eliminated in exactly the order of the
-// JAX package's gauss_jordan_inverse; (I + C_i J_j)^{-1} is its transpose.
-// C, J (Eq. 15) and L (Eq. 19) are symmetrized before the store. At NX = 5
-// in float64 the pair's ~170 inputs plus the [NX, 2 NX] elimination array
-// exceed the 255-register budget, so the compiler spills to local memory
-// (L1-cached); staging a block's elements in shared memory is the next
-// step when this kernel is made fast.
+// Design:
+// * Pairs on a [L, P] grid, read in place. Each input field is described
+//   by a pointer, a lead stride and a pair stride (in elements); only the
+//   trailing nx or nx x nx block must be dense. A scan level's strided
+//   slices (x[:, 0:-1:2], x[:, 1::2], odd[:, :-1], ...) are read as they
+//   lie, so the scan makes no packing copies. Outputs are fresh contiguous
+//   [L, P, ...] tensors.
+// * One CTA per tile of up to 128 threads' worth of pairs within one row l.
+//   The tile's inputs are staged field by field into shared memory with
+//   cp.async, indexed linearly over (pair, value) so that neighbouring
+//   threads read neighbouring addresses, and every load of the tile is in
+//   flight before the first wait. Outputs go back the same way: each team
+//   writes its results over its own element-i slots, then the CTA stores
+//   the tile field by field, coalesced. Slices are only element-aligned
+//   (x[:, 1::2] at float64, nx = 5 starts 200 B apart), so copies are of
+//   one element each.
+// * A team of LANES = next_pow2(nx) threads per pair, lane r owning row r
+//   (lanes past nx shadow row nx - 1 and write nothing). A matrix product
+//   keeps the lane's own row in registers and reads the other operand from
+//   shared memory, where the whole team reads one address (a broadcast).
+//   The no-pivot Gauss-Jordan inverse of W = I + J_j C_i broadcasts the
+//   pivot row through __shfl_sync within the team, in exactly the
+//   elimination order of the JAX package's gauss_jordan_inverse; one
+//   inverse serves the four solves of Eq. 15 ((I + C_i J_j)^{-1} is its
+//   transpose). Symmetrizing C, J and L transposes through shared memory.
+//   Per-thread state is O(nx) values, so nothing spills, and at the top
+//   level 8x as many threads are in flight as with one thread per pair.
+// * The tile size per (dtype, nx) instance comes from a 48 KB shared-memory
+//   budget (two elements plus scratch per pair), in whole warps of teams.
 //
 // C interface (loaded with ctypes): each entry point takes the dtype code
-// (0 = float32, 1 = float64), nx, the pair count B, the input pointers of
-// element i then element j, the output pointers, and the CUDA stream; it
-// launches on that stream and returns cudaGetLastError().
+// (0 = float32, 1 = float64), nx, L, P, the input pointers (element i's
+// fields, then element j's), their lead and pair strides, the output
+// pointers and the CUDA stream; it launches on that stream and returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace kc {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 128;
+constexpr int kSmemBudget = 48 * 1024;
+constexpr unsigned kFullMask = 0xffffffffu;
 
-// Loops are fully unrolled (all indices static, the pair's algebra in
-// registers) up to this nx; larger instances keep their loops rolled and
-// their arrays in local memory: fully unrolled instances up to nx = 16 did
-// not finish building in 20 minutes. The main path runs nx = 5. (Pragma
-// arguments are not macro-expanded, hence a constant, not a macro.)
-constexpr int kMaxUnrolledNX = 8;
-
-template <typename T, int N>
-__device__ __forceinline__ void load_mat(T (&m)[N][N], const T* __restrict__ p) {
-#pragma unroll (N <= kMaxUnrolledNX ? 32 : 1)
-  for (int r = 0; r < N; ++r)
-#pragma unroll (N <= kMaxUnrolledNX ? 32 : 1)
-    for (int c = 0; c < N; ++c) m[r][c] = p[r * N + c];
+__host__ __device__ constexpr int lanes_for(int nx) {
+  return nx <= 1 ? 1 : nx <= 2 ? 2 : nx <= 4 ? 4 : nx <= 8 ? 8 : 16;
 }
 
-template <typename T, int N>
-__device__ __forceinline__ void load_vec(T (&v)[N], const T* __restrict__ p) {
-#pragma unroll (N <= kMaxUnrolledNX ? 32 : 1)
-  for (int r = 0; r < N; ++r) v[r] = p[r];
+// Shared-memory regions of a tile, each [pairs][size] values. Filtering:
+// element i (A, b, C, eta, J), element j (the same), then scratch W^{-1}
+// and ZJ (0), JA and Jn (1), Cn (2) and three nx-vectors.
+__host__ __device__ constexpr int filtering_size(int region, int nx) {
+  return (region == 1 || region == 3 || region == 6 || region == 8 ||
+          region >= 13) ? nx : nx * nx;
+}
+constexpr int kFilteringRegions = 16;
+
+// Smoothing: element i (E, g, L), element j (the same), then scratch Ln.
+__host__ __device__ constexpr int smoothing_size(int region, int nx) {
+  return (region == 1 || region == 4) ? nx : nx * nx;
+}
+constexpr int kSmoothingRegions = 7;
+
+template <bool FILTERING>
+__host__ __device__ constexpr int region_size(int region, int nx) {
+  return FILTERING ? filtering_size(region, nx) : smoothing_size(region, nx);
 }
 
-// out = 0.5 * (M + M^T), stored row-major.
-template <typename T, int N>
-__device__ __forceinline__ void store_sym(T* __restrict__ p, const T (&m)[N][N]) {
-#pragma unroll (N <= kMaxUnrolledNX ? 32 : 1)
-  for (int r = 0; r < N; ++r)
-#pragma unroll (N <= kMaxUnrolledNX ? 32 : 1)
-    for (int c = 0; c < N; ++c) p[r * N + c] = T(0.5) * (m[r][c] + m[c][r]);
+template <bool FILTERING>
+__host__ __device__ constexpr int region_offset(int region, int nx) {
+  int off = 0;
+  for (int i = 0; i < region; ++i) off += region_size<FILTERING>(i, nx);
+  return off;
 }
+
+template <typename T, int NX, bool FILTERING>
+struct Tile {
+  static constexpr int kLanes = lanes_for(NX);
+  static constexpr int kTeamsPerWarp = 32 / kLanes;
+  static constexpr int kValuesPerPair = region_offset<FILTERING>(
+      FILTERING ? kFilteringRegions : kSmoothingRegions, NX);
+  static constexpr int kBySmem =
+      kSmemBudget / (kValuesPerPair * static_cast<int>(sizeof(T)));
+  static constexpr int kByThreads = kMaxThreads / kLanes;
+  static constexpr int kFit = kBySmem < kByThreads ? kBySmem : kByThreads;
+  // Whole warps of teams.
+  static constexpr int kPairs = kFit / kTeamsPerWarp * kTeamsPerWarp;
+  static constexpr int kThreads = kPairs * kLanes;
+  static constexpr int kSmemValues = kPairs * kValuesPerPair;
+  static_assert(kPairs >= kTeamsPerWarp, "a warp of pairs must fit");
+
+  // This team's slot of a region.
+  template <int REGION>
+  static __device__ __forceinline__ T* slot(T* smem, int team) {
+    return smem + region_offset<FILTERING>(REGION, NX) * kPairs +
+           team * region_size<FILTERING>(REGION, NX);
+  }
+};
+
+// Pointers and strides (in elements) of the fields of one launch.
+template <int NIN, int NOUT>
+struct Fields {
+  const void* in[NIN];
+  long long lead[NIN];
+  long long pair[NIN];
+  void* out[NOUT];
+  long long P;      // pairs per row
+  long long tiles;  // CTAs per row
+};
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(static_cast<int>(sizeof(T))));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Copy region REGION of the tile's np pairs (field REGION of the launch,
+// a dense SIZE-value block per pair at stride `pair`) into shared memory,
+// linearly over (pair, value).
+template <typename T, typename TILE, int SIZE, int REGION, typename F>
+__device__ __forceinline__ void stage_in(T* smem, const F& f, long long l,
+                                         long long p0, int np) {
+  T* dst = TILE::template slot<REGION>(smem, 0);
+  const T* src = static_cast<const T*>(f.in[REGION]) + l * f.lead[REGION] +
+                 p0 * f.pair[REGION];
+  const long long pair = f.pair[REGION];
+  for (int i = threadIdx.x; i < np * SIZE; i += TILE::kThreads) {
+    const int q = i / SIZE;
+    cp_async(dst + i, src + q * pair + (i - q * SIZE));
+  }
+}
+
+// Store region REGION (element i's slots, now holding the results) to
+// output OUT, a contiguous [L, P, SIZE] tensor.
+template <typename T, typename TILE, int SIZE, int REGION, int OUT,
+          typename F>
+__device__ __forceinline__ void store_out(T* smem, const F& f, long long l,
+                                          long long p0, int np) {
+  const T* src = TILE::template slot<REGION>(smem, 0);
+  T* dst = static_cast<T*>(f.out[OUT]) + (l * f.P + p0) * SIZE;
+  for (int i = threadIdx.x; i < np * SIZE; i += TILE::kThreads)
+    dst[i] = src[i];
+}
+
+// ---------------------------------------------------------------------------
+// Eq. 15
+// ---------------------------------------------------------------------------
 
 template <typename T, int NX>
-__global__ void __launch_bounds__(kThreads) filtering_combine_kernel(
-    int64_t B,
-    const T* __restrict__ gAi, const T* __restrict__ gbi,
-    const T* __restrict__ gCi, const T* __restrict__ gei,
-    const T* __restrict__ gJi,
-    const T* __restrict__ gAj, const T* __restrict__ gbj,
-    const T* __restrict__ gCj, const T* __restrict__ gej,
-    const T* __restrict__ gJj,
-    T* __restrict__ oA, T* __restrict__ ob, T* __restrict__ oC,
-    T* __restrict__ oe, T* __restrict__ oJ) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= B) return;
-  const int64_t mo = p * NX * NX;
-  const int64_t vo = p * NX;
+__global__ void __launch_bounds__((Tile<T, NX, true>::kThreads))
+filtering_combine_kernel(const Fields<10, 5> f) {
+  using TL = Tile<T, NX, true>;
+  constexpr int M = NX * NX, V = NX, L = TL::kLanes;
+  __shared__ __align__(16) T smem[TL::kSmemValues];
 
-  T Ai[NX][NX], Ci[NX][NX], Ji[NX][NX], Aj[NX][NX], Cj[NX][NX], Jj[NX][NX];
-  T bi[NX], ei[NX], bj[NX], ej[NX];
-  load_mat(Ai, gAi + mo); load_vec(bi, gbi + vo); load_mat(Ci, gCi + mo);
-  load_vec(ei, gei + vo); load_mat(Ji, gJi + mo);
-  load_mat(Aj, gAj + mo); load_vec(bj, gbj + vo); load_mat(Cj, gCj + mo);
-  load_vec(ej, gej + vo); load_mat(Jj, gJj + mo);
+  const long long l = blockIdx.x / f.tiles;
+  const long long p0 = (blockIdx.x - l * f.tiles) * TL::kPairs;
+  const int np = static_cast<int>(
+      f.P - p0 < TL::kPairs ? f.P - p0 : TL::kPairs);
 
-  // aug = [W | I] with W = I + J_j C_i.
-  T aug[NX][2 * NX];
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-  for (int r = 0; r < NX; ++r) {
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int c = 0; c < NX; ++c) {
-      T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int k = 0; k < NX; ++k) s += Jj[r][k] * Ci[k][c];
-      aug[r][c] = (r == c ? T(1) : T(0)) + s;
-      aug[r][NX + c] = (r == c ? T(1) : T(0));
-    }
+  stage_in<T, TL, M, 0>(smem, f, l, p0, np);
+  stage_in<T, TL, V, 1>(smem, f, l, p0, np);
+  stage_in<T, TL, M, 2>(smem, f, l, p0, np);
+  stage_in<T, TL, V, 3>(smem, f, l, p0, np);
+  stage_in<T, TL, M, 4>(smem, f, l, p0, np);
+  stage_in<T, TL, M, 5>(smem, f, l, p0, np);
+  stage_in<T, TL, V, 6>(smem, f, l, p0, np);
+  stage_in<T, TL, M, 7>(smem, f, l, p0, np);
+  stage_in<T, TL, V, 8>(smem, f, l, p0, np);
+  stage_in<T, TL, M, 9>(smem, f, l, p0, np);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int team = threadIdx.x / L;
+  const int lane = threadIdx.x % L;
+  const bool owner = lane < NX;
+  const int r = owner ? lane : NX - 1;
+  T* Ai = TL::template slot<0>(smem, team);
+  T* bi = TL::template slot<1>(smem, team);
+  T* Ci = TL::template slot<2>(smem, team);
+  T* ei = TL::template slot<3>(smem, team);
+  T* Ji = TL::template slot<4>(smem, team);
+  const T* Aj = TL::template slot<5>(smem, team);
+  const T* bj = TL::template slot<6>(smem, team);
+  const T* Cj = TL::template slot<7>(smem, team);
+  const T* ej = TL::template slot<8>(smem, team);
+  const T* Jj = TL::template slot<9>(smem, team);
+  T* sW = TL::template slot<10>(smem, team);   // W^{-1}, then ZJ
+  T* sM = TL::template slot<11>(smem, team);   // JA, then Jn
+  T* sCn = TL::template slot<12>(smem, team);
+  T* v1 = TL::template slot<13>(smem, team);
+  T* v2 = TL::template slot<14>(smem, team);
+  T* v3 = TL::template slot<15>(smem, team);
+
+  // Row r of aug = [W | I], W = I + J_j C_i.
+  T a[2 * NX];
+#pragma unroll
+  for (int c = 0; c < NX; ++c) {
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += Jj[r * NX + k] * Ci[k * NX + c];
+    a[c] = (r == c ? T(1) : T(0)) + s;
+    a[NX + c] = (r == c ? T(1) : T(0));
   }
-  // No-pivot Gauss-Jordan, same order as repro.core.types.gauss_jordan_inverse.
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
+  // No-pivot Gauss-Jordan, same order as repro.core.types.gauss_jordan_inverse:
+  // lane k's row, divided by its pivot, is broadcast within the team.
+#pragma unroll
   for (int k = 0; k < NX; ++k) {
-    T piv[2 * NX];
-    const T d = aug[k][k];
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int c = 0; c < 2 * NX; ++c) piv[c] = aug[k][c] / d;
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int r = 0; r < NX; ++r) {
-      if (r == k) continue;
-      const T f = aug[r][k];
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int c = 0; c < 2 * NX; ++c) aug[r][c] = aug[r][c] - f * piv[c];
+    const T d = __shfl_sync(kFullMask, a[k], k, L);
+    const T fk = a[k];
+#pragma unroll
+    for (int c = 0; c < 2 * NX; ++c) {
+      const T piv = __shfl_sync(kFullMask, a[c], k, L) / d;
+      a[c] = r == k ? piv : a[c] - fk * piv;
     }
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int c = 0; c < 2 * NX; ++c) aug[k][c] = piv[c];
   }
-  // Winv = aug[:, NX:];  X = A_j Winv^T = A_j (I + C_i J_j)^{-1}.
-  T X[NX][NX];
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-  for (int r = 0; r < NX; ++r)
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int c = 0; c < NX; ++c) {
-      T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int k = 0; k < NX; ++k) s += Aj[r][k] * aug[c][NX + k];
-      X[r][c] = s;
-    }
+  T w[NX];  // row r of W^{-1}
+#pragma unroll
+  for (int c = 0; c < NX; ++c) w[c] = a[NX + c];
+  if (owner) {
+#pragma unroll
+    for (int c = 0; c < NX; ++c) sW[r * NX + c] = w[c];
+  }
+  __syncwarp();
 
+  // X = A_j W^{-T} = A_j (I + C_i J_j)^{-1}, row r.
+  T x[NX];
+#pragma unroll
+  for (int c = 0; c < NX; ++c) {
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += Aj[r * NX + k] * sW[c * NX + k];
+    x[c] = s;
+  }
   // A = X A_i
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-  for (int r = 0; r < NX; ++r)
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
+  T oA[NX];
+#pragma unroll
+  for (int c = 0; c < NX; ++c) {
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += x[k] * Ai[k * NX + c];
+    oA[c] = s;
+  }
+  // b = X (b_i + C_i eta_j) + b_j
+  {
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += Ci[r * NX + k] * ej[k];
+    if (owner) v1[r] = bi[r] + s;
+  }
+  __syncwarp();
+  T ob;
+  {
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += x[k] * v1[k];
+    ob = s + bj[r];
+  }
+  // Cn = X C_i A_j^T + C_j, row r.
+  {
+    T xc[NX];
+#pragma unroll
     for (int c = 0; c < NX; ++c) {
       T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int k = 0; k < NX; ++k) s += X[r][k] * Ai[k][c];
-      oA[mo + r * NX + c] = s;
+#pragma unroll
+      for (int k = 0; k < NX; ++k) s += x[k] * Ci[k * NX + c];
+      xc[c] = s;
     }
-
-  // b = X (b_i + C_i eta_j) + b_j
-  T t[NX];
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-  for (int k = 0; k < NX; ++k) {
+#pragma unroll
+    for (int c = 0; c < NX; ++c) {
+      T s = T(0);
+#pragma unroll
+      for (int k = 0; k < NX; ++k) s += xc[k] * Aj[c * NX + k];
+      if (owner) sCn[r * NX + c] = s + Cj[r * NX + c];
+    }
+  }
+  // eta = A_i^T W^{-1} (eta_j - J_j b_i) + eta_i
+  {
     T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int l = 0; l < NX; ++l) s += Ci[k][l] * ej[l];
-    t[k] = bi[k] + s;
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += Jj[r * NX + k] * bi[k];
+    if (owner) v2[r] = ej[r] - s;
   }
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-  for (int r = 0; r < NX; ++r) {
+  __syncwarp();
+  {
     T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int k = 0; k < NX; ++k) s += X[r][k] * t[k];
-    ob[vo + r] = s + bj[r];
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += w[k] * v2[k];
+    if (owner) v3[r] = s;
   }
-
-  // C = sym(X C_i A_j^T + C_j)
+  __syncwarp();
+  T oe;
   {
-    T XC[NX][NX], Cn[NX][NX];
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int r = 0; r < NX; ++r)
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int c = 0; c < NX; ++c) {
-        T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-        for (int k = 0; k < NX; ++k) s += X[r][k] * Ci[k][c];
-        XC[r][c] = s;
-      }
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int r = 0; r < NX; ++r)
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int c = 0; c < NX; ++c) {
-        T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-        for (int k = 0; k < NX; ++k) s += XC[r][k] * Aj[c][k];
-        Cn[r][c] = s + Cj[r][c];
-      }
-    store_sym(oC + mo, Cn);
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += Ai[k * NX + r] * v3[k];
+    oe = s + ei[r];
   }
+  // Jn = A_i^T (W^{-1} (J_j A_i)) + J_i, row r.
+#pragma unroll
+  for (int c = 0; c < NX; ++c) {
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += Jj[r * NX + k] * Ai[k * NX + c];
+    if (owner) sM[r * NX + c] = s;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < NX; ++c) {
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += w[k] * sM[k * NX + c];
+    if (owner) sW[r * NX + c] = s;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < NX; ++c) {
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += Ai[k * NX + r] * sW[k * NX + c];
+    if (owner) sM[r * NX + c] = s + Ji[r * NX + c];
+  }
+  __syncwarp();
 
-  // eta = A_i^T Winv (eta_j - J_j b_i) + eta_i
-  {
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int k = 0; k < NX; ++k) {
-      T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int l = 0; l < NX; ++l) s += Jj[k][l] * bi[l];
-      t[k] = ej[k] - s;
+  // Every read of element i's slots is done: write the results over them,
+  // C and J symmetrized through the transposes in shared memory.
+  if (owner) {
+#pragma unroll
+    for (int c = 0; c < NX; ++c) {
+      Ai[r * NX + c] = oA[c];
+      Ci[r * NX + c] = T(0.5) * (sCn[r * NX + c] + sCn[c * NX + r]);
+      Ji[r * NX + c] = T(0.5) * (sM[r * NX + c] + sM[c * NX + r]);
     }
-    T z[NX];
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int r = 0; r < NX; ++r) {
-      T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int k = 0; k < NX; ++k) s += aug[r][NX + k] * t[k];
-      z[r] = s;
-    }
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int r = 0; r < NX; ++r) {
-      T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int k = 0; k < NX; ++k) s += Ai[k][r] * z[k];
-      oe[vo + r] = s + ei[r];
-    }
+    bi[r] = ob;
+    ei[r] = oe;
   }
-
-  // J = sym(A_i^T Winv (J_j A_i) + J_i)
-  {
-    T JA[NX][NX], ZJ[NX][NX], Jn[NX][NX];
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int r = 0; r < NX; ++r)
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int c = 0; c < NX; ++c) {
-        T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-        for (int k = 0; k < NX; ++k) s += Jj[r][k] * Ai[k][c];
-        JA[r][c] = s;
-      }
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int r = 0; r < NX; ++r)
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int c = 0; c < NX; ++c) {
-        T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-        for (int k = 0; k < NX; ++k) s += aug[r][NX + k] * JA[k][c];
-        ZJ[r][c] = s;
-      }
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int r = 0; r < NX; ++r)
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int c = 0; c < NX; ++c) {
-        T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-        for (int k = 0; k < NX; ++k) s += Ai[k][r] * ZJ[k][c];
-        Jn[r][c] = s + Ji[r][c];
-      }
-    store_sym(oJ + mo, Jn);
-  }
+  __syncthreads();
+  store_out<T, TL, M, 0, 0>(smem, f, l, p0, np);
+  store_out<T, TL, V, 1, 1>(smem, f, l, p0, np);
+  store_out<T, TL, M, 2, 2>(smem, f, l, p0, np);
+  store_out<T, TL, V, 3, 3>(smem, f, l, p0, np);
+  store_out<T, TL, M, 4, 4>(smem, f, l, p0, np);
 }
+
+// ---------------------------------------------------------------------------
+// Eq. 19
+// ---------------------------------------------------------------------------
 
 template <typename T, int NX>
-__global__ void __launch_bounds__(kThreads) smoothing_combine_kernel(
-    int64_t B,
-    const T* __restrict__ gEi, const T* __restrict__ ggi,
-    const T* __restrict__ gLi,
-    const T* __restrict__ gEj, const T* __restrict__ ggj,
-    const T* __restrict__ gLj,
-    T* __restrict__ oE, T* __restrict__ og, T* __restrict__ oL) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= B) return;
-  const int64_t mo = p * NX * NX;
-  const int64_t vo = p * NX;
+__global__ void __launch_bounds__((Tile<T, NX, false>::kThreads))
+smoothing_combine_kernel(const Fields<6, 3> f) {
+  using TL = Tile<T, NX, false>;
+  constexpr int M = NX * NX, V = NX, L = TL::kLanes;
+  __shared__ __align__(16) T smem[TL::kSmemValues];
 
-  T Ei[NX][NX], Li[NX][NX], Ej[NX][NX], Lj[NX][NX];
-  T gi[NX], gj[NX];
-  load_mat(Ei, gEi + mo); load_vec(gi, ggi + vo); load_mat(Li, gLi + mo);
-  load_mat(Ej, gEj + mo); load_vec(gj, ggj + vo); load_mat(Lj, gLj + mo);
+  const long long l = blockIdx.x / f.tiles;
+  const long long p0 = (blockIdx.x - l * f.tiles) * TL::kPairs;
+  const int np = static_cast<int>(
+      f.P - p0 < TL::kPairs ? f.P - p0 : TL::kPairs);
 
-  // E = E_i E_j
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-  for (int r = 0; r < NX; ++r)
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int c = 0; c < NX; ++c) {
-      T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int k = 0; k < NX; ++k) s += Ei[r][k] * Ej[k][c];
-      oE[mo + r * NX + c] = s;
-    }
-  // g = E_i g_j + g_i
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-  for (int r = 0; r < NX; ++r) {
+  stage_in<T, TL, M, 0>(smem, f, l, p0, np);
+  stage_in<T, TL, V, 1>(smem, f, l, p0, np);
+  stage_in<T, TL, M, 2>(smem, f, l, p0, np);
+  stage_in<T, TL, M, 3>(smem, f, l, p0, np);
+  stage_in<T, TL, V, 4>(smem, f, l, p0, np);
+  stage_in<T, TL, M, 5>(smem, f, l, p0, np);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int team = threadIdx.x / L;
+  const int lane = threadIdx.x % L;
+  const bool owner = lane < NX;
+  const int r = owner ? lane : NX - 1;
+  T* Ei = TL::template slot<0>(smem, team);
+  T* gi = TL::template slot<1>(smem, team);
+  T* Li = TL::template slot<2>(smem, team);
+  const T* Ej = TL::template slot<3>(smem, team);
+  const T* gj = TL::template slot<4>(smem, team);
+  const T* Lj = TL::template slot<5>(smem, team);
+  T* sL = TL::template slot<6>(smem, team);
+
+  // E = E_i E_j, g = E_i g_j + g_i, row r.
+  T oE[NX];
+#pragma unroll
+  for (int c = 0; c < NX; ++c) {
     T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-    for (int k = 0; k < NX; ++k) s += Ei[r][k] * gj[k];
-    og[vo + r] = s + gi[r];
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += Ei[r * NX + k] * Ej[k * NX + c];
+    oE[c] = s;
   }
-  // L = sym(E_i L_j E_i^T + L_i)
-  T EL[NX][NX], Ln[NX][NX];
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-  for (int r = 0; r < NX; ++r)
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
+  T og;
+  {
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += Ei[r * NX + k] * gj[k];
+    og = s + gi[r];
+  }
+  // Ln = E_i L_j E_i^T + L_i, row r.
+  {
+    T el[NX];
+#pragma unroll
     for (int c = 0; c < NX; ++c) {
       T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int k = 0; k < NX; ++k) s += Ei[r][k] * Lj[k][c];
-      EL[r][c] = s;
+#pragma unroll
+      for (int k = 0; k < NX; ++k) s += Ei[r * NX + k] * Lj[k * NX + c];
+      el[c] = s;
     }
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-  for (int r = 0; r < NX; ++r)
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
+#pragma unroll
     for (int c = 0; c < NX; ++c) {
       T s = T(0);
-#pragma unroll (NX <= kMaxUnrolledNX ? 32 : 1)
-      for (int k = 0; k < NX; ++k) s += EL[r][k] * Ei[c][k];
-      Ln[r][c] = s + Li[r][c];
+#pragma unroll
+      for (int k = 0; k < NX; ++k) s += el[k] * Ei[c * NX + k];
+      if (owner) sL[r * NX + c] = s + Li[r * NX + c];
     }
-  store_sym(oL + mo, Ln);
-}
+  }
+  __syncwarp();
 
-inline unsigned int blocks_for(int64_t B) {
-  return static_cast<unsigned int>((B + kThreads - 1) / kThreads);
+  if (owner) {
+#pragma unroll
+    for (int c = 0; c < NX; ++c) {
+      Ei[r * NX + c] = oE[c];
+      Li[r * NX + c] = T(0.5) * (sL[r * NX + c] + sL[c * NX + r]);
+    }
+    gi[r] = og;
+  }
+  __syncthreads();
+  store_out<T, TL, M, 0, 0>(smem, f, l, p0, np);
+  store_out<T, TL, V, 1, 1>(smem, f, l, p0, np);
+  store_out<T, TL, M, 2, 2>(smem, f, l, p0, np);
 }
 
 }  // namespace kc
@@ -318,25 +462,40 @@ inline unsigned int blocks_for(int64_t B) {
 // [a, b] (and only their kernels), and the part built with
 // -DKC_ENTRY_POINTS holds the C interface, which dispatches to all of them.
 // Without these flags one translation unit holds everything.
-template <typename T, int NX>
-int kc_launch_filtering(int64_t B, const void* const* in, void* const* out,
-                        cudaStream_t s) {
-  const T* const* i = reinterpret_cast<const T* const*>(in);
-  T* const* o = reinterpret_cast<T* const*>(out);
-  kc::filtering_combine_kernel<T, NX><<<kc::blocks_for(B), kc::kThreads, 0, s>>>(
-      B, i[0], i[1], i[2], i[3], i[4], i[5], i[6], i[7], i[8], i[9], o[0],
-      o[1], o[2], o[3], o[4]);
+template <typename T, int NX, bool FILTERING, int NIN, int NOUT>
+int kc_launch(void (*kernel)(const kc::Fields<NIN, NOUT>), long long L,
+              long long P, const void* const* in, const long long* lead,
+              const long long* pair, void* const* out, cudaStream_t s) {
+  using TL = kc::Tile<T, NX, FILTERING>;
+  kc::Fields<NIN, NOUT> f;
+  for (int i = 0; i < NIN; ++i) {
+    f.in[i] = in[i];
+    f.lead[i] = lead[i];
+    f.pair[i] = pair[i];
+  }
+  for (int o = 0; o < NOUT; ++o) f.out[o] = out[o];
+  f.P = P;
+  f.tiles = (P + TL::kPairs - 1) / TL::kPairs;
+  const long long blocks = L * f.tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), TL::kThreads, 0, s>>>(f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int NX>
-int kc_launch_smoothing(int64_t B, const void* const* in, void* const* out,
-                        cudaStream_t s) {
-  const T* const* i = reinterpret_cast<const T* const*>(in);
-  T* const* o = reinterpret_cast<T* const*>(out);
-  kc::smoothing_combine_kernel<T, NX><<<kc::blocks_for(B), kc::kThreads, 0, s>>>(
-      B, i[0], i[1], i[2], i[3], i[4], i[5], o[0], o[1], o[2]);
-  return static_cast<int>(cudaGetLastError());
+int kc_launch_filtering(long long L, long long P, const void* const* in,
+                        const long long* lead, const long long* pair,
+                        void* const* out, cudaStream_t s) {
+  return kc_launch<T, NX, true>(kc::filtering_combine_kernel<T, NX>, L, P,
+                                in, lead, pair, out, s);
+}
+
+template <typename T, int NX>
+int kc_launch_smoothing(long long L, long long P, const void* const* in,
+                        const long long* lead, const long long* pair,
+                        void* const* out, cudaStream_t s) {
+  return kc_launch<T, NX, false>(kc::smoothing_combine_kernel<T, NX>, L, P,
+                                 in, lead, pair, out, s);
 }
 
 #ifndef KC_NX_FIRST
@@ -346,7 +505,9 @@ int kc_launch_smoothing(int64_t B, const void* const* in, void* const* out,
 #endif
 #define KC_OWNS(N) (KC_NX_FIRST <= (N) && (N) <= KC_NX_LAST)
 
-#define KC_SIG int64_t, const void* const*, void* const*, cudaStream_t
+#define KC_SIG                                                                \
+  long long, long long, const void* const*, const long long*,                 \
+      const long long*, void* const*, cudaStream_t
 #define KC_INSTANTIATE(N)                                                     \
   template int kc_launch_filtering<float, N>(KC_SIG);                         \
   template int kc_launch_filtering<double, N>(KC_SIG);                        \
@@ -451,10 +612,11 @@ namespace {
   KC_CASE(LAUNCH, 16)
 #define KC_CASE(LAUNCH, N) \
   case N:                  \
-    return LAUNCH<T, N>(B, in, out, s);
+    return LAUNCH<T, N>(L, P, in, lead, pair, out, s);
 
 template <typename T>
-int dispatch_filtering(int nx, int64_t B, const void* const* in,
+int dispatch_filtering(int nx, long long L, long long P, const void* const* in,
+                       const long long* lead, const long long* pair,
                        void* const* out, cudaStream_t s) {
   switch (nx) {
     KC_CASES(kc_launch_filtering)
@@ -464,7 +626,8 @@ int dispatch_filtering(int nx, int64_t B, const void* const* in,
 }
 
 template <typename T>
-int dispatch_smoothing(int nx, int64_t B, const void* const* in,
+int dispatch_smoothing(int nx, long long L, long long P, const void* const* in,
+                       const long long* lead, const long long* pair,
                        void* const* out, cudaStream_t s) {
   switch (nx) {
     KC_CASES(kc_launch_smoothing)
@@ -479,32 +642,32 @@ int dispatch_smoothing(int nx, int64_t B, const void* const* in,
 
 extern "C" {
 
-int kc_filtering_combine(int dtype, int nx, long long B,
-                         const void* Ai, const void* bi, const void* Ci,
-                         const void* ei, const void* Ji,
-                         const void* Aj, const void* bj, const void* Cj,
-                         const void* ej, const void* Jj,
-                         void* Ao, void* bo, void* Co, void* eo, void* Jo,
+// in: A_i, b_i, C_i, eta_i, J_i, A_j, b_j, C_j, eta_j, J_j; out: A, b, C,
+// eta, J. lead[f] / pair[f]: strides of field f over the [L, P] grid.
+int kc_filtering_combine(int dtype, int nx, long long L, long long P,
+                         const void* const* in, const long long* lead,
+                         const long long* pair, void* const* out,
                          void* stream) {
-  if (B <= 0) return static_cast<int>(cudaSuccess);
-  const void* in[10] = {Ai, bi, Ci, ei, Ji, Aj, bj, Cj, ej, Jj};
-  void* out[5] = {Ao, bo, Co, eo, Jo};
+  if (L <= 0 || P <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_filtering<float>(nx, B, in, out, s);
-  if (dtype == 1) return dispatch_filtering<double>(nx, B, in, out, s);
+  if (dtype == 0)
+    return dispatch_filtering<float>(nx, L, P, in, lead, pair, out, s);
+  if (dtype == 1)
+    return dispatch_filtering<double>(nx, L, P, in, lead, pair, out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int kc_smoothing_combine(int dtype, int nx, long long B,
-                         const void* Ei, const void* gi, const void* Li,
-                         const void* Ej, const void* gj, const void* Lj,
-                         void* Eo, void* go, void* Lo, void* stream) {
-  if (B <= 0) return static_cast<int>(cudaSuccess);
-  const void* in[6] = {Ei, gi, Li, Ej, gj, Lj};
-  void* out[3] = {Eo, go, Lo};
+// in: E_i, g_i, L_i, E_j, g_j, L_j; out: E, g, L.
+int kc_smoothing_combine(int dtype, int nx, long long L, long long P,
+                         const void* const* in, const long long* lead,
+                         const long long* pair, void* const* out,
+                         void* stream) {
+  if (L <= 0 || P <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_smoothing<float>(nx, B, in, out, s);
-  if (dtype == 1) return dispatch_smoothing<double>(nx, B, in, out, s);
+  if (dtype == 0)
+    return dispatch_smoothing<float>(nx, L, P, in, lead, pair, out, s);
+  if (dtype == 1)
+    return dispatch_smoothing<double>(nx, L, P, in, lead, pair, out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -4,9 +4,9 @@ kernels for Hopper and their plain PyTorch versions.
 The kernels (``src/repro_torch/csrc/kalman_combine.cu``) replace the Pallas
 TPU kernels ``filtering_combine_batched`` / ``smoothing_combine_batched``
 of ``repro/kernels/kalman_combine/kalman_combine.py``. One Blelloch level
-of the parallel smoother applies the combine to ``B x P`` element pairs;
+of the parallel smoother applies the combine to ``L x P`` element pairs;
 written as tensor ops the filtering combine is ~15 separate batched ops,
-each round-tripping ``[B, nx, nx]`` arrays through device memory, while
+each round-tripping ``[L, P, nx, nx]`` arrays through device memory, while
 the kernel reads each pair once, keeps the nx x nx algebra on-chip and
 writes the result once (see the source note in the ``.cu`` file).
 
@@ -16,14 +16,18 @@ solve sites of Eq. 15), broadcasting over any leading batch shape. They
 serve the CPU, ``backend="jnp"``, and the on-card reference.
 
 ``filtering_combine_cuda`` / ``smoothing_combine_cuda`` are the kernel
-wrappers over one flat leading batch axis. A CPU tensor takes the plain
+wrappers. Batching contract: each field is a view of ``[L, P]`` pairs
+(``[L, P, nx(, nx)]``, or ``[P, ...]`` as one row) with any strides over
+the pair grid and a dense trailing block, so a scan level's slices are
+read in place, with no packing copy. A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises — never a fallback.
 Each launch adds one to the kernel's entry in ``LAUNCHES``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import math
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -38,12 +42,16 @@ MAX_NX = 16
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 #: ``nvcc`` parts of ``csrc/kalman_combine.cu``, compiled at the same time:
-#: the unrolled instances (nx <= 8) by cost, the rolled ones in two
-#: groups, and the C entry points on their own.
+#: the instances by nx in groups of about equal cost (a lane's code grows
+#: as nx^2), and the C entry points on their own.
 BUILD_PARTS = tuple(
     (f"-DKC_NX_FIRST={a}", f"-DKC_NX_LAST={b}")
-    for a, b in ((1, 4), (5, 5), (6, 6), (7, 7), (8, 8), (9, 12), (13, 16))
+    for a, b in ((1, 6), (7, 9), (10, 11), (12, 13), (14, 14), (15, 15),
+                 (16, 16))
 ) + (("-DKC_NX_FIRST=0", "-DKC_NX_LAST=0", "-DKC_ENTRY_POINTS"),)
+#: Trailing axes of each field of one element (2: matrix, 1: vector).
+_FILTERING_BLOCKS = (2, 1, 2, 1, 2)
+_SMOOTHING_BLOCKS = (2, 1, 2)
 
 
 def reset_launch_counts() -> None:
@@ -111,78 +119,106 @@ def _library():
     built = build("kalman_combine", BUILD_PARTS)
     lib = built.lib
     if not getattr(lib, "_kc_bound", False):
-        ptr = ctypes.c_void_p
-        lib.kc_filtering_combine.argtypes = (
-            [ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [ptr] * 16)
-        lib.kc_filtering_combine.restype = ctypes.c_int
-        lib.kc_smoothing_combine.argtypes = (
-            [ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [ptr] * 10)
-        lib.kc_smoothing_combine.restype = ctypes.c_int
+        ptrs = ctypes.POINTER(ctypes.c_void_p)
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        for fn in (lib.kc_filtering_combine, lib.kc_smoothing_combine):
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_longlong, ptrs, strides, strides, ptrs,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib._kc_bound = True
     return lib
 
 
-def _check(fields, B: int, nx: int, name: str) -> None:
-    """Validate one side's tensors before their pointers reach C."""
+def _check(fields, blocks: Sequence[int], name: str) -> Tuple[int, ...]:
+    """Validate one call's tensors before their pointers reach C; returns
+    the pair grid (``(P,)`` or ``(L, P)``).
+
+    ``blocks[f]`` is the number of trailing axes of field ``f`` (2 for a
+    matrix, 1 for a vector). Each field is ``grid + (nx,) * blocks[f]``
+    with any strides over the grid, but its trailing block must be dense
+    (the kernels read each pair's block as ``nx`` or ``nx * nx``
+    consecutive values)."""
     dtype, device = fields[0].dtype, fields[0].device
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {dtype} is not float32/float64")
+    vec = fields[blocks.index(1)]
+    grid, nx = tuple(vec.shape[:-1]), vec.shape[-1]
     if not 1 <= nx <= MAX_NX:
         raise ValueError(f"{name}: nx={nx} outside 1..{MAX_NX}")
-    for t in fields:
+    if len(grid) not in (1, 2):
+        raise ValueError(f"{name}: fields must be [P, ...] or [L, P, ...], "
+                         f"got a {len(grid)}-axis pair grid")
+    for t, nb in zip(fields, blocks):
         if t.dtype != dtype or t.device != device:
             raise TypeError(f"{name}: mixed dtype/device among fields")
-        want = (B, nx) if t.ndim == 2 else (B, nx, nx)
+        want = grid + (nx,) * nb
         if tuple(t.shape) != want:
             raise ValueError(f"{name}: field shape {tuple(t.shape)}, "
                              f"expected {want}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: non-contiguous input; the kernel "
-                             "reads densely packed [B, ...] rows")
+        dense = [1, nx][:nb][::-1]
+        if (nx > 1 and t.numel()
+                and list(t.stride()[len(grid):]) != dense):
+            raise ValueError(f"{name}: non-dense trailing block (strides "
+                             f"{t.stride()}); the kernel reads each pair's "
+                             f"{'x'.join([str(nx)] * nb)} block as "
+                             "consecutive values")
+    return grid
 
 
-def _launch(fn, fields, outs, B: int, nx: int, name: str) -> None:
-    args = [_DTYPE_CODE[fields[0].dtype], nx, B]
-    args += [ctypes.c_void_p(t.data_ptr()) for t in fields + outs]
-    args.append(ctypes.c_void_p(torch.cuda.current_stream(
-        fields[0].device).cuda_stream))
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+def _launch(fn, fields, outs, grid: Tuple[int, ...], stream) -> int:
+    """Call one C entry point on an ``(L, P)`` or ``(P,)`` pair grid;
+    returns its CUDA error code."""
+    L, P = (1,) + grid if len(grid) == 1 else grid
+    lead = [t.stride(0) if len(grid) == 2 else 0 for t in fields]
+    pair = [t.stride(len(grid) - 1) for t in fields]
+    n = len(fields)
+    return fn(_DTYPE_CODE[fields[0].dtype], fields[0].shape[-1], L, P,
+              (ctypes.c_void_p * n)(*(t.data_ptr() for t in fields)),
+              (ctypes.c_longlong * n)(*lead), (ctypes.c_longlong * n)(*pair),
+              (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs)),
+              stream)
+
+
+def _combine_cuda(fn_name: str, name: str, blocks, ei, ej):
+    fields = list(ei) + list(ej)
+    grid = _check(fields, blocks * 2, name)
+    outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+            for t in ei]
+    if math.prod(grid):
+        stream = torch.cuda.current_stream(fields[0].device).cuda_stream
+        err = _launch(getattr(_library(), fn_name), fields, outs, grid,
+                      stream)
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{err}")
+        LAUNCHES[name] += 1
+    return type(ei)(*outs)
 
 
 def filtering_combine_cuda(ei: FilteringElement, ej: FilteringElement
                            ) -> FilteringElement:
-    """Eq. 15 over ``B`` flat element pairs (fields ``[B, nx(, nx)]``).
+    """Eq. 15 over a grid of element pairs: fields ``[L, P, nx(, nx)]``
+    (or ``[P, nx(, nx)]``, one row), read in place through their strides
+    — a scan level's slices need no packing copy.
 
     CPU tensors take `filtering_combine_math`; CUDA tensors launch the
-    hand-written kernel (nothing for ``B = 0``) or raise."""
+    hand-written kernel once (nothing for an empty grid) or raise.
+    Outputs are fresh contiguous tensors of the same shapes."""
     if not ei.b.is_cuda:
         return filtering_combine_plain(ei, ej)
-    B, nx = ei.b.shape
-    fields = list(ei) + list(ej)
-    _check(fields, B, nx, "filtering_combine")
-    outs = [torch.empty_like(t) for t in ei]
-    if B:
-        _launch(_library().kc_filtering_combine, fields, outs, B, nx,
-                "filtering_combine")
-    return FilteringElement(*outs)
+    return _combine_cuda("kc_filtering_combine", "filtering_combine",
+                         _FILTERING_BLOCKS, ei, ej)
 
 
 def smoothing_combine_cuda(ei: SmoothingElement, ej: SmoothingElement
                            ) -> SmoothingElement:
-    """Eq. 19 over ``B`` flat element pairs (fields ``[B, nx(, nx)]``).
+    """Eq. 19 over a grid of element pairs (fields as in
+    `filtering_combine_cuda`).
 
     CPU tensors take `smoothing_combine_math`; CUDA tensors launch the
-    hand-written kernel (nothing for ``B = 0``) or raise."""
+    hand-written kernel once (nothing for an empty grid) or raise."""
     if not ei.g.is_cuda:
         return smoothing_combine_plain(ei, ej)
-    B, nx = ei.g.shape
-    fields = list(ei) + list(ej)
-    _check(fields, B, nx, "smoothing_combine")
-    outs = [torch.empty_like(t) for t in ei]
-    if B:
-        _launch(_library().kc_smoothing_combine, fields, outs, B, nx,
-                "smoothing_combine")
-    return SmoothingElement(*outs)
+    return _combine_cuda("kc_smoothing_combine", "smoothing_combine",
+                         _SMOOTHING_BLOCKS, ei, ej)

@@ -50,10 +50,11 @@ def plain_batched_combine_for(combine: Callable) -> Callable:
 
 
 def batched_combine_for(combine: Callable) -> Tuple[Callable, bool]:
-    """Map a core combine to its kernel wrapper: ``(op, flat_only)``.
+    """Map a core combine to its kernel wrapper: ``(op, on_pair_grid)``.
 
-    The kernel wrappers take one flat, contiguous batch axis; unknown
-    (user) combines have no kernel and run as given, broadcasting."""
+    The kernel wrappers take views of ``[L, P]`` pairs (any strides over
+    the grid, no packing); unknown (user) combines have no kernel and run
+    as given, broadcasting."""
     if combine is filtering_combine:
         return _k.filtering_combine_cuda, True
     if combine is smoothing_combine:

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import parallel as tpar
+from repro_torch.core import scan as tscan
 from repro_torch.core.types import (FilteringElement as TF,
                                     SmoothingElement as TS)
 from repro_torch.kernels.kalman_combine import kalman_combine as kc
@@ -166,6 +168,85 @@ def test_dispatch_policy():
         tops.resolve_backend("interpret")
 
 
+def level_set(kind, rng, L, T, nx, dtype, device="cpu"):
+    """An ``[L, T]`` element set (one scan level's elements)."""
+    pair, tcls = KINDS[kind][:2]
+    fields = pair(rng, L * T, nx)[0]
+    return tcls(*(torch.tensor(np.asarray(f, dtype).reshape(
+        (L, T) + f.shape[1:]), device=device) for f in fields))
+
+
+def sliced(x, *index):
+    return type(x)(*(t[index] for t in x))
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_strided_scan_matches_jax_fused(kind, dtype, reverse, monkeypatch):
+    """The kernel route of the scan (``combine_impl="pallas"``,
+    ``batch_dims=1``) on a ``[4, 33]`` element set (odd T) hands the
+    wrapper strided ``[4, P]`` views of each level, and its results match
+    the JAX package's fused scan on the same numpy inputs."""
+    from repro.core import parallel as jpar
+    from repro.core import scan as jscan
+
+    pair, tcls, _, _, wrapper = KINDS[kind]
+    jcls = jax_side(kind)[0]
+    rng = np.random.default_rng(33 + 2 * reverse + (kind == "smoothing"))
+    fields = [np.asarray(f, dtype).reshape((4, 33) + f.shape[1:])
+              for f in pair(rng, 4 * 33, 5)[0]]
+    seen = []
+
+    def spy(ei, ej):
+        seen.append([(t.shape[:2], t.is_contiguous()) for t in ei + ej])
+        return wrapper(ei, ej)
+
+    monkeypatch.setattr(kc, f"{kind}_combine_cuda", spy)
+    before = tscan.PACK_COPIES
+    got = tscan.associative_scan(
+        getattr(tpar, f"{kind}_combine"), tcls(*map(torch.from_numpy, fields)),
+        reverse=reverse, combine_impl="pallas", batch_dims=1)
+    assert tscan.PACK_COPIES == before
+    assert seen and all(g[0] == 4 for call in seen for g, _ in call)
+    assert any(not contig for call in seen for _, contig in call)
+    want = jscan.associative_scan(
+        getattr(jpar, f"{kind}_combine"), to_jax(jcls, fields, dtype),
+        reverse=reverse, combine_impl="fused", batch_dims=1)
+    assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_wrapper_checks_accept_strided_grids(kind):
+    """The wrapper's checks (pure Python, run before any pointer reaches
+    C) accept ``[L, P]`` and ``[P]`` grids with any strides over the pairs
+    and reject a non-dense trailing block, mixed dtypes, unsupported
+    dtypes and nx > 16."""
+    blocks = (kc._FILTERING_BLOCKS if kind == "filtering"
+              else kc._SMOOTHING_BLOCKS) * 2
+    x = level_set(kind, np.random.default_rng(0), 3, 9, 5, np.float64)
+    lo, hi = sliced(x, slice(None), slice(0, -1, 2)), \
+        sliced(x, slice(None), slice(1, None, 2))
+    assert kc._check(list(lo) + list(hi), blocks, kind) == (3, 4)
+    assert kc._check(list(sliced(x, 1)) + list(sliced(x, 2)), blocks,
+                     kind) == (9,)
+    # An empty grid reads nothing: any strides pass (numpy's empty arrays
+    # come to torch with zero strides).
+    empty = level_set(kind, np.random.default_rng(0), 0, 9, 5, np.float64)
+    assert kc._check(list(empty) + list(empty), blocks, kind) == (0, 9)
+    transposed = type(x)(*(t.transpose(-1, -2) if t.ndim == 4 else t
+                           for t in lo))
+    with pytest.raises(ValueError, match="non-dense trailing block"):
+        kc._check(list(transposed) + list(hi), blocks, kind)
+    with pytest.raises(TypeError, match="mixed"):
+        kc._check(list(lo) + [t.float() for t in hi], blocks, kind)
+    with pytest.raises(TypeError, match="float32/float64"):
+        kc._check([t.half() for t in list(lo) + list(hi)], blocks, kind)
+    big = level_set(kind, np.random.default_rng(1), 1, 2, 17, np.float64)
+    with pytest.raises(ValueError, match="nx"):
+        kc._check(list(big) + list(big), blocks, kind)
+
+
 # ---------------------------------------------------------------------------
 # On the card (marker `cuda`; skipped where there is none)
 # ---------------------------------------------------------------------------
@@ -194,22 +275,71 @@ def test_kernel_matches_plain_on_card(cuda, kind, B, nx, dtype):
     assert_close(got, [t.cpu().numpy() for t in tmath(*ti, *tj)], dtype)
 
 
+#: Strided in-place cases: (what, L, T, nx, slices of element i, slices of
+#: element j). "second" pairs the contiguous result of the first call
+#: (``odd``) with ``x[:, 2::2]``; T = 513 makes ``x[:, 1::2]`` start
+#: 1 element (8 bytes at f64) past an aligned address.
+STRIDED = [("top level", 64, 512, 5), ("odd T", 64, 513, 5),
+           ("nx=1", 8, 33, 1), ("nx=8", 8, 33, 8), ("nx=16", 4, 33, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("what,L,T,nx", STRIDED)
+def test_kernel_reads_level_slices_in_place_on_card(cuda, kind, dtype, what,
+                                                    L, T, nx):
+    """The kernel on a scan level's strided slices (first call
+    ``x[:, 0:-1:2]``/``x[:, 1::2]``, second call ``odd[:, :-1]``/
+    ``x[:, 2::2]``), each launching once, against the plain version."""
+    wrapper, tmath = KINDS[kind][4], KINDS[kind][2]
+    x = level_set(kind, np.random.default_rng(T + nx), L, T, nx, dtype,
+                  cuda)
+    name = f"{kind}_combine"
+
+    def launch_once(ei, ej):
+        assert not ej[0].is_contiguous()
+        before = kc.LAUNCHES[name]
+        got = wrapper(ei, ej)
+        torch.cuda.synchronize()
+        assert kc.LAUNCHES[name] == before + 1
+        assert all(g.is_contiguous() for g in got)
+        assert_close(got, [t.cpu().numpy() for t in tmath(*ei, *ej)], dtype)
+        return got
+
+    odd = launch_once(sliced(x, slice(None), slice(0, -1, 2)),
+                      sliced(x, slice(None), slice(1, None, 2)))
+    launch_once(sliced(odd, slice(None), slice(0, -1)) if T % 2 == 0 else odd,
+                sliced(x, slice(None), slice(2, None, 2)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_kernel_wrapper_rejects_bad_inputs(cuda, kind):
-    pair, tcls, _, _, wrapper = KINDS[kind]
-    fi, fj = pair(np.random.default_rng(0), 8, 5)
-    ti, tj = (to_torch(tcls, fi, np.float64, cuda),
-              to_torch(tcls, fj, np.float64, cuda))
-    strided = tcls(*(torch.cat([t, t])[::2] for t in ti))
-    assert not strided[0].is_contiguous()
-    with pytest.raises(ValueError, match="non-contiguous"):
-        wrapper(strided, tj)
+    """On the card the wrapper takes strided pair slices and an empty
+    grid (no launch), and raises only on what the kernel cannot read: a
+    non-dense trailing block, mixed or unsupported dtypes, nx > 16."""
+    wrapper = KINDS[kind][4]
+    x = level_set(kind, np.random.default_rng(0), 2, 9, 5, np.float64, cuda)
+    lo = sliced(x, slice(None), slice(0, -1, 2))
+    hi = sliced(x, slice(None), slice(1, None, 2))
+    name = f"{kind}_combine"
+    before = kc.LAUNCHES[name]
+    assert wrapper(lo, hi)[0].shape == (2, 4, 5, 5)
+    empty = sliced(x, slice(None), slice(0, 0))
+    assert wrapper(empty, empty)[0].shape == (2, 0, 5, 5)
+    assert kc.LAUNCHES[name] == before + 1
+    transposed = type(x)(*(t.transpose(-1, -2) if t.ndim == 4 else t
+                           for t in lo))
+    with pytest.raises(ValueError, match="non-dense trailing block"):
+        wrapper(transposed, hi)
     with pytest.raises(TypeError):
-        wrapper(tcls(*(t.half() for t in ti)), tcls(*(t.half() for t in tj)))
+        wrapper(type(x)(*(t.half() for t in lo)),
+                type(x)(*(t.half() for t in hi)))
     with pytest.raises(TypeError):
-        wrapper(ti, tcls(*(t.float() for t in tj)))
-    big = pair(np.random.default_rng(0), 2, 17)
+        wrapper(lo, type(x)(*(t.float() for t in hi)))
+    big = level_set(kind, np.random.default_rng(0), 1, 2, 17, np.float64,
+                    cuda)
     with pytest.raises(ValueError, match="nx"):
-        wrapper(to_torch(tcls, big[0], np.float64, cuda),
-                to_torch(tcls, big[1], np.float64, cuda))
+        wrapper(big, big)
+    assert kc.LAUNCHES[name] == before + 1

@@ -122,23 +122,74 @@ def test_level_structure_matches_jax(T):
         assert len(seen_t) == 18 and sum(1 for s in seen_t if s) == 17
 
 
-def test_kernel_route_packs_pairs_contiguously():
-    """The kernel route hands the wrapper one flat, contiguous batch per
-    level (the CUDA kernels read dense rows) and restores the lead axes."""
+def _recording_pair_op(nlead):
+    """`_pair_grid_op` over a combine that records what it is handed."""
     calls = []
 
-    def flat_only(e, l):
-        calls.append((tuple(e.a.shape), e.a.is_contiguous(),
-                      l.a.is_contiguous()))
+    def on_grid(e, l):
+        calls.append((tuple(e.a.shape), tuple(l.a.shape), e.a, l.a))
         return affine_torch(e, l)
 
-    op = tscan._flattening_op(flat_only, 2)
+    return tscan._pair_grid_op(on_grid, nlead), calls
+
+
+def test_kernel_route_packs_pairs_contiguously():
+    """The kernel route hands the wrapper each level's strided slices as
+    ``[L, P, ...]`` views of the level's elements — no packing copy, no
+    count in PACK_COPIES — and restores the lead axes."""
+    op, calls = _recording_pair_op(2)
     a, b = _affine_elems(np.random.default_rng(0), (4, 8))
     x = Affine(torch.from_numpy(a), torch.from_numpy(b))
-    strided = Affine(*(t[:, 0:-1:2] for t in x))
-    out = op(strided, Affine(*(t[:, 1::2] for t in x)))
-    assert calls == [((16, 3, 3), True, True)]
+    before = tscan.PACK_COPIES
+    out = op(Affine(*(t[:, 0:-1:2] for t in x)),
+             Affine(*(t[:, 1::2] for t in x)))
+    assert tscan.PACK_COPIES == before
+    [(ei_shape, ej_shape, ei_a, ej_a)] = calls
+    assert ei_shape == ej_shape == (4, 4, 3, 3)
+    for view, start in ((ei_a, 0), (ej_a, 1)):
+        assert view.untyped_storage().data_ptr() == \
+            x.a.untyped_storage().data_ptr()
+        assert view.data_ptr() == x.a[:, start].data_ptr()
+        assert view.stride() == (8 * 9, 2 * 9, 3, 1)
     assert out.a.shape == (4, 4, 3, 3) and out.b.shape == (4, 4, 3)
+    want = affine_torch(Affine(*(t[:, 0:-1:2] for t in x)),
+                        Affine(*(t[:, 1::2] for t in x)))
+    _assert_close(out, want)
+
+
+def test_kernel_route_merges_two_batch_axes_as_views():
+    """Two leading batch axes merge into L as a view (``[2, 3, P]`` ->
+    ``[6, P]``), with the pair stride of the slice."""
+    op, calls = _recording_pair_op(3)
+    a, b = _affine_elems(np.random.default_rng(1), (2, 3, 9))
+    x = Affine(torch.from_numpy(a), torch.from_numpy(b))
+    before = tscan.PACK_COPIES
+    out = op(Affine(*(t[:, :, 0:-1:2] for t in x)),
+             Affine(*(t[:, :, 2::2] for t in x)))
+    assert tscan.PACK_COPIES == before
+    [(ei_shape, _, ei_a, ej_a)] = calls
+    assert ei_shape == (6, 4, 3, 3)
+    assert ei_a.data_ptr() == x.a.data_ptr()
+    assert ej_a.data_ptr() == x.a[:, :, 2].data_ptr()
+    assert ej_a.stride() == (9 * 9, 2 * 9, 3, 1)
+    assert out.a.shape == (2, 3, 4, 3, 3)
+    _assert_close(out, affine_torch(Affine(*(t[:, :, 0:-1:2] for t in x)),
+                                    Affine(*(t[:, :, 2::2] for t in x))))
+
+
+def test_kernel_route_counts_the_copy_it_cannot_avoid():
+    """Batch axes whose strides do not merge (here transposed) are copied,
+    and each copied field is counted in PACK_COPIES."""
+    op, calls = _recording_pair_op(3)
+    a, b = _affine_elems(np.random.default_rng(2), (3, 2, 6))
+    x = Affine(*(torch.from_numpy(t).transpose(0, 1) for t in (a, b)))
+    before = tscan.PACK_COPIES
+    out = op(Affine(*(t[:, :, 0:-1:2] for t in x)),
+             Affine(*(t[:, :, 1::2] for t in x)))
+    assert tscan.PACK_COPIES == before + 4
+    assert calls[0][0] == (6, 3, 3, 3)
+    _assert_close(out, affine_torch(Affine(*(t[:, :, 0:-1:2] for t in x)),
+                                    Affine(*(t[:, :, 1::2] for t in x))))
 
 
 def test_unknown_impl_raises():
