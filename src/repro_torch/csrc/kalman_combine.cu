@@ -58,13 +58,9 @@
 
 namespace kc {
 
-constexpr int kMaxThreads = 128;
+constexpr int kMaxWarps = 4;
 constexpr int kSmemBudget = 48 * 1024;
 constexpr unsigned kFullMask = 0xffffffffu;
-
-__host__ __device__ constexpr int lanes_for(int nx) {
-  return nx <= 1 ? 1 : nx <= 2 ? 2 : nx <= 4 ? 4 : nx <= 8 ? 8 : 16;
-}
 
 // Shared-memory regions of a tile, each [pairs][size] values. Filtering:
 // element i (A, b, C, eta, J), element j (the same), then scratch W^{-1}
@@ -95,25 +91,44 @@ __host__ __device__ constexpr int region_offset(int region, int nx) {
 
 template <typename T, int NX, bool FILTERING>
 struct Tile {
-  static constexpr int kLanes = lanes_for(NX);
-  static constexpr int kTeamsPerWarp = 32 / kLanes;
+  // A team of NX lanes per pair, as many teams as fit in a warp (lanes past
+  // the last team idle).
+  static constexpr int kTeamsPerWarp = 32 / NX;
   static constexpr int kValuesPerPair = region_offset<FILTERING>(
       FILTERING ? kFilteringRegions : kSmoothingRegions, NX);
-  static constexpr int kBySmem =
-      kSmemBudget / (kValuesPerPair * static_cast<int>(sizeof(T)));
-  static constexpr int kByThreads = kMaxThreads / kLanes;
-  static constexpr int kFit = kBySmem < kByThreads ? kBySmem : kByThreads;
-  // Whole warps of teams.
-  static constexpr int kPairs = kFit / kTeamsPerWarp * kTeamsPerWarp;
-  static constexpr int kThreads = kPairs * kLanes;
+  static constexpr int kWarpBytes =
+      kTeamsPerWarp * kValuesPerPair * static_cast<int>(sizeof(T));
+  static constexpr int kWarpsBySmem = kSmemBudget / kWarpBytes;
+  static constexpr int kWarps =
+      kWarpsBySmem < kMaxWarps ? kWarpsBySmem : kMaxWarps;
+  static constexpr int kPairs = kWarps * kTeamsPerWarp;
+  static constexpr int kThreads = kWarps * 32;
   static constexpr int kSmemValues = kPairs * kValuesPerPair;
-  static_assert(kPairs >= kTeamsPerWarp, "a warp of pairs must fit");
+  static_assert(kWarps >= 1, "a warp of pairs must fit");
 
   // This team's slot of a region.
   template <int REGION>
   static __device__ __forceinline__ T* slot(T* smem, int team) {
     return smem + region_offset<FILTERING>(REGION, NX) * kPairs +
            team * region_size<FILTERING>(REGION, NX);
+  }
+};
+
+// Where a thread sits: its pair (team) in the tile, its row r, the lane of
+// its team's row 0 in the warp, and whether it owns row r (lanes past the
+// warp's last team shadow that team's last row and write nothing).
+template <int NX, int TEAMS_PER_WARP>
+struct Lane {
+  int team, r, base;
+  bool owner;
+  __device__ __forceinline__ Lane() {
+    const int lane = threadIdx.x % 32;
+    const int t = lane / NX;
+    owner = t < TEAMS_PER_WARP;
+    const int tw = owner ? t : TEAMS_PER_WARP - 1;
+    team = static_cast<int>(threadIdx.x / 32) * TEAMS_PER_WARP + tw;
+    base = tw * NX;
+    r = owner ? lane - base : NX - 1;
   }
 };
 
@@ -141,7 +156,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Copy region REGION of the tile's np pairs (field REGION of the launch,
 // a dense SIZE-value block per pair at stride `pair`) into shared memory,
-// linearly over (pair, value).
+// linearly over (pair, value); zero the slots of pairs past np.
 template <typename T, typename TILE, int SIZE, int REGION, typename F>
 __device__ __forceinline__ void stage_in(T* smem, const F& f, long long l,
                                          long long p0, int np) {
@@ -149,9 +164,12 @@ __device__ __forceinline__ void stage_in(T* smem, const F& f, long long l,
   const T* src = static_cast<const T*>(f.in[REGION]) + l * f.lead[REGION] +
                  p0 * f.pair[REGION];
   const long long pair = f.pair[REGION];
-  for (int i = threadIdx.x; i < np * SIZE; i += TILE::kThreads) {
+  for (int i = threadIdx.x; i < TILE::kPairs * SIZE; i += TILE::kThreads) {
     const int q = i / SIZE;
-    cp_async(dst + i, src + q * pair + (i - q * SIZE));
+    if (q < np)
+      cp_async(dst + i, src + q * pair + (i - q * SIZE));
+    else
+      dst[i] = T(0);  // a ragged tile's empty slots: benign inputs
   }
 }
 
@@ -171,11 +189,88 @@ __device__ __forceinline__ void store_out(T* smem, const F& f, long long l,
 // Eq. 15
 // ---------------------------------------------------------------------------
 
+// x / d from rd = 1 / d (correctly rounded): one Markstein correction of
+// x * rd gives the correctly rounded quotient, the same bits as x / d, for
+// finite x and nonzero d, with a multiply and two FMAs instead of a
+// division's call sequence (25 divisions per lane at nx = 5 were half of
+// the filtering kernel's latency).
+__device__ __forceinline__ double quotient(double x, double d, double rd) {
+  const double q = __dmul_rn(x, rd);
+  return __fma_rn(__fma_rn(-q, d, x), rd, q);
+}
+
+__device__ __forceinline__ float quotient(float x, float d, float rd) {
+  const float q = __fmul_rn(x, rd);
+  return __fmaf_rn(__fmaf_rn(-q, d, x), rd, q);
+}
+
+// out[c] = sum_k row[k] * N[k * NX + c]: row r of a product whose left
+// operand's row is in registers and whose right operand is in shared memory
+// (read by the whole team at one address).
+template <typename T, int NX>
+__device__ __forceinline__ void row_times(T (&out)[NX], const T (&row)[NX],
+                                          const T* N) {
+#pragma unroll
+  for (int c = 0; c < NX; ++c) {
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += row[k] * N[k * NX + c];
+    out[c] = s;
+  }
+}
+
+// out[c] = sum_k row[k] * N[c * NX + k]: the same against N^T.
+template <typename T, int NX>
+__device__ __forceinline__ void row_times_t(T (&out)[NX], const T (&row)[NX],
+                                            const T* N) {
+#pragma unroll
+  for (int c = 0; c < NX; ++c) {
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < NX; ++k) s += row[k] * N[c * NX + k];
+    out[c] = s;
+  }
+}
+
+template <typename T, int NX>
+__device__ __forceinline__ void load_row(T (&out)[NX], const T* M, int r) {
+#pragma unroll
+  for (int c = 0; c < NX; ++c) out[c] = M[r * NX + c];
+}
+
+// Column r of M (row r of M^T).
+template <typename T, int NX>
+__device__ __forceinline__ void load_col(T (&out)[NX], const T* M, int r) {
+#pragma unroll
+  for (int k = 0; k < NX; ++k) out[k] = M[k * NX + r];
+}
+
+template <typename T, int NX>
+__device__ __forceinline__ void store_row(T* M, int r, const T (&row)[NX],
+                                          bool owner) {
+  if (owner) {
+#pragma unroll
+    for (int c = 0; c < NX; ++c) M[r * NX + c] = row[c];
+  }
+}
+
+template <typename T, int NX>
+__device__ __forceinline__ T dot(const T (&a)[NX], const T* v) {
+  T s = T(0);
+#pragma unroll
+  for (int k = 0; k < NX; ++k) s += a[k] * v[k];
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// Eq. 15
+// ---------------------------------------------------------------------------
+
 template <typename T, int NX>
 __global__ void __launch_bounds__((Tile<T, NX, true>::kThreads))
 filtering_combine_kernel(const Fields<10, 5> f) {
   using TL = Tile<T, NX, true>;
-  constexpr int M = NX * NX, V = NX, L = TL::kLanes;
+  constexpr int M = NX * NX, V = NX;
   __shared__ __align__(16) T smem[TL::kSmemValues];
 
   const long long l = blockIdx.x / f.tiles;
@@ -196,168 +291,129 @@ filtering_combine_kernel(const Fields<10, 5> f) {
   cp_async_wait_all();
   __syncthreads();
 
-  const int team = threadIdx.x / L;
-  const int lane = threadIdx.x % L;
-  const bool owner = lane < NX;
-  const int r = owner ? lane : NX - 1;
-  T* Ai = TL::template slot<0>(smem, team);
-  T* bi = TL::template slot<1>(smem, team);
-  T* Ci = TL::template slot<2>(smem, team);
-  T* ei = TL::template slot<3>(smem, team);
-  T* Ji = TL::template slot<4>(smem, team);
-  const T* Aj = TL::template slot<5>(smem, team);
-  const T* bj = TL::template slot<6>(smem, team);
-  const T* Cj = TL::template slot<7>(smem, team);
-  const T* ej = TL::template slot<8>(smem, team);
-  const T* Jj = TL::template slot<9>(smem, team);
-  T* sW = TL::template slot<10>(smem, team);   // W^{-1}, then ZJ
-  T* sM = TL::template slot<11>(smem, team);   // JA, then Jn
-  T* sCn = TL::template slot<12>(smem, team);
-  T* v1 = TL::template slot<13>(smem, team);
-  T* v2 = TL::template slot<14>(smem, team);
-  T* v3 = TL::template slot<15>(smem, team);
+  // Warps that hold no pair of a ragged tile skip the algebra (a
+  // warp-uniform branch: the team syncs below stay whole).
+  if (static_cast<int>(threadIdx.x / 32) * TL::kTeamsPerWarp < np) {
+    const Lane<NX, TL::kTeamsPerWarp> ln;
+    const int r = ln.r;
+    const bool owner = ln.owner;
+    T* Ai = TL::template slot<0>(smem, ln.team);
+    T* bi = TL::template slot<1>(smem, ln.team);
+    T* Ci = TL::template slot<2>(smem, ln.team);
+    T* ei = TL::template slot<3>(smem, ln.team);
+    T* Ji = TL::template slot<4>(smem, ln.team);
+    const T* Aj = TL::template slot<5>(smem, ln.team);
+    const T* bj = TL::template slot<6>(smem, ln.team);
+    const T* Cj = TL::template slot<7>(smem, ln.team);
+    const T* ej = TL::template slot<8>(smem, ln.team);
+    const T* Jj = TL::template slot<9>(smem, ln.team);
+    T* sW = TL::template slot<10>(smem, ln.team);  // W^{-1}, then ZJ
+    T* sM = TL::template slot<11>(smem, ln.team);  // JA, then Jn
+    T* sCn = TL::template slot<12>(smem, ln.team);
+    T* v1 = TL::template slot<13>(smem, ln.team);
+    T* v2 = TL::template slot<14>(smem, ln.team);
+    T* v3 = TL::template slot<15>(smem, ln.team);
 
-  // Row r of aug = [W | I], W = I + J_j C_i.
-  T a[2 * NX];
-#pragma unroll
-  for (int c = 0; c < NX; ++c) {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k) s += Jj[r * NX + k] * Ci[k * NX + c];
-    a[c] = (r == c ? T(1) : T(0)) + s;
-    a[NX + c] = (r == c ? T(1) : T(0));
-  }
-  // No-pivot Gauss-Jordan, same order as repro.core.types.gauss_jordan_inverse:
-  // lane k's row, divided by its pivot, is broadcast within the team.
-#pragma unroll
-  for (int k = 0; k < NX; ++k) {
-    const T d = __shfl_sync(kFullMask, a[k], k, L);
-    const T fk = a[k];
-#pragma unroll
-    for (int c = 0; c < 2 * NX; ++c) {
-      const T piv = __shfl_sync(kFullMask, a[c], k, L) / d;
-      a[c] = r == k ? piv : a[c] - fk * piv;
-    }
-  }
-  T w[NX];  // row r of W^{-1}
-#pragma unroll
-  for (int c = 0; c < NX; ++c) w[c] = a[NX + c];
-  if (owner) {
-#pragma unroll
-    for (int c = 0; c < NX; ++c) sW[r * NX + c] = w[c];
-  }
-  __syncwarp();
-
-  // X = A_j W^{-T} = A_j (I + C_i J_j)^{-1}, row r.
-  T x[NX];
-#pragma unroll
-  for (int c = 0; c < NX; ++c) {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k) s += Aj[r * NX + k] * sW[c * NX + k];
-    x[c] = s;
-  }
-  // A = X A_i
-  T oA[NX];
-#pragma unroll
-  for (int c = 0; c < NX; ++c) {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k) s += x[k] * Ai[k * NX + c];
-    oA[c] = s;
-  }
-  // b = X (b_i + C_i eta_j) + b_j
-  {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k) s += Ci[r * NX + k] * ej[k];
-    if (owner) v1[r] = bi[r] + s;
-  }
-  __syncwarp();
-  T ob;
-  {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k) s += x[k] * v1[k];
-    ob = s + bj[r];
-  }
-  // Cn = X C_i A_j^T + C_j, row r.
-  {
-    T xc[NX];
+    // Row r of W = I + J_j C_i: the left half of [W | I].
+    T jj[NX], wl[NX], wr[NX];
+    load_row(jj, Jj, r);
+    row_times(wl, jj, Ci);
 #pragma unroll
     for (int c = 0; c < NX; ++c) {
-      T s = T(0);
-#pragma unroll
-      for (int k = 0; k < NX; ++k) s += x[k] * Ci[k * NX + c];
-      xc[c] = s;
+      wl[c] += (r == c ? T(1) : T(0));
+      wr[c] = (r == c ? T(1) : T(0));
     }
+    // No-pivot Gauss-Jordan in the order of
+    // repro.core.types.gauss_jordan_inverse: at step k lane k's row,
+    // divided by its pivot, is broadcast within the team. Only the columns
+    // that can be nonzero in the pivot row are touched: left columns past
+    // k (those up to k are already e_0..e_k) and right columns up to k (the
+    // rest of the pivot row is still exactly zero), so W^{-1} is the same
+    // as with all 2 NX columns.
 #pragma unroll
-    for (int c = 0; c < NX; ++c) {
-      T s = T(0);
+    for (int k = 0; k < NX; ++k) {
+      const T d = __shfl_sync(kFullMask, wl[k], ln.base + k);
+      const T rd = T(1) / d;
+      const T fk = wl[k];
 #pragma unroll
-      for (int k = 0; k < NX; ++k) s += xc[k] * Aj[c * NX + k];
-      if (owner) sCn[r * NX + c] = s + Cj[r * NX + c];
+      for (int c = k + 1; c < NX; ++c) {
+        const T piv =
+            quotient(__shfl_sync(kFullMask, wl[c], ln.base + k), d, rd);
+        wl[c] = r == k ? piv : wl[c] - fk * piv;
+      }
+#pragma unroll
+      for (int c = 0; c <= k; ++c) {
+        const T piv =
+            quotient(__shfl_sync(kFullMask, wr[c], ln.base + k), d, rd);
+        wr[c] = r == k ? piv : wr[c] - fk * piv;
+      }
     }
-  }
-  // eta = A_i^T W^{-1} (eta_j - J_j b_i) + eta_i
-  {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k) s += Jj[r * NX + k] * bi[k];
-    if (owner) v2[r] = ej[r] - s;
-  }
-  __syncwarp();
-  {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k) s += w[k] * v2[k];
-    if (owner) v3[r] = s;
-  }
-  __syncwarp();
-  T oe;
-  {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k) s += Ai[k * NX + r] * v3[k];
-    oe = s + ei[r];
-  }
-  // Jn = A_i^T (W^{-1} (J_j A_i)) + J_i, row r.
-#pragma unroll
-  for (int c = 0; c < NX; ++c) {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k) s += Jj[r * NX + k] * Ai[k * NX + c];
-    if (owner) sM[r * NX + c] = s;
-  }
-  __syncwarp();
-#pragma unroll
-  for (int c = 0; c < NX; ++c) {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k) s += w[k] * sM[k * NX + c];
-    if (owner) sW[r * NX + c] = s;
-  }
-  __syncwarp();
-#pragma unroll
-  for (int c = 0; c < NX; ++c) {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k) s += Ai[k * NX + r] * sW[k * NX + c];
-    if (owner) sM[r * NX + c] = s + Ji[r * NX + c];
-  }
-  __syncwarp();
+    // wr is row r of W^{-1}.
+    store_row(sW, r, wr, owner);
+    __syncwarp();
 
-  // Every read of element i's slots is done: write the results over them,
-  // C and J symmetrized through the transposes in shared memory.
-  if (owner) {
-#pragma unroll
-    for (int c = 0; c < NX; ++c) {
-      Ai[r * NX + c] = oA[c];
-      Ci[r * NX + c] = T(0.5) * (sCn[r * NX + c] + sCn[c * NX + r]);
-      Ji[r * NX + c] = T(0.5) * (sM[r * NX + c] + sM[c * NX + r]);
+    // X = A_j W^{-T} = A_j (I + C_i J_j)^{-1}, row r.
+    T aj[NX], x[NX];
+    load_row(aj, Aj, r);
+    row_times_t(x, aj, sW);
+    // A = X A_i, row r (kept in registers until the end).
+    T oA[NX];
+    row_times(oA, x, Ai);
+    // b = X (b_i + C_i eta_j) + b_j
+    T tmp[NX];
+    load_row(tmp, Ci, r);
+    const T t1 = bi[r] + dot(tmp, ej);
+    // eta_j - J_j b_i
+    const T t2 = ej[r] - dot(jj, bi);
+    if (owner) {
+      v1[r] = t1;
+      v2[r] = t2;
     }
-    bi[r] = ob;
-    ei[r] = oe;
+    // Cn = (X C_i) A_j^T + C_j, row r.
+    T xc[NX], cn[NX];
+    row_times(xc, x, Ci);
+    row_times_t(cn, xc, Aj);
+#pragma unroll
+    for (int c = 0; c < NX; ++c) cn[c] += Cj[r * NX + c];
+    store_row(sCn, r, cn, owner);
+    // JA = J_j A_i, row r.
+    T ja[NX];
+    row_times(ja, jj, Ai);
+    store_row(sM, r, ja, owner);
+    __syncwarp();
+    const T ob = dot(x, v1) + bj[r];
+    // z = W^{-1} (eta_j - J_j b_i), then eta = A_i^T z + eta_i.
+    const T z = dot(wr, v2);
+    // ZJ = W^{-1} (J_j A_i), row r.
+    T zj[NX];
+    row_times(zj, wr, sM);
+    __syncwarp();
+    if (owner) v3[r] = z;
+    store_row(sW, r, zj, owner);
+    __syncwarp();
+    T ai[NX];
+    load_col(ai, Ai, r);
+    const T oe = dot(ai, v3) + ei[r];
+    // Jn = A_i^T ZJ + J_i, row r.
+    T jn[NX];
+    row_times(jn, ai, sW);
+#pragma unroll
+    for (int c = 0; c < NX; ++c) jn[c] += Ji[r * NX + c];
+    store_row(sM, r, jn, owner);
+    __syncwarp();
+
+    // Every read of element i's slots is done: write the results over
+    // them, C and J symmetrized through the transposes in shared memory.
+    if (owner) {
+#pragma unroll
+      for (int c = 0; c < NX; ++c) {
+        Ai[r * NX + c] = oA[c];
+        Ci[r * NX + c] = T(0.5) * (sCn[r * NX + c] + sCn[c * NX + r]);
+        Ji[r * NX + c] = T(0.5) * (sM[r * NX + c] + sM[c * NX + r]);
+      }
+      bi[r] = ob;
+      ei[r] = oe;
+    }
   }
   __syncthreads();
   store_out<T, TL, M, 0, 0>(smem, f, l, p0, np);
@@ -375,7 +431,7 @@ template <typename T, int NX>
 __global__ void __launch_bounds__((Tile<T, NX, false>::kThreads))
 smoothing_combine_kernel(const Fields<6, 3> f) {
   using TL = Tile<T, NX, false>;
-  constexpr int M = NX * NX, V = NX, L = TL::kLanes;
+  constexpr int M = NX * NX, V = NX;
   __shared__ __align__(16) T smem[TL::kSmemValues];
 
   const long long l = blockIdx.x / f.tiles;
@@ -392,61 +448,40 @@ smoothing_combine_kernel(const Fields<6, 3> f) {
   cp_async_wait_all();
   __syncthreads();
 
-  const int team = threadIdx.x / L;
-  const int lane = threadIdx.x % L;
-  const bool owner = lane < NX;
-  const int r = owner ? lane : NX - 1;
-  T* Ei = TL::template slot<0>(smem, team);
-  T* gi = TL::template slot<1>(smem, team);
-  T* Li = TL::template slot<2>(smem, team);
-  const T* Ej = TL::template slot<3>(smem, team);
-  const T* gj = TL::template slot<4>(smem, team);
-  const T* Lj = TL::template slot<5>(smem, team);
-  T* sL = TL::template slot<6>(smem, team);
+  if (static_cast<int>(threadIdx.x / 32) * TL::kTeamsPerWarp < np) {
+    const Lane<NX, TL::kTeamsPerWarp> ln;
+    const int r = ln.r;
+    const bool owner = ln.owner;
+    T* Ei = TL::template slot<0>(smem, ln.team);
+    T* gi = TL::template slot<1>(smem, ln.team);
+    T* Li = TL::template slot<2>(smem, ln.team);
+    const T* Ej = TL::template slot<3>(smem, ln.team);
+    const T* gj = TL::template slot<4>(smem, ln.team);
+    const T* Lj = TL::template slot<5>(smem, ln.team);
+    T* sL = TL::template slot<6>(smem, ln.team);
 
-  // E = E_i E_j, g = E_i g_j + g_i, row r.
-  T oE[NX];
+    // E = E_i E_j, g = E_i g_j + g_i, row r.
+    T ei[NX], oE[NX];
+    load_row(ei, Ei, r);
+    row_times(oE, ei, Ej);
+    const T og = dot(ei, gj) + gi[r];
+    // Ln = (E_i L_j) E_i^T + L_i, row r.
+    T el[NX], ln_[NX];
+    row_times(el, ei, Lj);
+    row_times_t(ln_, el, Ei);
 #pragma unroll
-  for (int c = 0; c < NX; ++c) {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k) s += Ei[r * NX + k] * Ej[k * NX + c];
-    oE[c] = s;
-  }
-  T og;
-  {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < NX; ++k) s += Ei[r * NX + k] * gj[k];
-    og = s + gi[r];
-  }
-  // Ln = E_i L_j E_i^T + L_i, row r.
-  {
-    T el[NX];
-#pragma unroll
-    for (int c = 0; c < NX; ++c) {
-      T s = T(0);
-#pragma unroll
-      for (int k = 0; k < NX; ++k) s += Ei[r * NX + k] * Lj[k * NX + c];
-      el[c] = s;
-    }
-#pragma unroll
-    for (int c = 0; c < NX; ++c) {
-      T s = T(0);
-#pragma unroll
-      for (int k = 0; k < NX; ++k) s += el[k] * Ei[c * NX + k];
-      if (owner) sL[r * NX + c] = s + Li[r * NX + c];
-    }
-  }
-  __syncwarp();
+    for (int c = 0; c < NX; ++c) ln_[c] += Li[r * NX + c];
+    store_row(sL, r, ln_, owner);
+    __syncwarp();
 
-  if (owner) {
+    if (owner) {
 #pragma unroll
-    for (int c = 0; c < NX; ++c) {
-      Ei[r * NX + c] = oE[c];
-      Li[r * NX + c] = T(0.5) * (sL[r * NX + c] + sL[c * NX + r]);
+      for (int c = 0; c < NX; ++c) {
+        Ei[r * NX + c] = oE[c];
+        Li[r * NX + c] = T(0.5) * (sL[r * NX + c] + sL[c * NX + r]);
+      }
+      gi[r] = og;
     }
-    gi[r] = og;
   }
   __syncthreads();
   store_out<T, TL, M, 0, 0>(smem, f, l, p0, np);
