@@ -88,8 +88,9 @@ EDGE_SHAPES = [(1, 1), (513, 8), (7, 16), (0, 5)]
 #: Scan levels read in place: (what, L, T, nx). Each runs the level's first
 #: call (``x[:, 0:-1:2]`` with ``x[:, 1::2]``) and its second (the first's
 #: result ``odd``, trimmed to ``odd[:, :-1]`` for even T, with
-#: ``x[:, 2::2]``). At T = 513, ``x[:, 1::2]`` starts one element past the
-#: allocation's start, so its base is only 8-byte aligned at f64 (4 at f32).
+#: ``x[:, 2::2]``). At T = 513 every other row starts off a 16-byte
+#: boundary (513 blocks of 200 B at f64, nx = 5), so the slices' bases are
+#: only 8-byte aligned (4-byte at f32).
 STRIDED_LEVELS = [("top level", 64, 512, 5), ("odd T", 64, 513, 5),
                   ("nx=1", 8, 33, 1), ("nx=8", 8, 33, 8),
                   ("nx=16", 4, 33, 16)]
@@ -669,12 +670,15 @@ def phase_profile(torch) -> dict:
         scans = sum(e.count for e in evs) / len(levels)
         bounds[kind] = scans * sum(bound(kind, 64 * P, MAIN_NX, "float64")[0]
                                    for P in levels)
+    # PyTorch's strided copy: the instance of elementwise_kernel<128, 2>
+    # that direct_copy_kernel_cuda launches.
     copies = sum(e.count for e in kernels
-                 if "at::native::elementwise_kernel<128, 2" in e.key)
+                 if "elementwise_kernel<128, 2" in e.key
+                 and "direct_copy_kernel" in e.key)
     say(f"[profile] one 64 x 512 bucket launch: wall {wall * 1e3:.1f} ms "
         f"(unprofiled), device busy {busy_us / 1e3:.1f} ms in {launches} "
-        f"kernel launches ({copies} strided copies, "
-        f"elementwise_kernel<128, 2>), {ops} aten ops; combine kernels "
+        f"kernel launches ({copies} strided copies: elementwise_kernel<128, "
+        f"2> of direct_copy_kernel_cuda), {ops} aten ops; combine kernels "
         f"{ours['filtering_combine']:.3f} + {ours['smoothing_combine']:.3f} "
         f"ms against summed bounds {bounds['filtering_combine']:.3f} + "
         f"{bounds['smoothing_combine']:.3f} ms; device idle "

@@ -24,28 +24,33 @@
 //   slices (x[:, 0:-1:2], x[:, 1::2], odd[:, :-1], ...) are read as they
 //   lie, so the scan makes no packing copies. Outputs are fresh contiguous
 //   [L, P, ...] tensors.
-// * One CTA per tile of up to 128 threads' worth of pairs within one row l.
-//   The tile's inputs are staged field by field into shared memory with
-//   cp.async, indexed linearly over (pair, value) so that neighbouring
-//   threads read neighbouring addresses, and every load of the tile is in
-//   flight before the first wait. Outputs go back the same way: each team
-//   writes its results over its own element-i slots, then the CTA stores
-//   the tile field by field, coalesced. Slices are only element-aligned
-//   (x[:, 1::2] at float64, nx = 5 starts 200 B apart), so copies are of
-//   one element each.
-// * A team of LANES = next_pow2(nx) threads per pair, lane r owning row r
-//   (lanes past nx shadow row nx - 1 and write nothing). A matrix product
-//   keeps the lane's own row in registers and reads the other operand from
-//   shared memory, where the whole team reads one address (a broadcast).
-//   The no-pivot Gauss-Jordan inverse of W = I + J_j C_i broadcasts the
-//   pivot row through __shfl_sync within the team, in exactly the
-//   elimination order of the JAX package's gauss_jordan_inverse; one
-//   inverse serves the four solves of Eq. 15 ((I + C_i J_j)^{-1} is its
-//   transpose). Symmetrizing C, J and L transposes through shared memory.
-//   Per-thread state is O(nx) values, so nothing spills, and at the top
-//   level 8x as many threads are in flight as with one thread per pair.
-// * The tile size per (dtype, nx) instance comes from a 48 KB shared-memory
-//   budget (two elements plus scratch per pair), in whole warps of teams.
+// * One CTA per tile of pairs within one row l. The tile's inputs are
+//   staged field by field into shared memory with cp.async, indexed
+//   linearly over (pair, value) so that neighbouring threads read
+//   neighbouring addresses, and every load of the tile is in flight before
+//   the first wait. Slices are only element-aligned (x[:, 1::2] at
+//   float64, nx = 5 starts 200 B apart), so each copy is one element. A
+//   ragged tile zeroes its empty slots. Outputs go back the same way: each
+//   team writes its results over its own element-i slots, then the CTA
+//   stores the tile field by field, coalesced.
+// * A team of nx lanes per pair (six pairs per warp at nx = 5), lane r
+//   owning row r; lanes past a warp's last team shadow its last row and
+//   write nothing. A matrix product keeps the lane's own row in registers
+//   and reads the other operand from shared memory, where the whole team
+//   reads one address (a broadcast). Per-thread state is O(nx) values, so
+//   nothing spills.
+// * The four solves of Eq. 15 share one no-pivot Gauss-Jordan inverse of
+//   W = I + J_j C_i ((I + C_i J_j)^{-1} is its transpose), eliminated in
+//   the order of the JAX package's gauss_jordan_inverse: the pivot row is
+//   broadcast within the team through __shfl_sync. Each step touches only
+//   the nx columns that can be nonzero in the pivot row and divides
+//   through one reciprocal with a Markstein correction, which gives the
+//   bits of the division (see `quotient`). Symmetrizing C, J and L
+//   transposes through shared memory.
+// * The tile size per (dtype, nx) instance comes from a 48 KB static
+//   shared-memory budget (two elements plus scratch per pair), up to four
+//   warps: three warps (18 pairs, 37,440 B) for the filtering combine at
+//   float64, nx = 5.
 //
 // C interface (loaded with ctypes): each entry point takes the dtype code
 // (0 = float32, 1 = float64), nx, L, P, the input pointers (element i's
@@ -54,7 +59,6 @@
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace kc {
 
@@ -63,15 +67,15 @@ constexpr int kSmemBudget = 48 * 1024;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // Shared-memory regions of a tile, each [pairs][size] values. Filtering:
-// element i (A, b, C, eta, J), element j (the same), then scratch W^{-1}
-// and ZJ (0), JA and Jn (1), Cn (2) and three nx-vectors.
+// element i (A, b, C, eta, J: regions 0-4), element j (5-9), then scratch:
+// W^{-1} then ZJ (10), JA then Jn (11), Cn (12) and three nx-vectors.
 __host__ __device__ constexpr int filtering_size(int region, int nx) {
   return (region == 1 || region == 3 || region == 6 || region == 8 ||
           region >= 13) ? nx : nx * nx;
 }
 constexpr int kFilteringRegions = 16;
 
-// Smoothing: element i (E, g, L), element j (the same), then scratch Ln.
+// Smoothing: element i (E, g, L: 0-2), element j (3-5), then scratch Ln.
 __host__ __device__ constexpr int smoothing_size(int region, int nx) {
   return (region == 1 || region == 4) ? nx : nx * nx;
 }
@@ -106,11 +110,14 @@ struct Tile {
   static constexpr int kSmemValues = kPairs * kValuesPerPair;
   static_assert(kWarps >= 1, "a warp of pairs must fit");
 
+  template <int REGION>
+  static constexpr int kSize = region_size<FILTERING>(REGION, NX);
+
   // This team's slot of a region.
   template <int REGION>
   static __device__ __forceinline__ T* slot(T* smem, int team) {
     return smem + region_offset<FILTERING>(REGION, NX) * kPairs +
-           team * region_size<FILTERING>(REGION, NX);
+           team * kSize<REGION>;
   }
 };
 
@@ -155,11 +162,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Copy region REGION of the tile's np pairs (field REGION of the launch,
-// a dense SIZE-value block per pair at stride `pair`) into shared memory,
-// linearly over (pair, value); zero the slots of pairs past np.
-template <typename T, typename TILE, int SIZE, int REGION, typename F>
+// a dense block per pair at stride `pair`) into shared memory, linearly over
+// (pair, value); zero the slots of pairs past np.
+template <typename T, typename TILE, int REGION, typename F>
 __device__ __forceinline__ void stage_in(T* smem, const F& f, long long l,
                                          long long p0, int np) {
+  constexpr int SIZE = TILE::template kSize<REGION>;
   T* dst = TILE::template slot<REGION>(smem, 0);
   const T* src = static_cast<const T*>(f.in[REGION]) + l * f.lead[REGION] +
                  p0 * f.pair[REGION];
@@ -174,20 +182,16 @@ __device__ __forceinline__ void stage_in(T* smem, const F& f, long long l,
 }
 
 // Store region REGION (element i's slots, now holding the results) to
-// output OUT, a contiguous [L, P, SIZE] tensor.
-template <typename T, typename TILE, int SIZE, int REGION, int OUT,
-          typename F>
+// output REGION, a contiguous [L, P, size] tensor.
+template <typename T, typename TILE, int REGION, typename F>
 __device__ __forceinline__ void store_out(T* smem, const F& f, long long l,
                                           long long p0, int np) {
+  constexpr int SIZE = TILE::template kSize<REGION>;
   const T* src = TILE::template slot<REGION>(smem, 0);
-  T* dst = static_cast<T*>(f.out[OUT]) + (l * f.P + p0) * SIZE;
+  T* dst = static_cast<T*>(f.out[REGION]) + (l * f.P + p0) * SIZE;
   for (int i = threadIdx.x; i < np * SIZE; i += TILE::kThreads)
     dst[i] = src[i];
 }
-
-// ---------------------------------------------------------------------------
-// Eq. 15
-// ---------------------------------------------------------------------------
 
 // x / d from rd = 1 / d (correctly rounded): one Markstein correction of
 // x * rd gives the correctly rounded quotient, the same bits as x / d, for
@@ -270,7 +274,6 @@ template <typename T, int NX>
 __global__ void __launch_bounds__((Tile<T, NX, true>::kThreads))
 filtering_combine_kernel(const Fields<10, 5> f) {
   using TL = Tile<T, NX, true>;
-  constexpr int M = NX * NX, V = NX;
   __shared__ __align__(16) T smem[TL::kSmemValues];
 
   const long long l = blockIdx.x / f.tiles;
@@ -278,16 +281,16 @@ filtering_combine_kernel(const Fields<10, 5> f) {
   const int np = static_cast<int>(
       f.P - p0 < TL::kPairs ? f.P - p0 : TL::kPairs);
 
-  stage_in<T, TL, M, 0>(smem, f, l, p0, np);
-  stage_in<T, TL, V, 1>(smem, f, l, p0, np);
-  stage_in<T, TL, M, 2>(smem, f, l, p0, np);
-  stage_in<T, TL, V, 3>(smem, f, l, p0, np);
-  stage_in<T, TL, M, 4>(smem, f, l, p0, np);
-  stage_in<T, TL, M, 5>(smem, f, l, p0, np);
-  stage_in<T, TL, V, 6>(smem, f, l, p0, np);
-  stage_in<T, TL, M, 7>(smem, f, l, p0, np);
-  stage_in<T, TL, V, 8>(smem, f, l, p0, np);
-  stage_in<T, TL, M, 9>(smem, f, l, p0, np);
+  stage_in<T, TL, 0>(smem, f, l, p0, np);
+  stage_in<T, TL, 1>(smem, f, l, p0, np);
+  stage_in<T, TL, 2>(smem, f, l, p0, np);
+  stage_in<T, TL, 3>(smem, f, l, p0, np);
+  stage_in<T, TL, 4>(smem, f, l, p0, np);
+  stage_in<T, TL, 5>(smem, f, l, p0, np);
+  stage_in<T, TL, 6>(smem, f, l, p0, np);
+  stage_in<T, TL, 7>(smem, f, l, p0, np);
+  stage_in<T, TL, 8>(smem, f, l, p0, np);
+  stage_in<T, TL, 9>(smem, f, l, p0, np);
   cp_async_wait_all();
   __syncthreads();
 
@@ -416,11 +419,11 @@ filtering_combine_kernel(const Fields<10, 5> f) {
     }
   }
   __syncthreads();
-  store_out<T, TL, M, 0, 0>(smem, f, l, p0, np);
-  store_out<T, TL, V, 1, 1>(smem, f, l, p0, np);
-  store_out<T, TL, M, 2, 2>(smem, f, l, p0, np);
-  store_out<T, TL, V, 3, 3>(smem, f, l, p0, np);
-  store_out<T, TL, M, 4, 4>(smem, f, l, p0, np);
+  store_out<T, TL, 0>(smem, f, l, p0, np);
+  store_out<T, TL, 1>(smem, f, l, p0, np);
+  store_out<T, TL, 2>(smem, f, l, p0, np);
+  store_out<T, TL, 3>(smem, f, l, p0, np);
+  store_out<T, TL, 4>(smem, f, l, p0, np);
 }
 
 // ---------------------------------------------------------------------------
@@ -431,7 +434,6 @@ template <typename T, int NX>
 __global__ void __launch_bounds__((Tile<T, NX, false>::kThreads))
 smoothing_combine_kernel(const Fields<6, 3> f) {
   using TL = Tile<T, NX, false>;
-  constexpr int M = NX * NX, V = NX;
   __shared__ __align__(16) T smem[TL::kSmemValues];
 
   const long long l = blockIdx.x / f.tiles;
@@ -439,12 +441,12 @@ smoothing_combine_kernel(const Fields<6, 3> f) {
   const int np = static_cast<int>(
       f.P - p0 < TL::kPairs ? f.P - p0 : TL::kPairs);
 
-  stage_in<T, TL, M, 0>(smem, f, l, p0, np);
-  stage_in<T, TL, V, 1>(smem, f, l, p0, np);
-  stage_in<T, TL, M, 2>(smem, f, l, p0, np);
-  stage_in<T, TL, M, 3>(smem, f, l, p0, np);
-  stage_in<T, TL, V, 4>(smem, f, l, p0, np);
-  stage_in<T, TL, M, 5>(smem, f, l, p0, np);
+  stage_in<T, TL, 0>(smem, f, l, p0, np);
+  stage_in<T, TL, 1>(smem, f, l, p0, np);
+  stage_in<T, TL, 2>(smem, f, l, p0, np);
+  stage_in<T, TL, 3>(smem, f, l, p0, np);
+  stage_in<T, TL, 4>(smem, f, l, p0, np);
+  stage_in<T, TL, 5>(smem, f, l, p0, np);
   cp_async_wait_all();
   __syncthreads();
 
@@ -484,9 +486,9 @@ smoothing_combine_kernel(const Fields<6, 3> f) {
     }
   }
   __syncthreads();
-  store_out<T, TL, M, 0, 0>(smem, f, l, p0, np);
-  store_out<T, TL, V, 1, 1>(smem, f, l, p0, np);
-  store_out<T, TL, M, 2, 2>(smem, f, l, p0, np);
+  store_out<T, TL, 0>(smem, f, l, p0, np);
+  store_out<T, TL, 1>(smem, f, l, p0, np);
+  store_out<T, TL, 2>(smem, f, l, p0, np);
 }
 
 }  // namespace kc

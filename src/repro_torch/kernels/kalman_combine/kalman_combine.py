@@ -26,7 +26,6 @@ Each launch adds one to the kernel's entry in ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -42,8 +41,8 @@ MAX_NX = 16
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 #: ``nvcc`` parts of ``csrc/kalman_combine.cu``, compiled at the same time:
-#: the instances by nx in groups of about equal cost (a lane's code grows
-#: as nx^2), and the C entry points on their own.
+#: the instances grouped by nx, the large ones alone (a lane's unrolled
+#: code grows as nx^2), and the C entry points on their own.
 BUILD_PARTS = tuple(
     (f"-DKC_NX_FIRST={a}", f"-DKC_NX_LAST={b}")
     for a, b in ((1, 6), (7, 9), (10, 11), (12, 13), (14, 14), (15, 15),
@@ -130,9 +129,10 @@ def _library():
     return lib
 
 
-def _check(fields, blocks: Sequence[int], name: str) -> Tuple[int, ...]:
+def _check(fields, blocks: Sequence[int], name: str):
     """Validate one call's tensors before their pointers reach C; returns
-    the pair grid (``(P,)`` or ``(L, P)``).
+    the pair grid (``(P,)`` or ``(L, P)``) and each field's lead and pair
+    strides over it.
 
     ``blocks[f]`` is the number of trailing axes of field ``f`` (2 for a
     matrix, 1 for a vector). Each field is ``grid + (nx,) * blocks[f]``
@@ -146,49 +146,52 @@ def _check(fields, blocks: Sequence[int], name: str) -> Tuple[int, ...]:
     grid, nx = tuple(vec.shape[:-1]), vec.shape[-1]
     if not 1 <= nx <= MAX_NX:
         raise ValueError(f"{name}: nx={nx} outside 1..{MAX_NX}")
-    if len(grid) not in (1, 2):
+    g = len(grid)
+    if g not in (1, 2):
         raise ValueError(f"{name}: fields must be [P, ...] or [L, P, ...], "
-                         f"got a {len(grid)}-axis pair grid")
+                         f"got a {g}-axis pair grid")
+    dense = {1: (1,), 2: (nx, 1)}
+    empty = 0 in grid
+    lead, pair = [], []
     for t, nb in zip(fields, blocks):
         if t.dtype != dtype or t.device != device:
             raise TypeError(f"{name}: mixed dtype/device among fields")
-        want = grid + (nx,) * nb
-        if tuple(t.shape) != want:
+        if t.shape != grid + (nx,) * nb:
             raise ValueError(f"{name}: field shape {tuple(t.shape)}, "
-                             f"expected {want}")
-        dense = [1, nx][:nb][::-1]
-        if (nx > 1 and t.numel()
-                and list(t.stride()[len(grid):]) != dense):
+                             f"expected {grid + (nx,) * nb}")
+        st = t.stride()
+        if nx > 1 and not empty and st[g:] != dense[nb]:
             raise ValueError(f"{name}: non-dense trailing block (strides "
-                             f"{t.stride()}); the kernel reads each pair's "
+                             f"{st}); the kernel reads each pair's "
                              f"{'x'.join([str(nx)] * nb)} block as "
                              "consecutive values")
-    return grid
+        lead.append(st[0] if g == 2 else 0)
+        pair.append(st[g - 1])
+    return grid, lead, pair
 
 
-def _launch(fn, fields, outs, grid: Tuple[int, ...], stream) -> int:
-    """Call one C entry point on an ``(L, P)`` or ``(P,)`` pair grid;
-    returns its CUDA error code."""
+def _launch(fn, fields, outs, grid: Tuple[int, ...], lead, pair,
+            stream) -> int:
+    """Call one C entry point on an ``(L, P)`` or ``(P,)`` pair grid with
+    the fields' strides from `_check`; returns its CUDA error code."""
     L, P = (1,) + grid if len(grid) == 1 else grid
-    lead = [t.stride(0) if len(grid) == 2 else 0 for t in fields]
-    pair = [t.stride(len(grid) - 1) for t in fields]
     n = len(fields)
     return fn(_DTYPE_CODE[fields[0].dtype], fields[0].shape[-1], L, P,
-              (ctypes.c_void_p * n)(*(t.data_ptr() for t in fields)),
+              (ctypes.c_void_p * n)(*[t.data_ptr() for t in fields]),
               (ctypes.c_longlong * n)(*lead), (ctypes.c_longlong * n)(*pair),
-              (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs)),
+              (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs]),
               stream)
 
 
 def _combine_cuda(fn_name: str, name: str, blocks, ei, ej):
     fields = list(ei) + list(ej)
-    grid = _check(fields, blocks * 2, name)
+    grid, lead, pair = _check(fields, blocks * 2, name)
     outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
             for t in ei]
-    if math.prod(grid):
+    if 0 not in grid:
         stream = torch.cuda.current_stream(fields[0].device).cuda_stream
-        err = _launch(getattr(_library(), fn_name), fields, outs, grid,
-                      stream)
+        err = _launch(getattr(_library(), fn_name), fields, outs, grid, lead,
+                      pair, stream)
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                                f"{err}")

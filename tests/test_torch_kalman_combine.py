@@ -227,13 +227,19 @@ def test_wrapper_checks_accept_strided_grids(kind):
     x = level_set(kind, np.random.default_rng(0), 3, 9, 5, np.float64)
     lo, hi = sliced(x, slice(None), slice(0, -1, 2)), \
         sliced(x, slice(None), slice(1, None, 2))
-    assert kc._check(list(lo) + list(hi), blocks, kind) == (3, 4)
-    assert kc._check(list(sliced(x, 1)) + list(sliced(x, 2)), blocks,
-                     kind) == (9,)
+    # Grid and each field's (lead, pair) strides: element i's A of the
+    # [3, 9] set sliced x[:, 0:-1:2] steps 9 blocks per row, 2 per pair.
+    grid, lead, pair = kc._check(list(lo) + list(hi), blocks, kind)
+    assert grid == (3, 4)
+    assert (lead[0], pair[0], lead[1], pair[1]) == (9 * 25, 2 * 25, 9 * 5,
+                                                     2 * 5)
+    grid, lead, pair = kc._check(list(sliced(x, 1)) + list(sliced(x, 2)),
+                                 blocks, kind)
+    assert grid == (9,) and lead[0] == 0 and pair[0] == 25
     # An empty grid reads nothing: any strides pass (numpy's empty arrays
     # come to torch with zero strides).
     empty = level_set(kind, np.random.default_rng(0), 0, 9, 5, np.float64)
-    assert kc._check(list(empty) + list(empty), blocks, kind) == (0, 9)
+    assert kc._check(list(empty) + list(empty), blocks, kind)[0] == (0, 9)
     transposed = type(x)(*(t.transpose(-1, -2) if t.ndim == 4 else t
                            for t in lo))
     with pytest.raises(ValueError, match="non-dense trailing block"):
@@ -277,8 +283,8 @@ def test_kernel_matches_plain_on_card(cuda, kind, B, nx, dtype):
 
 #: Strided in-place cases: (what, L, T, nx, slices of element i, slices of
 #: element j). "second" pairs the contiguous result of the first call
-#: (``odd``) with ``x[:, 2::2]``; T = 513 makes ``x[:, 1::2]`` start
-#: 1 element (8 bytes at f64) past an aligned address.
+#: (``odd``) with ``x[:, 2::2]``; at T = 513 every other row starts off a
+#: 16-byte boundary, so the slices are only 8-byte aligned at f64.
 STRIDED = [("top level", 64, 512, 5), ("odd T", 64, 513, 5),
            ("nx=1", 8, 33, 1), ("nx=8", 8, 33, 8), ("nx=16", 4, 33, 16)]
 
