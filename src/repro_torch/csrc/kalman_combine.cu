@@ -196,8 +196,7 @@ __device__ __forceinline__ void store_out(T* smem, const F& f, long long l,
 // x / d from rd = 1 / d (correctly rounded): one Markstein correction of
 // x * rd gives the correctly rounded quotient, the same bits as x / d, for
 // finite x and nonzero d, with a multiply and two FMAs instead of a
-// division's call sequence (25 divisions per lane at nx = 5 were half of
-// the filtering kernel's latency).
+// division (a long sequence with a slow-path branch) per column.
 __device__ __forceinline__ double quotient(double x, double d, double rd) {
   const double q = __dmul_rn(x, rd);
   return __fma_rn(__fma_rn(-q, d, x), rd, q);
@@ -468,12 +467,12 @@ smoothing_combine_kernel(const Fields<6, 3> f) {
     row_times(oE, ei, Ej);
     const T og = dot(ei, gj) + gi[r];
     // Ln = (E_i L_j) E_i^T + L_i, row r.
-    T el[NX], ln_[NX];
+    T el[NX], lnew[NX];
     row_times(el, ei, Lj);
-    row_times_t(ln_, el, Ei);
+    row_times_t(lnew, el, Ei);
 #pragma unroll
-    for (int c = 0; c < NX; ++c) ln_[c] += Li[r * NX + c];
-    store_row(sL, r, ln_, owner);
+    for (int c = 0; c < NX; ++c) lnew[c] += Li[r * NX + c];
+    store_row(sL, r, lnew, owner);
     __syncwarp();
 
     if (owner) {
