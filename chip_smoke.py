@@ -28,13 +28,26 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      plain versions (``backend="jnp"``) and against the sequential
      smoother at the same linearization; then a profile of one bucket
      launch;
-  5. ``[ssm_scan]``: the linear-recurrence entry points at Hymba-1.5B's SSM
+  5. ``[slr]``: the same service linearized by sigma-point SLR (IPLS,
+     cubature points, ``method="slr"``), with the same gates, the same
+     checks against the plain versions and the sequential smoother, and a
+     profile of one bucket launch;
+  6. ``[matrix]``: the port's scenario matrix on the card (six scenarios
+     x {taylor, slr} x {standard, sqrt}, n = 24, 3 passes), every cell
+     gated ok, the combine launches of each standard-form cell counted,
+     each cell held against its twin with the plain combines;
+  7. ``[sqrt]``: one 64 x 512 bucket in the square-root form, timed
+     beside the standard form and held against it at one linearization;
+  8. ``[adaptive]``: one 64 x 512 bucket with adaptive damping (Taylor
+     and SLR): lane codes and pass counts equal to the plain run's, no
+     NaN, kernel launches counted;
+  9. ``[ssm_scan]``: the linear-recurrence entry points at Hymba-1.5B's SSM
      width (``ops.ssm_scan`` on B=2, T=4096, D=51,200 and
      ``linear_recurrence_scan(combine_impl="pallas")`` on [4096, 2, 3200,
      16], f32) with the counters zeroed before and read after; each held
      against the plain version in f32, f64 and bf16, with edge shapes,
      T=0 and ``h0``; CUDA-event times of kernel and plain version;
-  6. ``[flash]``: the flash attention entry point at Llama-3.2-3B's
+  10. ``[flash]``: the flash attention entry point at Llama-3.2-3B's
      attention width (Hq=24, Hkv=8, Dh=128): prefill B=2, T=4096, causal,
      and decode B=16, Tq=1, Tk=4096, bf16, with the counters zeroed before
      and read after: the prefill must launch the ``wgmma`` kernel once and
@@ -49,7 +62,7 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      and of ``scaled_dot_product_attention`` (timed only, never on the
      port's path), profiler device times, and the decode/``wgmma``
      crossover over the rows per kv head;
-  7. the ``kernels`` JSON line, then the device JSON line, last.
+  11. the ``kernels`` JSON line, then the device JSON line, last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
 """
@@ -499,24 +512,37 @@ def sc_model(torch):
     return get_scenario("coordinated_turn").make_model(torch.float64, "cuda")
 
 
+def sc_spec(cfg, **fields):
+    """The coordinated-turn spec of a service config: its linearization
+    (``cfg.method``) and iteration knobs, with ``fields`` on top."""
+    from repro_torch.scenarios import get_scenario
+
+    return get_scenario("coordinated_turn").default_spec(
+        linearization="taylor" if cfg.method == "ekf" else "slr",
+        n_iter=cfg.n_iter, tol=cfg.tol, lm_lambda=cfg.lm_lambda, **fields)
+
+
 def _rmse(torch, mean, truth) -> float:
     return float(torch.sqrt(torch.mean((mean[1:, :2] - truth[1:, :2]) ** 2)))
 
 
-def phase_main_path(torch) -> dict:
+def phase_main_path(torch, method: str = "ekf", tag: str = "main") -> dict:
+    """The smoother service at 64 x n<=512, f64, on the card, linearized
+    by ``method`` ("ekf": IEKS, the first slice's main path; "slr": IPLS
+    with cubature points), its lines tagged ``[tag]``."""
     import dataclasses
 
     from repro_torch.core import scan as scan_lib
     from repro_torch.core.api import build_smoother
-    from repro_torch.core.iterated import LANE_DIVERGED, _augment_lm
-    from repro_torch.core.linearization import linearize_model_taylor_batched
+    from repro_torch.core.iterated import (LANE_DIVERGED, _augment_lm,
+                                           _linearize, _scheme_for)
     from repro_torch.kernels.kalman_combine import kalman_combine as kc
     from repro_torch.launch.serve import (SmootherServeConfig, SmootherServer,
                                           make_fleet, pad_requests,
                                           serve_smoother)
-    from repro_torch.scenarios import get_scenario
 
-    cfg = SmootherServeConfig(requests=64, n=512, max_batch=64, f64=True)
+    cfg = SmootherServeConfig(requests=64, n=512, max_batch=64, f64=True,
+                              method=method)
     torch.cuda.synchronize()
     copies = scan_lib.PACK_COPIES
     reset_counts()
@@ -527,7 +553,7 @@ def phase_main_path(torch) -> dict:
     launches = {k: counts.pop(k) for k in kc.LAUNCHES}
     total_s = time.perf_counter() - t0
     copies = scan_lib.PACK_COPIES - copies
-    say(f"[main] serve_smoother: {total_s:.2f}s end to end incl. fleet "
+    say(f"[{tag}] serve_smoother: {total_s:.2f}s end to end incl. fleet "
         f"simulation; serve {stats['wall_s']:.3f}s, "
         f"{stats['traj_per_s']:.1f} traj/s, {stats['launches']} bucket "
         f"launches, {stats['mean_iterations']:.2f} mean iters; kernel "
@@ -548,7 +574,6 @@ def phase_main_path(torch) -> dict:
         if not bool(torch.isfinite(m).all()):
             fail("non-finite smoothed mean")
     # The served fleet again (same seed, same generator stream).
-    sc = get_scenario("coordinated_turn")
     model = sc_model(torch)
     requests, truths = make_fleet(cfg, model)
     # Tracking quality. The mean is pulled up by the few tracks that ten
@@ -559,14 +584,13 @@ def phase_main_path(torch) -> dict:
                    for m, t in zip(stats["results"], truths))
     median = rmses[len(rmses) // 2]
     tracked = sum(r < 0.1 for r in rmses)
-    say(f"[main] position RMSE: median {median:.4f}, mean "
+    say(f"[{tag}] position RMSE: median {median:.4f}, mean "
         f"{stats['mean_rmse']:.4f}, {tracked}/{len(rmses)} requests < 0.1")
     if not median < 0.1:
         fail(f"median position RMSE {median} >= 0.1")
 
     # The same fleet through the plain versions, on the card.
-    spec = sc.default_spec(n_iter=cfg.n_iter, tol=cfg.tol,
-                           lm_lambda=cfg.lm_lambda)
+    spec = sc_spec(cfg)
     before = dict(kc.LAUNCHES)
     plain = SmootherServer(model, cfg, spec=dataclasses.replace(
         spec, backend="jnp"), device="cuda").serve_requests(
@@ -581,14 +605,14 @@ def phase_main_path(torch) -> dict:
         worst = max(worst, (a - b).abs().max().item())
     ll_diff = max(abs(a - b) for a, b in zip(stats["logliks"],
                                              plain["logliks"]))
-    say(f"[main] kernel path vs plain path (backend=jnp, "
+    say(f"[{tag}] kernel path vs plain path (backend=jnp, "
         f"{plain['wall_s']:.3f}s): max |dmean| {worst:.3e}, max |dloglik| "
         f"{ll_diff:.3e}")
     # The first serve above pays one-time costs (CUDA module loading,
     # library handles); the same fleet again shows the steady state.
     warm = SmootherServer(model, cfg, spec=spec, device="cuda"
                           ).serve_requests(requests, emit=lambda *_: None)
-    say(f"[main] warm repeat through the kernels: {warm['wall_s']:.3f}s, "
+    say(f"[{tag}] warm repeat through the kernels: {warm['wall_s']:.3f}s, "
         f"{warm['traj_per_s']:.1f} traj/s (plain versions: "
         f"{plain['traj_per_s']:.1f} traj/s)")
 
@@ -598,7 +622,8 @@ def phase_main_path(torch) -> dict:
     model_b = dataclasses.replace(model, R=rs)
     par = build_smoother(spec, device="cuda")
     traj = par.iterate(model_b, ys)
-    lin = linearize_model_taylor_batched(model_b, traj.mean)
+    lin = _linearize(model_b, traj, par.config,
+                     _scheme_for(model_b, par.config))
     lin, pseudo = _augment_lm(lin, traj.mean[:, 1:], cfg.lm_lambda)
     ys_eff = torch.cat([ys, pseudo], dim=-1)
     _, s_par = par.smooth(lin, ys_eff, model.m0, model.P0)
@@ -610,7 +635,7 @@ def phase_main_path(torch) -> dict:
             fail(f"parallel vs sequential smoothed {name} disagree: max abs "
                  f"diff {(a - b).abs().max().item():.3e}")
     seq_diff = (s_par.mean - s_seq.mean).abs().max().item()
-    say(f"[main] parallel (kernels) vs sequential at one linearization, "
+    say(f"[{tag}] parallel (kernels) vs sequential at one linearization, "
         f"{len(idx)} lanes x n={cfg.n}: max |dmean| {seq_diff:.3e}")
     return {"launches": launches, "wall_s": stats["wall_s"],
             "total_s": total_s, "traj_per_s": stats["traj_per_s"],
@@ -624,24 +649,23 @@ def phase_main_path(torch) -> dict:
             "parallel_vs_sequential_max_abs": seq_diff}
 
 
-def phase_profile(torch) -> dict:
+def phase_profile(torch, method: str = "ekf", tag: str = "profile"
+                  ) -> dict:
     """Where one bucket launch's time goes: ``torch.profiler`` over one
-    width-64, n=512 ``smooth_batch`` (10 passes). Device busy time is the
-    sum of kernel self times; the rest of the wall time the card is
-    idle, waiting on the host. Tables go to ``chiprun_out/``."""
+    width-64, n=512 ``smooth_batch`` (10 passes, linearized by
+    ``method``). Device busy time is the sum of kernel self times; the
+    rest of the wall time the card is idle, waiting on the host. Tables
+    go to ``chiprun_out/``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import (SmootherServeConfig, SmootherServer,
                                           make_fleet)
-    from repro_torch.scenarios import get_scenario
 
     cfg = SmootherServeConfig(requests=64, n=512, max_batch=64,
-                              vary_lengths=False)
+                              vary_lengths=False, method=method)
     model = sc_model(torch)
     requests, _ = make_fleet(cfg, model)
-    server = SmootherServer(model, cfg, device="cuda", spec=get_scenario(
-        "coordinated_turn").default_spec(n_iter=cfg.n_iter, tol=cfg.tol,
-                                         lm_lambda=cfg.lm_lambda))
+    server = SmootherServer(model, cfg, device="cuda", spec=sc_spec(cfg))
     server.smooth_batch(requests, 512, 64)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -659,7 +683,8 @@ def phase_profile(torch) -> dict:
     launches = sum(e.count for e in kernels)
     ops = sum(e.count for e in ka if e.key.startswith("aten::"))
     OUT.mkdir(exist_ok=True)
-    (OUT / "profile_bucket.txt").write_text(
+    (OUT / ("profile_bucket.txt" if method == "ekf"
+            else f"profile_bucket_{method}.txt")).write_text(
         ka.table(sort_by="self_device_time_total", row_limit=40) + "\n"
         + ka.table(sort_by="cpu_time_total", row_limit=40))
     ours, bounds = {}, {}
@@ -675,7 +700,7 @@ def phase_profile(torch) -> dict:
     copies = sum(e.count for e in kernels
                  if "elementwise_kernel<128, 2" in e.key
                  and "direct_copy_kernel" in e.key)
-    say(f"[profile] one 64 x 512 bucket launch: wall {wall * 1e3:.1f} ms "
+    say(f"[{tag}] one 64 x 512 bucket launch: wall {wall * 1e3:.1f} ms "
         f"(unprofiled), device busy {busy_us / 1e3:.1f} ms in {launches} "
         f"kernel launches ({copies} strided copies: elementwise_kernel<128, "
         f"2> of direct_copy_kernel_cuda), {ops} aten ops; combine kernels "
@@ -684,13 +709,231 @@ def phase_profile(torch) -> dict:
         f"{bounds['smoothing_combine']:.3f} ms; device idle "
         f"{1 - busy_us / 1e6 / wall:.1%} of the unprofiled wall")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    say("[profile] top device time: " + "; ".join(
+    say(f"[{tag}] top device time: " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
         for e in top))
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "kernel_launches": launches, "aten_ops": ops,
             "strided_copy_launches": copies,
             "combine_kernels_ms": ours, "combine_bounds_ms": bounds}
+
+
+def phase_matrix(torch) -> dict:
+    """``[matrix]``: the port's scenario matrix (every scenario x {taylor,
+    slr} x {standard, sqrt}, n = 24, 3 passes, f64) on the card, every
+    cell gated ok; each standard-form cell's combine-kernel launches
+    counted (read at the cell's report), each cell held against the same
+    cell with the plain combines (``backend="jnp"``)."""
+    from repro_torch.kernels.kalman_combine import kalman_combine as kc
+    from repro_torch.scenarios.smoke import run_matrix
+
+    marks = []
+
+    def mark(line):
+        marks.append(dict(kc.LAUNCHES))
+        say(line.replace("[smoke]", "[matrix]", 1))
+
+    t0 = time.perf_counter()
+    reset_counts()
+    rows = run_matrix(device="cuda", emit=mark)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    others = {k: v for k, v in read_counts().items() if k not in kc.LAUNCHES}
+    if any(others.values()):
+        fail(f"the matrix launched other kernels: {others}")
+    t0 = time.perf_counter()
+    before = dict(kc.LAUNCHES)
+    plain = run_matrix(device="cuda", backend="jnp", emit=lambda *_: None)
+    plain_wall = time.perf_counter() - t0
+    if kc.LAUNCHES != before:
+        fail('the matrix with backend="jnp" launched a kernel')
+    prev = {k: 0 for k in kc.LAUNCHES}
+    cells, worst = [], 0.0
+    for row, twin, now in zip(rows, plain, marks):
+        what = f"{row['scenario']} {row['method']} {row['form']}"
+        launched = {k: now[k] - prev[k] for k in now}
+        prev = now
+        if not row["ok"]:
+            fail(f"matrix cell {what} failed its gates: {row}")
+        if row["form"] == "standard":
+            if (min(launched.values()) == 0
+                    or len(set(launched.values())) != 1):
+                fail(f"matrix cell {what}: combine launches {launched}")
+        elif any(launched.values()):
+            fail(f"matrix cell {what} (square-root form) launched "
+                 f"{launched}")
+        if not torch.allclose(row["mean"], twin["mean"], **PATH_TOL):
+            fail(f"matrix cell {what}: kernels vs plain max abs diff "
+                 f"{(row['mean'] - twin['mean']).abs().max().item():.3e}")
+        diff = (row["mean"] - twin["mean"]).abs().max().item()
+        worst = max(worst, diff)
+        cells.append({k: v for k, v in row.items() if k != "mean"}
+                     | {"launches": launched, "vs_plain_max_abs": diff})
+    total = {k: sum(c["launches"][k] for c in cells) for k in kc.LAUNCHES}
+    say(f"[matrix] {sum(c['ok'] for c in cells)}/{len(cells)} cells ok in "
+        f"{wall:.2f}s (plain combines {plain_wall:.2f}s); combine launches "
+        f"{total}; kernels vs plain max |dmean| {worst:.3e}")
+    return {"cells": cells, "launches": total, "wall_s": wall,
+            "plain_wall_s": plain_wall, "vs_plain_max_abs": worst}
+
+
+def _bucket(torch, method: str = "ekf"):
+    """One full 64 x 512 coordinated-turn bucket (f64): the model with
+    its per-lane R stack, the padded measurements and the service
+    config (fleet seed 0, every request n = 512)."""
+    import dataclasses
+
+    from repro_torch.launch.serve import (SmootherServeConfig, make_fleet,
+                                          pad_requests)
+
+    cfg = SmootherServeConfig(requests=64, n=512, max_batch=64,
+                              vary_lengths=False, method=method)
+    model = sc_model(torch)
+    requests, _ = make_fleet(cfg, model)
+    ys, rs = pad_requests(requests, 512, 64, model.R)
+    return dataclasses.replace(model, R=rs), ys, cfg
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_sqrt(torch) -> dict:
+    """``[sqrt]``: one 64 x 512 coordinated-turn bucket with
+    ``form="sqrt"`` (f64, Taylor, the service's knobs) on the card, timed
+    beside the standard form; at one linearization its smoothed means
+    must lie within ``SQRT_PARITY_TOL`` of the standard-form kernel
+    path's."""
+    from repro_torch.core.api import build_smoother
+    from repro_torch.core.iterated import _augment_lm, _linearize
+    from repro_torch.scenarios.smoke import SQRT_PARITY_TOL
+
+    model, ys, cfg = _bucket(torch)
+    spec = sc_spec(cfg)
+    std = build_smoother(spec, device="cuda")
+    sq = build_smoother(spec, form="sqrt", device="cuda")
+    std.iterate(model, ys)                                # warm
+    reset_counts()
+    (traj_sq, info_sq), sq_s = _timed(
+        torch, lambda: sq.iterate(model, ys, return_info=True))
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"the square-root path launched kernels: {counts}")
+    traj_std, std_s = _timed(torch, lambda: std.iterate(model, ys))
+    if not bool(torch.isfinite(traj_sq.mean).all()):
+        fail("non-finite square-root means")
+    _, sq2_s = _timed(torch, lambda: sq.iterate(model, ys))
+    iter_diff = (traj_sq.mean - traj_std.mean).abs().max().item()
+    # One linearization (at the standard path's result), both forms.
+    lin = _linearize(model, traj_std, std.config, None)
+    lin, pseudo = _augment_lm(lin, traj_std.mean[:, 1:], cfg.lm_lambda)
+    ys_eff = torch.cat([ys, pseudo], dim=-1)
+    _, s_std = std.smooth(lin, ys_eff, model.m0, model.P0)
+    _, s_sq = sq.smooth(lin, ys_eff, model.m0, model.P0)
+    one_diff = (s_sq.mean - s_std.mean).abs().max().item()
+    cov_diff = (s_sq.cov - s_std.cov).abs().max().item()
+    if not one_diff < SQRT_PARITY_TOL:
+        fail(f"square-root vs standard means at one linearization: max abs "
+             f"diff {one_diff:.3e} >= {SQRT_PARITY_TOL}")
+    say(f"[sqrt] 64 x 512 bucket, f64, {cfg.n_iter} passes: square-root "
+        f"form {sq_s:.3f}s (again {sq2_s:.3f}s), standard form (kernels) "
+        f"{std_s:.3f}s; kernel launches {counts}; at one linearization "
+        f"max |dmean| {one_diff:.3e}, max |dcov| {cov_diff:.3e}; iterated "
+        f"max |dmean| {iter_diff:.3e}")
+    return {"sqrt_s": sq_s, "sqrt_again_s": sq2_s, "standard_s": std_s,
+            "one_linearization_max_abs_mean": one_diff,
+            "one_linearization_max_abs_cov": cov_diff,
+            "iterated_max_abs_mean": iter_diff,
+            "codes": info_sq.code.tolist()}
+
+
+#: Relative band within which two GN costs are one value up to rounding.
+COST_RTOL = 1e-9
+
+
+def phase_adaptive(torch) -> dict:
+    """``[adaptive]``: one 64 x 512 coordinated-turn bucket with
+    ``damping="adaptive"`` (Taylor and SLR, f64) on the card, held lane by
+    lane against the plain run (``backend="jnp"``); no NaN may come back.
+
+    A lane's code and pass count must equal the plain run's, and its
+    means agree within ``PATH_TOL``, unless its verdict flipped at a
+    rounding tie: the accept test ``cand_cost <= cost`` (the JAX
+    package's) compares two costs that are equal up to rounding once a
+    step is far below ``tol``, so the two combine paths may accept and
+    reject one such step differently. Such a lane must end converged or
+    at the pass budget in both runs (never diverged), with GN costs equal
+    within ``COST_RTOL`` and means within the smoother's ``tol``; each
+    is printed."""
+    from repro_torch.core.api import build_smoother
+    from repro_torch.core.iterated import LANE_DIVERGED
+    from repro_torch.kernels.kalman_combine import kalman_combine as kc
+
+    report = {}
+    for method in ("ekf", "slr"):
+        model, ys, cfg = _bucket(torch, method)
+        spec = sc_spec(cfg, damping="adaptive")
+        reset_counts()
+        (traj, info), wall = _timed(torch, lambda: build_smoother(
+            spec, device="cuda").iterate(model, ys, return_info=True))
+        counts = read_counts()
+        launches = {k: counts.pop(k) for k in kc.LAUNCHES}
+        if any(counts.values()) or min(launches.values()) == 0 or len(
+                set(launches.values())) != 1:
+            fail(f"adaptive {method}: kernel launches {launches}, "
+                 f"others {counts}")
+        (ptraj, pinfo), plain_wall = _timed(torch, lambda: build_smoother(
+            spec, backend="jnp", device="cuda").iterate(
+                model, ys, return_info=True))
+        for x in (*traj, info.final_cost):
+            if not bool(torch.isfinite(x).all()):
+                fail(f"adaptive {method}: NaN or inf returned")
+        dmean = (traj.mean - ptraj.mean).abs().amax(dim=(1, 2))
+        same = ((info.code == pinfo.code)
+                & (info.iterations == pinfo.iterations)).tolist()
+        flips, worst = [], 0.0
+        for lane, equal in enumerate(same):
+            codes = (int(info.code[lane]), int(pinfo.code[lane]))
+            passes = (int(info.iterations[lane]),
+                      int(pinfo.iterations[lane]))
+            costs = (float(info.final_cost[lane]),
+                     float(pinfo.final_cost[lane]))
+            if equal:
+                if not torch.allclose(traj.mean[lane], ptraj.mean[lane],
+                                      **PATH_TOL):
+                    fail(f"adaptive {method} lane {lane}: kernel path vs "
+                         f"plain path max abs diff {dmean[lane]:.3e}")
+                worst = max(worst, float(dmean[lane]))
+                continue
+            tie = (LANE_DIVERGED not in codes
+                   and abs(costs[0] - costs[1]) <= COST_RTOL * abs(costs[1])
+                   and float(dmean[lane]) <= spec.tol)
+            say(f"[adaptive] {method} lane {lane}: codes {codes}, passes "
+                f"{passes} (kernels, plain); GN costs {costs[0]!r}, "
+                f"{costs[1]!r}; max |dmean| {float(dmean[lane]):.3e}: "
+                f"{'a verdict flipped at a rounding tie' if tie else 'FAIL'}")
+            if not tie:
+                fail(f"adaptive {method} lane {lane}: code/passes differ "
+                     "from the plain run beyond a rounding tie")
+            flips.append({"lane": lane, "codes": codes, "passes": passes,
+                          "costs": costs, "max_abs_mean": float(dmean[lane])})
+        codes = {c: int((info.code == c).sum()) for c in (0, 1, 2)}
+        say(f"[adaptive] {method} 64 x 512 bucket, f64: {wall:.3f}s "
+            f"(plain combines {plain_wall:.3f}s); kernel launches "
+            f"{launches}; lane codes {codes} (converged/max iters/"
+            f"diverged), mean passes {info.iterations.double().mean():.2f}; "
+            f"{len(same) - len(flips)}/{len(same)} lanes with the plain "
+            f"run's code and passes (max |dmean| {worst:.3e}), "
+            f"{len(flips)} flipped at a tie")
+        report[method] = {"wall_s": wall, "plain_wall_s": plain_wall,
+                          "launches": launches, "codes": codes,
+                          "iterations": info.iterations.tolist(),
+                          "vs_plain_max_abs": worst, "tie_flips": flips}
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -1110,6 +1353,11 @@ def main() -> int:
     pack = phase_pack(torch)
     main_path = phase_main_path(torch)
     prof = phase_profile(torch)
+    slr = phase_main_path(torch, "slr", "slr")
+    slr_prof = phase_profile(torch, "slr", "slr")
+    matrix = phase_matrix(torch)
+    sqrt = phase_sqrt(torch)
+    adaptive = phase_adaptive(torch)
     ssm = phase_ssm_scan(torch)
     flash = phase_flash(torch)
 
@@ -1118,8 +1366,14 @@ def main() -> int:
         t = kernels[kind]["timing"]["float64"]
         err = max(c["max_abs_err"] for c in kernels[kind]["checks"]
                   if c["dtype"] == "float64")
-        rows.append({"launches": main_path["launches"][kind],
-                     "max_abs_err": err, "ms": t["in_place_graph_ms"],
+        by_path = {"main": main_path["launches"][kind],
+                   "slr": slr["launches"][kind],
+                   "matrix": matrix["launches"][kind],
+                   **{f"adaptive_{m}": adaptive[m]["launches"][kind]
+                      for m in ("ekf", "slr")}}
+        rows.append({"launches": sum(by_path.values()),
+                     "launches_by_path": by_path, "max_abs_err": err,
+                     "ms": t["in_place_graph_ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": None,
                      "packed_ms": t["graph_ms"], "event_ms": t["ms"]})
@@ -1137,7 +1391,9 @@ def main() -> int:
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"env": env, "build": build, "kernels": kernels, "pack": pack,
-         "main_path": main_path, "profile": prof, "ssm_scan": ssm,
+         "main_path": main_path, "profile": prof, "slr": slr,
+         "slr_profile": slr_prof, "matrix": matrix, "sqrt": sqrt,
+         "adaptive": adaptive, "ssm_scan": ssm,
          "flash_attention": flash,
          "seconds": time.perf_counter() - t_start}, indent=1))
     say(f"[chip_smoke] all phases passed in "

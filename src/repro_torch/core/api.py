@@ -8,9 +8,10 @@ packages for equal fields — routes and autobatch signatures are shared.
 card rather than falling back to the CPU). Its methods take batched
 inputs ``ys [B, n, ny]``; a single trajectory ``[n, ny]`` runs as B=1.
 
-Axis values the port does not have yet (``linearization="slr"``,
-``form="sqrt"``, ``damping="adaptive"``) are valid specs with the same
-``spec_id``, and raise ``NotImplementedError`` when a smoother is built.
+Every axis value of the JAX package builds a working smoother:
+``linearization`` taylor/slr (three sigma schemes), ``form``
+standard/sqrt, ``damping`` fixed/adaptive, ``mode`` parallel/sequential.
+``backend="tpu"`` raises when a smoother is built (no lowering here).
 
 Quickstart::
 
@@ -31,9 +32,10 @@ from . import cost as _cost
 from . import iterated as _iterated
 from . import parallel as _parallel
 from . import sequential as _sequential
+from . import sqrt_parallel as _sqrt
 from .iterated import (BACKENDS, COMBINE_IMPLS, DAMPINGS, FORMS,
-                       SIGMA_SCHEMES, IteratedConfig,
-                       validate_iteration_knobs)
+                       IteratedConfig, validate_iteration_knobs)
+from .sigma_points import SCHEMES
 from .types import Device, Gaussian, LinearizedSSM, resolve_device
 
 MODES = ("parallel", "sequential")
@@ -75,7 +77,7 @@ class SmootherSpec:
         _check_choice("mode", self.mode, MODES)
         _check_choice("form", self.form, FORMS)
         _check_choice("linearization", self.linearization, LINEARIZATIONS)
-        _check_choice("sigma_scheme", self.sigma_scheme, SIGMA_SCHEMES)
+        _check_choice("sigma_scheme", self.sigma_scheme, SCHEMES)
         _check_choice("combine_impl", self.combine_impl, COMBINE_IMPLS)
         _check_choice("backend", self.backend, BACKENDS)
         _check_choice("damping", self.damping, DAMPINGS)
@@ -141,7 +143,7 @@ class Smoother:
     def __init__(self, spec: SmootherSpec, device: Device = None):
         self.spec = spec
         self.config = spec.iterated_config()
-        self.config.check_ported()
+        self.config.check_backend()
         self.device = resolve_device(device)
 
     @property
@@ -167,6 +169,8 @@ class Smoother:
             lin, ys = LinearizedSSM(*(x[None] for x in lin)), ys[None]
         if self.spec.mode == "sequential":
             out = _sequential.kalman_filter_batched(lin, ys, m0, P0)
+        elif self.spec.form == "sqrt":
+            out = _sqrt.sqrt_parallel_filter_batched(lin, ys, m0, P0)
         else:
             out = _parallel.parallel_filter_batched(
                 lin, ys, m0, P0,
@@ -182,6 +186,9 @@ class Smoother:
             lin, ys = LinearizedSSM(*(x[None] for x in lin)), ys[None]
         if self.spec.mode == "sequential":
             filt, smth = _sequential._filter_smoother_batched(lin, ys, m0, P0)
+        elif self.spec.form == "sqrt":
+            filt, smth = _sqrt._sqrt_parallel_filter_smoother_batched(
+                lin, ys, m0, P0)
         else:
             filt, smth = _parallel._parallel_filter_smoother_batched(
                 lin, ys, m0, P0,
@@ -192,24 +199,32 @@ class Smoother:
     # -- the full iterated smoother ----------------------------------------
 
     def iterate(self, model, ys, init: Optional[Gaussian] = None,
-                return_info: bool = False):
+                return_history: bool = False, return_info: bool = False):
         """Run up to ``n_iter`` linearize->filter->smooth passes
-        (early-stopped under ``tol``): ``[B, n + 1, ...]`` marginals, and
-        the per-lane `LaneStatus` with ``return_info=True``."""
+        (early-stopped under ``tol``, per-lane adaptive damping under
+        ``damping="adaptive"``): ``[B, n + 1, ...]`` marginals, then the
+        mean history ``[n_iter, B, n + 1, nx]`` with
+        ``return_history=True`` and the per-lane `LaneStatus` with
+        ``return_info=True``."""
         self._check_device(ys)
         batched = ys.ndim == 3
         if not batched:
             ys = ys[None]
             init = None if init is None else Gaussian(*(x[None] for x in init))
         out = _iterated._iterated_smoother_batched(
-            model, ys, self.config, init=init, return_info=return_info)
+            model, ys, self.config, init=init,
+            return_history=return_history, return_info=return_info)
         if batched:
             return out
+        if not (return_history or return_info):
+            return Gaussian(*(x[0] for x in out))
+        out = list(out)
+        out[0] = Gaussian(*(x[0] for x in out[0]))
+        if return_history:
+            out[1] = out[1][:, 0]
         if return_info:
-            traj, info = out
-            return (Gaussian(*(x[0] for x in traj)),
-                    type(info)(*(x[0] for x in info)))
-        return Gaussian(*(x[0] for x in out))
+            out[-1] = type(out[-1])(*(x[0] for x in out[-1]))
+        return tuple(out)
 
     __call__ = iterate
 
@@ -230,8 +245,9 @@ class Smoother:
         batched = ys.ndim == 3
         if not batched:
             ys, traj = ys[None], Gaussian(*(x[None] for x in traj))
-        return _single(_cost.gn_cost(model, ys, traj, self.spec.method),
-                       batched)
+        return _single(_cost.gn_cost(model, ys, traj, self.spec.method,
+                                     self.spec.sigma_scheme,
+                                     self.spec.jitter), batched)
 
 
 def build_smoother(spec: Optional[SmootherSpec] = None, *,

@@ -12,9 +12,13 @@ across lanes).
 """
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
 
-from .linearization import linearize_model_taylor_batched
+from .linearization import (linearize_model_slr_batched,
+                            linearize_model_taylor_batched)
+from .sigma_points import SigmaScheme, get_scheme
 from .types import Gaussian, LinearizedSSM, StateSpaceModel, bmv, cholesky
 
 
@@ -39,13 +43,20 @@ def smoothing_cost(lin: LinearizedSSM, ys: torch.Tensor, means: torch.Tensor,
 
 
 def gn_cost(model: StateSpaceModel, ys: torch.Tensor, traj: Gaussian,
-            method: str = "ekf") -> torch.Tensor:
-    """Linearize ``model`` at ``traj`` (Taylor for ``method="ekf"``) and
-    evaluate :func:`smoothing_cost` at its means; ``[B]`` for
-    ``ys [B, n, ny]``. SLR (``"slr"``) is not ported yet."""
-    if method != "ekf":
-        raise NotImplementedError(
-            f"method {method!r}: only Taylor linearization (ekf) is ported; "
-            "SLR is ROADMAP queue A item 6")
-    lin = linearize_model_taylor_batched(model, traj.mean)
+            method: str = "ekf",
+            scheme: Optional[Union[SigmaScheme, str]] = None,
+            jitter: float = 0.0) -> torch.Tensor:
+    """Linearize ``model`` at ``traj`` (Taylor for ``method="ekf"``, SLR
+    for ``"slr"``) and evaluate :func:`smoothing_cost` at its means;
+    ``[B]`` for ``ys [B, n, ny]``. ``scheme`` may be a `SigmaScheme` or a
+    scheme name (resolved against ``model.nx``); it defaults to cubature
+    for SLR."""
+    if method == "ekf":
+        lin = linearize_model_taylor_batched(model, traj.mean)
+    elif method == "slr":
+        if scheme is None or isinstance(scheme, str):
+            scheme = get_scheme(scheme or "cubature", model.nx)
+        lin = linearize_model_slr_batched(model, traj, scheme, jitter)
+    else:
+        raise ValueError(f"unknown method {method!r}")
     return smoothing_cost(lin, ys, traj.mean, model.m0, model.P0)

@@ -1,29 +1,32 @@
-"""Batched iterated smoother (IEKS, fixed Levenberg-Marquardt damping).
+"""Batched iterated smoothers: IEKS (Taylor) and IPLS (sigma-point SLR).
 
 The outer loop (paper §3) repeats up to M times: linearize the model
 around the previous smoothed trajectory, then run one filter + smoother
-pass — parallel-in-time (the paper's method) or sequential (baseline).
-Optional LM damping (Särkkä & Svensson 2020) augments each measurement
-with a pseudo-observation of the previous iterate with covariance
-``(1/lambda) I``.
+pass — parallel-in-time (the paper's method, covariance or square-root
+form) or sequential (baseline). Levenberg-Marquardt damping (Särkkä &
+Svensson 2020) augments each measurement with a pseudo-observation of the
+previous iterate with covariance ``(1/lambda) I``: fixed, or adapted per
+lane from the Gauss-Newton cost (``damping="adaptive"``).
 
 With ``tol > 0`` a per-lane active mask freezes converged trajectories and
 the loop stops once every lane is done: the JAX package's ``while_loop``
 becomes a Python loop that synchronizes once per pass on
-``active.any()``. ``tol = 0`` runs exactly ``n_iter`` passes. Adaptive
-damping, SLR and the square-root form are later slices of the port and
-raise ``NotImplementedError``.
+``active.any()``. ``tol = 0`` runs exactly ``n_iter`` passes (the
+adaptive loop still stops when every lane has diverged).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from . import parallel, sequential
+from . import parallel, sequential, sqrt_parallel
 from .cost import gn_cost
-from .linearization import linearize_model_taylor_batched
+from .linearization import (linearize_model_slr_batched,
+                            linearize_model_taylor_batched)
+from .sigma_points import SCHEMES, SigmaScheme, get_scheme
 from .types import (Gaussian, LinearizedSSM, StateSpaceModel, bmm, bmv,
                     mvn_logpdf)
 
@@ -33,12 +36,22 @@ FORMS = ("standard", "sqrt")
 COMBINE_IMPLS = ("auto", "jnp", "fused", "pallas")
 DAMPINGS = ("fixed", "adaptive")
 BACKENDS = ("auto", "jnp", "tpu", "gpu")
-SIGMA_SCHEMES = ("cubature", "unscented", "gauss_hermite")
 
 #: `LaneStatus.code` vocabulary: the per-lane verdict of the outer loop.
 LANE_CONVERGED = 0   # mean delta fell below tol (requires tol > 0)
 LANE_MAX_ITERS = 1   # iteration budget exhausted while still finite
-LANE_DIVERGED = 2    # non-finite iterate
+LANE_DIVERGED = 2    # non-finite iterate / cost, or damping cap exhausted
+
+#: Adaptive Levenberg-Marquardt schedule (classic nu = 10): accepted
+#: steps decay the damping, rejected steps raise it; a lane whose
+#: candidates stay non-finite for LM_MAX_BAD consecutive attempts — or
+#: whose damping hits the cap while still rejecting — is declared
+#: diverged and frozen at its last accepted iterate.
+LM_NU = 10.0
+LM_LAMBDA_INIT = 1.0
+LM_LAMBDA_MIN = 1e-9
+LM_LAMBDA_MAX = 1e8
+LM_MAX_BAD = 2
 
 
 def validate_iteration_knobs(n_iter: int, tol: float, lm_lambda: float,
@@ -52,12 +65,6 @@ def validate_iteration_knobs(n_iter: int, tol: float, lm_lambda: float,
         raise ValueError(f"lm_lambda must be >= 0, got {lm_lambda}")
     if jitter < 0.0:
         raise ValueError(f"jitter must be >= 0, got {jitter}")
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        f"(ROADMAP queue A item {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,10 +93,10 @@ class IteratedConfig:
             raise ValueError(
                 'form="sqrt" requires parallel=True: no sequential '
                 "square-root pass is implemented")
-        if self.sigma_scheme not in SIGMA_SCHEMES:
+        if self.sigma_scheme not in SCHEMES:
             raise ValueError(
                 f"unknown sigma-point scheme {self.sigma_scheme!r}; "
-                f"available: {sorted(SIGMA_SCHEMES)}")
+                f"available: {sorted(SCHEMES)}")
         if self.combine_impl not in COMBINE_IMPLS:
             raise ValueError(
                 f"unknown combine_impl {self.combine_impl!r}; "
@@ -107,14 +114,8 @@ class IteratedConfig:
         validate_iteration_knobs(self.n_iter, self.tol, self.lm_lambda,
                                  self.jitter)
 
-    def check_ported(self) -> None:
-        """Raise for the axis values later slices of the port add."""
-        if self.method == "slr":
-            raise not_ported('linearization="slr"', "6")
-        if self.form == "sqrt":
-            raise not_ported('form="sqrt"', "9")
-        if self.damping == "adaptive":
-            raise not_ported('damping="adaptive"', "7")
+    def check_backend(self) -> None:
+        """Raise for ``backend="tpu"``, which has no lowering here."""
         if self.backend == "tpu":
             raise ValueError('backend="tpu" has no lowering in the PyTorch '
                              'port; use "auto", "gpu" or "jnp"')
@@ -148,42 +149,72 @@ class LaneStatus(NamedTuple):
     final_cost: torch.Tensor
 
 
-def _augment_lm(lin: LinearizedSSM, prev_means: torch.Tensor, lam: float
+
+
+def _augment_lm(lin: LinearizedSSM, prev_means: torch.Tensor,
+                lam: Union[float, torch.Tensor]
                 ) -> Tuple[LinearizedSSM, torch.Tensor]:
     """LM damping: pseudo-measurement ``x_k ~ N(prev_mean_k, (1/lam) I)``.
 
-    Returns the augmented model and the pseudo measurements (the caller
-    concatenates the real ys with them along the last axis).
+    ``lam`` is a scalar (fixed damping) or a per-lane ``[B]`` tensor (the
+    adaptive driver's independently damped lanes). Returns the augmented
+    model and the pseudo measurements (the caller concatenates the real
+    ys with them along the last axis).
     """
     ny, nx = lin.H.shape[-2:]
     lead = tuple(lin.H.shape[:-2])
     kw = dict(dtype=lin.H.dtype, device=lin.H.device)
     I = torch.eye(nx, **kw).expand(lead + (nx, nx))
+    inv = 1.0 / torch.as_tensor(lam, dtype=lin.Rp.dtype, device=lin.Rp.device)
+    inv = inv.reshape(inv.shape + (1,) * (len(lead) + 2 - inv.ndim))
     H_aug = torch.cat([lin.H, I], dim=-2)
     d_aug = torch.cat([lin.d, torch.zeros(lead + (nx,), **kw)], dim=-1)
     R_pad = torch.zeros(lead + (ny, nx), **kw)
     R_top = torch.cat([lin.Rp, R_pad], dim=-1)
-    R_bot = torch.cat([R_pad.transpose(-1, -2), I * (1.0 / lam)], dim=-1)
+    R_bot = torch.cat([R_pad.transpose(-1, -2), I * inv], dim=-1)
     Rp_aug = torch.cat([R_top, R_bot], dim=-2)
     return LinearizedSSM(F=lin.F, c=lin.c, Qp=lin.Qp,
                          H=H_aug, d=d_aug, Rp=Rp_aug), prev_means
 
 
+def _scheme_for(model: StateSpaceModel, cfg: IteratedConfig
+                ) -> Optional[SigmaScheme]:
+    return (get_scheme(cfg.sigma_scheme, model.nx)
+            if cfg.method == "slr" else None)
+
+
+def _linearize(model: StateSpaceModel, traj: Gaussian, cfg: IteratedConfig,
+               scheme: Optional[SigmaScheme]) -> LinearizedSSM:
+    if cfg.method == "ekf":
+        return linearize_model_taylor_batched(model, traj.mean)
+    return linearize_model_slr_batched(model, traj, scheme, cfg.jitter)
+
+
 def _one_pass_batched(model: StateSpaceModel, ys: torch.Tensor,
-                      traj: Gaussian, cfg: IteratedConfig) -> Gaussian:
-    """One linearize->filter->smooth pass over ``[B, n]`` trajectories."""
-    lin = linearize_model_taylor_batched(model, traj.mean)
+                      traj: Gaussian, cfg: IteratedConfig,
+                      scheme: Optional[SigmaScheme],
+                      lam: Optional[torch.Tensor] = None) -> Gaussian:
+    """One linearize->filter->smooth pass over ``[B, n]`` trajectories.
+
+    ``lam`` (per-lane ``[B]``) overrides ``cfg.lm_lambda`` — the adaptive
+    driver damps each lane independently."""
+    lin = _linearize(model, traj, cfg, scheme)
+    if lam is None and cfg.lm_lambda > 0.0:
+        lam = cfg.lm_lambda
     ys_eff = ys
-    if cfg.lm_lambda > 0.0:
-        lin, pseudo = _augment_lm(lin, traj.mean[:, 1:], cfg.lm_lambda)
+    if lam is not None:
+        lin, pseudo = _augment_lm(lin, traj.mean[:, 1:], lam)
         ys_eff = torch.cat([ys, pseudo], dim=-1)
-    if cfg.parallel:
+    if not cfg.parallel:
+        _, smoothed = sequential._filter_smoother_batched(
+            lin, ys_eff, model.m0, model.P0)
+    elif cfg.form == "sqrt":
+        _, smoothed = sqrt_parallel._sqrt_parallel_filter_smoother_batched(
+            lin, ys_eff, model.m0, model.P0)
+    else:
         _, smoothed = parallel._parallel_filter_smoother_batched(
             lin, ys_eff, model.m0, model.P0,
             combine_impl=cfg.resolved_combine_impl())
-    else:
-        _, smoothed = sequential._filter_smoother_batched(
-            lin, ys_eff, model.m0, model.P0)
     return smoothed
 
 
@@ -193,6 +224,18 @@ def initial_trajectory_batched(model: StateSpaceModel, B: int, n: int
     mean = model.m0.expand((B, n + 1) + tuple(model.m0.shape))
     cov = model.P0.expand((B, n + 1) + tuple(model.P0.shape))
     return Gaussian(mean=mean, cov=cov)
+
+
+def _pack_result(traj, hist, M, info, return_history, return_info):
+    """``traj`` and, as asked, the mean history ``[M, B, n+1, nx]`` (the
+    list ``hist`` of executed passes; later rows repeat the final mean)
+    and the info."""
+    out = (traj,)
+    if return_history:
+        out = out + (torch.stack(hist + [traj.mean] * (M - len(hist))),)
+    if return_info:
+        out = out + (info,)
+    return out[0] if len(out) == 1 else out
 
 
 def _mean_delta(new: Gaussian, old: Gaussian) -> torch.Tensor:
@@ -205,13 +248,14 @@ def _finite_lanes(traj: Gaussian) -> torch.Tensor:
             & torch.isfinite(traj.cov).all(dim=(1, 2, 3)))
 
 
-def _make_info(model, ys, traj, cfg, iterations, delta, converged,
+def _make_info(model, ys, traj, cfg, scheme, iterations, delta, converged,
                want_cost: bool) -> LaneStatus:
-    """Final `LaneStatus`: classify each lane from its finiteness and
-    convergence flag; evaluate the GN cost only when asked."""
+    """Final `LaneStatus` of the fixed-damping drivers: classify each lane
+    from its finiteness and convergence flag; evaluate the GN cost only
+    when asked."""
     finite = _finite_lanes(traj)
     if want_cost:
-        cost = gn_cost(model, ys, traj, cfg.method)
+        cost = gn_cost(model, ys, traj, cfg.method, scheme, cfg.jitter)
     else:
         cost = torch.zeros(finite.shape, dtype=traj.mean.dtype,
                            device=traj.mean.device)
@@ -232,55 +276,135 @@ def _freeze_lanes(active: torch.Tensor, new: Gaussian, old: Gaussian
     return Gaussian(*(sel(n, o) for n, o in zip(new, old)))
 
 
+def _adaptive_iterated(model: StateSpaceModel, ys: torch.Tensor,
+                       cfg: IteratedConfig, scheme: Optional[SigmaScheme],
+                       traj0: Gaussian, return_history: bool,
+                       return_info: bool):
+    """Per-lane adaptive Levenberg-Marquardt outer loop.
+
+    Every pass runs one damped pass for all lanes, evaluates the GN cost
+    of each candidate under its own linearization, and then — per lane,
+    independently — accepts the step (cost did not rise: damping decays
+    by `LM_NU`), rejects it (the lane keeps its previous iterate and
+    raises its damping), or declares divergence (`LM_MAX_BAD` consecutive
+    non-finite candidates, or the damping cap reached while still
+    rejecting) and freezes the lane at its last accepted, hence finite,
+    iterate. A lane that never accepts returns the initial trajectory.
+    ``cfg.lm_lambda > 0`` seeds the damping, otherwise `LM_LAMBDA_INIT`.
+    The loop synchronizes once per pass, on ``active.any()``.
+    """
+    M = cfg.n_iter
+    B = traj0.mean.shape[0]
+    kw = dict(dtype=traj0.mean.dtype, device=traj0.mean.device)
+    lanes_i32 = dict(dtype=torch.int32, device=traj0.mean.device)
+    lam = torch.full((B,), cfg.lm_lambda if cfg.lm_lambda > 0.0
+                     else LM_LAMBDA_INIT, **kw)
+    cost = gn_cost(model, ys, traj0, cfg.method, scheme, cfg.jitter)
+    # A NaN initial cost (NaN observations) can never win a comparison:
+    # mark the lane diverged up front instead of burning its budget.
+    active = ~torch.isnan(cost)
+    code = torch.where(active, LANE_MAX_ITERS, LANE_DIVERGED
+                       ).to(torch.int32)
+    iters = torch.zeros((B,), **lanes_i32)
+    bad = torch.zeros((B,), **lanes_i32)
+    delta = torch.full((B,), math.inf, **kw)
+    traj, hist = traj0, []
+    it = 0
+    while it < M and bool(active.any()):
+        cand = _one_pass_batched(model, ys, traj, cfg, scheme, lam=lam)
+        cand_cost = gn_cost(model, ys, cand, cfg.method, scheme, cfg.jitter)
+        cand_finite = _finite_lanes(cand) & torch.isfinite(cand_cost)
+        accept = active & cand_finite & (cand_cost <= cost)
+        step_delta = _mean_delta(cand, traj)
+        traj = _freeze_lanes(accept, cand, traj)
+        cost = torch.where(accept, cand_cost, cost)
+        delta = torch.where(accept, step_delta, delta)
+        lam = torch.where(
+            accept, torch.clamp(lam / LM_NU, min=LM_LAMBDA_MIN),
+            torch.where(active, torch.clamp(lam * LM_NU, max=LM_LAMBDA_MAX),
+                        lam))
+        bad = torch.where(accept, 0, torch.where(active, bad + 1, bad))
+        iters = iters + active.to(torch.int32)
+        if cfg.tol > 0.0:
+            conv = accept & (step_delta <= cfg.tol)
+        else:
+            conv = torch.zeros_like(accept)
+        hopeless = active & ~accept & (
+            (~cand_finite & (bad >= LM_MAX_BAD)) | (lam >= LM_LAMBDA_MAX))
+        code = torch.where(conv, LANE_CONVERGED,
+                           torch.where(hopeless, LANE_DIVERGED, code)
+                           ).to(torch.int32)
+        active = active & ~conv & ~hopeless
+        if return_history:
+            hist.append(traj.mean)
+        it += 1
+    info = LaneStatus(iterations=iters, final_delta=delta, code=code,
+                      final_cost=cost)
+    return _pack_result(traj, hist, M, info, return_history, return_info)
+
+
 def _iterated_smoother_batched(model: StateSpaceModel, ys: torch.Tensor,
                                cfg: IteratedConfig = IteratedConfig(),
                                init: Optional[Gaussian] = None,
+                               return_history: bool = False,
                                return_info: bool = False):
     """Batched iterated smoother over ``ys [B, n, ny]``.
 
     Every pass runs all B trajectories through one batched
     filter+smoother; with ``cfg.tol > 0`` converged lanes freeze
     (``info.iterations`` records per-lane pass counts) and the loop exits
-    once every lane has converged. Returns ``[B, n+1, ...]`` marginals
-    (and a `LaneStatus` with ``return_info``).
+    once every lane has converged. Returns ``[B, n+1, ...]`` marginals,
+    then as asked the mean history ``[M, B, n+1, nx]`` and a `LaneStatus`.
     """
-    cfg.check_ported()
+    cfg.check_backend()
     B, n = ys.shape[:2]
     traj = init if init is not None else initial_trajectory_batched(
         model, B, n)
+    scheme = _scheme_for(model, cfg)
     M = cfg.n_iter
     dev = ys.device
 
+    if cfg.damping == "adaptive":
+        return _adaptive_iterated(model, ys, cfg, scheme, traj,
+                                  return_history, return_info)
+
+    hist = []
     if cfg.tol <= 0.0:
         for _ in range(M):
-            new = _one_pass_batched(model, ys, traj, cfg)
+            new = _one_pass_batched(model, ys, traj, cfg, scheme)
             delta = _mean_delta(new, traj)
             traj = new
-        info = _make_info(model, ys, traj, cfg,
+            if return_history:
+                hist.append(traj.mean)
+        info = _make_info(model, ys, traj, cfg, scheme,
                           iterations=torch.full((B,), M, dtype=torch.int32,
                                                 device=dev),
                           delta=delta,
                           converged=torch.zeros((B,), dtype=torch.bool,
                                                 device=dev),
                           want_cost=return_info)
-        return (traj, info) if return_info else traj
+        return _pack_result(traj, hist, M, info, return_history,
+                            return_info)
 
     active = torch.ones((B,), dtype=torch.bool, device=dev)
     iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    delta = torch.full((B,), float("inf"), dtype=traj.mean.dtype, device=dev)
+    delta = torch.full((B,), math.inf, dtype=traj.mean.dtype, device=dev)
     it = 0
     while it < M and bool(active.any()):
-        new = _one_pass_batched(model, ys, traj, cfg)
+        new = _one_pass_batched(model, ys, traj, cfg, scheme)
         new = _freeze_lanes(active, new, traj)
         step_delta = _mean_delta(new, traj)
         delta = torch.where(active, step_delta, delta)
         iters = iters + active.to(torch.int32)
         active = active & (step_delta > cfg.tol)
         traj = new
+        if return_history:
+            hist.append(traj.mean)
         it += 1
-    info = _make_info(model, ys, traj, cfg, iterations=iters, delta=delta,
-                      converged=delta <= cfg.tol, want_cost=return_info)
-    return (traj, info) if return_info else traj
+    info = _make_info(model, ys, traj, cfg, scheme, iterations=iters,
+                      delta=delta, converged=delta <= cfg.tol,
+                      want_cost=return_info)
+    return _pack_result(traj, hist, M, info, return_history, return_info)
 
 
 def smoothed_log_likelihood(model: StateSpaceModel, ys: torch.Tensor,
@@ -290,13 +414,14 @@ def smoothed_log_likelihood(model: StateSpaceModel, ys: torch.Tensor,
     """Measurement log-likelihood under the smoothed posterior.
 
     Each step's observation is scored against its posterior predictive
-    under the Taylor linearization at ``traj``:
+    under the linearization at ``traj`` of the family the smoother
+    iterated with (``cfg.method``/``cfg.sigma_scheme``):
     ``y_k ~ N(H_k m_k + d_k, H_k P_k H_k^T + Rp_k)``, summed over time
     (``per_step=True`` returns the per-step terms — serving masks padded
     steps before summing). ``ys [B, n, ny]`` gives ``[B]``.
     """
-    cfg.check_ported()
-    lin = linearize_model_taylor_batched(model, traj.mean)
+    cfg.check_backend()
+    lin = _linearize(model, traj, cfg, _scheme_for(model, cfg))
     mean_post = traj.mean[..., 1:, :]
     cov_post = traj.cov[..., 1:, :, :]
     y_mean = bmv(lin.H, mean_post) + lin.d

@@ -1,10 +1,16 @@
-"""First-order Taylor linearization (IEKS) of a nonlinear SSM.
+"""Linearization strategies: first-order Taylor (IEKS) and sigma-point
+SLR (IPLS).
 
-For a map ``phi`` and a nominal point ``m``: ``phi(x) ~= F x + c`` with
-``F = d phi/dx (m)`` (``torch.func.jacfwd``) and ``c = phi(m) - F m``
-(paper Eq. 10; the residual covariance is zero). The batched form
-linearizes all ``B*n`` rows of a fleet with one ``torch.func.vmap`` per
-map. Sigma-point SLR is not ported yet.
+Both produce, for a nonlinear map ``phi`` and a linearization Gaussian
+``N(m, P)``, an affine-Gaussian approximation
+``phi(x) ~= F x + c + e, e ~ N(0, Lambda)``.
+
+Taylor (paper Eq. 10): ``F = d phi/dx (m)`` (``torch.func.jacfwd``),
+``c = phi(m) - F m``, ``Lambda = 0``. Sigma-point SLR (paper Eq. 7-9):
+moment-matched regression through transformed sigma points; ``Lambda`` is
+the SLR residual covariance. The batched forms linearize all ``B*n`` rows
+of a fleet at once: one ``torch.func.vmap`` per map over the rows
+(Taylor) or over all ``B*n*s`` sigma points (SLR).
 """
 from __future__ import annotations
 
@@ -12,7 +18,9 @@ from typing import Callable, Tuple
 
 import torch
 
-from .types import LinearizedSSM, StateSpaceModel, bmv
+from .sigma_points import SigmaScheme
+from .types import (Gaussian, LinearizedSSM, StateSpaceModel, bmv, solve,
+                    symmetrize)
 
 AffineParams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (F, c, Lambda)
 
@@ -32,6 +40,29 @@ def linearize_taylor(phi: Callable, m: torch.Tensor, P: torch.Tensor = None
     c = z - (F @ m[..., None])[..., 0]
     Lam = torch.zeros((z.shape[-1], z.shape[-1]), dtype=m.dtype,
                       device=m.device)
+    return F, c, Lam
+
+
+def linearize_slr(phi: Callable, m: torch.Tensor, P: torch.Tensor,
+                  scheme: SigmaScheme, jitter: float = 0.0) -> AffineParams:
+    """Sigma-point statistical linear regression (paper Eq. 7-9) of
+    ``phi`` under ``N(m [..., nx], P [..., nx, nx])``, batched over the
+    leading axes: one vmap of ``phi`` over every sigma point."""
+    pts, wm, wc = scheme.points(m, P, jitter)        # [..., s, nx]
+    lead = tuple(pts.shape[:-1])
+    Z = torch.func.vmap(phi)(pts.reshape(-1, pts.shape[-1]))
+    Z = Z.reshape(lead + Z.shape[-1:])               # [..., s, nz]
+    zbar = torch.einsum("s,...sz->...z", wm, Z)
+    dx = pts - m[..., None, :]
+    dz = Z - zbar[..., None, :]
+    Psi = torch.einsum("s,...sx,...sz->...xz", wc, dx, dz)   # cov(x, z)
+    Phi = torch.einsum("s,...sz,...sw->...zw", wc, dz, dz)   # cov(z, z)
+    # F = Psi^T P^{-1} (solve with the *sampled* P for consistency).
+    Ps = symmetrize(P)
+    eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
+    F = solve(Ps + jitter * eye, Psi).transpose(-1, -2)
+    c = zbar - bmv(F, m)
+    Lam = symmetrize(Phi - F @ Ps @ F.transpose(-1, -2))
     return F, c, Lam
 
 
@@ -78,3 +109,23 @@ def linearize_model_taylor_batched(model: StateSpaceModel,
         Qp=broadcast_noise_batched(model.Q, B, n),
         H=unflat(Hs), d=unflat(ds),
         Rp=broadcast_noise_batched(model.R, B, n))
+
+
+def linearize_model_slr_batched(model: StateSpaceModel, traj: Gaussian,
+                                scheme: SigmaScheme, jitter: float = 0.0
+                                ) -> LinearizedSSM:
+    """SLR-linearize around ``B`` smoothed trajectories
+    ``traj = Gaussian(means [B, n+1, nx], covs [B, n+1, nx, nx])``.
+
+    The residual covariances are added to the noise, so ``Qp``/``Rp`` are
+    per-row ``[B, n, d, d]`` stacks (never broadcast views)."""
+    B, np1 = traj.mean.shape[:2]
+    n = np1 - 1
+    Fs, cs, Lams = linearize_slr(model.f, traj.mean[:, :-1],
+                                 traj.cov[:, :-1], scheme, jitter)
+    Hs, ds, Oms = linearize_slr(model.h, traj.mean[:, 1:], traj.cov[:, 1:],
+                                scheme, jitter)
+    Q = broadcast_noise_batched(model.Q, B, n) + Lams
+    R = broadcast_noise_batched(model.R, B, n) + Oms
+    return LinearizedSSM(F=Fs, c=cs, Qp=symmetrize(Q), H=Hs, d=ds,
+                         Rp=symmetrize(R))

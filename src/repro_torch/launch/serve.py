@@ -8,7 +8,7 @@ power-of-two width, then each bucket runs as ONE batched iterated
 smoother call — B trajectories per combine launch of every scan level.
 
     python -m repro_torch.launch.serve --workload smoother --arrival none \
-        --requests 64 --n 512 --max-batch 64 --tol 1e-6
+        --requests 64 --n 512 --max-batch 64 --tol 1e-6 [--method slr]
 
 runs on the card (``--device cpu`` runs the plain PyTorch path on the
 CPU). This is the one-shot path (``--arrival none``); the streaming queue,
@@ -39,7 +39,7 @@ class SmootherServeConfig:
     requests: int = 64
     n: int = 512             # maximum trajectory length in the request mix
     max_batch: int = 64      # bucket launch width
-    method: str = "ekf"      # "ekf" (the only linearization ported yet)
+    method: str = "ekf"      # "ekf" (IEKS, Taylor) | "slr" (IPLS, cubature)
     n_iter: int = 10
     tol: float = 1e-6        # 0 disables early stopping
     parallel: bool = True
@@ -246,6 +246,9 @@ def main(argv=None):
     p.add_argument("--requests", type=int, default=64)
     p.add_argument("--n", type=int, default=512)
     p.add_argument("--max-batch", type=int, default=64)
+    p.add_argument("--method", choices=("ekf", "slr"), default="ekf",
+                   help="linearization: ekf (Taylor, IEKS) or slr "
+                        "(sigma-point, IPLS)")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--tol", type=float, default=1e-6)
     p.add_argument("--lm-lambda", type=float, default=1.0)
@@ -259,8 +262,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = SmootherServeConfig(
         requests=args.requests, n=args.n, max_batch=args.max_batch,
-        n_iter=args.iters, tol=args.tol, lm_lambda=args.lm_lambda,
-        seed=args.seed, parallel=not args.sequential, f64=not args.f32)
+        method=args.method, n_iter=args.iters, tol=args.tol,
+        lm_lambda=args.lm_lambda, seed=args.seed,
+        parallel=not args.sequential, f64=not args.f32)
     serve_smoother(cfg, device=args.device)
 
 

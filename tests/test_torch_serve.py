@@ -32,29 +32,37 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 LENGTHS = [48, 36, 24, 48, 36, 48]
 
 
+def _linearization(method):
+    return "taylor" if method == "ekf" else "slr"
+
+
 @functools.lru_cache(maxsize=None)
-def jax_side():
+def jax_side(method="ekf"):
     sc = j_scenario("coordinated_turn")
     model = sc.make_model(jnp.float64)
     requests = [np.asarray(sc.simulate(model, n, jax.random.PRNGKey(i))[1])
                 for i, n in enumerate(LENGTHS)]
-    cfg = jserve.SmootherServeConfig(requests=6, n=48, max_batch=4)
-    spec = sc.default_spec(n_iter=cfg.n_iter, tol=cfg.tol,
+    cfg = jserve.SmootherServeConfig(requests=6, n=48, max_batch=4,
+                                     method=method)
+    spec = sc.default_spec(linearization=_linearization(method),
+                           n_iter=cfg.n_iter, tol=cfg.tol,
                            lm_lambda=cfg.lm_lambda)
     server = jserve.SmootherServer(model, cfg, spec=spec)
     stats = server.serve_requests(requests, emit=lambda *_: None)
     return model, requests, server, stats
 
 
-def torch_server():
+def torch_server(method="ekf"):
     jmodel, _, _, _ = jax_side()
     model = convert.state_space_model(
         "coordinated_turn", *(np.asarray(getattr(jmodel, k))
                               for k in ("Q", "R", "m0", "P0")),
         device="cpu")
-    cfg = tserve.SmootherServeConfig(requests=6, n=48, max_batch=4)
+    cfg = tserve.SmootherServeConfig(requests=6, n=48, max_batch=4,
+                                     method=method)
     spec = t_scenario("coordinated_turn").default_spec(
-        n_iter=cfg.n_iter, tol=cfg.tol, lm_lambda=cfg.lm_lambda)
+        linearization=_linearization(method), n_iter=cfg.n_iter,
+        tol=cfg.tol, lm_lambda=cfg.lm_lambda)
     return tserve.SmootherServer(model, cfg, spec=spec, device="cpu")
 
 
@@ -71,8 +79,17 @@ def test_pad_requests_matches_jax():
 
 
 def test_serve_requests_matches_jax():
-    _, requests, jserver, want = jax_side()
-    server = torch_server()
+    _check_service_matches_jax("ekf")
+
+
+def test_slr_serve_requests_matches_jax():
+    """The IPLS service: sigma-point SLR (cubature) linearization."""
+    _check_service_matches_jax("slr")
+
+
+def _check_service_matches_jax(method):
+    _, requests, jserver, want = jax_side(method)
+    server = torch_server(method)
     for n in set(LENGTHS):
         assert server.queue_signature(n) == jserver.queue_signature(n)
     got = server.serve_requests([torch.tensor(r) for r in requests],
@@ -89,14 +106,23 @@ def test_serve_requests_matches_jax():
 
 
 def test_serve_smoother_end_to_end_on_cpu(capsys):
+    _check_cli_on_cpu(capsys, "ekf")
+
+
+def test_slr_serve_smoother_end_to_end_on_cpu(capsys):
+    _check_cli_on_cpu(capsys, "slr")
+
+
+def _check_cli_on_cpu(capsys, method):
     tserve.main(["--workload", "smoother", "--arrival", "none",
                  "--requests", "3", "--n", "16", "--max-batch", "2",
-                 "--iters", "3", "--device", "cpu"])
+                 "--iters", "3", "--device", "cpu", "--method", method])
     out = capsys.readouterr().out
     assert "[serve/smoother] 3 requests in" in out
     assert "mean position RMSE" in out
     stats = tserve.serve_smoother(
-        tserve.SmootherServeConfig(requests=3, n=16, max_batch=2, n_iter=3),
+        tserve.SmootherServeConfig(requests=3, n=16, max_batch=2, n_iter=3,
+                                   method=method),
         emit=lambda *_: None, device="cpu")
     assert stats["mean_rmse"] < 1.0 and len(stats["results"]) == 3
 

@@ -185,14 +185,37 @@ def test_spec_validation_matches_jax():
 
 
 @pytest.mark.parametrize("fields,exc", [
-    (dict(linearization="slr"), NotImplementedError),
-    (dict(form="sqrt"), NotImplementedError),
-    (dict(damping="adaptive"), NotImplementedError),
     (dict(backend="tpu"), ValueError),
 ])
 def test_unported_axes_raise_at_build(fields, exc):
     with pytest.raises(exc):
         tapi.build_smoother(**fields, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["parallel", "sequential"])
+@pytest.mark.parametrize("form", ["standard", "sqrt"])
+@pytest.mark.parametrize("damping", ["fixed", "adaptive"])
+@pytest.mark.parametrize("lin_scheme", [
+    ("taylor", "cubature"), ("slr", "cubature"), ("slr", "unscented"),
+    ("slr", "gauss_hermite")])
+def test_every_spec_axis_builds_and_runs(lin_scheme, damping, form, mode):
+    """Every axis combination the JAX package accepts builds a smoother
+    that runs on the CPU; square-root with sequential raises as in JAX."""
+    linearization, scheme = lin_scheme
+    fields = dict(linearization=linearization, sigma_scheme=scheme,
+                  damping=damping, form=form, mode=mode, n_iter=2,
+                  lm_lambda=1.0)
+    if form == "sqrt" and mode == "sequential":
+        with pytest.raises(ValueError, match="sqrt"):
+            jcore.SmootherSpec(**fields)
+        with pytest.raises(ValueError, match="sqrt"):
+            tapi.build_smoother(**fields, device="cpu")
+        return
+    _, ys = measurements()
+    traj, info = tapi.build_smoother(**fields, device="cpu").iterate(
+        torch_model(), torch.tensor(ys[:2, :8]), return_info=True)
+    assert traj.mean.shape == (2, 9, 5) and traj.cov.shape == (2, 9, 5, 5)
+    assert torch.isfinite(traj.mean).all() and (info.code != 2).all()
 
 
 def test_inputs_on_another_device_raise():
