@@ -41,13 +41,39 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
   8. ``[adaptive]``: one 64 x 512 bucket with adaptive damping (Taylor
      and SLR): lane codes and pass counts equal to the plain run's, no
      NaN, kernel launches counted;
-  9. ``[ssm_scan]``: the linear-recurrence entry points at Hymba-1.5B's SSM
+
+  Phases 4-8 pin ``backend="gpu"`` (the kernels). The streaming phases
+  run ``backend="auto"``: each bucket shape takes the autotuner's measured
+  winner, kernel or plain version.
+
+  9. ``[autotune]``: the kernel-vs-plain verdict (``kernel_us``,
+     ``fused_us``, choice) for every bucket shape of the stream (n_pad 256
+     and 512 x widths 1 ... 64): the choice must be the faster candidate,
+     and an ``"auto"`` pass at the shape must launch the combine kernels
+     if and only if the choice is "pallas";
+  10. ``[stream]``: ``serve_smoother`` with the JAX service's streaming
+     defaults (64 coordinated-turn requests, n in {256, 384, 512}, width
+     64, f64, Poisson at 8/s, deadline policy, 2 s deadline, 0.25 s wait
+     cap, warmed): latency percentiles, throughput, deadline hit rate,
+     goodput, occupancy, flush reasons, backend choices and launches;
+     every verdict ok, no launch error, each flush's launches as its
+     measured choice says, each request's mean within PATH_TOL of the
+     [main] one-shot run's, median position RMSE < 0.1;
+  11. ``[chaos]``: the same stream on the same warm server under the
+     static policy, fault-free and with ``ChaosConfig.at_rate(0.1)``:
+     every corrupted request verdicted, no NaN to a client, healthy
+     requests bit-identical to the fault-free run;
+  12. ``[tenants]``: coordinated_turn, pendulum (gold) and lorenz96
+     (batch) through one queue, 64 requests, n <= 512, Poisson at 8/s,
+     deadline policy: latency, deadline hit rate, RMSE, log-likelihood
+     and kernel launches per tenant; no launch mixes tenants or errs;
+  13. ``[ssm_scan]``: the linear-recurrence entry points at Hymba-1.5B's SSM
      width (``ops.ssm_scan`` on B=2, T=4096, D=51,200 and
      ``linear_recurrence_scan(combine_impl="pallas")`` on [4096, 2, 3200,
      16], f32) with the counters zeroed before and read after; each held
      against the plain version in f32, f64 and bf16, with edge shapes,
      T=0 and ``h0``; CUDA-event times of kernel and plain version;
-  10. ``[flash]``: the flash attention entry point at Llama-3.2-3B's
+  14. ``[flash]``: the flash attention entry point at Llama-3.2-3B's
      attention width (Hq=24, Hkv=8, Dh=128): prefill B=2, T=4096, causal,
      and decode B=16, Tq=1, Tk=4096, bf16, with the counters zeroed before
      and read after: the prefill must launch the ``wgmma`` kernel once and
@@ -62,7 +88,8 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      and of ``scaled_dot_product_attention`` (timed only, never on the
      port's path), profiler device times, and the decode/``wgmma``
      crossover over the rows per kv head;
-  11. the ``kernels`` JSON line, then the device JSON line, last.
+  15. the ``kernels`` JSON line (each combine kernel's launches per path),
+     then the device JSON line, last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
 """
@@ -513,23 +540,27 @@ def sc_model(torch):
 
 
 def sc_spec(cfg, **fields):
-    """The coordinated-turn spec of a service config: its linearization
-    (``cfg.method``) and iteration knobs, with ``fields`` on top."""
+    """The coordinated-turn spec of a service config, as `serve_smoother`
+    builds it: its linearization (``cfg.method``), iteration knobs and
+    combine backend, with ``fields`` on top."""
     from repro_torch.scenarios import get_scenario
 
-    return get_scenario("coordinated_turn").default_spec(
-        linearization="taylor" if cfg.method == "ekf" else "slr",
-        n_iter=cfg.n_iter, tol=cfg.tol, lm_lambda=cfg.lm_lambda, **fields)
+    return get_scenario("coordinated_turn").default_spec(**{
+        "linearization": "taylor" if cfg.method == "ekf" else "slr",
+        "n_iter": cfg.n_iter, "tol": cfg.tol, "lm_lambda": cfg.lm_lambda,
+        "backend": cfg.backend, **fields})
 
 
 def _rmse(torch, mean, truth) -> float:
     return float(torch.sqrt(torch.mean((mean[1:, :2] - truth[1:, :2]) ** 2)))
 
 
-def phase_main_path(torch, method: str = "ekf", tag: str = "main") -> dict:
+def phase_main_path(torch, method: str = "ekf", tag: str = "main") -> tuple:
     """The smoother service at 64 x n<=512, f64, on the card, linearized
     by ``method`` ("ekf": IEKS, the first slice's main path; "slr": IPLS
-    with cubature points), its lines tagged ``[tag]``."""
+    with cubature points), its lines tagged ``[tag]``. Returns the report
+    and the service's stats (the [stream] phase holds its results against
+    the [main] run's)."""
     import dataclasses
 
     from repro_torch.core import scan as scan_lib
@@ -542,7 +573,7 @@ def phase_main_path(torch, method: str = "ekf", tag: str = "main") -> dict:
                                           serve_smoother)
 
     cfg = SmootherServeConfig(requests=64, n=512, max_batch=64, f64=True,
-                              method=method)
+                              method=method, backend="gpu")
     torch.cuda.synchronize()
     copies = scan_lib.PACK_COPIES
     reset_counts()
@@ -646,7 +677,15 @@ def phase_main_path(torch, method: str = "ekf", tag: str = "main") -> dict:
             "warm_wall_s": warm["wall_s"],
             "warm_traj_per_s": warm["traj_per_s"],
             "pack_copies": copies, "kernel_vs_plain_max_abs": worst,
-            "parallel_vs_sequential_max_abs": seq_diff}
+            "parallel_vs_sequential_max_abs": seq_diff}, stats
+
+
+def _device_events(key_averages) -> list:
+    """The profiler's device-side entries (kernels and copies on the
+    card), each with its self device time."""
+    return [e for e in key_averages
+            if getattr(e, "self_device_time_total", 0) > 0
+            and str(getattr(e, "device_type", "")).endswith("CUDA")]
 
 
 def phase_profile(torch, method: str = "ekf", tag: str = "profile"
@@ -662,7 +701,8 @@ def phase_profile(torch, method: str = "ekf", tag: str = "profile"
                                           make_fleet)
 
     cfg = SmootherServeConfig(requests=64, n=512, max_batch=64,
-                              vary_lengths=False, method=method)
+                              vary_lengths=False, method=method,
+                              backend="gpu")
     model = sc_model(torch)
     requests, _ = make_fleet(cfg, model)
     server = SmootherServer(model, cfg, device="cuda", spec=sc_spec(cfg))
@@ -677,8 +717,7 @@ def phase_profile(torch, method: str = "ekf", tag: str = "profile"
         server.smooth_batch(requests, 512, 64)
         torch.cuda.synchronize()
     ka = prof.key_averages()
-    kernels = [e for e in ka if getattr(e, "self_device_time_total", 0) > 0
-               and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    kernels = _device_events(ka)
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     ops = sum(e.count for e in ka if e.key.startswith("aten::"))
@@ -735,7 +774,7 @@ def phase_matrix(torch) -> dict:
 
     t0 = time.perf_counter()
     reset_counts()
-    rows = run_matrix(device="cuda", emit=mark)
+    rows = run_matrix(device="cuda", backend="gpu", emit=mark)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     others = {k: v for k, v in read_counts().items() if k not in kc.LAUNCHES}
@@ -787,7 +826,8 @@ def _bucket(torch, method: str = "ekf"):
                                           pad_requests)
 
     cfg = SmootherServeConfig(requests=64, n=512, max_batch=64,
-                              vary_lengths=False, method=method)
+                              vary_lengths=False, method=method,
+                              backend="gpu")
     model = sc_model(torch)
     requests, _ = make_fleet(cfg, model)
     ys, rs = pad_requests(requests, 512, 64, model.R)
@@ -934,6 +974,407 @@ def phase_adaptive(torch) -> dict:
                           "iterations": info.iterations.tolist(),
                           "vs_plain_max_abs": worst, "tie_flips": flips}
     return report
+
+
+# ---------------------------------------------------------------------------
+# The streaming service: autotuner, stream, chaos and tenants
+# ---------------------------------------------------------------------------
+
+#: The stream's bucket shapes: n in {256, 384, 512} pads to 256 or 512,
+#: and the deadline policy flushes at every power-of-two width <= 64.
+STREAM_N_PADS = (256, 512)
+STREAM_B_PADS = (1, 2, 4, 8, 16, 32, 64)
+TENANTS = "coordinated_turn,pendulum:gold,lorenz96:batch"
+
+
+def stream_config(**fields):
+    """The JAX service's streaming defaults at full width: 64
+    coordinated-turn requests, n in {256, 384, 512}, launch width 64, f64,
+    IEKS (10 passes, tol 1e-6, lambda 1), Poisson arrivals at 8/s, the
+    deadline policy with a 2 s deadline and a 0.25 s wait cap, warmed,
+    ``backend="auto"``."""
+    from repro_torch.launch.serve import SmootherServeConfig
+
+    return SmootherServeConfig(**{
+        "requests": 64, "n": 512, "max_batch": 64, "f64": True,
+        "arrival": "poisson", "policy": "deadline", "rate": 8.0,
+        "deadline_s": 2.0, "max_wait_s": 0.25, **fields})
+
+
+class FlushLaunches:
+    """Counts each queue flush's combine-kernel launches, read around
+    `SmootherServer.run_flush` (the executor every stream calls), so a
+    flush can be held against the measured choice for its shape."""
+
+    def __enter__(self):
+        from repro_torch.kernels.kalman_combine import kalman_combine as kc
+        from repro_torch.launch.serve import SmootherServer
+
+        self._cls, self._orig, self.flushes = SmootherServer, \
+            SmootherServer.run_flush, []
+        orig, flushes = self._orig, self.flushes
+
+        def counted(server, fl):
+            before = dict(kc.LAUNCHES)
+            out = orig(server, fl)
+            flushes.append((server, fl, {k: kc.LAUNCHES[k] - before[k]
+                                         for k in before}))
+            return out
+
+        SmootherServer.run_flush = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.run_flush = self._orig
+
+    def check(self, tag: str) -> dict:
+        """Each flush launched both combine kernels if its bucket's
+        measured choice is "pallas", and none otherwise (the retry lane is
+        never measured, so it runs the plain versions). Returns the
+        launches per tenant."""
+        from repro_torch.kernels.kalman_combine import autotune as kc_at
+
+        per_tenant = {}
+        for server, fl, launched in self.flushes:
+            n_pad, nx = fl.signature[2], fl.signature[3]
+            choice = kc_at.decide(fl.signature[0], fl.b_pad, n_pad, nx,
+                                  device="cuda")
+            ok = (min(launched.values()) > 0 if choice == "pallas"
+                  else not any(launched.values()))
+            if not ok:
+                fail(f"[{tag}] flush {fl.signature} x {fl.b_pad} (choice "
+                     f"{choice}) launched {launched}")
+            tot = per_tenant.setdefault(server.tenant,
+                                        {k: 0 for k in launched})
+            for k, v in launched.items():
+                tot[k] += v
+        return per_tenant
+
+
+def _stream_line(stats) -> str:
+    return (f"p50 {stats['latency_p50_s'] * 1e3:.1f} ms, p95 "
+            f"{stats['latency_p95_s'] * 1e3:.1f} ms, {stats['traj_per_s']:.2f}"
+            f" traj/s, deadline hit {stats['deadline_hit_rate']:.3f}, goodput "
+            f"{stats['goodput_rps']:.2f} req/s, occupancy "
+            f"{stats['occupancy']:.3f}, {stats['launches']} launches, flush "
+            f"reasons {stats['flush_reasons']}, verdicts {stats['verdicts']}")
+
+
+def _digest(stats) -> dict:
+    keys = ("requests", "launches", "latency_p50_s", "latency_p95_s",
+            "latency_mean_s", "queue_wait_p95_s", "deadline_hit_rate",
+            "traj_per_s", "goodput_rps", "occupancy", "flush_reasons",
+            "verdicts", "stragglers", "mean_iterations", "compiles",
+            "per_tenant", "mean_rmse_per_tenant", "mean_loglik_per_tenant")
+    return {k: stats[k] for k in keys if k in stats}
+
+
+def phase_autotune(torch) -> dict:
+    """``[autotune]``: the kernel-vs-plain verdict for every bucket shape
+    of the stream, measured under the stream's own spec (so its warmup
+    finds them cached). The choice must be the faster candidate, and one
+    ``"auto"`` filter+smoother pass at the shape must launch both combine
+    kernels if and only if the choice is "pallas"."""
+    import dataclasses
+
+    from repro_torch.core.api import build_smoother
+    from repro_torch.core.iterated import (_linearize,
+                                           initial_trajectory_batched)
+    from repro_torch.kernels.kalman_combine import kalman_combine as kc
+    from repro_torch.launch.serve import pad_requests
+
+    cfg = stream_config()
+    smoother = build_smoother(sc_spec(cfg), device="cuda")
+    model = sc_model(torch)
+    rows = []
+    for n_pad in STREAM_N_PADS:
+        for b_pad in STREAM_B_PADS:
+            entry = smoother.autotune(b_pad, n_pad, MAIN_NX)
+            faster = ("pallas" if entry["kernel_us"] < entry["fused_us"]
+                      else "fused")
+            if entry["backend"] != "gpu" or entry["choice"] != faster:
+                fail(f"[autotune] {b_pad} x {n_pad}: {entry}")
+            ys, rs = pad_requests(
+                [torch.zeros((n_pad, model.ny), dtype=torch.float64,
+                             device="cuda")], n_pad, b_pad, model.R)
+            model_b = dataclasses.replace(model, R=rs)
+            lin = _linearize(model_b, initial_trajectory_batched(
+                model_b, b_pad, n_pad), smoother.config, None)
+            before = dict(kc.LAUNCHES)
+            _, sm = smoother.smooth(lin, ys, model.m0, model.P0)
+            torch.cuda.synchronize()
+            launched = {k: kc.LAUNCHES[k] - before[k] for k in before}
+            if entry["choice"] == "pallas":
+                ok = min(launched.values()) > 0
+            else:
+                ok = not any(launched.values())
+            if not ok or not bool(torch.isfinite(sm.mean).all()):
+                fail(f"[autotune] {b_pad} x {n_pad}: choice "
+                     f"{entry['choice']}, an auto pass launched {launched}")
+            say(f"[autotune] B={b_pad} T={n_pad} nx={MAIN_NX} (probe f32, "
+                f"{b_pad} x {max(n_pad // 2, 1)} pairs): kernel "
+                f"{entry['kernel_us']:.1f} us, plain {entry['fused_us']:.1f} "
+                f"us -> {entry['choice']}; auto pass launched {launched}")
+            rows.append({"B": b_pad, "T": n_pad, **entry,
+                         "auto_launches": launched})
+    chosen = sum(r["choice"] == "pallas" for r in rows)
+    say(f"[autotune] {chosen}/{len(rows)} bucket shapes choose the kernels")
+    return {"spec_id": smoother.spec_id, "rows": rows}
+
+
+def phase_stream(torch, oneshot) -> tuple:
+    """``[stream]``: `serve_smoother` with the JAX service's streaming
+    defaults on the card, counts zeroed before and read after. Every
+    verdict ok, no launch error, every flush's launches as its measured
+    choice says, each request's mean within PATH_TOL of the [main]
+    one-shot run's (a lane whose pass count differs within the smoother's
+    tol), median position RMSE < 0.1. Returns the report and the stats
+    (with the warm server) for [chaos]."""
+    from repro_torch.kernels.kalman_combine import kalman_combine as kc
+    from repro_torch.launch.serve import make_fleet, serve_smoother
+
+    cfg = stream_config()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with FlushLaunches() as flushes:
+        stats = serve_smoother(cfg, emit=say, device="cuda")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts()
+    launches = {k: counts.pop(k) for k in kc.LAUNCHES}
+    if any(counts.values()):
+        fail(f"the stream launched other kernels: {counts}")
+    in_flushes = flushes.check("stream")
+    choices = stats["backend_choices"]
+    say(f"[stream] {_stream_line(stats)}")
+    say(f"[stream] {total_s:.2f}s end to end incl. fleet simulation, warmup "
+        f"and autotune lookups; backend_choices "
+        f"{sum(v == 'pallas' for v in choices.values())} pallas / "
+        f"{sum(v == 'fused' for v in choices.values())} fused of "
+        f"{len(choices)}; kernel launches {launches} (in flushes "
+        f"{in_flushes.get('coordinated_turn')})")
+    bad = {v for v in stats["verdicts"] if v != "ok"}
+    errors = [l for l in stats["launch_log"] if "error" in l]
+    if bad or errors:
+        fail(f"[stream] verdicts {stats['verdicts']}, launch errors "
+             f"{[l['error'] for l in errors]}")
+    main = oneshot
+    worst, flips = 0.0, []
+    for i, (a, b) in enumerate(zip(stats["results"], main["results"])):
+        diff = (a - b).abs().max().item()
+        if stats["iterations"][i] != main["iterations"][i]:
+            say(f"[stream] request {i}: {stats['iterations'][i]} passes "
+                f"against the one-shot run's {main['iterations'][i]}, max "
+                f"|dmean| {diff:.3e} (tol {cfg.tol:g})")
+            flips.append({"request": i, "diff": diff})
+            if not diff <= cfg.tol:
+                fail(f"[stream] request {i} differs from the one-shot run "
+                     f"by {diff:.3e} > tol")
+            continue
+        if not torch.allclose(a, b, **PATH_TOL):
+            fail(f"[stream] request {i}: stream vs one-shot max abs diff "
+                 f"{diff:.3e}")
+        worst = max(worst, diff)
+    model = sc_model(torch)
+    _, truths = make_fleet(cfg, model)
+    rmses = sorted(_rmse(torch, m, t)
+                   for m, t in zip(stats["results"], truths))
+    median = rmses[len(rmses) // 2]
+    say(f"[stream] vs the [main] one-shot run: max |dmean| {worst:.3e} over "
+        f"{len(rmses) - len(flips)} requests with equal passes, "
+        f"{len(flips)} with other passes; position RMSE median "
+        f"{median:.4f}, mean {stats['mean_rmse']:.4f}")
+    if not median < 0.1:
+        fail(f"[stream] median position RMSE {median} >= 0.1")
+    load = _executor_load(stats)
+    say(f"[stream] executor: {load['flushes']} flushes of "
+        f"{load['mean_requests']:.2f} requests on average, compute "
+        f"{load['mean_compute_s'] * 1e3:.1f} ms per flush (min "
+        f"{load['min_compute_s'] * 1e3:.1f}, max "
+        f"{load['max_compute_s'] * 1e3:.1f}), busy {load['busy_share']:.3f} "
+        f"of the span from the first arrival to the last completion")
+    flush = _profile_flush(torch, stats["server"], make_fleet(
+        cfg, stats["server"].model)[0], cfg.n)
+    say(f"[stream] one flush of 2 requests at n_pad={cfg.n} (the stream's "
+        f"typical width): wall {flush['wall_s'] * 1e3:.1f} ms unprofiled, "
+        f"device busy {flush['device_busy_s'] * 1e3:.2f} ms in "
+        f"{flush['kernel_launches']} kernel launches, device idle "
+        f"{flush['idle_share']:.1%} of the wall")
+    report = {**_digest(stats), "launches_by_kernel": launches,
+              "total_s": total_s, "backend_choices": choices,
+              "vs_oneshot_max_abs": worst, "pass_flips": flips,
+              "median_rmse": median, "mean_rmse": stats["mean_rmse"],
+              "executor": load, "flush_profile": flush}
+    return report, stats
+
+
+def _executor_load(stats) -> dict:
+    """How loaded the stream's serial executor was: flushes, requests and
+    measured compute per flush, and compute over the stream's span."""
+    ran = [l for l in stats["launch_log"] if not l.get("shed")]
+    compute = [l["compute_s"] for l in ran]
+    span = max(r["arrival"] + r["latency_s"] for r in stats["records"]) \
+        - min(r["arrival"] for r in stats["records"])
+    return {"flushes": len(ran),
+            "mean_requests": sum(l["b"] for l in ran) / len(ran),
+            "mean_compute_s": sum(compute) / len(ran),
+            "min_compute_s": min(compute), "max_compute_s": max(compute),
+            "busy_share": sum(compute) / span}
+
+
+def _profile_flush(torch, server, requests, n: int) -> dict:
+    """Device busy time of one warm ``smooth_batch`` of two length-``n``
+    requests at width 2 (``torch.profiler``) beside its unprofiled
+    wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = [y for y in requests if len(y) == n][:2]
+    server.smooth_batch(batch, n, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.smooth_batch(batch, n, 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        server.smooth_batch(batch, n, 2)
+        torch.cuda.synchronize()
+    kernels = _device_events(prof.key_averages())
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy,
+            "kernel_launches": sum(e.count for e in kernels),
+            "idle_share": 1 - busy / wall}
+
+
+def phase_chaos(torch, stream) -> dict:
+    """``[chaos]``: the same stream on the same warm server under the
+    static policy, without faults and then with
+    ``ChaosConfig.at_rate(0.1)`` (counts zeroed before the chaos run and
+    read after): every corrupted request gets an explicit verdict, no NaN
+    mean reaches a client, every healthy request is bit-identical to the
+    fault-free run, and no launch error escapes the in-place retry."""
+    from repro_torch.kernels.kalman_combine import kalman_combine as kc
+    from repro_torch.launch.autobatch import FlushPolicy, make_arrivals
+    from repro_torch.launch.chaos import ChaosConfig
+    from repro_torch.launch.serve import make_fleet
+
+    cfg = stream_config()
+    server = stream["server"]
+    requests, _ = make_fleet(cfg, server.model)
+    arrivals = make_arrivals(cfg.arrival, cfg.requests, cfg.rate,
+                             cfg.burst_size, seed=cfg.seed)
+    policy = FlushPolicy(kind="static", max_batch=cfg.max_batch)
+    clean = server.serve_stream(requests, arrivals, emit=say, policy=policy)
+    torch.cuda.synchronize()
+    reset_counts()
+    with FlushLaunches() as flushes:
+        faulty = server.serve_stream(requests, arrivals, emit=say,
+                                     policy=policy,
+                                     chaos=ChaosConfig.at_rate(0.1))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches = {k: counts.pop(k) for k in kc.LAUNCHES}
+    if any(counts.values()):
+        fail(f"the chaos stream launched other kernels: {counts}")
+    flushes.check("chaos")
+    verdicts = {r["req_id"]: r["verdict"] for r in faulty["records"]}
+    corrupted = {int(i) for i in faulty["chaos"]["corrupted_requests"]}
+    for log in (clean, faulty):
+        errors = [l["error"] for l in log["launch_log"] if "error" in l]
+        if errors:
+            fail(f"[chaos] launch errors: {errors}")
+    if set(v for v in (r["verdict"] for r in clean["records"])) != {"ok"}:
+        fail(f"[chaos] fault-free static run verdicts {clean['verdicts']}")
+    for i in corrupted:
+        if verdicts[i] not in ("diverged", "retried", "shed"):
+            fail(f"[chaos] corrupted request {i} got verdict {verdicts[i]}")
+    healthy = [i for i, v in verdicts.items() if v == "ok"]
+    for i in healthy:
+        if not (torch.equal(faulty["results"][i], clean["results"][i])
+                and faulty["logliks"][i] == clean["logliks"][i]):
+            fail(f"[chaos] healthy request {i} differs from the fault-free "
+                 "run")
+    for i, m in enumerate(faulty["results"]):
+        if verdicts[i] != "shed" and (m is None
+                                      or not bool(torch.isfinite(m).all())):
+            fail(f"[chaos] request {i}: NaN or no mean reached the client")
+    say(f"[chaos] static policy: fault-free {clean['launches']} launches, "
+        f"{clean['traj_per_s']:.2f} traj/s; at rate 0.1: corrupted "
+        f"{sorted(corrupted)} -> verdicts "
+        f"{ {i: verdicts[i] for i in sorted(corrupted)} }, "
+        f"{faulty['chaos']['exceptions']} transient exceptions, "
+        f"{faulty['chaos']['stragglers']} stragglers injected "
+        f"({faulty['stragglers']} flagged); {len(healthy)} healthy requests "
+        f"bit-identical to the fault-free run; no NaN reached a client; "
+        f"kernel launches {launches}")
+    say(f"[chaos] {_stream_line(faulty)}")
+    return {"clean": _digest(clean), "faulty": _digest(faulty),
+            "chaos": faulty["chaos"], "launches_by_kernel": launches,
+            "healthy_bit_identical": len(healthy)}
+
+
+def phase_tenants(torch) -> dict:
+    """``[tenants]``: `serve_smoother_multitenant` over coordinated_turn,
+    pendulum (gold) and lorenz96 (batch) on the card, 64 requests, n <=
+    512, Poisson at 8/s, deadline policy, counts zeroed before and read
+    after. No launch mixes tenants and none has an error; each flush's
+    launches follow its tenant's measured choice."""
+    from repro_torch.kernels.kalman_combine import autotune as kc_at
+    from repro_torch.kernels.kalman_combine import kalman_combine as kc
+    from repro_torch.launch.serve import TenantSpec, serve_smoother_multitenant
+    from repro_torch.scenarios import get_scenario
+
+    cfg = stream_config()
+    tenants = [TenantSpec.parse(t) for t in TENANTS.split(",")]
+    # The warmup's autotune probes compare the kernel with its plain
+    # version; measured here, before the counters are zeroed, they stay
+    # out of the path's launches (the warmup finds them cached).
+    for t in tenants:
+        spec_id, nx = t.smoother_spec(cfg).spec_id, \
+            get_scenario(t.scenario).nx
+        entries = [kc_at.autotune(spec_id, b, n, nx, device="cuda")
+                   for n in STREAM_N_PADS for b in STREAM_B_PADS]
+        say(f"[tenants] {t.tenant} (nx={nx}) autotune: "
+            f"{sum(e['choice'] == 'pallas' for e in entries)}/"
+            f"{len(entries)} shapes choose the kernels; kernel "
+            f"{min(e['kernel_us'] for e in entries):.1f}-"
+            f"{max(e['kernel_us'] for e in entries):.1f} us, plain "
+            f"{min(e['fused_us'] for e in entries):.1f}-"
+            f"{max(e['fused_us'] for e in entries):.1f} us")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with FlushLaunches() as flushes:
+        stats = serve_smoother_multitenant(cfg, tenants, emit=say,
+                                           device="cuda")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts()
+    launches = {k: counts.pop(k) for k in kc.LAUNCHES}
+    if any(counts.values()):
+        fail(f"the tenant stream launched other kernels: {counts}")
+    per_tenant = flushes.check("tenants")
+    tenant_of = {r["req_id"]: r["tenant"] for r in stats["records"]}
+    for l in stats["launch_log"]:
+        members = {tenant_of[i] for i in l["req_ids"]}
+        if len(members) != 1 or l["tenants"] != sorted(members):
+            fail(f"[tenants] a launch mixes tenants: {l['tenants']}")
+        if "error" in l:
+            fail(f"[tenants] launch error: {l['error']}")
+    say(f"[tenants] {_stream_line(stats)}; {total_s:.2f}s end to end")
+    nan = float("nan")
+    for t, d in sorted(stats["per_tenant"].items()):
+        say(f"[tenants] {t}: {d['requests']} requests, p50 "
+            f"{d['latency_p50_s'] * 1e3:.1f} ms, p95 "
+            f"{d['latency_p95_s'] * 1e3:.1f} ms, deadline hit "
+            f"{d['deadline_hit_rate']:.3f}, state RMSE "
+            f"{stats['mean_rmse_per_tenant'].get(t, nan):.4f}, loglik "
+            f"{stats['mean_loglik_per_tenant'].get(t, nan):.1f}, kernel "
+            f"launches in flushes {per_tenant.get(t)}")
+    return {**_digest(stats), "launches_by_kernel": launches,
+            "launches_per_tenant": per_tenant, "total_s": total_s,
+            "backend_choices": stats["backend_choices"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1351,13 +1792,17 @@ def main() -> int:
     build = phase_build()
     kernels = phase_kernels(torch)
     pack = phase_pack(torch)
-    main_path = phase_main_path(torch)
+    main_path, oneshot = phase_main_path(torch)
     prof = phase_profile(torch)
-    slr = phase_main_path(torch, "slr", "slr")
+    slr, _ = phase_main_path(torch, "slr", "slr")
     slr_prof = phase_profile(torch, "slr", "slr")
     matrix = phase_matrix(torch)
     sqrt = phase_sqrt(torch)
     adaptive = phase_adaptive(torch)
+    autotune = phase_autotune(torch)
+    stream, stream_stats = phase_stream(torch, oneshot)
+    chaos = phase_chaos(torch, stream_stats)
+    tenants = phase_tenants(torch)
     ssm = phase_ssm_scan(torch)
     flash = phase_flash(torch)
 
@@ -1370,7 +1815,10 @@ def main() -> int:
                    "slr": slr["launches"][kind],
                    "matrix": matrix["launches"][kind],
                    **{f"adaptive_{m}": adaptive[m]["launches"][kind]
-                      for m in ("ekf", "slr")}}
+                      for m in ("ekf", "slr")},
+                   **{tag: res["launches_by_kernel"][kind] for tag, res in (
+                       ("stream", stream), ("chaos", chaos),
+                       ("tenants", tenants))}}
         rows.append({"launches": sum(by_path.values()),
                      "launches_by_path": by_path, "max_abs_err": err,
                      "ms": t["in_place_graph_ms"],
@@ -1393,7 +1841,8 @@ def main() -> int:
         {"env": env, "build": build, "kernels": kernels, "pack": pack,
          "main_path": main_path, "profile": prof, "slr": slr,
          "slr_profile": slr_prof, "matrix": matrix, "sqrt": sqrt,
-         "adaptive": adaptive, "ssm_scan": ssm,
+         "adaptive": adaptive, "autotune": autotune, "stream": stream,
+         "chaos": chaos, "tenants": tenants, "ssm_scan": ssm,
          "flash_attention": flash,
          "seconds": time.perf_counter() - t_start}, indent=1))
     say(f"[chip_smoke] all phases passed in "

@@ -56,9 +56,11 @@ class SmootherSpec:
     (the JAX package's axes: ``mode``, ``form``, ``linearization``,
     ``sigma_scheme``, iteration control ``n_iter``/``tol``/``lm_lambda``,
     ``combine_impl``, ``jitter``, ``model_id``, ``backend``,
-    ``damping``). In the port ``backend="auto"`` and ``"gpu"`` run the
-    CUDA combine kernels on the card, ``"jnp"`` their plain PyTorch
-    versions, and ``"tpu"`` raises when a smoother is built."""
+    ``damping``). In the port ``backend="gpu"`` runs the CUDA combine
+    kernels on the card, ``"jnp"`` their plain PyTorch versions,
+    ``"auto"`` the winner :meth:`Smoother.autotune` measured for the
+    launch shape (the plain versions where nothing was measured, as in
+    the JAX package), and ``"tpu"`` raises when a smoother is built."""
 
     mode: str = "parallel"
     form: str = "standard"
@@ -153,6 +155,34 @@ class Smoother:
     def __repr__(self) -> str:
         return f"Smoother({self.spec!r}, device={str(self.device)!r})"
 
+    @staticmethod
+    def _launch_shape(ys, m0):
+        """``(B, T, nx)`` of a batched call site (None for a single
+        trajectory) — the ``backend="auto"`` autotune-cache key."""
+        if ys.ndim != 3:
+            return None
+        return (int(ys.shape[0]), int(ys.shape[1]), int(m0.shape[-1]))
+
+    # -- backend autotuning -------------------------------------------------
+
+    def autotune(self, B: int, n: int, nx: int) -> dict:
+        """Measure the CUDA combine kernel against its plain version for
+        ``(B, n, nx)`` launches on this smoother's device, and cache the
+        winner under its ``spec_id``.
+
+        Idempotent per shape: `build_smoother` (``autotune_for``) and the
+        server's warmup call it once per bucket shape. After it runs,
+        ``backend="auto"`` call sites of the shape take the measured
+        winner; on the CPU nothing is measured and the choice is always
+        ``"fused"``. Returns the cache entry ``{choice, backend,
+        kernel_us, fused_us}``."""
+        from repro_torch.kernels.kalman_combine import autotune as _at
+        return _at.autotune(self.spec_id, B, n, nx, device=self.device)
+
+    def _combine_impl(self, ys, m0) -> str:
+        return self.config.resolved_combine_impl(
+            True, shape=self._launch_shape(ys, m0), device=self.device)
+
     def _check_device(self, ys: torch.Tensor) -> None:
         if ys.device.type != self.device.type:
             raise ValueError(f"inputs are on {ys.device}, but this smoother "
@@ -173,8 +203,7 @@ class Smoother:
             out = _sqrt.sqrt_parallel_filter_batched(lin, ys, m0, P0)
         else:
             out = _parallel.parallel_filter_batched(
-                lin, ys, m0, P0,
-                combine_impl=self.config.resolved_combine_impl())
+                lin, ys, m0, P0, combine_impl=self._combine_impl(ys, m0))
         return Gaussian(*(_single(x, batched) for x in out))
 
     def smooth(self, lin: LinearizedSSM, ys, m0, P0):
@@ -191,8 +220,7 @@ class Smoother:
                 lin, ys, m0, P0)
         else:
             filt, smth = _parallel._parallel_filter_smoother_batched(
-                lin, ys, m0, P0,
-                combine_impl=self.config.resolved_combine_impl())
+                lin, ys, m0, P0, combine_impl=self._combine_impl(ys, m0))
         return (Gaussian(*(_single(x, batched) for x in filt)),
                 Gaussian(*(_single(x, batched) for x in smth)))
 
@@ -251,12 +279,22 @@ class Smoother:
 
 
 def build_smoother(spec: Optional[SmootherSpec] = None, *,
-                   device: Device = None, **axes) -> Smoother:
+                   device: Device = None,
+                   autotune_for: Optional[tuple] = None,
+                   **axes) -> Smoother:
     """Build the configured estimator for ``spec`` on ``device`` (default
     ``cuda``). Field overrides may be passed instead of, or on top of, a
-    spec (``build_smoother(n_iter=5, device="cpu")``)."""
+    spec (``build_smoother(n_iter=5, device="cpu")``).
+
+    ``autotune_for=(B, n, nx)`` runs :meth:`Smoother.autotune` for that
+    launch shape before returning, so ``backend="auto"`` call sites of
+    the shape take the measured winner from their first call. Cached per
+    ``(spec_id, shape, platform)`` — repeated builds do not re-measure."""
     if spec is None:
         spec = SmootherSpec(**axes)
     elif axes:
         spec = dataclasses.replace(spec, **axes)
-    return Smoother(spec, device)
+    smoother = Smoother(spec, device)
+    if autotune_for is not None:
+        smoother.autotune(*autotune_for)
+    return smoother

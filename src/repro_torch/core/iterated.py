@@ -120,18 +120,50 @@ class IteratedConfig:
             raise ValueError('backend="tpu" has no lowering in the PyTorch '
                              'port; use "auto", "gpu" or "jnp"')
 
-    def resolved_combine_impl(self) -> str:
-        """The scan's ``combine_impl`` for a batched call site.
+    def resolved_combine_impl(self, batched: bool,
+                              shape: Optional[tuple] = None,
+                              device=None) -> str:
+        """The scan driver's ``combine_impl`` string for one call site —
+        the JAX package's resolution table, line by line.
 
-        An explicit ``combine_impl`` wins; ``"auto"`` takes the CUDA
-        kernels (``"pallas"``) unless ``backend="jnp"`` asks for the
-        plain versions (``"fused"``). The kernel wrappers themselves run
-        the plain version on CPU tensors. There is no autotuner yet, so
-        ``backend="auto"`` means "kernel on the card".
+        ``shape`` is the launch shape ``(B, T, nx)`` when the caller knows
+        it (the batched drivers do) and ``device`` the device it runs on
+        (``None``: the default, the card where there is one); together
+        they key the ``backend="auto"`` autotune-cache lookup:
+
+          * an explicit ``combine_impl`` wins; ``"pallas"`` is qualified
+            to ``"pallas:gpu"`` when the backend forces that lowering;
+          * ``"auto"`` + single trajectory -> ``"jnp"`` (textbook);
+          * ``"auto"`` + batched: ``backend="jnp"`` -> ``"fused"`` (the
+            plain versions); ``backend="gpu"`` -> the CUDA kernels;
+            ``backend="auto"`` -> the measured winner recorded by
+            `repro_torch.kernels.kalman_combine.autotune` for
+            ``(model_id, B, T, nx)`` on the device's platform, else the
+            plain versions (an unmeasured site runs ``"fused"``).
         """
         if self.combine_impl == "auto":
-            return "fused" if self.backend == "jnp" else "pallas"
+            if not batched:
+                return "jnp"
+            if self.backend in ("tpu", "gpu"):
+                return f"pallas:{self.backend}"
+            if self.backend == "auto" and shape is not None:
+                # Late import: kernels depend on core.
+                from repro_torch.kernels.kalman_combine import \
+                    autotune as kc_at
+                if kc_at.decide(self.model_id, *shape,
+                                device=device) == kc_at.CHOICE_KERNEL:
+                    return "pallas"
+            return "fused"
+        if self.combine_impl == "pallas" and self.backend in ("tpu", "gpu"):
+            return f"pallas:{self.backend}"
         return self.combine_impl
+
+    def cache_key(self, n_pad: int, b_pad: int, nx: int) -> tuple:
+        """Hashable signature of one padded bucket launch: the config
+        (frozen, so hashable; ``model_id`` carries the spec_id) and the
+        launch shape. The service's warmup and its ``signatures_seen``
+        bookkeeping key on it, as in the JAX package."""
+        return (self, int(n_pad), int(b_pad), int(nx))
 
 
 class LaneStatus(NamedTuple):
@@ -214,7 +246,10 @@ def _one_pass_batched(model: StateSpaceModel, ys: torch.Tensor,
     else:
         _, smoothed = parallel._parallel_filter_smoother_batched(
             lin, ys_eff, model.m0, model.P0,
-            combine_impl=cfg.resolved_combine_impl())
+            combine_impl=cfg.resolved_combine_impl(
+                batched=True,
+                shape=(ys.shape[0], ys.shape[1], traj.mean.shape[-1]),
+                device=ys.device))
     return smoothed
 
 

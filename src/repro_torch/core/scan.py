@@ -186,7 +186,7 @@ def linear_recurrence_scan(a: torch.Tensor, b: torch.Tensor, *,
     if axis_name is not None:
         raise NotImplementedError(
             "linear_recurrence_scan(axis_name=...): the sharded scan is not "
-            "ported yet (ROADMAP A, item 6)")
+            "ported yet (ROADMAP A, item 4)")
     if h0 is not None and a.shape[0] > 0:
         b = torch.cat([(a[0] * h0 + b[0])[None], b[1:]])
     if combine_impl == "pallas" or combine_impl.startswith("pallas:"):

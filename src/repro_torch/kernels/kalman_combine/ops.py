@@ -1,30 +1,45 @@
 """Static per-call-site dispatch of the batched Kalman combines.
 
 The choice is made once per scan (every Blelloch level of one scan takes
-the same path), from the spec's ``combine_impl``/``backend``:
+the same path), from the spec's ``combine_impl``/``backend`` as
+`IteratedConfig.resolved_combine_impl` resolves them:
 
-  * ``combine_impl="pallas"`` (or ``"auto"`` resolved by
-    `IteratedConfig.resolved_combine_impl`) with backend "auto"/"gpu" —
-    the hand-written CUDA kernels. The wrapper decides from the tensor:
-    a CUDA tensor launches the kernel, a CPU tensor takes the plain
-    version;
-  * ``"fused"`` (``backend="jnp"``) — the plain PyTorch versions of the
-    kernel math, on either device;
+  * ``"pallas"`` / ``"pallas:gpu"`` — the hand-written CUDA kernels. The
+    wrapper decides from the tensor: a CUDA tensor launches the kernel, a
+    CPU tensor takes the plain version. ``backend="gpu"`` always resolves
+    here;
+  * ``"fused"`` — the plain PyTorch versions of the kernel math, on
+    either device (``backend="jnp"``);
+  * ``backend="auto"`` — the measured winner of `autotune` for the call
+    site's ``(spec_id, B, T, nx)`` on its device's platform, and the
+    plain versions where nothing was measured (as in the JAX package);
   * ``backend="tpu"`` — no lowering exists in the port: raises.
 
-The port has no autotuner yet, so ``backend="auto"`` means "kernel on the
-card"; the JAX package's measured kernel-vs-fused choice comes later.
+`kernel_backend` names the compiled lowering of a device: ``"gpu"`` for
+a CUDA device, ``None`` for the CPU, where `autotune` measures nothing.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import torch
+
 from repro_torch.core.parallel import filtering_combine, smoothing_combine
+from repro_torch.core.types import Device
 
 from . import kalman_combine as _k
 
 #: Backends a ``"pallas:<backend>"`` combine_impl may name.
 KERNEL_BACKENDS = ("gpu",)
+
+
+def kernel_backend(device: Device = None) -> Optional[str]:
+    """The device's *compiled* kernel lowering: ``"gpu"`` for a CUDA
+    device, ``None`` for the CPU (only the plain versions run there).
+    ``None`` means the default device: the card where there is one."""
+    if device is None:
+        return "gpu" if torch.cuda.is_available() else None
+    return "gpu" if torch.device(device).type == "cuda" else None
 
 
 def resolve_backend(requested: Optional[str] = None) -> str:

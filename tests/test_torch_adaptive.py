@@ -178,7 +178,8 @@ def test_adaptive_through_kernels_matches_plain_on_card(cuda, linearization):
     _, ys = simulate_trajectory(model, 128, gen, batch=(16,))
     ys[3, 7, 1] = float("nan")
     spec = tapi.SmootherSpec(linearization=linearization, damping="adaptive",
-                             n_iter=10, tol=1e-6, lm_lambda=1.0)
+                             n_iter=10, tol=1e-6, lm_lambda=1.0,
+                             backend="gpu")
     kc.reset_launch_counts()
     got, info = tapi.build_smoother(spec, device=cuda).iterate(
         model, ys, return_info=True)

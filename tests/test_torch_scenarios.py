@@ -176,7 +176,7 @@ def test_matrix_on_card_matches_plain_twin(cuda):
 
     marks = []
     kc.reset_launch_counts()
-    rows = tsmoke.run_matrix(device=cuda,
+    rows = tsmoke.run_matrix(device=cuda, backend="gpu",
                              emit=lambda *_: marks.append(dict(kc.LAUNCHES)))
     before = dict(kc.LAUNCHES)
     twins = tsmoke.run_matrix(device=cuda, backend="jnp",

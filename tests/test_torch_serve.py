@@ -188,13 +188,20 @@ def test_package_imports_no_jax_and_no_repro():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+        "print(' '.join(n for n in sys.modules "
+        "if n.startswith('repro_torch')))\n"
         "sys.exit('imported: ' + ', '.join(bad) if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr + proc.stdout
-    assert int(proc.stdout.split()[-1]) >= 15
+    loaded = set(proc.stdout.split())
+    assert len(loaded) >= 15
+    # The streaming service's modules are among them.
+    assert {"repro_torch.runtime", "repro_torch.runtime.fault",
+            "repro_torch.launch.autobatch", "repro_torch.launch.chaos",
+            "repro_torch.launch.serve",
+            "repro_torch.kernels.kalman_combine.autotune"} <= loaded
     for root, _, files in os.walk(os.path.join(SRC, "repro_torch")):
         for name in files:
             if name.endswith(".py"):

@@ -241,7 +241,7 @@ def test_slr_iterate_through_kernels_matches_plain_on_card(cuda, scheme):
     from repro_torch.scenarios import simulate_trajectory
     _, ys = simulate_trajectory(model, 256, gen, batch=(16,))
     spec = sc.default_spec(linearization="slr", sigma_scheme=scheme,
-                           n_iter=10, tol=1e-6)
+                           n_iter=10, tol=1e-6, backend="gpu")
     kc.reset_launch_counts()
     got, info = tapi.build_smoother(spec, device=cuda).iterate(
         model, ys, return_info=True)

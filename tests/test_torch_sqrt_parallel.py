@@ -238,7 +238,7 @@ def test_sqrt_form_on_card_matches_standard_kernel_path(cuda):
     _, sq = tapi.build_smoother(form="sqrt", device=cuda).smooth(*args)
     torch.cuda.synchronize()
     assert not any(kc.LAUNCHES.values())
-    _, std = tapi.build_smoother(device=cuda).smooth(*args)
+    _, std = tapi.build_smoother(backend="gpu", device=cuda).smooth(*args)
     assert kc.LAUNCHES["filtering_combine"] > 0
     _close(sq.mean, std.mean.cpu().numpy(), FORM_TOL)
     _close(sq.cov, std.cov.cpu().numpy(), FORM_TOL)

@@ -247,7 +247,7 @@ def test_jax_pallas_path_scans_wrong_axis_for_3d():
 
 def test_linear_recurrence_scan_rejects():
     a = torch.ones(4, 2, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         linear_recurrence_scan(a, a, axis_name="seq")
     with pytest.raises(ValueError):
         linear_recurrence_scan(a, a, combine_impl="bogus")
