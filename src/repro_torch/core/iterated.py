@@ -123,11 +123,11 @@ class IteratedConfig:
     def resolved_combine_impl(self, batched: bool,
                               shape: Optional[tuple] = None,
                               device=None) -> str:
-        """The scan driver's ``combine_impl`` string for one call site —
+        """The scan's ``combine_impl`` string for one call site —
         the JAX package's resolution table, line by line.
 
         ``shape`` is the launch shape ``(B, T, nx)`` when the caller knows
-        it (the batched drivers do) and ``device`` the device it runs on
+        it (the batched passes do) and ``device`` the device it runs on
         (``None``: the default, the card where there is one); together
         they key the ``backend="auto"`` autotune-cache lookup:
 

@@ -35,7 +35,7 @@ from . import ops as _ops
 #: Timing repetitions per candidate (one extra warm call precedes them).
 _REPS = 3
 
-#: choice -> the combine_impl the scan driver should run.
+#: choice -> the combine_impl the scan should run.
 CHOICE_KERNEL = "pallas"
 CHOICE_FUSED = "fused"
 

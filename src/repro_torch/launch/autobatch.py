@@ -28,7 +28,7 @@ in batch width for unseen widths. Flush widths are quantized to powers
 of two (`pad_width`), so each time bucket sees O(log2 max_batch) launch
 shapes.
 
-`run_service` is the discrete-event driver: arrivals carry *simulated*
+`run_service` is the discrete-event simulation: arrivals carry *simulated*
 timestamps (reproducible, independent of host speed), while bucket
 compute is *measured* wall time fed back by the executor callback. A
 single serial executor models the one-card deployment: flushed buckets
@@ -54,7 +54,7 @@ FLUSH_MAX_WAIT = "max_wait"
 FLUSH_DRAIN = "drain"
 
 #: Per-request verdict vocabulary. Executors report
-#: ``ok``/``failed``/``retried``/``diverged`` per request; the driver
+#: ``ok``/``failed``/``retried``/``diverged`` per request; `run_service`
 #: turns ``failed`` into one bounded re-enqueue through the retry lane
 #: (or ``diverged`` when retries are exhausted/unavailable) and stamps
 #: ``shed`` on batch-class flushes dropped under overload. Every record
@@ -136,7 +136,7 @@ class QueuedRequest:
     target in simulated seconds (``math.inf`` = none). ``tenant`` is a
     label for per-tenant accounting only; routing isolation comes from
     ``model_id``/``method`` being part of the signature. ``attempt``
-    counts retry hops: the driver re-enqueues a failed request at most
+    counts retry hops: `run_service` re-enqueues a failed request at most
     once (attempt 1, usually re-routed to a stronger-damped retry
     spec), keeping the original arrival/deadline so latency and
     deadline accounting stay end-to-end.
@@ -268,7 +268,7 @@ class AutobatchQueue:
     """Deadline-aware bucket queue over ``(n_pad, nx)`` signatures.
 
     Clock-agnostic: callers pass ``now`` explicitly (simulated seconds in
-    the service driver, fabricated values in the fake-clock unit tests).
+    the service loop, fabricated values in the fake-clock unit tests).
     """
 
     def __init__(self, policy: FlushPolicy,
@@ -310,7 +310,7 @@ class AutobatchQueue:
 
     def next_due(self) -> float:
         """Earliest timer-driven flush instant across buckets (inf if
-        none) — the service driver's next wake-up."""
+        none) — the service loop's next wake-up."""
         dues = [self._due(sig)[0] for sig in self._buckets]
         return min(dues) if dues else math.inf
 
@@ -358,7 +358,7 @@ class AutobatchQueue:
 
 
 # ---------------------------------------------------------------------------
-# Discrete-event service driver
+# Discrete-event service loop
 # ---------------------------------------------------------------------------
 
 def make_arrivals(kind: str, n_requests: int, rate: float,
@@ -396,7 +396,7 @@ def run_service(requests: Sequence[QueuedRequest],
     measured wall seconds (every request succeeded) or a ``(seconds,
     outcomes)`` pair where ``outcomes`` maps ``req_id`` to a verdict
     (`VERDICT_OK`/`VERDICT_RETRIED`/`VERDICT_FAILED`/`VERDICT_DIVERGED`;
-    missing ids default to ok). The driver charges compute to a single
+    missing ids default to ok). It charges compute to a single
     serial executor (compute is real, the clock between events is
     simulated) and never lets a fault escape:
 

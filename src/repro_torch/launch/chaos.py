@@ -17,10 +17,10 @@ The failure taxonomy the service claims to handle:
     inflated; the `StepWatchdog` flags it and the compute EMA does not
     absorb it.
 
-Injection happens at the two seams the discrete-event driver has: the
-request payloads before enqueue (`ChaosInjector.corrupt_requests`, which
-takes tensors and clones each one it corrupts) and the flush executor
-(`ChaosInjector.wrap_execute`). The injector keeps a ledger of what it
+Injection happens at the two seams of the discrete-event service loop:
+the request payloads before enqueue (`ChaosInjector.corrupt_requests`,
+which takes tensors and clones each one it corrupts) and the flush
+executor (`ChaosInjector.wrap_execute`). The injector keeps a ledger of what it
 did (`faults`, `log`), so a run can check that every injected fault got
 an explicit verdict.
 """

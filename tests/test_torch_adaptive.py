@@ -12,6 +12,7 @@ chain) within rtol=1e-7, atol=1e-8 (rounding compounds over passes). The
 skips here; JAX is imported lazily so it also runs where JAX is absent.
 """
 import functools
+import sys
 
 import numpy as np
 import pytest
@@ -199,3 +200,14 @@ def test_adaptive_through_kernels_matches_plain_on_card(cuda, linearization):
         _close(info.final_cost[lane], winfo.final_cost[lane].cpu().numpy(),
                dict(rtol=1e-9, atol=0.0))
         assert float((got.mean[lane] - want.mean[lane]).abs().max()) <= 1e-6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()

@@ -1,4 +1,4 @@
-"""Port parity: the autobatching queue and its discrete-event driver.
+"""Port parity: the autobatching queue and its discrete-event service loop.
 
 The fake-clock streams of the JAX package's queue tests go through both
 packages' `AutobatchQueue` and `run_service` with one deterministic
@@ -9,6 +9,7 @@ the import.
 """
 import dataclasses
 import math
+import sys
 
 import numpy as np
 import pytest
@@ -224,7 +225,7 @@ def _mixed_execute(fl):
                 if r.req_id % 7 == 0 and r.attempt == 0}
 
 
-#: Driver streams: (policy kwargs, requests, execute, retry, watchdog?).
+#: Service streams: (policy kwargs, requests, execute, retry, watchdog?).
 STREAMS = {
     "latency_accounting": (
         dict(kind="deadline", max_batch=2, max_wait=0.5),
@@ -298,3 +299,14 @@ def test_run_service_streams_match(name):
     assert tsvc["records"] == jsvc["records"]
     assert tsum == jsum
     assert len(tsvc["records"]) == len(reqs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()

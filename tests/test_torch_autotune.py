@@ -11,6 +11,7 @@ if and only if the measured choice is ``"pallas"`` (that test skips here;
 JAX is imported lazily, so it also runs where JAX is absent).
 """
 import itertools
+import sys
 
 import numpy as np
 import pytest
@@ -244,3 +245,14 @@ def test_auto_call_launches_kernels_iff_choice_is_pallas(cuda, B, n):
             kc.LAUNCHES["smoothing_combine"] > 0
         assert launched == (choice == "pallas")
         assert any(kc.LAUNCHES.values()) == (choice == "pallas")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()

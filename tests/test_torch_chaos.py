@@ -7,6 +7,7 @@ their transient errors on the same flushes and inflate the same
 stragglers. `StepWatchdog` and `with_retries` must report and retry
 alike on the same duration and failure scripts.
 """
+import sys
 import types
 
 import numpy as np
@@ -164,3 +165,14 @@ def test_with_retries_matches_reference(fails):
         fn = mod.with_retries(lambda: 1 / 0, retry_on=(RuntimeError,))
         with pytest.raises(ZeroDivisionError):
             fn()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()

@@ -17,6 +17,7 @@ card's machine without JAX the marked tests run with
 ``pytest --noconftest -m cuda``.
 """
 import functools
+import sys
 import types
 
 import numpy as np
@@ -395,3 +396,14 @@ def test_kernel_wrapper_rejects_bad_inputs_on_card(cuda):
         kfa.flash_attention_cuda(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="non-contiguous"):
         kfa.flash_attention_cuda(q.mT.contiguous().mT, q, q)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()

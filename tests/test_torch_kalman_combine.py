@@ -9,6 +9,7 @@ parity tests only, so on a card's machine without JAX the marked tests
 run with ``pytest --noconftest -m cuda``.
 """
 import functools
+import sys
 
 import numpy as np
 import pytest
@@ -349,3 +350,14 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda, kind):
     with pytest.raises(ValueError, match="nx"):
         wrapper(big, big)
     assert kc.LAUNCHES[name] == before + 1
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()

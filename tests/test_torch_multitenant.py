@@ -8,9 +8,10 @@ same records and, per request, means and log-likelihoods within the
 iterated-path tolerance (rtol=1e-7, atol=1e-8), and no launch mixes
 tenants.
 """
-import functools
+import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -74,7 +75,7 @@ def test_tenant_fleet_draws_match_jax():
     tserver = tserve.MultiTenantServer(
         [tserve.TenantSpec.parse(t) for t in tenants],
         tserve.SmootherServeConfig(**CFG), device="cpu")
-    want, wtruth = jserve.make_tenant_fleet(jserver, 12, 8, seed=3)
+    want, _ = jserve.make_tenant_fleet(jserver, 12, 8, seed=3)
     got, gtruth = tserve.make_tenant_fleet(tserver, 12, 8, seed=3)
     assert [t for t, _ in got] == [t for t, _ in want]
     assert [len(y) for _, y in got] == [len(y) for _, y in want]
@@ -87,16 +88,22 @@ def test_tenant_fleet_draws_match_jax():
     assert all(torch.equal(a, b) for (_, a), (_, b) in zip(got, again))
 
 
-@functools.lru_cache(maxsize=None)
+@pytest.fixture(scope="module")
 def served():
+    """One mixed stream through both packages' multi-tenant servers (each
+    tenant's requests simulated by one vmapped JAX call)."""
     jserver = jserve.MultiTenantServer(
         [jserve.TenantSpec.parse(t) for t in TENANTS],
         jserve.SmootherServeConfig(**CFG))
-    requests = []
-    for i, tenant in enumerate(ORDER):
-        _, ys = j_scenario(tenant).simulate(jserver.servers[tenant].model, 8,
-                                            jax.random.PRNGKey(40 + i))
-        requests.append((tenant, np.asarray(ys)))
+    sims = {}
+    for tenant in TENANTS:
+        name = tenant.split(":")[0]
+        keys = jnp.stack([jax.random.PRNGKey(40 + i)
+                          for i, t in enumerate(ORDER) if t == name])
+        model = jserver.servers[name].model
+        sims[name] = list(np.asarray(jax.vmap(
+            lambda k: j_scenario(name).simulate(model, 8, k)[1])(keys)))
+    requests = [(t, sims[t].pop(0)) for t in ORDER]
     arrivals = np.zeros(len(requests))
     want = jserver.serve_stream(requests, arrivals, emit=_quiet)
     tserver = tserve.MultiTenantServer(
@@ -107,8 +114,8 @@ def served():
     return jserver, tserver, requests, want, got
 
 
-def test_routes_match_jax():
-    jserver, tserver = served()[:2]
+def test_routes_match_jax(served):
+    jserver, tserver = served[:2]
     for tenant in ORDER[:2]:
         assert tserver.servers[tenant].model_id == \
             jserver.servers[tenant].model_id
@@ -118,8 +125,8 @@ def test_routes_match_jax():
             jserver.servers[tenant].spec.spec_id
 
 
-def test_mixed_stream_matches_jax_per_tenant():
-    _, _, requests, want, got = served()
+def test_mixed_stream_matches_jax_per_tenant(served):
+    _, _, requests, want, got = served
     view = [(r["req_id"], r["reason"], r["verdict"], r["tenant"],
              r["attempt"]) for r in got["records"]]
     assert view == [(r["req_id"], r["reason"], r["verdict"], r["tenant"],
@@ -139,8 +146,8 @@ def test_mixed_stream_matches_jax_per_tenant():
     assert got["backend_choices"] == want["backend_choices"]
 
 
-def test_no_launch_mixes_tenants():
-    _, tserver, requests, _, got = served()
+def test_no_launch_mixes_tenants(served):
+    _, tserver, requests, _, got = served
     tenant_of = {i: t for i, (t, _) in enumerate(requests)}
     seen = set()
     for launch in got["launch_log"]:
@@ -165,9 +172,9 @@ def test_pendulum_tenant_long_tracks_match_jax():
     configuration, not to the port."""
     sc = j_scenario("pendulum")
     model = sc.make_model(np.float64)
-    sims = [sc.simulate(model, 512, jax.random.PRNGKey(i)) for i in range(2)]
-    xs = np.stack([np.asarray(x) for x, _ in sims])
-    ys = np.stack([np.asarray(y) for _, y in sims])
+    xs, ys = (np.asarray(a) for a in jax.vmap(
+        lambda k: sc.simulate(model, 512, k))(jnp.stack(
+            [jax.random.PRNGKey(i) for i in range(2)])))
     jspec = jserve.TenantSpec.parse("pendulum:gold").smoother_spec(
         jserve.SmootherServeConfig())
     want = np.asarray(j_build(jspec).iterate(model, ys).mean)
@@ -180,3 +187,14 @@ def test_pendulum_tenant_long_tracks_match_jax():
     np.testing.assert_allclose(got.numpy(), want, **PATH_TOL)
     rmse = np.sqrt(np.mean((want[:, 1:] - xs[:, 1:]) ** 2, axis=(1, 2)))
     assert (rmse > 1.0).all(), rmse
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()

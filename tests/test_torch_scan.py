@@ -7,6 +7,7 @@ f64 TOL) for an affine-map combine and for the Eq. 15 filtering combine,
 forward and reverse, with ``batch_dims`` 0 and 1, at lengths 1, 2, 3, 7
 and 64. A recording combine pins the level structure itself.
 """
+import sys
 from typing import NamedTuple
 
 import jax
@@ -199,3 +200,14 @@ def test_unknown_impl_raises():
         tscan.associative_scan(affine_torch, x, combine_impl="bogus")
     with pytest.raises(ValueError, match="tpu"):
         tscan.associative_scan(affine_torch, x, combine_impl="pallas:tpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()

@@ -11,6 +11,7 @@ within a minute). The `cuda` test runs the matrix on the card against its
 plain twin and skips here; JAX is imported lazily.
 """
 import functools
+import sys
 
 import numpy as np
 import pytest
@@ -193,3 +194,14 @@ def test_matrix_on_card_matches_plain_twin(cuda):
         else:
             assert not any(launched.values())
         _close(row["mean"], twin["mean"].cpu().numpy(), PATH_TOL)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()

@@ -209,3 +209,14 @@ def test_package_imports_no_jax_and_no_repro():
                 assert "import jax" not in text, name
                 assert "from repro." not in text and \
                     "import repro\n" not in text, name
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()

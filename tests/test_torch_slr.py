@@ -11,6 +11,7 @@ they also run where JAX is absent.
 """
 import dataclasses
 import functools
+import sys
 
 import numpy as np
 import pytest
@@ -256,3 +257,14 @@ def test_slr_iterate_through_kernels_matches_plain_on_card(cuda, scheme):
     _close(got.cov, want.cov.cpu().numpy(), PATH_TOL)
     assert torch.equal(info.code, winfo.code)
     assert torch.equal(info.iterations, winfo.iterations)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()

@@ -8,6 +8,7 @@ rtol=1e-7, atol=1e-8 for the whole iterated path, where rounding
 differences compound over Gauss-Newton passes.
 """
 import functools
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -269,3 +270,14 @@ def test_simulate_trajectory_is_seeded():
     assert a[0].shape == (17, 5) and a[1].shape == (16, 2)
     assert torch.equal(a[0], b[0]) and not torch.equal(a[0], c[0])
     assert torch.isfinite(a[1]).all()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()

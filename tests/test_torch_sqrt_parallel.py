@@ -11,6 +11,7 @@ square-root path on the card against the standard-form kernel path and
 skips here; JAX is imported lazily so it also runs where JAX is absent.
 """
 import functools
+import sys
 
 import numpy as np
 import pytest
@@ -256,3 +257,14 @@ def test_float32_sqrt_filter_on_card_stays_psd(cuda):
     true = torch.diagonal(truth.cov, dim1=-2, dim2=-1)
     assert bool(torch.isfinite(got.cov).all()) and float(diag.min()) >= 0.0
     assert float(((diag - true).abs() / (true + 1e-9)).max()) < 1e-2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()

@@ -11,7 +11,7 @@ healthy requests bit-identical to its own fault-free run and return no
 NaN. Under the deadline policy the flush composition follows measured
 time, so those results are held against the one-shot run only.
 """
-import functools
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -42,12 +42,17 @@ def _quiet(*_a, **_k):
     return None
 
 
-@functools.lru_cache(maxsize=None)
+@pytest.fixture(scope="module")
 def jax_side():
+    """The JAX server's fault-free and chaos streams and one-shot run.
+    The requests are prefixes of ten n=16 simulations (one vmapped
+    call)."""
     sc = j_scenario("coordinated_turn")
     model = sc.make_model(jnp.float64)
-    requests = [np.asarray(sc.simulate(model, n, jax.random.PRNGKey(100 + i))
-                           [1]) for i, n in enumerate(LENGTHS)]
+    keys = jnp.stack([jax.random.PRNGKey(100 + i)
+                      for i in range(len(LENGTHS))])
+    ys = np.asarray(jax.vmap(lambda k: sc.simulate(model, 16, k)[1])(keys))
+    requests = [ys[i, :n] for i, n in enumerate(LENGTHS)]
     arrivals = jab.make_arrivals("bursty", len(LENGTHS), CFG["rate"],
                                  CFG["burst_size"], seed=0)
     cfg = jserve.SmootherServeConfig(**CFG)
@@ -63,9 +68,9 @@ def jax_side():
     return model, requests, arrivals, server, clean, faulty, oneshot
 
 
-@functools.lru_cache(maxsize=None)
-def torch_side():
-    jmodel, requests, arrivals = jax_side()[:3]
+@pytest.fixture(scope="module")
+def torch_side(jax_side):
+    jmodel, requests, arrivals = jax_side[:3]
     model = convert.state_space_model(
         "coordinated_turn", *(np.asarray(getattr(jmodel, k))
                               for k in ("Q", "R", "m0", "P0")),
@@ -103,9 +108,9 @@ def _check_results(got, want):
                                **PATH_TOL)
 
 
-def test_routing_ids_match_jax():
-    jserver = jax_side()[3]
-    tserver = torch_side()[0]
+def test_routing_ids_match_jax(jax_side, torch_side):
+    jserver = jax_side[3]
+    tserver = torch_side[0]
     assert tserver.model_id == jserver.model_id
     assert tserver.retry_model_id == jserver.retry_model_id
     assert tserver.retry_model_id != tserver.model_id
@@ -114,9 +119,9 @@ def test_routing_ids_match_jax():
         jserver._fallback_smoother.spec_id
 
 
-def test_clean_stream_matches_jax():
-    want = jax_side()[4]
-    got = torch_side()[2]
+def test_clean_stream_matches_jax(jax_side, torch_side):
+    want = jax_side[4]
+    got = torch_side[2]
     assert _verdicts(got) == _verdicts(want)
     assert set(_verdicts(got).values()) == {"ok"}
     _check_results(got, want)
@@ -131,9 +136,9 @@ def test_clean_stream_matches_jax():
     assert len(got["backend_choices"]) >= 3
 
 
-def test_chaos_stream_matches_jax():
-    want = jax_side()[5]
-    got = torch_side()[3]
+def test_chaos_stream_matches_jax(jax_side, torch_side):
+    want = jax_side[5]
+    got = torch_side[3]
     assert got["chaos"]["corrupted_requests"] == \
         want["chaos"]["corrupted_requests"]
     for key in ("fault_kinds", "exceptions", "stragglers", "config"):
@@ -145,8 +150,9 @@ def test_chaos_stream_matches_jax():
     _check_results(got, want)
 
 
-def test_chaos_gives_every_fault_a_verdict_and_keeps_healthy_bits():
-    _, _, clean, faulty = torch_side()
+def test_chaos_gives_every_fault_a_verdict_and_keeps_healthy_bits(
+        torch_side):
+    _, _, clean, faulty = torch_side
     corrupted = set(faulty["chaos"]["corrupted_requests"])
     assert corrupted
     verdicts = _verdicts(faulty)
@@ -162,11 +168,11 @@ def test_chaos_gives_every_fault_a_verdict_and_keeps_healthy_bits():
     assert not any("error" in l for l in clean["launch_log"])
 
 
-def test_deadline_stream_matches_oneshot():
+def test_deadline_stream_matches_oneshot(jax_side, torch_side):
     """Deadline policy with measured compute: the flushes may differ from
     run to run, the results may not (held against the JAX one-shot run)."""
-    server, treqs = torch_side()[:2]
-    oneshot = jax_side()[6]
+    server, treqs = torch_side[:2]
+    oneshot = jax_side[6]
     arrivals = np.linspace(0.0, 0.2, len(treqs))
     stats = server.serve_stream(
         treqs, arrivals, emit=_quiet,
@@ -178,10 +184,10 @@ def test_deadline_stream_matches_oneshot():
     assert stats["latency_p95_s"] > 0.0
 
 
-def test_run_flush_routes_retry_lane_and_falls_back():
+def test_run_flush_routes_retry_lane_and_falls_back(torch_side):
     """A NaN request on the retry lane fails again and runs the sequential
     fallback inline: verdict diverged, a finite frozen mean."""
-    server, treqs = torch_side()[:2]
+    server, treqs = torch_side[:2]
     bad = treqs[0].clone()
     bad[3] = float("nan")
     req = tab.QueuedRequest(req_id=0, n=len(bad), nx=5, arrival=0.0,
@@ -217,3 +223,14 @@ def test_cli_rejects_chaos_without_a_stream():
     with pytest.raises(SystemExit):
         tserve.main(["--arrival", "none", "--chaos", "0.1", "--device",
                      "cpu"])
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_caches():
+    """Drop JAX's compiled executables when this module's tests end: a
+    test process that keeps compiling JAX programs without releasing
+    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()
