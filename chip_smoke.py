@@ -42,15 +42,17 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      and SLR): lane codes and pass counts equal to the plain run's, no
      NaN, kernel launches counted;
 
-  Phases 4-8 pin ``backend="gpu"`` (the kernels). The streaming phases
-  run ``backend="auto"``: each bucket shape takes the autotuner's measured
-  winner, kernel or plain version.
+  Every phase runs ``backend="auto"``: a bucket shape the autotuner
+  measured takes its winner, kernel or plain version, and a shape nothing
+  measured (phases 4-8, the one-shot path, the retry lane) the kernels.
 
   9. ``[autotune]``: the kernel-vs-plain verdict (``kernel_us``,
-     ``fused_us``, choice) for every bucket shape of the stream (n_pad 256
-     and 512 x widths 1 ... 64): the choice must be the faster candidate,
-     and an ``"auto"`` pass at the shape must launch the combine kernels
-     if and only if the choice is "pallas";
+     ``fused_us``, choice, from the f32 probe) for every bucket shape of
+     the stream (n_pad 256 and 512 x widths 1 ... 64), with the same probe
+     in f64 beside it; an ``"auto"`` f64 filter+smoother pass at the shape
+     must launch the combine kernels if and only if the choice is
+     "pallas", and must not be slower than the same pass on the other
+     backend;
   10. ``[stream]``: ``serve_smoother`` with the JAX service's streaming
      defaults (64 coordinated-turn requests, n in {256, 384, 512}, width
      64, f64, Poisson at 8/s, deadline policy, 2 s deadline, 0.25 s wait
@@ -60,9 +62,11 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      measured choice says, each request's mean within PATH_TOL of the
      [main] one-shot run's, median position RMSE < 0.1;
   11. ``[chaos]``: the same stream on the same warm server under the
-     static policy, fault-free and with ``ChaosConfig.at_rate(0.1)``:
-     every corrupted request verdicted, no NaN to a client, healthy
-     requests bit-identical to the fault-free run;
+     static policy, fault-free and under `CHAOS` (NaN payloads in 0.1 of
+     the requests, a transient exception and a straggler each in 0.5 of
+     the flushes): at least one of each injected, every corrupted request
+     verdicted, no NaN to a client, healthy requests bit-identical to the
+     fault-free run;
   12. ``[tenants]``: coordinated_turn, pendulum (gold) and lorenz96
      (batch) through one queue, 64 requests, n <= 512, Poisson at 8/s,
      deadline policy: latency, deadline hit rate, RMSE, log-likelihood
@@ -540,15 +544,13 @@ def sc_model(torch):
 
 
 def sc_spec(cfg, **fields):
-    """The coordinated-turn spec of a service config, as `serve_smoother`
-    builds it: its linearization (``cfg.method``), iteration knobs and
-    combine backend, with ``fields`` on top."""
+    """The coordinated-turn spec of a service config: its linearization
+    (``cfg.method``) and iteration knobs, with ``fields`` on top."""
     from repro_torch.scenarios import get_scenario
 
-    return get_scenario("coordinated_turn").default_spec(**{
-        "linearization": "taylor" if cfg.method == "ekf" else "slr",
-        "n_iter": cfg.n_iter, "tol": cfg.tol, "lm_lambda": cfg.lm_lambda,
-        "backend": cfg.backend, **fields})
+    return get_scenario("coordinated_turn").default_spec(
+        linearization="taylor" if cfg.method == "ekf" else "slr",
+        n_iter=cfg.n_iter, tol=cfg.tol, lm_lambda=cfg.lm_lambda, **fields)
 
 
 def _rmse(torch, mean, truth) -> float:
@@ -573,7 +575,7 @@ def phase_main_path(torch, method: str = "ekf", tag: str = "main") -> tuple:
                                           serve_smoother)
 
     cfg = SmootherServeConfig(requests=64, n=512, max_batch=64, f64=True,
-                              method=method, backend="gpu")
+                              method=method)
     torch.cuda.synchronize()
     copies = scan_lib.PACK_COPIES
     reset_counts()
@@ -701,8 +703,7 @@ def phase_profile(torch, method: str = "ekf", tag: str = "profile"
                                           make_fleet)
 
     cfg = SmootherServeConfig(requests=64, n=512, max_batch=64,
-                              vary_lengths=False, method=method,
-                              backend="gpu")
+                              vary_lengths=False, method=method)
     model = sc_model(torch)
     requests, _ = make_fleet(cfg, model)
     server = SmootherServer(model, cfg, device="cuda", spec=sc_spec(cfg))
@@ -774,7 +775,7 @@ def phase_matrix(torch) -> dict:
 
     t0 = time.perf_counter()
     reset_counts()
-    rows = run_matrix(device="cuda", backend="gpu", emit=mark)
+    rows = run_matrix(device="cuda", emit=mark)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     others = {k: v for k, v in read_counts().items() if k not in kc.LAUNCHES}
@@ -826,8 +827,7 @@ def _bucket(torch, method: str = "ekf"):
                                           pad_requests)
 
     cfg = SmootherServeConfig(requests=64, n=512, max_batch=64,
-                              vary_lengths=False, method=method,
-                              backend="gpu")
+                              vary_lengths=False, method=method)
     model = sc_model(torch)
     requests, _ = make_fleet(cfg, model)
     ys, rs = pad_requests(requests, 512, 64, model.R)
@@ -985,6 +985,10 @@ def phase_adaptive(torch) -> dict:
 STREAM_N_PADS = (256, 512)
 STREAM_B_PADS = (1, 2, 4, 8, 16, 32, 64)
 TENANTS = "coordinated_turn,pendulum:gold,lorenz96:batch"
+#: The [chaos] fault mix: NaN payloads at the headline rate 0.1; the
+#: executor faults at 0.5 per flush, so that the static policy's handful
+#: of flushes meets transient exceptions and stragglers too.
+CHAOS = dict(seed=0, nan_rate=0.1, exception_rate=0.5, straggler_rate=0.5)
 
 
 def stream_config(**fields):
@@ -1017,8 +1021,8 @@ class FlushLaunches:
         def counted(server, fl):
             before = dict(kc.LAUNCHES)
             out = orig(server, fl)
-            flushes.append((server, fl, {k: kc.LAUNCHES[k] - before[k]
-                                         for k in before}))
+            flushes.append((server, fl, out[3], {
+                k: kc.LAUNCHES[k] - before[k] for k in before}))
             return out
 
         SmootherServer.run_flush = counted
@@ -1028,22 +1032,23 @@ class FlushLaunches:
         self._cls.run_flush = self._orig
 
     def check(self, tag: str) -> dict:
-        """Each flush launched both combine kernels if its bucket's
-        measured choice is "pallas", and none otherwise (the retry lane is
-        never measured, so it runs the plain versions). Returns the
-        launches per tenant."""
+        """Each flush that ran a pass launched both combine kernels if
+        its bucket's choice is "pallas" (measured, or unmeasured on the
+        card, as the retry lane's shapes are), and none otherwise; a
+        flush of lanes that all diverged up front (NaN observations) runs
+        no pass and launches nothing. Returns the launches per tenant."""
         from repro_torch.kernels.kalman_combine import autotune as kc_at
 
         per_tenant = {}
-        for server, fl, launched in self.flushes:
+        for server, fl, passes, launched in self.flushes:
             n_pad, nx = fl.signature[2], fl.signature[3]
             choice = kc_at.decide(fl.signature[0], fl.b_pad, n_pad, nx,
                                   device="cuda")
-            ok = (min(launched.values()) > 0 if choice == "pallas"
+            ok = (min(launched.values()) > 0 if choice == "pallas" and passes
                   else not any(launched.values()))
             if not ok:
                 fail(f"[{tag}] flush {fl.signature} x {fl.b_pad} (choice "
-                     f"{choice}) launched {launched}")
+                     f"{choice}, {passes} passes) launched {launched}")
             tot = per_tenant.setdefault(server.tenant,
                                         {k: 0 for k in launched})
             for k, v in launched.items():
@@ -1069,31 +1074,57 @@ def _digest(stats) -> dict:
     return {k: stats[k] for k in keys if k in stats}
 
 
+def _paired_ms(torch, fa, fb, reps: int = 7) -> tuple:
+    """Median wall milliseconds of ``fa()`` and of ``fb()`` (each call
+    synchronized before and after), after one warm call each. The calls
+    alternate, so a slow spell of the shared host lands on both."""
+    fa(), fb()
+    times = ([], [])
+    for _ in range(reps):
+        for fn, out in zip((fa, fb), times):
+            out.append(_timed(torch, fn)[1] * 1e3)
+    return tuple(sorted(t)[reps // 2] for t in times)
+
+
 def phase_autotune(torch) -> dict:
     """``[autotune]``: the kernel-vs-plain verdict for every bucket shape
     of the stream, measured under the stream's own spec (so its warmup
-    finds them cached). The choice must be the faster candidate, and one
-    ``"auto"`` filter+smoother pass at the shape must launch both combine
-    kernels if and only if the choice is "pallas"."""
+    finds them cached). The verdict comes from the JAX package's probe,
+    one f32 filtering combine; the same probe in f64 is printed beside
+    it. The gates hold what the stream runs: one ``"auto"`` f64
+    filter+smoother pass at the shape launches both combine kernels if
+    and only if the choice is "pallas", and takes no longer than the same
+    pass on the other backend (``"jnp"`` or ``"gpu"``)."""
     import dataclasses
 
     from repro_torch.core.api import build_smoother
     from repro_torch.core.iterated import (_linearize,
                                            initial_trajectory_batched)
+    from repro_torch.kernels.kalman_combine import autotune as kc_at
     from repro_torch.kernels.kalman_combine import kalman_combine as kc
     from repro_torch.launch.serve import pad_requests
 
     cfg = stream_config()
     smoother = build_smoother(sc_spec(cfg), device="cuda")
+    other = {"pallas": build_smoother(smoother.spec, backend="jnp",
+                                      device="cuda"),
+             "fused": build_smoother(smoother.spec, backend="gpu",
+                                     device="cuda")}
     model = sc_model(torch)
+    dev = torch.device("cuda")
     rows = []
     for n_pad in STREAM_N_PADS:
         for b_pad in STREAM_B_PADS:
             entry = smoother.autotune(b_pad, n_pad, MAIN_NX)
-            faster = ("pallas" if entry["kernel_us"] < entry["fused_us"]
-                      else "fused")
-            if entry["backend"] != "gpu" or entry["choice"] != faster:
+            if entry["backend"] != "gpu":
                 fail(f"[autotune] {b_pad} x {n_pad}: {entry}")
+            pairs = max(n_pad // 2, 1)
+            ei, ej = (kc_at._level_elements(b_pad, pairs, MAIN_NX,
+                                            torch.float64, dev)
+                      for _ in range(2))
+            probe64 = {name: kc_at._time_us(fn, ei, ej) for name, fn in (
+                ("kernel_us", kc.filtering_combine_cuda),
+                ("fused_us", kc.filtering_combine_plain))}
             ys, rs = pad_requests(
                 [torch.zeros((n_pad, model.ny), dtype=torch.float64,
                              device="cuda")], n_pad, b_pad, model.R)
@@ -1111,11 +1142,25 @@ def phase_autotune(torch) -> dict:
             if not ok or not bool(torch.isfinite(sm.mean).all()):
                 fail(f"[autotune] {b_pad} x {n_pad}: choice "
                      f"{entry['choice']}, an auto pass launched {launched}")
-            say(f"[autotune] B={b_pad} T={n_pad} nx={MAIN_NX} (probe f32, "
-                f"{b_pad} x {max(n_pad // 2, 1)} pairs): kernel "
-                f"{entry['kernel_us']:.1f} us, plain {entry['fused_us']:.1f} "
-                f"us -> {entry['choice']}; auto pass launched {launched}")
+            auto_ms, other_ms = _paired_ms(
+                torch, lambda: smoother.smooth(lin, ys, model.m0, model.P0),
+                lambda: other[entry["choice"]].smooth(lin, ys, model.m0,
+                                                      model.P0))
+            say(f"[autotune] B={b_pad} T={n_pad} nx={MAIN_NX} "
+                f"({b_pad} x {pairs} pairs): probe f32 kernel "
+                f"{entry['kernel_us']:.1f} us, plain "
+                f"{entry['fused_us']:.1f} us -> {entry['choice']}; probe "
+                f"f64 kernel {probe64['kernel_us']:.1f} us, plain "
+                f"{probe64['fused_us']:.1f} us; f64 pass auto "
+                f"{auto_ms:.3f} ms vs {other[entry['choice']].spec.backend}"
+                f" {other_ms:.3f} ms; auto pass launched {launched}")
+            if not auto_ms <= other_ms:
+                fail(f"[autotune] {b_pad} x {n_pad}: the auto f64 pass "
+                     f"({entry['choice']}) takes {auto_ms:.3f} ms, the other "
+                     f"backend {other_ms:.3f} ms")
             rows.append({"B": b_pad, "T": n_pad, **entry,
+                         "probe_f64": probe64, "pass_f64_auto_ms": auto_ms,
+                         "pass_f64_other_ms": other_ms,
                          "auto_launches": launched})
     chosen = sum(r["choice"] == "pallas" for r in rows)
     say(f"[autotune] {chosen}/{len(rows)} bucket shapes choose the kernels")
@@ -1249,11 +1294,12 @@ def _profile_flush(torch, server, requests, n: int) -> dict:
 
 def phase_chaos(torch, stream) -> dict:
     """``[chaos]``: the same stream on the same warm server under the
-    static policy, without faults and then with
-    ``ChaosConfig.at_rate(0.1)`` (counts zeroed before the chaos run and
-    read after): every corrupted request gets an explicit verdict, no NaN
-    mean reaches a client, every healthy request is bit-identical to the
-    fault-free run, and no launch error escapes the in-place retry."""
+    static policy, without faults and then under `CHAOS` (counts zeroed
+    before the chaos run and read after): at least one transient
+    exception and one straggler are injected, every corrupted request
+    gets an explicit verdict, no NaN mean reaches a client, every healthy
+    request is bit-identical to the fault-free run, and no launch error
+    escapes the in-place retry."""
     from repro_torch.kernels.kalman_combine import kalman_combine as kc
     from repro_torch.launch.autobatch import FlushPolicy, make_arrivals
     from repro_torch.launch.chaos import ChaosConfig
@@ -1271,7 +1317,7 @@ def phase_chaos(torch, stream) -> dict:
     with FlushLaunches() as flushes:
         faulty = server.serve_stream(requests, arrivals, emit=say,
                                      policy=policy,
-                                     chaos=ChaosConfig.at_rate(0.1))
+                                     chaos=ChaosConfig(**CHAOS))
     torch.cuda.synchronize()
     counts = read_counts()
     launches = {k: counts.pop(k) for k in kc.LAUNCHES}
@@ -1284,6 +1330,9 @@ def phase_chaos(torch, stream) -> dict:
         errors = [l["error"] for l in log["launch_log"] if "error" in l]
         if errors:
             fail(f"[chaos] launch errors: {errors}")
+    if not (faulty["chaos"]["exceptions"] and faulty["chaos"]["stragglers"]):
+        fail(f"[chaos] injected {faulty['chaos']['exceptions']} transient "
+             f"exceptions and {faulty['chaos']['stragglers']} stragglers")
     if set(v for v in (r["verdict"] for r in clean["records"])) != {"ok"}:
         fail(f"[chaos] fault-free static run verdicts {clean['verdicts']}")
     for i in corrupted:
@@ -1300,7 +1349,7 @@ def phase_chaos(torch, stream) -> dict:
                                       or not bool(torch.isfinite(m).all())):
             fail(f"[chaos] request {i}: NaN or no mean reached the client")
     say(f"[chaos] static policy: fault-free {clean['launches']} launches, "
-        f"{clean['traj_per_s']:.2f} traj/s; at rate 0.1: corrupted "
+        f"{clean['traj_per_s']:.2f} traj/s; under {CHAOS}: corrupted "
         f"{sorted(corrupted)} -> verdicts "
         f"{ {i: verdicts[i] for i in sorted(corrupted)} }, "
         f"{faulty['chaos']['exceptions']} transient exceptions, "
@@ -1309,9 +1358,22 @@ def phase_chaos(torch, stream) -> dict:
         f"bit-identical to the fault-free run; no NaN reached a client; "
         f"kernel launches {launches}")
     say(f"[chaos] {_stream_line(faulty)}")
+    # The corrupted requests' retry flushes hold only NaN lanes, which
+    # run no pass; two healthy requests show the retry lane's kernels.
+    batch = [y for y in requests if len(y) == cfg.n][:2]
+    before = dict(kc.LAUNCHES)
+    _, info, _, health = server.smooth_batch(batch, cfg.n, 2, lane="retry")
+    retry_launched = {k: kc.LAUNCHES[k] - before[k] for k in before}
+    say(f"[chaos] retry lane, 2 healthy requests at n_pad={cfg.n}: "
+        f"{info.iterations[:2].tolist()} passes, health {health}, kernel "
+        f"launches {retry_launched}")
+    if min(retry_launched.values()) == 0 or not all(health):
+        fail(f"[chaos] the retry lane launched {retry_launched}, health "
+             f"{health}")
     return {"clean": _digest(clean), "faulty": _digest(faulty),
             "chaos": faulty["chaos"], "launches_by_kernel": launches,
-            "healthy_bit_identical": len(healthy)}
+            "healthy_bit_identical": len(healthy),
+            "retry_lane_launches": retry_launched}
 
 
 def phase_tenants(torch) -> dict:

@@ -59,8 +59,9 @@ class SmootherSpec:
     ``damping``). In the port ``backend="gpu"`` runs the CUDA combine
     kernels on the card, ``"jnp"`` their plain PyTorch versions,
     ``"auto"`` the winner :meth:`Smoother.autotune` measured for the
-    launch shape (the plain versions where nothing was measured, as in
-    the JAX package), and ``"tpu"`` raises when a smoother is built."""
+    launch shape (where nothing was measured: the kernels on the card,
+    the plain versions on the CPU), and ``"tpu"`` raises when a smoother
+    is built."""
 
     mode: str = "parallel"
     form: str = "standard"
@@ -173,8 +174,9 @@ class Smoother:
         Idempotent per shape: `build_smoother` (``autotune_for``) and the
         server's warmup call it once per bucket shape. After it runs,
         ``backend="auto"`` call sites of the shape take the measured
-        winner; on the CPU nothing is measured and the choice is always
-        ``"fused"``. Returns the cache entry ``{choice, backend,
+        winner (unmeasured shapes run the kernels on the card); on the
+        CPU nothing is measured and the choice is always ``"fused"``.
+        Returns the cache entry ``{choice, backend,
         kernel_us, fused_us}``."""
         from repro_torch.kernels.kalman_combine import autotune as _at
         return _at.autotune(self.spec_id, B, n, nx, device=self.device)

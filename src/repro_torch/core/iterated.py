@@ -138,19 +138,21 @@ class IteratedConfig:
             plain versions); ``backend="gpu"`` -> the CUDA kernels;
             ``backend="auto"`` -> the measured winner recorded by
             `repro_torch.kernels.kalman_combine.autotune` for
-            ``(model_id, B, T, nx)`` on the device's platform, else the
-            plain versions (an unmeasured site runs ``"fused"``).
+            ``(model_id, B, T, nx)`` on the device's platform; an
+            unmeasured site runs the kernels on the card and ``"fused"``
+            on the CPU (the JAX package runs ``"fused"`` on every
+            platform).
         """
         if self.combine_impl == "auto":
             if not batched:
                 return "jnp"
             if self.backend in ("tpu", "gpu"):
                 return f"pallas:{self.backend}"
-            if self.backend == "auto" and shape is not None:
+            if self.backend == "auto":
                 # Late import: kernels depend on core.
                 from repro_torch.kernels.kalman_combine import \
                     autotune as kc_at
-                if kc_at.decide(self.model_id, *shape,
+                if kc_at.decide(self.model_id, *(shape or (None,) * 3),
                                 device=device) == kc_at.CHOICE_KERNEL:
                     return "pallas"
             return "fused"

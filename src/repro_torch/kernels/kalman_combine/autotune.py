@@ -7,8 +7,10 @@ call site's ``(B, T, nx)`` once and caches the winner in a
 ``spec_id``-keyed in-process table — the JAX package's autotuner, with
 the same keys, choices and contract:
 
-  * `decide` NEVER measures — it is a dict lookup with a safe default
-    (``"fused"``: an unmeasured site runs the plain version);
+  * `decide` NEVER measures — it is a dict lookup with a default for an
+    unmeasured site: the CUDA kernel on the card (the port runs plain
+    PyTorch on a CUDA tensor only where the measurement chose it), the
+    plain version (``"fused"``, the JAX package's default) on the CPU;
   * `autotune` measures (at build time or server warmup, so streaming
     traffic never pays for it) and fills the cache;
   * on a CPU device there is no compiled lowering, so nothing is timed
@@ -64,13 +66,13 @@ def lookup(spec_id: str, B: int, T: int, nx: int,
 def decide(spec_id: str, B: Optional[int], T: Optional[int],
            nx: Optional[int], device: Device = None) -> str:
     """The choice for ``backend="auto"``: the cached measured winner, else
-    the plain version. A pure lookup — never measures."""
-    if B is None or T is None or nx is None:
-        return CHOICE_FUSED
-    entry = lookup(spec_id, B, T, nx, device)
-    if entry is None:
-        return CHOICE_FUSED
-    return entry["choice"]
+    the kernel on a CUDA device and the plain version on the CPU. A pure
+    lookup — never measures."""
+    entry = (None if B is None or T is None or nx is None
+             else lookup(spec_id, B, T, nx, device))
+    if entry is not None:
+        return entry["choice"]
+    return CHOICE_KERNEL if _platform(device) == "gpu" else CHOICE_FUSED
 
 
 def clear_cache() -> None:

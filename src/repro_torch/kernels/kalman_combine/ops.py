@@ -11,8 +11,9 @@ the same path), from the spec's ``combine_impl``/``backend`` as
   * ``"fused"`` — the plain PyTorch versions of the kernel math, on
     either device (``backend="jnp"``);
   * ``backend="auto"`` — the measured winner of `autotune` for the call
-    site's ``(spec_id, B, T, nx)`` on its device's platform, and the
-    plain versions where nothing was measured (as in the JAX package);
+    site's ``(spec_id, B, T, nx)`` on its device's platform; where
+    nothing was measured, the kernels on a CUDA device and the plain
+    versions on the CPU;
   * ``backend="tpu"`` — no lowering exists in the port: raises.
 
 `kernel_backend` names the compiled lowering of a device: ``"gpu"`` for

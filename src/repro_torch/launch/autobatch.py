@@ -389,7 +389,8 @@ def run_service(requests: Sequence[QueuedRequest],
                 *,
                 retry: Optional[Callable[[QueuedRequest],
                                          Optional[QueuedRequest]]] = None,
-                watchdog=None) -> dict:
+                watchdog=None,
+                absorb: Tuple[type, ...] = (Exception,)) -> dict:
     """Drive the queue over a timestamped request stream.
 
     ``execute(flush)`` runs the padded bucket and returns either its
@@ -398,7 +399,7 @@ def run_service(requests: Sequence[QueuedRequest],
     (`VERDICT_OK`/`VERDICT_RETRIED`/`VERDICT_FAILED`/`VERDICT_DIVERGED`;
     missing ids default to ok). It charges compute to a single
     serial executor (compute is real, the clock between events is
-    simulated) and never lets a fault escape:
+    simulated) and keeps the faults it absorbs inside the queue:
 
       * ``failed`` requests on their first attempt are re-enqueued once
         through ``retry(request) -> QueuedRequest`` (typically re-routed
@@ -406,7 +407,9 @@ def run_service(requests: Sequence[QueuedRequest],
         without a retry hook — or on a repeat failure — the verdict is
         ``diverged``;
       * an exception raised by ``execute`` marks the whole flush failed
-        (same retry path) and is recorded on the launch, not raised;
+        (same retry path) and is recorded on the launch, not raised —
+        if it is an instance of ``absorb`` (default: any exception, as
+        in the JAX package); anything else propagates;
       * flushes whose most urgent request is at
         ``policy.shed_priority`` or below are dropped with verdict
         ``shed`` when the executor backlog exceeds
@@ -462,7 +465,7 @@ def run_service(requests: Sequence[QueuedRequest],
             error = None
             try:
                 res = execute(fl)
-            except Exception as e:  # the fault boundary: never escapes
+            except absorb as e:  # the fault boundary
                 error = f"{type(e).__name__}: {e}"
                 res = (0.0, {r.req_id: VERDICT_FAILED
                              for r in fl.requests})

@@ -27,12 +27,12 @@ stream of registry scenarios through one queue, each tenant with its own
 server, spec and SLO class, and breaks latency down per tenant.
 
 Everything runs on the card (``--device cpu`` runs the plain PyTorch path
-on the CPU). Under ``backend="auto"`` (the default) a bucket runs the
-CUDA combine kernels only where the server's warmup measured them faster
-than their plain versions (`kernels/kalman_combine/autotune.py`); the
-one-shot path is not warmed, so it runs the plain versions unless its
-shapes were autotuned, as in the JAX package;
-``SmootherServeConfig(backend="gpu")`` always takes the kernels.
+on the CPU). Under ``backend="auto"`` (the default) a bucket shape that
+the server's warmup measured runs the winner of the CUDA combine kernels
+and their plain versions (`kernels/kalman_combine/autotune.py`); a shape
+nothing measured — the one-shot path's, the retry lane's — runs the
+kernels. An executor exception that chaos did not inject is raised, not
+turned into retried requests.
 """
 from __future__ import annotations
 
@@ -96,10 +96,6 @@ class SmootherServeConfig:
     # Fault injection (streaming mode only; see launch/chaos.py).
     chaos_rate: float = 0.0  # headline rate for ChaosConfig.at_rate
     chaos_seed: int = 0
-    #: The specs' combine backend (the port's own knob): "auto" runs the
-    #: autotuner's measured winner, "gpu" the kernels, "jnp" the plain
-    #: versions.
-    backend: str = "auto"
 
     def chaos_config(self) -> Optional[ChaosConfig]:
         """The `ChaosConfig` for ``chaos_rate`` (None when disabled)."""
@@ -159,8 +155,7 @@ class SmootherServer:
                 mode="parallel" if cfg.parallel else "sequential",
                 linearization=("taylor" if cfg.method == "ekf"
                                else "slr"),
-                n_iter=cfg.n_iter, tol=cfg.tol, lm_lambda=cfg.lm_lambda,
-                backend=cfg.backend)
+                n_iter=cfg.n_iter, tol=cfg.tol, lm_lambda=cfg.lm_lambda)
         self.spec = spec
         self._smoother = build_smoother(spec, device=self.device)
         self._icfg = self._smoother.config   # model_id == spec.spec_id
@@ -450,7 +445,12 @@ def _serve(qreqs, n_requests, run_flush, policy, estimator, injector,
            retry, servers) -> dict:
     """Drive `run_service` over queued requests with ``run_flush(fl)``
     as the executor (wrapped by the chaos injector, if any, and an
-    in-place retry of its transient errors); returns the stream stats."""
+    in-place retry of its transient errors); returns the stream stats.
+
+    The queue's fault boundary absorbs only the injected
+    `TransientComputeError`: any other executor exception (a kernel that
+    fails to launch, a bug) propagates to the caller instead of coming
+    back as retried requests."""
     results: List[Optional[torch.Tensor]] = [None] * n_requests
     logliks: List[Optional[float]] = [None] * n_requests
     iterations: List[Optional[int]] = [None] * n_requests
@@ -470,7 +470,8 @@ def _serve(qreqs, n_requests, run_flush, policy, estimator, injector,
                                max_retries=1,
                                retry_on=(TransientComputeError,))
     service = run_service(qreqs, exec_fn, policy, estimator, retry=retry,
-                          watchdog=StepWatchdog())
+                          watchdog=StepWatchdog(),
+                          absorb=(TransientComputeError,))
     stats = summarize_service(service)
     stats.update({
         "results": results,
@@ -545,13 +546,12 @@ class TenantSpec:
     def smoother_spec(self, cfg: SmootherServeConfig) -> SmootherSpec:
         """The tenant's `SmootherSpec`: the registry scenario's production
         defaults (linearization, sigma scheme, damping, ``model_id``) plus
-        the service-level iteration knobs and combine backend."""
+        the service-level iteration knobs."""
         from repro_torch.scenarios import get_scenario
 
         return get_scenario(self.scenario).default_spec(
             n_iter=cfg.n_iter, tol=cfg.tol,
-            mode="parallel" if cfg.parallel else "sequential",
-            backend=cfg.backend)
+            mode="parallel" if cfg.parallel else "sequential")
 
 
 class MultiTenantServer:
@@ -788,8 +788,7 @@ def serve_smoother(cfg: SmootherServeConfig, emit=print,
     sspec = sc.default_spec(
         linearization="taylor" if cfg.method == "ekf" else "slr",
         mode="parallel" if cfg.parallel else "sequential",
-        n_iter=cfg.n_iter, tol=cfg.tol, lm_lambda=cfg.lm_lambda,
-        backend=cfg.backend)
+        n_iter=cfg.n_iter, tol=cfg.tol, lm_lambda=cfg.lm_lambda)
     server = SmootherServer(model, cfg, spec=sspec, device=device,
                             tenant=sc.name)
     if cfg.arrival == "none":

@@ -53,9 +53,7 @@ def run_matrix(n: int = 24, n_iter: int = 3, methods=("ekf", "slr"),
 
     ``measurements(name, model, n)`` gives each scenario's ``ys [n, ny]``;
     by default it is simulated from a ``torch.Generator`` seeded 0.
-    ``backend`` is the specs' (``"gpu"`` runs the combine kernels,
-    ``"jnp"`` the plain combines, ``"auto"`` the autotuner's measured
-    winner, which is the plain combines where nothing was measured).
+    ``backend`` is the specs' (``"jnp"`` runs the plain combines).
     """
     device = resolve_device(device)
     results = []

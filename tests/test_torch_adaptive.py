@@ -12,7 +12,6 @@ chain) within rtol=1e-7, atol=1e-8 (rounding compounds over passes). The
 skips here; JAX is imported lazily so it also runs where JAX is absent.
 """
 import functools
-import sys
 
 import numpy as np
 import pytest
@@ -22,6 +21,7 @@ from repro_torch.core import api as tapi
 from repro_torch.core import iterated as tit
 from repro_torch.core.types import LinearizedSSM as TLin
 from repro_torch.scenarios import get_scenario as t_scenario
+from _torch_jax import release_jax_caches  # noqa: F401
 
 TOL = dict(rtol=1e-9, atol=1e-10)
 PATH_TOL = dict(rtol=1e-7, atol=1e-8)
@@ -179,8 +179,7 @@ def test_adaptive_through_kernels_matches_plain_on_card(cuda, linearization):
     _, ys = simulate_trajectory(model, 128, gen, batch=(16,))
     ys[3, 7, 1] = float("nan")
     spec = tapi.SmootherSpec(linearization=linearization, damping="adaptive",
-                             n_iter=10, tol=1e-6, lm_lambda=1.0,
-                             backend="gpu")
+                             n_iter=10, tol=1e-6, lm_lambda=1.0)
     kc.reset_launch_counts()
     got, info = tapi.build_smoother(spec, device=cuda).iterate(
         model, ys, return_info=True)
@@ -200,14 +199,3 @@ def test_adaptive_through_kernels_matches_plain_on_card(cuda, linearization):
         _close(info.final_cost[lane], winfo.final_cost[lane].cpu().numpy(),
                dict(rtol=1e-9, atol=0.0))
         assert float((got.mean[lane] - want.mean[lane]).abs().max()) <= 1e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

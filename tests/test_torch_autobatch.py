@@ -9,7 +9,6 @@ the import.
 """
 import dataclasses
 import math
-import sys
 
 import numpy as np
 import pytest
@@ -18,6 +17,7 @@ from repro.launch import autobatch as jab
 from repro.runtime import StepWatchdog as JWatchdog
 from repro_torch.launch import autobatch as tab
 from repro_torch.runtime import StepWatchdog as TWatchdog
+from _torch_jax import release_jax_caches  # noqa: F401
 
 PKGS = ((jab, JWatchdog), (tab, TWatchdog))
 
@@ -301,12 +301,14 @@ def test_run_service_streams_match(name):
     assert len(tsvc["records"]) == len(reqs)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()
+def test_run_service_absorbs_only_the_listed_exceptions():
+    """``absorb`` narrows the fault boundary: a listed exception is
+    recorded on the launch as the JAX package records every one, any
+    other propagates (the port's service absorbs only injected faults)."""
+    reqs = [_req(tab, 0), _req(tab, 1)]
+    policy = tab.FlushPolicy(kind="static", max_batch=2)
+    svc = tab.run_service(reqs, _raise, policy, absorb=(RuntimeError,))
+    assert svc["launches"][0]["error"] == "RuntimeError: injected"
+    assert {r["verdict"] for r in svc["records"]} == {"diverged"}
+    with pytest.raises(RuntimeError, match="injected"):
+        tab.run_service(reqs, _raise, policy, absorb=(KeyError,))

@@ -6,12 +6,13 @@ for every (``combine_impl``, ``backend``, batched, cache state); on the CPU
 `autotune` times nothing and records ``"fused"`` under the JAX package's
 own cache keys; ``autotune_for`` measures once per shape; the measured
 choice is the faster candidate; an ``"auto"`` call site runs what the
-cache says. On the card, an ``"auto"`` call launches the combine kernels
-if and only if the measured choice is ``"pallas"`` (that test skips here;
+cache says, and an unmeasured one the kernel on a CUDA device. On the
+card, an ``"auto"`` call launches the combine kernels if and only if the
+measured choice is ``"pallas"``, and at an unmeasured shape (those tests
+skip here;
 JAX is imported lazily, so it also runs where JAX is absent).
 """
 import itertools
-import sys
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from repro_torch.kernels.kalman_combine import autotune as tat
 from repro_torch.kernels.kalman_combine import ops as tops
 from repro_torch.scenarios import get_scenario as t_scenario
 from repro_torch.scenarios import simulate_trajectory
+from _torch_jax import release_jax_caches  # noqa: F401
 
 SHAPE = (4, 16, 5)
 PATH_TOL = dict(rtol=1e-7, atol=1e-8)
@@ -87,6 +89,27 @@ def test_resolution_table_matches_jax(jat, cache):
         assert got == want, (impl, backend, batched, shape)
         rows += 1
     assert rows == 3 * 4 * 2 * 3 + 3 * 2 * 3
+
+
+def test_unmeasured_site_runs_the_kernel_on_a_cuda_device():
+    """Where the JAX package runs "fused" at every unmeasured site, the
+    port runs the kernel on a CUDA device (it runs plain PyTorch on the
+    card only where a measurement chose it) and "fused" on the CPU. The
+    lookup needs no card: it reads the device's type."""
+    cfg = tit.IteratedConfig(model_id="m/1", backend="auto")
+    for shape in (None, SHAPE):
+        assert cfg.resolved_combine_impl(True, shape, device="cuda") == \
+            "pallas"
+        assert cfg.resolved_combine_impl(True, shape, device="cpu") == \
+            "fused"
+    assert cfg.resolved_combine_impl(False, SHAPE, device="cuda") == "jnp"
+    assert tat.decide("m/1", *SHAPE, device="cuda") == tat.CHOICE_KERNEL
+    assert tat.decide("m/1", None, None, None, device="cuda") == \
+        tat.CHOICE_KERNEL
+    tat._cache[tat.cache_key("m/1", *SHAPE, device="cuda")] = \
+        _entry("fused")
+    assert cfg.resolved_combine_impl(True, SHAPE, device="cuda") == "fused"
+    assert tat.decide("m/1", *SHAPE, device="cpu") == tat.CHOICE_FUSED
 
 
 def test_cache_key_and_bucket_key_match_jax(jat):
@@ -159,8 +182,9 @@ def test_choice_is_the_faster_candidate(monkeypatch, kernel_us, fused_us,
     assert entry == {"choice": choice, "backend": "gpu",
                      "kernel_us": kernel_us, "fused_us": fused_us}
     assert tat.decide("s/1", *SHAPE, device="cpu") == choice
-    assert tat.decide("s/1", None, 16, 5, device="cpu") == "fused"
-    assert tat.decide("s/2", *SHAPE, device="cpu") == "fused"
+    # Unmeasured sites on this (patched) card platform run the kernel.
+    assert tat.decide("s/1", None, 16, 5, device="cpu") == "pallas"
+    assert tat.decide("s/2", *SHAPE, device="cpu") == "pallas"
 
 
 def test_probe_elements_follow_the_reference_stream(jat):
@@ -187,9 +211,9 @@ def _record_impls(monkeypatch):
 
 
 def test_auto_call_site_runs_what_the_cache_says(monkeypatch):
-    """``iterate`` and ``smooth`` under ``backend="auto"`` pass the scan
-    "fused" at an unmeasured shape and "pallas" where the cache says so
-    (on CPU tensors the kernel wrappers run the plain version, so the
+    """``iterate`` and ``smooth`` under ``backend="auto"`` on the CPU pass
+    the scan "fused" at an unmeasured shape and "pallas" where the cache
+    says so (on CPU tensors the kernel wrappers run the plain version, so the
     means agree)."""
     seen = _record_impls(monkeypatch)
     model = t_scenario("coordinated_turn").make_model(torch.float64, "cpu")
@@ -219,6 +243,24 @@ def cuda():
 
 
 @pytest.mark.cuda
+def test_unmeasured_auto_call_launches_kernels_on_card(cuda):
+    """On the card an ``"auto"`` pass at a shape nothing measured launches
+    both combine kernels."""
+    from repro_torch.kernels.kalman_combine import kalman_combine as kc
+
+    model = t_scenario("coordinated_turn").make_model(torch.float64, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    _, ys = simulate_trajectory(model, 64, gen, batch=(3,))
+    smoother = tapi.build_smoother(n_iter=1, lm_lambda=1.0, device=cuda)
+    assert tat.lookup(smoother.spec_id, 3, 64, 5, device=cuda) is None
+    kc.reset_launch_counts()
+    smoother.iterate(model, ys)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["filtering_combine"] > 0
+    assert kc.LAUNCHES["smoothing_combine"] > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,n", [(1, 256), (64, 512)])
 def test_auto_call_launches_kernels_iff_choice_is_pallas(cuda, B, n):
     """On the card: measure a shape, then one ``"auto"`` pass at it
@@ -245,14 +287,3 @@ def test_auto_call_launches_kernels_iff_choice_is_pallas(cuda, B, n):
             kc.LAUNCHES["smoothing_combine"] > 0
         assert launched == (choice == "pallas")
         assert any(kc.LAUNCHES.values()) == (choice == "pallas")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

@@ -7,7 +7,6 @@ their transient errors on the same flushes and inflate the same
 stragglers. `StepWatchdog` and `with_retries` must report and retry
 alike on the same duration and failure scripts.
 """
-import sys
 import types
 
 import numpy as np
@@ -18,6 +17,7 @@ from repro.launch import chaos as jchaos
 from repro.runtime import fault as jfault
 from repro_torch.launch import chaos as tchaos
 from repro_torch.runtime import fault as tfault
+from _torch_jax import release_jax_caches  # noqa: F401
 
 
 def _payloads(count, n, ny, seed):
@@ -165,14 +165,3 @@ def test_with_retries_matches_reference(fails):
         fn = mod.with_retries(lambda: 1 / 0, retry_on=(RuntimeError,))
         with pytest.raises(ZeroDivisionError):
             fn()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

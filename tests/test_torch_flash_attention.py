@@ -17,7 +17,6 @@ card's machine without JAX the marked tests run with
 ``pytest --noconftest -m cuda``.
 """
 import functools
-import sys
 import types
 
 import numpy as np
@@ -26,6 +25,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as kfa
 from repro_torch.kernels.flash_attention import ops, ref
+from _torch_jax import release_jax_caches  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)
@@ -396,14 +396,3 @@ def test_kernel_wrapper_rejects_bad_inputs_on_card(cuda):
         kfa.flash_attention_cuda(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="non-contiguous"):
         kfa.flash_attention_cuda(q.mT.contiguous().mT, q, q)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

@@ -9,7 +9,6 @@ parity tests only, so on a card's machine without JAX the marked tests
 run with ``pytest --noconftest -m cuda``.
 """
 import functools
-import sys
 
 import numpy as np
 import pytest
@@ -22,6 +21,7 @@ from repro_torch.core.types import (FilteringElement as TF,
 from repro_torch.kernels.kalman_combine import kalman_combine as kc
 from repro_torch.kernels.kalman_combine import ops as tops
 from repro_torch.kernels.kalman_combine import ref as tref
+from _torch_jax import release_jax_caches  # noqa: F401
 
 TOL = {np.float32: dict(rtol=2e-4, atol=2e-5),
        np.float64: dict(rtol=1e-9, atol=1e-10)}
@@ -350,14 +350,3 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda, kind):
     with pytest.raises(ValueError, match="nx"):
         wrapper(big, big)
     assert kc.LAUNCHES[name] == before + 1
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

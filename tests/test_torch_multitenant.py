@@ -8,7 +8,6 @@ same records and, per request, means and log-likelihoods within the
 iterated-path tolerance (rtol=1e-7, atol=1e-8), and no launch mixes
 tenants.
 """
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +21,7 @@ from repro.scenarios import get_scenario as j_scenario
 from repro_torch.core.api import build_smoother as t_build
 from repro_torch.launch import serve as tserve
 from repro_torch.scenarios import get_scenario as t_scenario
+from _torch_jax import release_jax_caches  # noqa: F401
 
 PATH_TOL = dict(rtol=1e-7, atol=1e-8)
 CFG = dict(requests=6, n=8, max_batch=2, n_iter=2, tol=0.0, f64=True,
@@ -91,7 +91,14 @@ def test_tenant_fleet_draws_match_jax():
 @pytest.fixture(scope="module")
 def served():
     """One mixed stream through both packages' multi-tenant servers (each
-    tenant's requests simulated by one vmapped JAX call)."""
+    tenant's requests simulated by one vmapped JAX call). Both autotune
+    caches start empty, so the streams' ``backend_choices`` hold this
+    stream's shapes only, whatever ran before in the process."""
+    from repro.kernels.kalman_combine import autotune as jat
+    from repro_torch.kernels.kalman_combine import autotune as tat
+
+    jat.clear_cache()
+    tat.clear_cache()
     jserver = jserve.MultiTenantServer(
         [jserve.TenantSpec.parse(t) for t in TENANTS],
         jserve.SmootherServeConfig(**CFG))
@@ -187,14 +194,3 @@ def test_pendulum_tenant_long_tracks_match_jax():
     np.testing.assert_allclose(got.numpy(), want, **PATH_TOL)
     rmse = np.sqrt(np.mean((want[:, 1:] - xs[:, 1:]) ** 2, axis=(1, 2)))
     assert (rmse > 1.0).all(), rmse
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

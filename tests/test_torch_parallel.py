@@ -10,7 +10,6 @@ for one level of algebra (elements); rtol=1e-8, atol=1e-9 through a whole
 scan, where rounding differences pass through log2(n) combine levels.
 """
 import functools
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +26,7 @@ from repro.scenarios import get_scenario
 from repro_torch.core import parallel as tpar
 from repro_torch.core import sequential as tseq
 from repro_torch.core.types import Gaussian as TG, LinearizedSSM as TL
+from _torch_jax import release_jax_caches  # noqa: F401
 
 ELEM_TOL = dict(rtol=1e-9, atol=1e-10)
 SCAN_TOL = dict(rtol=1e-8, atol=1e-9)
@@ -172,14 +172,3 @@ def test_smoother_filter_and_smooth_match_jax(mode):
     one_f, one_s = ts.smooth(TL(*(x[1] for x in tl)), tys[1], tm0, tP0)
     assert one_s.mean.shape == (13, 5)
     _close(one_s, [np.asarray(x)[1] for x in want_s], SCAN_TOL)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

@@ -7,7 +7,6 @@ f64 TOL) for an affine-map combine and for the Eq. 15 filtering combine,
 forward and reverse, with ``batch_dims`` 0 and 1, at lengths 1, 2, 3, 7
 and 64. A recording combine pins the level structure itself.
 """
-import sys
 from typing import NamedTuple
 
 import jax
@@ -22,6 +21,7 @@ from repro.core.types import FilteringElement as JF
 from repro_torch.core import parallel as tpar
 from repro_torch.core import scan as tscan
 from repro_torch.core.types import FilteringElement as TF
+from _torch_jax import release_jax_caches  # noqa: F401
 
 TOL = dict(rtol=1e-9, atol=1e-10)
 LENGTHS = [1, 2, 3, 7, 64]
@@ -200,14 +200,3 @@ def test_unknown_impl_raises():
         tscan.associative_scan(affine_torch, x, combine_impl="bogus")
     with pytest.raises(ValueError, match="tpu"):
         tscan.associative_scan(affine_torch, x, combine_impl="pallas:tpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

@@ -11,7 +11,6 @@ within a minute). The `cuda` test runs the matrix on the card against its
 plain twin and skips here; JAX is imported lazily.
 """
 import functools
-import sys
 
 import numpy as np
 import pytest
@@ -19,6 +18,7 @@ import torch
 
 from repro_torch.scenarios import get_scenario, list_scenarios, rollout
 from repro_torch.scenarios import smoke as tsmoke
+from _torch_jax import release_jax_caches  # noqa: F401
 
 TOL = dict(rtol=1e-9, atol=1e-10)
 PATH_TOL = dict(rtol=1e-7, atol=1e-8)
@@ -177,7 +177,7 @@ def test_matrix_on_card_matches_plain_twin(cuda):
 
     marks = []
     kc.reset_launch_counts()
-    rows = tsmoke.run_matrix(device=cuda, backend="gpu",
+    rows = tsmoke.run_matrix(device=cuda,
                              emit=lambda *_: marks.append(dict(kc.LAUNCHES)))
     before = dict(kc.LAUNCHES)
     twins = tsmoke.run_matrix(device=cuda, backend="jnp",
@@ -194,14 +194,3 @@ def test_matrix_on_card_matches_plain_twin(cuda):
         else:
             assert not any(launched.values())
         _close(row["mean"], twin["mean"].cpu().numpy(), PATH_TOL)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

@@ -25,6 +25,7 @@ from repro_torch import convert
 from repro_torch.core import api as tapi
 from repro_torch.launch import serve as tserve
 from repro_torch.scenarios import get_scenario as t_scenario
+from _torch_jax import release_jax_caches  # noqa: F401
 
 PATH_TOL = dict(rtol=1e-7, atol=1e-8)
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -209,14 +210,3 @@ def test_package_imports_no_jax_and_no_repro():
                 assert "import jax" not in text, name
                 assert "from repro." not in text and \
                     "import repro\n" not in text, name
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

@@ -7,13 +7,13 @@ the JAX points at the suite's f64 TOL, with NaN where the covariance is
 not positive definite (no raise), and jitter handled the same way.
 """
 import functools
-import sys
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import sigma_points as tsp
+from _torch_jax import release_jax_caches  # noqa: F401
 
 TOL = dict(rtol=1e-9, atol=1e-10)
 SCHEMES = ("cubature", "unscented", "gauss_hermite")
@@ -97,14 +97,3 @@ def test_not_positive_definite_gives_nan_like_jax():
 def test_unknown_scheme_raises():
     with pytest.raises(ValueError, match="unknown sigma-point scheme"):
         tsp.get_scheme("bogus", 2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

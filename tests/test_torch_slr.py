@@ -11,7 +11,6 @@ they also run where JAX is absent.
 """
 import dataclasses
 import functools
-import sys
 
 import numpy as np
 import pytest
@@ -24,6 +23,7 @@ from repro_torch.core.sigma_points import get_scheme
 from repro_torch.core.types import Gaussian as TG
 from repro_torch.kernels.kalman_combine import kalman_combine as kc
 from repro_torch.scenarios import get_scenario as t_scenario
+from _torch_jax import release_jax_caches  # noqa: F401
 
 TOL = dict(rtol=1e-9, atol=1e-10)
 PATH_TOL = dict(rtol=1e-7, atol=1e-8)
@@ -242,7 +242,7 @@ def test_slr_iterate_through_kernels_matches_plain_on_card(cuda, scheme):
     from repro_torch.scenarios import simulate_trajectory
     _, ys = simulate_trajectory(model, 256, gen, batch=(16,))
     spec = sc.default_spec(linearization="slr", sigma_scheme=scheme,
-                           n_iter=10, tol=1e-6, backend="gpu")
+                           n_iter=10, tol=1e-6)
     kc.reset_launch_counts()
     got, info = tapi.build_smoother(spec, device=cuda).iterate(
         model, ys, return_info=True)
@@ -257,14 +257,3 @@ def test_slr_iterate_through_kernels_matches_plain_on_card(cuda, scheme):
     _close(got.cov, want.cov.cpu().numpy(), PATH_TOL)
     assert torch.equal(info.code, winfo.code)
     assert torch.equal(info.iterations, winfo.iterations)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

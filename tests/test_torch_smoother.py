@@ -8,7 +8,6 @@ rtol=1e-7, atol=1e-8 for the whole iterated path, where rounding
 differences compound over Gauss-Newton passes.
 """
 import functools
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +25,7 @@ from repro_torch.core.linearization import (
 from repro_torch.core.types import Gaussian as TG
 from repro_torch.scenarios import get_scenario as t_scenario
 from repro_torch.scenarios import rollout, simulate_trajectory
+from _torch_jax import release_jax_caches  # noqa: F401
 
 TOL = dict(rtol=1e-9, atol=1e-10)
 PATH_TOL = dict(rtol=1e-7, atol=1e-8)
@@ -270,14 +270,3 @@ def test_simulate_trajectory_is_seeded():
     assert a[0].shape == (17, 5) and a[1].shape == (16, 2)
     assert torch.equal(a[0], b[0]) and not torch.equal(a[0], c[0])
     assert torch.isfinite(a[1]).all()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

@@ -11,7 +11,6 @@ square-root path on the card against the standard-form kernel path and
 skips here; JAX is imported lazily so it also runs where JAX is absent.
 """
 import functools
-import sys
 
 import numpy as np
 import pytest
@@ -20,6 +19,7 @@ import torch
 from repro_torch.core import api as tapi
 from repro_torch.core import sqrt_parallel as tsq
 from repro_torch.core.types import LinearizedSSM as TLin
+from _torch_jax import release_jax_caches  # noqa: F401
 
 TOL = dict(rtol=1e-9, atol=1e-10)
 FORM_TOL = dict(rtol=1e-7, atol=1e-8)
@@ -239,7 +239,7 @@ def test_sqrt_form_on_card_matches_standard_kernel_path(cuda):
     _, sq = tapi.build_smoother(form="sqrt", device=cuda).smooth(*args)
     torch.cuda.synchronize()
     assert not any(kc.LAUNCHES.values())
-    _, std = tapi.build_smoother(backend="gpu", device=cuda).smooth(*args)
+    _, std = tapi.build_smoother(device=cuda).smooth(*args)
     assert kc.LAUNCHES["filtering_combine"] > 0
     _close(sq.mean, std.mean.cpu().numpy(), FORM_TOL)
     _close(sq.cov, std.cov.cpu().numpy(), FORM_TOL)
@@ -257,14 +257,3 @@ def test_float32_sqrt_filter_on_card_stays_psd(cuda):
     true = torch.diagonal(truth.cov, dim1=-2, dim2=-1)
     assert bool(torch.isfinite(got.cov).all()) and float(diag.min()) >= 0.0
     assert float(((diag - true).abs() / (true + 1e-9)).max()) < 1e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

@@ -14,7 +14,6 @@ first use, not at module level, so on a card's machine without JAX the
 marked tests run with ``pytest --noconftest -m cuda``.
 """
 import functools
-import sys
 import types
 
 import numpy as np
@@ -26,6 +25,7 @@ from repro_torch.core import (LinearRecurrenceElement,
                               linear_recurrence_scan)
 from repro_torch.kernels.ssm_scan import ops, ref
 from repro_torch.kernels.ssm_scan import ssm_scan as kss
+from _torch_jax import release_jax_caches  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)
@@ -307,14 +307,3 @@ def test_kernel_wrapper_rejects_bad_inputs_on_card(cuda):
         kss.ssm_scan_cuda(a.mT.contiguous().mT, a)
     with pytest.raises(TypeError):
         kss.ssm_scan_cuda(a.half(), a.half())
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

@@ -28,6 +28,7 @@ from repro_torch.launch import autobatch as tab
 from repro_torch.launch import chaos as tchaos
 from repro_torch.launch import serve as tserve
 from repro_torch.scenarios import get_scenario as t_scenario
+from _torch_jax import release_jax_caches  # noqa: F401
 
 PATH_TOL = dict(rtol=1e-7, atol=1e-8)
 #: One time bucket (n_pad 16), widths 1, 2 and 4.
@@ -46,7 +47,13 @@ def _quiet(*_a, **_k):
 def jax_side():
     """The JAX server's fault-free and chaos streams and one-shot run.
     The requests are prefixes of ten n=16 simulations (one vmapped
-    call)."""
+    call). Both autotune caches start empty, so the streams'
+    ``backend_choices`` hold this module's shapes only."""
+    from repro.kernels.kalman_combine import autotune as jat
+    from repro_torch.kernels.kalman_combine import autotune as tat
+
+    jat.clear_cache()
+    tat.clear_cache()
     sc = j_scenario("coordinated_turn")
     model = sc.make_model(jnp.float64)
     keys = jnp.stack([jax.random.PRNGKey(100 + i)
@@ -184,6 +191,24 @@ def test_deadline_stream_matches_oneshot(jax_side, torch_side):
     assert stats["latency_p95_s"] > 0.0
 
 
+def test_stream_raises_an_exception_chaos_did_not_inject(torch_side,
+                                                         monkeypatch):
+    """The port's queue absorbs only injected transient faults: any other
+    executor exception leaves `serve_stream` instead of coming back as
+    retried requests (the JAX service records it on the launch)."""
+    server, treqs = torch_side[:2]
+    arrivals = np.zeros(2)
+
+    def broken(*_a, **_k):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setattr(server, "smooth_batch", broken)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        server.serve_stream(treqs[:2], arrivals, emit=_quiet,
+                            policy=tab.FlushPolicy(kind="static",
+                                                   max_batch=4))
+
+
 def test_run_flush_routes_retry_lane_and_falls_back(torch_side):
     """A NaN request on the retry lane fails again and runs the sequential
     fallback inline: verdict diverged, a finite frozen mean."""
@@ -223,14 +248,3 @@ def test_cli_rejects_chaos_without_a_stream():
     with pytest.raises(SystemExit):
         tserve.main(["--arrival", "none", "--chaos", "0.1", "--device",
                      "cpu"])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()

@@ -4,7 +4,6 @@ Inputs are numpy arrays from a seed; both packages compute on them and
 must agree within the kernel suite's TOL (f64 rtol=1e-9, atol=1e-10; f32
 rtol=2e-4, atol=2e-5 — rounding order differs between the frameworks).
 """
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +12,7 @@ import torch
 
 from repro.core import types as jt
 from repro_torch.core import types as tt
+from _torch_jax import release_jax_caches  # noqa: F401
 
 TOL = {np.float32: dict(rtol=2e-4, atol=2e-5),
        np.float64: dict(rtol=1e-9, atol=1e-10)}
@@ -92,14 +92,3 @@ def test_broadcast_helpers():
         np.asarray(jt.bcast_prior(m0, 5, 1)))
     with pytest.raises(ValueError):
         tt.broadcast_noise(torch.zeros(3, 2, 2), 4)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_caches():
-    """Drop JAX's compiled executables when this module's tests end: a
-    test process that keeps compiling JAX programs without releasing
-    them can crash inside XLA's CPU compiler (ROADMAP queue C)."""
-    yield
-    jax = sys.modules.get("jax")
-    if jax is not None:
-        jax.clear_caches()
