@@ -92,13 +92,36 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      and of ``scaled_dot_product_attention`` (timed only, never on the
      port's path), profiler device times, and the decode/``wgmma``
      crossover over the rows per kv head;
-  15. the ``kernels`` JSON line (each combine kernel's launches per path),
-     then the device JSON line, last.
+  15. ``[lm_decode]``: the LM decode service (``launch.serve.serve``) for
+     qwen2-1.5b at full width (28 layers, d_model 1536, 12 query heads
+     padded to 16, 2 kv heads, head_dim 128, vocabulary 151,936 padded to
+     153,600, tied embeddings), bf16, random weights from seed 0: batch 64,
+     a 256-token prompt teacher-forced, 256 greedy steps, caches of 512.
+     Gates first, on the same weights and prompts, each held against the
+     same model computed in float32 (plain attention), whose distance to
+     the plain bf16 path is the bf16 noise: the first 64 teacher-forced
+     steps with the split-K decode kernel (error against float32 within
+     `LM_NOISE_FACTOR` times the noise, top-1 equal to float32's on
+     `LM_TOP1` of the positions no noise can flip, and every top-1
+     mismatch with the plain bf16 steps a near tie), and ``prefill`` (the
+     ``wgmma`` kernel, once per layer) and the teacher-forced decode at
+     position 255, each against float32's prefill by the same rules.
+     Then the timed service run with the counters zeroed before and read
+     after: the decode kernel launches exactly 28 x 512 times, nothing
+     else and no plain attention; tok/s and wall per step; a profile of
+     32 decode steps (device busy, idle share); the decode kernel's time
+     at L = 512 against its byte bound, the plain version and SDPA on the
+     same cache, and the ``wgmma`` prefill's time;
+  16. the ``kernels`` JSON line (each combine kernel's launches per path;
+     the flash kernels' per path: ``flash``, ``lm_decode``,
+     ``lm_prefill``), then the device JSON line, last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1841,6 +1864,368 @@ def phase_flash(torch) -> dict:
             "library_ms": t["library_ms"]}
 
 
+# ---------------------------------------------------------------------------
+# LM decode service
+# ---------------------------------------------------------------------------
+
+#: qwen2-1.5b (src/repro_torch/configs/qwen2_1p5b.py) at full width: the
+#: architecture the reference CLI's docstring serves.
+LM_ARCH, LM_SEED = "qwen2-1.5b", 0
+LM_B, LM_PROMPT, LM_GEN, LM_MAX = 64, 256, 256, 512
+LM_GATE_STEPS = 64
+LM_PROFILE_STEPS = 32
+#: The yardstick of the bf16 gates is the same model computed in float32
+#: (the bf16 weights widened, the plain attention): the bf16 noise at this
+#: width is the plain bf16 path's largest logit error against it. (In
+#: this phase's runs, NVIDIA H100 80GB HBM3, 700 W, that noise was 0.164,
+#: 3.5 % of the largest logit, and the plain bf16 path's top-1 agreed
+#: with float32's at 92 % of the positions: a bound of 3e-2 of the
+#: largest logit with 99 % raw top-1 agreement holds for no bf16 path
+#: here.) The kernel path's error against float32 may be at most
+#: `LM_NOISE_FACTOR` times the plain path's: the two bf16 runs round at
+#: the same places but inside attention (0.170 against 0.164 in those
+#: runs).
+LM_NOISE_FACTOR = 1.5
+#: Top-1: where the float32 top-1 leads its runner-up by more than twice
+#: the noise (no bf16 noise of that size can flip it), the kernel path's
+#: choice must equal float32's on this share of the positions; and where
+#: the kernel and plain paths choose differently, the two choices must
+#: lie within twice the noise of each other (a near tie).
+LM_TOP1 = 0.99
+
+
+def _plain_attention_calls() -> dict:
+    from repro_torch.models import attention
+
+    return dict(attention.PLAIN_CALLS)
+
+
+def _reset_plain_attention_calls() -> None:
+    from repro_torch.models import attention
+
+    attention.reset_plain_calls()
+
+
+class _Logits:
+    """Running comparison of one run's logits ``[B, 1, V]`` with
+    another's, step by step (kept on the card, read once at the end)."""
+
+    def __init__(self, torch, vocab):
+        self.torch, self.vocab = torch, vocab
+        self.err, self.peak, self.match, self.gap, self.margin = \
+            [], [], [], [], []
+
+    def add(self, got, want):
+        torch = self.torch
+        g = got[:, 0, :self.vocab].float()
+        w = want[:, 0, :self.vocab].float()
+        self.err.append((g - w).abs().amax())
+        self.peak.append(w.abs().amax())
+        ig, iw = g.argmax(-1), w.argmax(-1)
+        self.match.append(ig == iw)
+        # How far each run's choice falls below the other run's best.
+        self.gap.append(torch.maximum(
+            w.amax(-1) - w.gather(-1, ig[:, None])[:, 0],
+            g.amax(-1) - g.gather(-1, iw[:, None])[:, 0]))
+        top2 = w.topk(2, dim=-1).values
+        self.margin.append(top2[:, 0] - top2[:, 1])
+
+    def result(self, noise=None) -> dict:
+        torch = self.torch
+        err, peak = torch.stack(self.err), torch.stack(self.peak)
+        match = torch.cat(self.match)
+        gap, margin = torch.cat(self.gap), torch.cat(self.margin)
+        res = {"max_abs_err": err.max().item(),
+               "max_abs_logit": peak.max().item(),
+               "max_err_over_peak": (err / peak).max().item(),
+               "top1_match": match.float().mean().item(),
+               "max_mismatch_gap": gap[~match].max().item()
+               if bool((~match).any()) else 0.0,
+               "positions": match.numel()}
+        if noise is not None:
+            decisive = margin > 2 * noise
+            res["decisive_share"] = decisive.float().mean().item()
+            res["decisive_top1_match"] = (
+                match[decisive].float().mean().item()
+                if bool(decisive.any()) else 1.0)
+        return res
+
+
+def _say_logits(what, res) -> None:
+    extra = (f"; top-1 equal at {res['decisive_top1_match']:.4f} of the "
+             f"{res['decisive_share']:.3f} decisive positions"
+             if "decisive_share" in res else "")
+    say(f"[lm_decode] {what}: max |dlogit| {res['max_abs_err']:.4e} (max "
+        f"|logit| {res['max_abs_logit']:.4f}, ratio "
+        f"{res['max_err_over_peak']:.4e}), top-1 equal at "
+        f"{res['top1_match']:.4f} of {res['positions']} positions, largest "
+        f"mismatch gap {res['max_mismatch_gap']:.4e}{extra}")
+
+
+def _check_noise(what, res, noise) -> None:
+    """``res``: a bf16 run of the kernels against the float32 reference."""
+    _say_logits(f"{what} vs float32", res)
+    if not res["max_abs_err"] <= LM_NOISE_FACTOR * noise:
+        fail(f"lm_decode {what}: max |dlogit| {res['max_abs_err']:.4e} "
+             f"against float32, over {LM_NOISE_FACTOR:g} x the plain bf16 "
+             f"path's {noise:.4e}")
+    if not res["decisive_top1_match"] >= LM_TOP1:
+        fail(f"lm_decode {what}: top-1 equal to float32's at "
+             f"{res['decisive_top1_match']:.4f} of the decisive positions, "
+             f"under {LM_TOP1}")
+
+
+def _check_ties(what, res, noise) -> None:
+    """``res``: two bf16 runs against each other."""
+    _say_logits(what, res)
+    if not res["max_mismatch_gap"] <= 2 * noise:
+        fail(f"lm_decode {what}: a top-1 mismatch is no near tie (gap "
+             f"{res['max_mismatch_gap']:.4e} over twice the noise "
+             f"{noise:.4e})")
+
+
+def phase_lm_decode(torch) -> dict:
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.serve import ServeConfig, serve
+    from repro_torch.models import (decode_step, init_caches, init_model,
+                                    prefill)
+
+    cfg = get_config(LM_ARCH)
+    vocab, layers = cfg.vocab_size, cfg.num_layers
+    serve_cfg = ServeConfig(arch=LM_ARCH, batch=LM_B, prompt_len=LM_PROMPT,
+                            gen=LM_GEN, max_len=LM_MAX, reduced=False,
+                            seed=LM_SEED)
+    t0 = time.perf_counter()
+    model = init_model(cfg, LM_SEED, device="cuda")
+    # The service's prompts: the same generator and draw as `serve`.
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED + 1)
+    prompts = torch.randint(0, vocab, (LM_B, LM_PROMPT), generator=gen,
+                            device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[lm_decode] {LM_ARCH} full width: {layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads} (padded {cfg.padded_heads}) "
+        f"/ kv {cfg.num_kv_heads}, head_dim {cfg.resolved_head_dim}, vocab "
+        f"{vocab} (padded {cfg.padded_vocab}), {n_params:,} parameters in "
+        f"bf16, init {time.perf_counter() - t0:.2f}s")
+
+    # The float32 reference: the same weights widened, plain attention.
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = copy.deepcopy(model).float()
+
+    # Gate 1: the first steps with the kernel, with the plain version and
+    # in float32.
+    kernel_caches = init_caches(cfg, LM_B, LM_MAX, device="cuda")
+    plain_caches = init_caches(cfg, LM_B, LM_MAX, device="cuda")
+    ref_caches = init_caches(cfg32, LM_B, LM_MAX, device="cuda")
+    k_vs_p, k_vs_ref, p_vs_ref = (_Logits(torch, vocab) for _ in range(3))
+    reset_counts()
+    _reset_plain_attention_calls()
+    for i in range(LM_GATE_STEPS):
+        tok = prompts[:, i:i + 1]
+        lk, kernel_caches = decode_step(model, cfg, kernel_caches, tok, i)
+        lp, plain_caches = decode_step(model, cfg, plain_caches, tok, i,
+                                       impl="plain")
+        lr, ref_caches = decode_step(model32, cfg32, ref_caches, tok, i,
+                                     impl="plain")
+        k_vs_p.add(lk, lp)
+        k_vs_ref.add(lk, lr)
+        p_vs_ref.add(lp, lr)
+    torch.cuda.synchronize()
+    counts, plain_calls = read_counts(), _plain_attention_calls()
+    if (counts["flash_attention_decode"] != layers * LM_GATE_STEPS
+            or plain_calls["decode_attention"] != 2 * layers * LM_GATE_STEPS):
+        fail(f"lm_decode gate run: kernel launches {counts}, plain calls "
+             f"{plain_calls}; expected {layers * LM_GATE_STEPS} kernel "
+             "launches and twice as many plain calls")
+    p_vs_ref = p_vs_ref.result()
+    noise = p_vs_ref["max_abs_err"]
+    what = f"first {LM_GATE_STEPS} teacher-forced steps"
+    _say_logits(f"{what}, plain bf16 vs float32 (the noise)", p_vs_ref)
+    kernel_vs_ref = k_vs_ref.result(noise)
+    _check_noise(f"{what}, kernel bf16", kernel_vs_ref, noise)
+    kernel_vs_plain = k_vs_p.result()
+    _check_ties(f"{what}, kernel vs plain bf16", kernel_vs_plain, noise)
+    del plain_caches, ref_caches
+
+    # Gate 2: prefill (the wgmma kernel) against the teacher-forced decode
+    # at the last prompt position, both against float32's prefill (the
+    # same function: float32 decode and prefill agree to ~1e-5).
+    for i in range(LM_GATE_STEPS, LM_PROMPT):
+        lk, kernel_caches = decode_step(model, cfg, kernel_caches,
+                                        prompts[:, i:i + 1], i)
+    reset_counts()
+    _reset_plain_attention_calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lpre = prefill(model, cfg, prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts, plain_calls = read_counts(), _plain_attention_calls()
+    prefill_launches = {k: v for k, v in counts.items() if v}
+    if prefill_launches != {"flash_attention_wgmma": layers} or any(
+            plain_calls.values()):
+        fail(f"lm_decode prefill launched {prefill_launches}, plain calls "
+             f"{plain_calls}; expected the wgmma kernel once per layer")
+    say(f"[lm_decode] prefill B={LM_B} T={LM_PROMPT}: {prefill_s:.3f}s, "
+        f"kernel launches {prefill_launches}")
+    lpre_plain = prefill(model, cfg, prompts, impl="plain")
+    lpre_ref = prefill(model32, cfg32, prompts, impl="plain")
+    del model32
+    torch.cuda.empty_cache()
+    results = {}
+    for name, got in (("plain prefill", lpre_plain), ("prefill", lpre),
+                      ("decode", lk)):
+        acc = _Logits(torch, vocab)
+        acc.add(got, lpre_ref)
+        results[name] = acc
+    noise255 = results.pop("plain prefill").result()["max_abs_err"]
+    what = f"position {LM_PROMPT - 1}"
+    say(f"[lm_decode] {what}: plain bf16 prefill vs float32 (the noise) "
+        f"{noise255:.4e}")
+    prefill_vs_ref = results["prefill"].result(noise255)
+    _check_noise(f"{what}, prefill (wgmma) bf16", prefill_vs_ref, noise255)
+    decode_vs_ref = results["decode"].result(noise255)
+    _check_noise(f"{what}, decode (split-K) bf16", decode_vs_ref, noise255)
+    acc = _Logits(torch, vocab)
+    acc.add(lpre, lk)
+    prefill_vs_decode = acc.result()
+    _check_ties(f"{what}, prefill vs decode bf16", prefill_vs_decode,
+                noise255)
+
+    # Device busy over decode steps at cache lengths 256..287.
+    pos = LM_PROMPT
+    tok = lk[:, :, :vocab].argmax(-1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(LM_PROFILE_STEPS):
+            lk, kernel_caches = decode_step(model, cfg, kernel_caches, tok,
+                                            pos + j)
+            tok = lk[:, :, :vocab].argmax(-1)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    kernels = _device_events(ka)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    dec_us = sum(e.self_device_time_total for e in kernels
+                 if "decode_kernel" in e.key or "merge_kernel" in e.key)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    OUT.mkdir(exist_ok=True)
+    (OUT / "profile_lm_decode.txt").write_text(
+        ka.table(sort_by="self_device_time_total", row_limit=40) + "\n"
+        + ka.table(sort_by="cpu_time_total", row_limit=40))
+    profile_res = {
+        "steps": LM_PROFILE_STEPS, "wall_s": prof_wall,
+        "device_busy_s": busy_us / 1e6, "idle_share": 1 - busy_us / 1e6
+        / prof_wall, "kernel_launches": sum(e.count for e in kernels),
+        "decode_kernel_ms": dec_us / 1e3,
+        "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                for e in top]}
+    say(f"[lm_decode] profile of {LM_PROFILE_STEPS} decode steps (cache "
+        f"{pos}..{pos + LM_PROFILE_STEPS - 1}): wall {prof_wall * 1e3:.1f} "
+        f"ms (profiled), device busy {busy_us / 1e3:.2f} ms in "
+        f"{profile_res['kernel_launches']} kernel launches, idle "
+        f"{profile_res['idle_share']:.1%}; decode+merge kernels "
+        f"{dec_us / 1e3:.3f} ms; top: " + "; ".join(
+            f"{k[:48]} {ms:.2f} ms x{n}" for k, ms, n in profile_res["top"]))
+    del kernel_caches, lk, lp, lr, lpre, lpre_plain, lpre_ref, model
+    torch.cuda.empty_cache()
+
+    # The service, timed, with the counters zeroed before and read after.
+    torch.cuda.synchronize()
+    reset_counts()
+    _reset_plain_attention_calls()
+    out = serve(serve_cfg, emit=say)
+    torch.cuda.synchronize()
+    counts, plain_calls = read_counts(), _plain_attention_calls()
+    steps = LM_PROMPT + LM_GEN
+    decode_launches = counts.pop("flash_attention_decode")
+    say(f"[lm_decode] path: serve({LM_ARCH}, batch {LM_B}, prompt "
+        f"{LM_PROMPT}, gen {LM_GEN}, max_len {LM_MAX}, full width): "
+        f"{out['tok_per_s']:.1f} tok/s, {out['seconds'] / steps * 1e3:.3f} "
+        f"ms per step; decode kernel launches {decode_launches}, other "
+        f"kernels {counts}, plain attention calls {plain_calls}")
+    if decode_launches != layers * steps:
+        fail(f"the lm_decode path launched the decode kernel "
+             f"{decode_launches} times, expected {layers} x {steps}")
+    if any(counts.values()) or any(plain_calls.values()):
+        fail(f"the lm_decode path launched {counts}, plain calls "
+             f"{plain_calls}: only the decode kernel may run")
+    tokens = out["tokens"]
+    if (tuple(tokens.shape) != (LM_B, LM_GEN) or tokens.dtype != torch.int32
+            or not bool(((tokens >= 0) & (tokens < vocab)).all())):
+        fail(f"lm_decode tokens {tuple(tokens.shape)} {tokens.dtype} are "
+             f"not [{LM_B}, {LM_GEN}] int32 ids below {vocab}")
+
+    # Kernel times at the path's shapes.
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16 = torch.bfloat16
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    full = torch.tensor(LM_MAX, dtype=torch.int32, device="cuda")
+    # Four caches (134 MB, over the 50 MB L2): each call reads from HBM,
+    # as each layer of a step does.
+    sets = [_qkv(torch, LM_B, Hq, Hkv, 1, LM_MAX, Dh, bf16, gen) + (full,)
+            for _ in range(4)]
+    q, k, v, _ = sets[0]
+    ms = _time_ms(torch, fa.decode_attention_cuda, sets, iters=200)
+    plain_ms = _time_ms(torch, fa.decode_attention_plain, sets, iters=50)
+    lib_ms = _time_ms(torch, lambda q, k, v, n: F.scaled_dot_product_attention(
+        q, k, v, enable_gqa=True), sets, iters=200)
+    err = _compare(torch, fa.decode_attention_cuda(q, k, v, full),
+                   fa.decode_attention_plain(q, k, v, full),
+                   FA_TOL["bfloat16"], "lm decode kernel at L=512")
+    n_bytes = 2 * (2 * LM_B * Hkv * LM_MAX * Dh + 2 * LM_B * Hq * Dh)
+    b_ms, b_by = _bound(n_bytes, 4 * LM_B * Hq * Dh * LM_MAX, "bfloat16")
+    decode_time = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    say(f"[time] lm decode attention B={LM_B} Hq={Hq} Hkv={Hkv} L={LM_MAX} "
+        f"Dh={Dh} bf16: split-K kernel {ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us, bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}), kernel/bound {ms / b_ms:.2f}, "
+        f"kernel/sdpa {ms / lib_ms:.2f}; max abs err vs plain {err:.3e}")
+    del q, k, v, sets
+    sets = [_qkv(torch, LM_B, Hq, Hkv, LM_PROMPT, LM_PROMPT, Dh, bf16, gen)
+            for _ in range(2)]
+    q, k, v = sets[0]
+    ms = _time_ms(torch, fa.flash_attention_cuda, sets, iters=50)
+    plain_ms = _time_ms(torch, fa.flash_attention_plain, sets, iters=3,
+                        warmup=1)
+    lib_ms = _time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), sets, iters=50)
+    b_ms, b_by = flash_bound(LM_B, Hq, Hkv, LM_PROMPT, LM_PROMPT, Dh, True,
+                             "bfloat16")
+    prefill_time = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "kernel": fa.select_kernel(q, k)}
+    say(f"[time] lm prefill attention B={LM_B} Hq={Hq} Hkv={Hkv} "
+        f"T={LM_PROMPT} Dh={Dh} bf16 causal: {prefill_time['kernel']} kernel "
+        f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, sdpa "
+        f"{lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}), "
+        f"kernel/bound {ms / b_ms:.2f}, kernel/sdpa {ms / lib_ms:.2f}")
+    del q, k, v, sets
+    torch.cuda.empty_cache()
+    return {"arch": LM_ARCH, "parameters": n_params,
+            "noise": noise, "plain_vs_ref": p_vs_ref,
+            "kernel_vs_ref": kernel_vs_ref, "kernel_vs_plain": kernel_vs_plain,
+            "noise_255": noise255, "prefill_vs_ref": prefill_vs_ref,
+            "decode_vs_ref": decode_vs_ref,
+            "prefill_vs_decode": prefill_vs_decode, "prefill_s": prefill_s,
+            "launches_by_path": {"lm_decode": decode_launches,
+                                 "lm_prefill": prefill_launches[
+                                     "flash_attention_wgmma"]},
+            "tok_per_s": out["tok_per_s"], "seconds": out["seconds"],
+            "ms_per_step": out["seconds"] / steps * 1e3,
+            "profile": profile_res, "decode_attention": decode_time,
+            "prefill_attention": prefill_time}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -1867,6 +2252,7 @@ def main() -> int:
     tenants = phase_tenants(torch)
     ssm = phase_ssm_scan(torch)
     flash = phase_flash(torch)
+    lm = phase_lm_decode(torch)
 
     rows = []
     for kind in ("filtering_combine", "smoothing_combine"):
@@ -1891,7 +2277,14 @@ def main() -> int:
         rows.append({k: res[k] for k in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")})
-    rows[-1]["launches_by_kernel"] = flash["launches_by_kernel"]
+    flash_paths = {"flash": flash["launches"], **lm["launches_by_path"]}
+    rows[-1].update(launches=sum(flash_paths.values()),
+                    launches_by_path=flash_paths,
+                    launches_by_kernel=flash["launches_by_kernel"],
+                    lm_decode={k: lm["decode_attention"][k] for k in (
+                        "ms", "plain_ms", "library_ms", "bound_ms")},
+                    lm_prefill={k: lm["prefill_attention"][k] for k in (
+                        "ms", "plain_ms", "library_ms", "bound_ms")})
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, **row}
             for (name, (replaces, source)), row in zip(KERNELS.items(), rows)]
@@ -1905,10 +2298,10 @@ def main() -> int:
          "slr_profile": slr_prof, "matrix": matrix, "sqrt": sqrt,
          "adaptive": adaptive, "autotune": autotune, "stream": stream,
          "chaos": chaos, "tenants": tenants, "ssm_scan": ssm,
-         "flash_attention": flash,
+         "flash_attention": flash, "lm_decode": lm,
          "seconds": time.perf_counter() - t_start}, indent=1))
     say(f"[chip_smoke] all phases passed in "
-        f"{time.perf_counter() - t_start:.1f}s")
+        f"{time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": env["device"], "count": env["count"]}}))

@@ -1,0 +1,16 @@
+"""internlm2-1.8b [dense] — GQA (arXiv:2403.17297). 24L, d_model 2048,
+16H (kv=8), d_ff 8192, vocab 92544."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="internlm2-1.8b",
+    family="dense",
+    num_layers=24,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=8,            # < 16 -> replicated KV projections
+    head_dim=128,
+    d_ff=8192,
+    vocab_size=92544,
+    rope_theta=1e6,
+))

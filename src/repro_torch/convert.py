@@ -6,10 +6,14 @@
 another, as every entry point of the port) and dtype. ``f`` and ``h`` are
 rebuilt from the port's registered scenario config (callables do not
 cross frameworks), so both packages compute on the same model.
+
+`lm_params` turns the JAX LM's parameter pytree (as numpy) into the port's
+`CausalLM`, so both packages run the same weights.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,3 +35,42 @@ def state_space_model(scenario: str, Q: np.ndarray, R: np.ndarray,
                                      device=device)
     return dataclasses.replace(base, Q=as_t(Q), R=as_t(R), m0=as_t(m0),
                                P0=as_t(P0))
+
+
+def lm_params(params, cfg, *, device: Device = None,
+              dtype: Optional[torch.dtype] = None):
+    """The port's `CausalLM` holding the JAX ``init_model`` parameters
+    ``params`` (the pytree with its leaves as numpy arrays): ``embed``,
+    ``runs`` (per run, each leaf stacked over the run's layers),
+    ``final_norm`` and ``lm_head``. The runs are unstacked into blocks;
+    ``[in, out]`` matrices become ``nn.Linear`` weights ``[out, in]``.
+    On ``device`` (`resolve_device`), in ``dtype`` (default the config's
+    parameter dtype)."""
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.transformer import init_model
+
+    device = resolve_device(device)
+    dtype = dtype_of(cfg.param_dtype) if dtype is None else dtype
+    model = init_model(cfg, 0, device=device)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    state = {"embed": t(params["embed"]),
+             "final_norm": t(params["final_norm"])}
+    if "lm_head" in params:
+        state["lm_head.weight"] = t(params["lm_head"]).T
+    for ri, run in enumerate(params["runs"]):
+        for li in range(len(model.runs[ri])):
+            pre = f"runs.{ri}.{li}."
+            for norm in ("ln1", "ln2"):
+                state[pre + norm] = t(run[norm][li])
+            for name, w in run["attn"].items():
+                if name.startswith("w"):
+                    state[f"{pre}attn.{name}.weight"] = t(w[li]).T
+                else:  # bq, bk, bv
+                    state[f"{pre}attn.w{name[1]}.bias"] = t(w[li])
+            for name, w in run["mlp"].items():
+                state[f"{pre}mlp.{name}.weight"] = t(w[li]).T
+    model.load_state_dict({k: v.to(dtype) for k, v in state.items()})
+    return model.to(dtype)

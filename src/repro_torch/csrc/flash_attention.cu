@@ -59,6 +59,15 @@
 //    whose keys are all causally masked for a row has m_s = -1e30: weight
 //    0 when another split has a real key, and when none has, every key
 //    has weight 1 (the Tk-average of the oracle).
+//    The same kernels decode against a KV cache in place (fa_decode_cache):
+//    k and v are [B, Hkv, S, Dh] buffers whose first min(length, S) rows
+//    are keys, S is the row stride, and length is an int32 the kernel
+//    reads from device memory, so a decode step never waits on the host.
+//    The split grid covers the capacity S; a split that starts past the
+//    keys writes m = -inf, l = 0 and weighs 0 in the merge (no keys at
+//    all, length 0, gives o = 0). This is the reference's decode mask
+//    arange(S) < length (models/attention.py decode_attention), a full
+//    ring buffer included; the rows past the keys are never read.
 //
 // 3. wg::wgmma_kernel (bfloat16 prefill, Dh 64 and 128). Warp-specialised:
 //    384 threads in three warpgroups. Warpgroup 0 is the producer: it gives
@@ -88,6 +97,9 @@
 //                v, o, stream)                               kernel 1
 //   fa_decode(dtype, head_dim, B, Hq, Hkv, Tq, Tk, causal, scale,
 //             split_keys, q, k, v, o, part_ml, part_acc, stream) kernel 2
+//   fa_decode_cache(dtype, head_dim, B, Hq, Hkv, Tq, S, scale, split_keys,
+//                   q, k, v, length, o, part_ml, part_acc, stream)
+//                                        kernel 2 on a cache, not causal
 //   fa_wgmma(head_dim, B, Hq, Hkv, Tq, Tk, causal, scale, q, k, v, o,
 //            stream)                                          kernel 3
 // with head_dim one of 16, 32, 64, 128, 256 (64 and 128 for fa_wgmma).
@@ -412,9 +424,9 @@ __device__ __forceinline__ float2 load_pair(const unsigned char* p,
 // rows R..RB-1 are zero padding up to the compiled row count RB.
 template <typename T, int D, int RB>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
-    int Hq, int Hkv, int64_t Tq, int64_t Tk, int causal, float scale_log2,
-    int split_keys, int n_splits, const T* __restrict__ q,
-    const T* __restrict__ k, const T* __restrict__ v,
+    int Hq, int Hkv, int64_t Tq, int64_t S, const int* __restrict__ len,
+    int causal, float scale_log2, int split_keys, int n_splits,
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     float* __restrict__ part_ml, float* __restrict__ part_acc) {
   using C = Cfg<T, D>;
   constexpr int KT = C::KT, RS = C::RS, DS = C::DS, CH = C::CH;
@@ -431,12 +443,28 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   const int tid = threadIdx.x;
   const int split = blockIdx.x, kvh = blockIdx.y;
   const int64_t b = blockIdx.z;
+  // Rows of the buffers: S apart; the first Tk of them are keys.
+  int64_t Tk = S;
+  if (len != nullptr) {
+    const int64_t n = *len;
+    Tk = n < 0 ? 0 : (n < S ? n : S);
+  }
   const int64_t s0 = static_cast<int64_t>(split) * split_keys;
+  const int64_t part = (b * Hkv + kvh) * n_splits + split;  // [.., R] rows
+  if (s0 >= Tk) {
+    // A split past the keys (a cache not yet full): weight 0 in the merge.
+    for (int e = tid; e < R; e += kThreads) {
+      part_ml[(part * R + e) * 2] = -INFINITY;
+      part_ml[(part * R + e) * 2 + 1] = 0.f;
+    }
+    for (int e = tid; e < R * D; e += kThreads) part_acc[part * R * D + e] = 0.f;
+    return;
+  }
   const int nk = static_cast<int>(Tk - s0 < split_keys ? Tk - s0 : split_keys);
   const int nk4 = (nk + 3) & ~3;  // weights past nk are 0
   const int n_tiles = (nk + KT - 1) / KT;
-  const T* kg = k + ((b * Hkv + kvh) * Tk + s0) * D;
-  const T* vg = v + ((b * Hkv + kvh) * Tk + s0) * D;
+  const T* kg = k + ((b * Hkv + kvh) * S + s0) * D;
+  const T* vg = v + ((b * Hkv + kvh) * S + s0) * D;
 
   // Tile t < n_tiles is K tile t, then V tile t - n_tiles; buffer t & 1.
   // Keys past the split read as zeros.
@@ -566,7 +594,6 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     __syncthreads();  // tile t read by all before load(t + 2) overwrites it
   }
 
-  const int64_t part = (b * Hkv + kvh) * n_splits + split;  // [.., R] rows
   if (KG > 1) {
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
@@ -606,6 +633,7 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(
   const int64_t first = (b * Hkv + kvh) * n_splits * R + r;  // split 0's row
   float m = -INFINITY;
   for (int s = 0; s < n_splits; ++s) m = fmaxf(m, part_ml[2 * (first + s * R)]);
+  if (m == -INFINITY) m = 0.f;  // no key in any split (length 0): o = 0
   float l = 0.f;
   for (int s = 0; s < n_splits; ++s) {
     const int64_t i = first + static_cast<int64_t>(s) * R;
@@ -625,8 +653,8 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(
 }
 
 #define DEC_LAUNCH_PARAMS                                                    \
-  int64_t B, int Hq, int Hkv, int64_t Tq, int64_t Tk, int causal,            \
-      float scale, int split_keys, const void *q, const void *k,             \
+  int64_t B, int Hq, int Hkv, int64_t Tq, int64_t Tk, const int *len,        \
+      int causal, float scale, int split_keys, const void *q, const void *k, \
       const void *v, void *o, float *part_ml, float *part_acc, cudaStream_t s
 
 template <typename T, int D, int RB>
@@ -642,8 +670,9 @@ int launch_rows(DEC_LAUNCH_PARAMS) {
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(static_cast<unsigned>(n_splits), static_cast<unsigned>(Hkv),
                 static_cast<unsigned>(B)),
-           kThreads, smem, s>>>(Hq, Hkv, Tq, Tk, causal, scale * kLog2e,
-                                split_keys, static_cast<int>(n_splits),
+           kThreads, smem, s>>>(Hq, Hkv, Tq, Tk, len, causal,
+                                scale * kLog2e, split_keys,
+                                static_cast<int>(n_splits),
                                 static_cast<const T*>(q),
                                 static_cast<const T*>(k),
                                 static_cast<const T*>(v), part_ml, part_acc);
@@ -666,8 +695,8 @@ int launch(DEC_LAUNCH_PARAMS) {
   if (rows > kMaxRows || split_keys < 1 || split_keys > kMaxSplit)
     return static_cast<int>(cudaErrorInvalidValue);
 #define DEC_ROWS(RB) \
-  launch_rows<T, D, RB>(B, Hq, Hkv, Tq, Tk, causal, scale, split_keys, q, k, \
-                        v, o, part_ml, part_acc, s)
+  launch_rows<T, D, RB>(B, Hq, Hkv, Tq, Tk, len, causal, scale, split_keys, q, \
+                        k, v, o, part_ml, part_acc, s)
   if (rows <= 1) return DEC_ROWS(1);
   if (rows == 2) return DEC_ROWS(2);
   if (rows == 3) return DEC_ROWS(3);
@@ -1193,8 +1222,9 @@ FA_INSTANCES(extern, 256)
 namespace {
 
 #define FA_ARGS B, Hq, Hkv, Tq, Tk, causal, scale, q, k, v, o, s
-#define DEC_ARGS \
-  B, Hq, Hkv, Tq, Tk, causal, scale, split_keys, q, k, v, o, part_ml, part_acc, s
+#define DEC_ARGS                                                           \
+  B, Hq, Hkv, Tq, Tk, len, causal, scale, split_keys, q, k, v, o, part_ml, \
+      part_acc, s
 
 template <typename T>
 int fma_dispatch(int head_dim, FA_LAUNCH_PARAMS) {
@@ -1279,6 +1309,31 @@ extern "C" int fa_decode(int dtype, int head_dim, long long B, int Hq, int Hkv,
   const int c = check(B, Hq, Hkv, Tq, Tk);
   if (c) return c < 0 ? static_cast<int>(cudaSuccess) : c;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* len = nullptr;  // all Tk rows are keys
+  float* part_ml = static_cast<float*>(part_ml_v);
+  float* part_acc = static_cast<float*>(part_acc_v);
+  if (dtype == 0) return dec_dispatch<float>(head_dim, DEC_ARGS);
+  if (dtype == 2) return dec_dispatch<__nv_bfloat16>(head_dim, DEC_ARGS);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Decode against a KV cache read in place: k, v [B, Hkv, S, Dh] with the
+// first min(*length, S) rows valid (length: an int32 on the device, read by
+// the kernel, so the host never waits for it). Not causal: every valid row
+// is a key of every query row. The split grid covers the capacity S.
+extern "C" int fa_decode_cache(int dtype, int head_dim, long long B, int Hq,
+                               int Hkv, long long Tq, long long S, float scale,
+                               int split_keys, const void* q, const void* k,
+                               const void* v, const void* length, void* o,
+                               void* part_ml_v, void* part_acc_v,
+                               void* stream) {
+  const long long Tk = S;
+  const int causal = 0;
+  const int c = check(B, Hq, Hkv, Tq, Tk);
+  if (c) return c < 0 ? static_cast<int>(cudaSuccess) : c;
+  if (length == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(length);
   float* part_ml = static_cast<float*>(part_ml_v);
   float* part_acc = static_cast<float*>(part_acc_v);
   if (dtype == 0) return dec_dispatch<float>(head_dim, DEC_ARGS);

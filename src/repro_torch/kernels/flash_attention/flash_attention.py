@@ -37,6 +37,13 @@ plain version; a CUDA tensor launches the selected kernel or raises —
 never a fallback to another kernel or to the plain version. Each launch
 adds one to its kernel's ``LAUNCHES`` entry (the decode's merge pass is
 part of its launch).
+
+``decode_attention_cuda`` runs the split-K decode kernel against a KV
+cache read in place: ``[B, Hkv, S, Dh]`` buffers whose first
+``min(length, S)`` rows are keys, ``length`` an int32 tensor on the card
+that the kernel reads itself (no host sync per step). Its plain version,
+``decode_attention_plain``, is the reference's masked decode softmax
+(``repro/models/attention.py`` ``decode_attention``) on this layout.
 """
 from __future__ import annotations
 
@@ -206,7 +213,11 @@ def _library():
                                   ptr, ptr, ptr, ptr, ptr, ptr, ptr]
         lib.fa_wgmma.argtypes = [i, ll, i, i, ll, ll, i, f,
                                  ptr, ptr, ptr, ptr, ptr]
-        for fn in (lib.fa_attention, lib.fa_decode, lib.fa_wgmma):
+        lib.fa_decode_cache.argtypes = [i, i, ll, i, i, ll, ll, f, i,
+                                        ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                        ptr]
+        for fn in (lib.fa_attention, lib.fa_decode, lib.fa_wgmma,
+                   lib.fa_decode_cache):
             fn.restype = ctypes.c_int
         lib.fa_smem_bytes.argtypes = [i, i, i, i, i]
         lib.fa_smem_bytes.restype = ll
@@ -233,6 +244,32 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _check_card_inputs(what: str, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> None:
+    """Raise unless the kernels take these CUDA tensors: one dtype of
+    `_DTYPE_CODE` and one device, ``Dh`` in `HEAD_DIMS`, contiguous."""
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what}: dtype {q.dtype} is not float32 or bfloat16")
+    if any(t.dtype != q.dtype or t.device != q.device for t in (k, v)):
+        raise TypeError(f"{what}: q, k, v differ in dtype or device")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {q.shape[-1]} has no kernel "
+                         f"instance; built: {HEAD_DIMS}")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError(f"{what}: non-contiguous input; the kernel reads "
+                         "densely packed [B, H, T, Dh] arrays")
+
+
+def _decode_scratch(B: int, Hkv: int, Tk: int, rows: int, Dh: int,
+                    device: torch.device):
+    """Keys per split and the decode kernel's float32 partials: per (b,
+    kv head, split, row) m and l, then the Dh accumulator."""
+    split_keys = decode_split_keys(B, Hkv, Tk, _sm_count(device))
+    n_part = B * Hkv * -(-Tk // split_keys) * rows
+    part = torch.empty(n_part * (2 + Dh), dtype=torch.float32, device=device)
+    return split_keys, part, ctypes.c_void_p(part.data_ptr() + 4 * 2 * n_part)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          scale: Optional[float] = None,
@@ -247,19 +284,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_shapes(q, k, v)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    _check_card_inputs("flash_attention", q, k, v)
     B, Hq, Tq, Dh = q.shape
     Hkv, Tk = k.shape[1:3]
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash_attention: dtype {q.dtype} is not float32 "
-                        "or bfloat16")
-    if any(t.dtype != q.dtype or t.device != q.device for t in (k, v)):
-        raise TypeError("flash_attention: q, k, v differ in dtype or device")
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {Dh} has no kernel "
-                         f"instance; built: {HEAD_DIMS}")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention: non-contiguous input; the kernel "
-                         "reads densely packed [B, H, T, Dh] arrays")
     chosen = select_kernel(q, k) if kernel is None else kernel
     rows = (Hq // Hkv) * Tq
     if chosen not in KERNEL_COUNTERS:
@@ -282,15 +309,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _library()
     common = (B, Hq, Hkv, Tq, Tk, int(causal), float(scale))
     if chosen == "decode":
-        split_keys = decode_split_keys(B, Hkv, Tk, _sm_count(q.device))
-        # Per (b, kv head, split, row): m and l, then the Dh accumulator.
-        n_part = B * Hkv * -(-Tk // split_keys) * rows
-        part = torch.empty(n_part * (2 + Dh), dtype=torch.float32,
-                           device=q.device)
+        split_keys, part, part_acc = _decode_scratch(B, Hkv, Tk, rows, Dh,
+                                                     q.device)
         err = lib.fa_decode(_DTYPE_CODE[q.dtype], Dh, *common,
                             int(split_keys), *map(_ptr, (q, k, v, out, part)),
-                            ctypes.c_void_p(part.data_ptr() + 4 * 2 * n_part),
-                            stream)
+                            part_acc, stream)
     elif chosen == "wgmma":
         err = lib.fa_wgmma(Dh, *common, *map(_ptr, (q, k, v, out)), stream)
     else:
@@ -300,4 +323,81 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention {chosen} kernel launch failed: "
                            f"CUDA error {err}")
     LAUNCHES[KERNEL_COUNTERS[chosen]] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Decode against a KV cache read in place
+# ---------------------------------------------------------------------------
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, length: torch.Tensor, *,
+                           scale: Optional[float] = None,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """``q [B, Hq, Tq, Dh]`` against the cache ``k/v [B, Hkv, S, Dh]`` ->
+    ``[B, Hq, Tq, Dh]`` in q's dtype: the reference's decode softmax, in
+    float32 over all S rows with rows ``>= length`` masked by -1e30 (no
+    causal mask), each GQA group's query rows against their kv head.
+    ``softcap > 0`` caps the scores as ``softcap * tanh(s / softcap)``."""
+    check_shapes(q, k_cache, v_cache)
+    B, Hq, Tq, Dh = q.shape
+    Hkv, S = k_cache.shape[1:3]
+    if scale is None:
+        scale = 1.0 / (Dh ** 0.5)
+    qh = q.float().reshape(B, Hkv, (Hq // Hkv) * Tq, Dh)
+    s = (qh @ k_cache.float().mT) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    valid = torch.arange(S, device=q.device) < length.reshape(())
+    s = torch.where(valid, s, s.new_tensor(_NEG_INF))
+    out = torch.softmax(s, dim=-1) @ v_cache.float()
+    return out.reshape(B, Hq, Tq, Dh).to(q.dtype)
+
+
+def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, length: torch.Tensor, *,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """The split-K decode kernel on a cache read in place: contiguous ``q
+    [B, Hq, Tq, Dh]`` (at most `DECODE_MAX_ROWS` rows ``group * Tq`` per
+    kv head) against contiguous ``k/v [B, Hkv, S, Dh]``, of which the
+    first ``min(length, S)`` rows are keys; ``length`` is a one-element
+    int32 tensor on q's device, read by the kernel. float32 or bfloat16,
+    ``Dh`` in `HEAD_DIMS`. Not causal: every valid row is a key of every
+    query row. A ``length`` of 0 gives zeros (the plain version averages
+    the masked buffer then); the model always writes before it reads.
+
+    CPU tensors take `decode_attention_plain`; CUDA tensors launch the
+    kernel (one ``flash_attention_decode`` launch) or raise."""
+    check_shapes(q, k_cache, v_cache)
+    if length.numel() != 1 or length.dtype != torch.int32:
+        raise TypeError(f"decode_attention: length must be one int32, not "
+                        f"{length.dtype} of shape {tuple(length.shape)}")
+    if not q.is_cuda:
+        return decode_attention_plain(q, k_cache, v_cache, length,
+                                      scale=scale)
+    _check_card_inputs("decode_attention", q, k_cache, v_cache)
+    if length.device != q.device:
+        raise TypeError("decode_attention: length is not on q's device")
+    B, Hq, Tq, Dh = q.shape
+    Hkv, S = k_cache.shape[1:3]
+    rows = (Hq // Hkv) * Tq
+    if rows > DECODE_MAX_ROWS:
+        raise ValueError(f"decode_attention: the decode kernel takes at most "
+                         f"{DECODE_MAX_ROWS} rows per kv head, not {rows}")
+    if scale is None:
+        scale = 1.0 / (Dh ** 0.5)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    split_keys, part, part_acc = _decode_scratch(B, Hkv, S, rows, Dh,
+                                                 q.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    err = _library().fa_decode_cache(
+        _DTYPE_CODE[q.dtype], Dh, B, Hq, Hkv, Tq, S, float(scale),
+        int(split_keys), *map(_ptr, (q, k_cache, v_cache, length, out, part)),
+        part_acc, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention decode kernel launch failed "
+                           f"(KV cache): CUDA error {err}")
+    LAUNCHES[KERNEL_COUNTERS["decode"]] += 1
     return out

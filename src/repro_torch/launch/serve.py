@@ -1,4 +1,16 @@
-"""Smoother service: batched state estimation of many trajectories at once.
+"""Serving driver: two workloads behind one CLI, as in the JAX package.
+
+``decode`` — batched LM decoding with KV caches (the dense family): the
+prompt teacher-forced through `decode_step`, then greedy steps; attention
+runs the CUDA kernels on the card (the split-K decode kernel on the cache
+in place, in every layer of every step):
+
+    python -m repro_torch.launch.serve --workload decode --arch qwen2-1.5b \
+        --batch 4 --prompt-len 32 --gen 16 [--no-reduced] [--device cpu]
+
+``smoother`` — the state-estimation service below.
+
+Smoother service: batched state estimation of many trajectories at once.
 
 A fleet of smoothing requests with heterogeneous trajectory lengths is
 bucketed by ``(spec_id, method, next_pow2(n), nx)``, padded along time
@@ -58,6 +70,89 @@ from repro_torch.launch.autobatch import (SLO_CLASSES, VERDICT_DIVERGED,
 from repro_torch.launch.chaos import (ChaosConfig, ChaosInjector,
                                       TransientComputeError)
 from repro_torch.runtime import StepWatchdog, with_retries
+
+# ---------------------------------------------------------------------------
+# Decode workload (LM serving)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ServeConfig:
+    arch: str
+    batch: int = 4
+    prompt_len: int = 32
+    gen: int = 16
+    max_len: int = 128
+    reduced: bool = True
+    seed: int = 0
+    greedy: bool = True
+    temperature: float = 1.0
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(model, cfg, prompts: torch.Tensor, gen: int,
+             max_len: int) -> dict:
+    """The reference service's loop on given weights and prompts: caches
+    of capacity ``max_len``, the prompt ``[B, P]`` teacher-forced through
+    `decode_step` one position at a time, then ``gen`` greedy steps (argmax
+    over the real vocabulary). Returns ``tokens [B, gen]`` (int32, on the
+    prompts' device), the wall ``seconds`` of the ``P + gen`` steps and
+    ``tok_per_s``. Nothing waits on the host between steps."""
+    from repro_torch.models import decode_step, init_caches
+
+    B, P = prompts.shape
+    device = prompts.device
+    caches = init_caches(cfg, B, max_len, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    logits = None
+    for i in range(P):
+        logits, caches = decode_step(model, cfg, caches, prompts[:, i:i + 1],
+                                     i)
+    generated = []
+    tok = logits[:, :, :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+    for j in range(gen):
+        generated.append(tok)
+        logits, caches = decode_step(model, cfg, caches, tok, P + j)
+        tok = logits[:, :, :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    tokens = torch.cat(generated, dim=1) if generated else \
+        prompts.new_zeros((B, 0), dtype=torch.int32)
+    return {"tokens": tokens, "seconds": dt, "tok_per_s": B * (P + gen) / dt}
+
+
+def serve(serve_cfg: ServeConfig, emit=print, *, device: Device = None
+          ) -> dict:
+    """The reference's decode service: random weights from
+    ``serve_cfg.seed``, prompts drawn from a generator seeded
+    ``seed + 1`` (torch's stream, so the ids differ from JAX's), run by
+    `generate`, on ``device`` (the card unless ``device="cpu"``)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import init_model
+
+    device = resolve_device(device)
+    cfg = get_config(serve_cfg.arch)
+    if serve_cfg.reduced:
+        cfg = reduced_config(cfg)
+    model = init_model(cfg, serve_cfg.seed, device=device)
+    B = serve_cfg.batch
+    gen = torch.Generator(device=device).manual_seed(serve_cfg.seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, serve_cfg.prompt_len),
+                            generator=gen, device=device)
+    out = generate(model, cfg, prompts, serve_cfg.gen, serve_cfg.max_len)
+    total = serve_cfg.prompt_len + serve_cfg.gen
+    emit(f"[serve] {B} seqs x {total} steps in {out['seconds']:.2f}s "
+         f"({out['tok_per_s']:.1f} tok/s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Smoother workload (batched state-estimation service)
+# ---------------------------------------------------------------------------
 
 R_PAD_SCALE = 1e8  # measurement-noise inflation on padded time steps
 
@@ -812,8 +907,20 @@ def serve_smoother(cfg: SmootherServeConfig, emit=print,
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        description="Batched iterated-smoother service (PyTorch port)")
-    p.add_argument("--workload", choices=("smoother",), default="smoother")
+        description="LM decode and batched iterated-smoother services "
+                    "(PyTorch port)")
+    p.add_argument("--workload", choices=("decode", "smoother"),
+                   default="smoother",
+                   help="the smoother service (default; the port's first "
+                        "workload) or LM decoding")
+    p.add_argument("--arch", default=None, help="decode: model architecture")
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--prompt-len", type=int, default=32)
+    p.add_argument("--gen", type=int, default=16)
+    p.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="decode: the family-preserving reduced config "
+                        "(--no-reduced: the architecture at full width)")
     p.add_argument("--requests", type=int, default=64)
     p.add_argument("--n", type=int, default=512)
     p.add_argument("--max-batch", type=int, default=64)
@@ -853,6 +960,14 @@ def main(argv=None):
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path)")
     args = p.parse_args(argv)
+    if args.workload == "decode":
+        if args.arch is None:
+            p.error("--arch is required for the decode workload")
+        serve(ServeConfig(arch=args.arch, batch=args.batch,
+                          prompt_len=args.prompt_len, gen=args.gen,
+                          reduced=args.reduced, seed=args.seed),
+              device=args.device)
+        return
     cfg = SmootherServeConfig(
         requests=args.requests, n=args.n, max_batch=args.max_batch,
         method=args.method, n_iter=args.iters, tol=args.tol,

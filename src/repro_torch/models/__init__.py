@@ -1,0 +1,8 @@
+"""Sequence-model substrate (PyTorch): layers, attention and the causal LM
+assembly, for the dense family. The MoE, hybrid, xLSTM and
+encoder-decoder families and training (``encode``, ``train_loss``) are
+later sub-slices (ROADMAP queue A, item 5)."""
+from repro_torch.models.transformer import (decode_step, init_caches,
+                                            init_model, prefill)
+
+__all__ = ["init_model", "prefill", "decode_step", "init_caches"]

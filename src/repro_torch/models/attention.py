@@ -1,0 +1,278 @@
+"""GQA self-attention: init, prefill (blockwise causal), decode against a
+KV cache, sliding-window ring caches. The JAX package's
+``repro.models.attention`` on tensors (cross-attention waits for the
+encoder-decoder slice).
+
+Q heads are padded up to a multiple of ``tp_size`` with zero-weight heads
+when the architecture's head count does not divide it (``cfg.padded_heads``;
+their ``wq`` columns and ``wo`` rows are zero, so outputs are exact).
+
+Where attention runs (``impl``):
+
+* ``"auto"`` — the CUDA kernels on a CUDA tensor, the plain versions on a
+  CPU tensor. Prefill runs the flash kernel
+  (`kernels.flash_attention.flash_attention_cuda`, the ``wgmma`` kernel at
+  bf16 prefill widths) on the real heads ``q[:, :, :num_heads]`` against
+  the un-expanded k/v, and pads the padded heads back with zeros: exact,
+  since their ``wo`` rows are zero and the kernel's head map
+  ``i // (Hq / Hkv)`` is `expand_kv_heads`' map on the real heads. Decode
+  runs the split-K decode kernel on the cache in place
+  (`kernels.flash_attention.decode_attention_cuda`), reading the cache's
+  ``length`` from device memory. A configuration no kernel takes raises
+  on the card (a prefill window, a logit softcap, a head_dim without an
+  instance): nothing gives way to the plain versions.
+* ``"plain"`` — `blockwise_causal_attention` and `decode_attention` on any
+  device (the reference's algorithms; each call adds one to
+  `PLAIN_CALLS`).
+
+`update_cache` writes the new step in place (the reference returns new
+buffers): a linear cache at ``min(length, S - 1)``, a windowed one as a
+ring at ``length % S``, with the index computed on the device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention as kfa
+from repro_torch.models import rope as rope_lib
+from repro_torch.models.layers import init_linear
+
+_NEG_INF = -1e30
+IMPLS = ("auto", "plain")
+
+#: Calls of the plain attention versions since `reset_plain_calls`.
+PLAIN_CALLS: Dict[str, int] = {"blockwise_causal_attention": 0,
+                               "decode_attention": 0}
+
+
+def reset_plain_calls() -> None:
+    for k in PLAIN_CALLS:
+        PLAIN_CALLS[k] = 0
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # [B, Hkv, S, Dh]
+    v: torch.Tensor       # [B, Hkv, S, Dh]
+    length: torch.Tensor  # [] int32 — number of steps written
+
+
+class Attention(nn.Module):
+    """``wq [d, Hq_pad * Dh]``, ``wk``/``wv [d, Hkv * Dh]``, ``wo [Hq_pad
+    * Dh, d]`` as ``nn.Linear``s (weights stored ``[out, in]``), with the
+    QKV bias where the config has one."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator,
+                 dtype: torch.dtype):
+        super().__init__()
+        d, dh = cfg.d_model, cfg.resolved_head_dim
+        hq, hkv = cfg.padded_heads, cfg.num_kv_heads
+        self.wq = init_linear(gen, d, hq * dh, dtype, bias=cfg.qkv_bias)
+        self.wk = init_linear(gen, d, hkv * dh, dtype, bias=cfg.qkv_bias)
+        self.wv = init_linear(gen, d, hkv * dh, dtype, bias=cfg.qkv_bias)
+        self.wo = init_linear(gen, hq * dh, d, dtype)
+        if cfg.num_heads != hq:
+            # Zero the padded heads so wo ignores them exactly.
+            mask = (torch.arange(hq, device=gen.device) < cfg.num_heads
+                    ).repeat_interleave(dh).to(dtype)
+            with torch.no_grad():
+                self.wq.weight.mul_(mask[:, None])
+                self.wo.weight.mul_(mask[None, :])
+
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator,
+                   dtype: torch.dtype) -> Attention:
+    return Attention(cfg, gen, dtype)
+
+
+def _project_qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """x [B, T, d] -> q [B, T, Hq, Dh], k/v [B, T, Hkv, Dh] (rope applied)."""
+    B, T, _ = x.shape
+    dh = cfg.resolved_head_dim
+    q = params.wq(x).reshape(B, T, cfg.padded_heads, dh)
+    k = params.wk(x).reshape(B, T, cfg.num_kv_heads, dh)
+    v = params.wv(x).reshape(B, T, cfg.num_kv_heads, dh)
+    if cfg.rope_mode == "mrope":
+        q, k = rope_lib.apply_mrope(q, k, positions, cfg.rope_theta,
+                                    cfg.mrope_sections)
+    else:
+        q, k = rope_lib.apply_rope(q, k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _softcap(s: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap > 0.0:
+        return cap * torch.tanh(s / cap)
+    return s
+
+
+def expand_kv_heads(k: torch.Tensor, v: torch.Tensor, hq: int,
+                    hq_orig: int):
+    """Expand ``[B, T, Hkv, Dh]`` k/v to ``hq`` heads by the reference's
+    static index map: q head i reads kv head ``min(i // g, Hkv - 1)`` with
+    ``g = hq_orig // Hkv``, so padded heads read the last kv head."""
+    hkv = k.shape[2]
+    if hkv == hq:
+        return k, v
+    g = max(hq_orig // hkv, 1)
+    idx = torch.tensor([min(i // g, hkv - 1) for i in range(hq)],
+                       device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def blockwise_causal_attention(q, k, v, *, chunk: int, window: int = 0,
+                               softcap: float = 0.0, causal: bool = True):
+    """Flash-style attention with a static block loop: q/k/v ``[B, T, H,
+    Dh]`` (kv pre-expanded to H heads, `expand_kv_heads`), blocks above the
+    diagonal or out of the window skipped, an online softmax in float32.
+    The products sum in float32 over operands in the inputs' dtype (the
+    softmax weights rounded to it before the second), as the reference's
+    ``preferred_element_type=float32`` products do."""
+    PLAIN_CALLS["blockwise_causal_attention"] += 1
+    B, T, H, Dh = q.shape
+    scale = 1.0 / math.sqrt(Dh)
+    nq = -(-T // chunk)
+    pad = nq * chunk - T
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    qb = q.reshape(B, nq, chunk, H, Dh).permute(0, 3, 1, 2, 4)
+    kb = k.reshape(B, nq, chunk, H, Dh).permute(0, 3, 1, 2, 4)
+    vb = v.reshape(B, nq, chunk, H, Dh).permute(0, 3, 1, 2, 4)
+
+    pos = torch.arange(chunk, device=q.device)
+    out_blocks = []
+    for qi in range(nq):
+        acc = torch.zeros((B, H, chunk, Dh), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, H, chunk, 1), _NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, chunk, 1), dtype=torch.float32,
+                        device=q.device)
+        lo = 0
+        if window > 0:
+            lo = max(0, qi - (window + chunk - 1) // chunk)
+        hi = qi + 1 if causal else nq
+        for ki in range(lo, hi):
+            s = (qb[:, :, qi].float() @ kb[:, :, ki].float().mT) * scale
+            s = _softcap(s, softcap)
+            qpos = qi * chunk + pos[:, None]
+            kpos = ki * chunk + pos[None, :]
+            mask = kpos < T  # key padding
+            if causal:
+                mask = mask & (qpos >= kpos)
+            if window > 0:
+                mask = mask & (qpos - kpos < window)
+            s = torch.where(mask, s, s.new_tensor(_NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p.to(qb.dtype).float() @ vb[:, :, ki].float()
+            m = m_new
+        out_blocks.append(acc / torch.clamp(l, min=1e-30))
+    out = torch.stack(out_blocks, dim=2)  # [B, H, nq, C, Dh]
+    out = out.permute(0, 2, 3, 1, 4).reshape(B, nq * chunk, H, Dh)
+    return out[:, :T].to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, cache: KVCache, *, window: int = 0,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """Single-token decode, plain: q ``[B, Tq, Hq, Dh]`` against the cache,
+    valid rows ``pos < length`` (a windowed cache is a ring whose resident
+    rows are all in the window)."""
+    PLAIN_CALLS["decode_attention"] += 1
+    out = kfa.decode_attention_plain(q.transpose(1, 2), cache.k, cache.v,
+                                     cache.length, softcap=softcap)
+    return out.transpose(1, 2)
+
+
+def init_kv_cache(cfg: ModelConfig, B: int, S: int, dtype: torch.dtype,
+                  device) -> KVCache:
+    dh = cfg.resolved_head_dim
+    shape = (B, cfg.num_kv_heads, S, dh)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 *, window: int = 0) -> KVCache:
+    """Write one step (k/v ``[B, 1, Hkv, Dh]``) into the buffers in place —
+    a ring at ``length % S`` if windowed, else at ``min(length, S - 1)`` —
+    and return the cache with ``length + 1``."""
+    S = cache.k.shape[2]
+    length = cache.length.reshape(1).long()
+    idx = length % S if window > 0 else torch.clamp(length, max=S - 1)
+    cache.k.index_copy_(2, idx, k_new.transpose(1, 2).to(cache.k.dtype))
+    cache.v.index_copy_(2, idx, v_new.transpose(1, 2).to(cache.v.dtype))
+    return KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
+
+
+def _check_kernel_config(cfg: ModelConfig, window: int, prefill: bool):
+    if cfg.attn_logit_softcap > 0.0:
+        raise NotImplementedError(
+            f"attention: no CUDA kernel takes a logit softcap "
+            f"({cfg.attn_logit_softcap}); impl='plain' runs the plain version")
+    if prefill and window > 0:
+        raise NotImplementedError(
+            f"attention: no CUDA prefill kernel takes a sliding window "
+            f"({window}); impl='plain' runs the plain version")
+
+
+def _pad_heads(ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """ctx ``[B, T, num_heads, Dh]`` -> ``[B, T, padded_heads, Dh]``, the
+    padded heads zero."""
+    extra = cfg.padded_heads - cfg.num_heads
+    return F.pad(ctx, (0, 0, 0, extra)) if extra else ctx
+
+
+def attention_layer(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor, *,
+                    cache: Optional[KVCache] = None, window: int = 0,
+                    causal: bool = True, impl: str = "auto"
+                    ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Full attention sublayer. Returns (output ``[B, T, d]``, updated
+    cache): prefill when ``cache`` is None, else one decode step (T == 1)
+    against the cache. ``impl``: see the module docstring."""
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl {impl!r}; one of {IMPLS}")
+    kernel = impl == "auto" and x.is_cuda
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    H = cfg.num_heads
+    if cache is None:
+        new_cache = None
+        if kernel:
+            _check_kernel_config(cfg, window, prefill=True)
+            o = kfa.flash_attention_cuda(
+                q[:, :, :H].transpose(1, 2).contiguous(),
+                k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), causal=causal)
+            ctx = _pad_heads(o.transpose(1, 2), cfg)
+        else:
+            ke, ve = expand_kv_heads(k, v, cfg.padded_heads, H)
+            ctx = blockwise_causal_attention(
+                q, ke, ve, chunk=min(cfg.attn_chunk, x.shape[1]),
+                window=window, softcap=cfg.attn_logit_softcap, causal=causal)
+    else:
+        new_cache = update_cache(cache, k, v, window=window)
+        # Decode runs on the real heads only: the padded q heads have zero
+        # wq/wo rows, and slicing keeps the grouped [Hkv, g] shape.
+        q_att = q[:, :, :H]
+        if kernel:
+            _check_kernel_config(cfg, window, prefill=False)
+            o = kfa.decode_attention_cuda(
+                q_att.transpose(1, 2).contiguous(), new_cache.k, new_cache.v,
+                new_cache.length)
+            ctx = o.transpose(1, 2)
+        else:
+            ctx = decode_attention(q_att, new_cache, window=window,
+                                   softcap=cfg.attn_logit_softcap)
+        ctx = _pad_heads(ctx, cfg)
+    B, T = x.shape[:2]
+    return params.wo(ctx.reshape(B, T, -1)), new_cache

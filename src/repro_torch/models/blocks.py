@@ -1,0 +1,129 @@
+"""Residual blocks and the heterogeneous layer schedule.
+
+The reference stacks each run of identical layers and `lax.scan`s over it;
+the port keeps a run as an ``nn.ModuleList`` of blocks and loops over it.
+A run's decode caches are stacked as in the reference (``[count, ...]``
+leading dim), and each layer reads and writes its slice in place.
+
+This slice ports the ``dense`` kind. The other kinds (``moe``, ``hybrid``,
+``mlstm``, ``slstm``) raise `NotImplementedError` naming their ROADMAP
+item (queue A, item 5).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import torch
+import torch.nn as nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import mlp as mlp_lib
+from repro_torch.models.layers import init_rms_norm, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class Run:
+    kind: str          # dense | moe | hybrid | mlstm | slstm
+    count: int
+    window: int        # 0 = full attention (attention kinds only)
+    first_layer: int
+
+
+def layer_schedule(cfg: ModelConfig) -> List[Run]:
+    kinds = []
+    for i in range(cfg.num_layers):
+        if cfg.family == "ssm":
+            kind = "slstm" if i in cfg.slstm_layers else "mlstm"
+            window = 0
+        elif cfg.family == "hybrid":
+            kind = "hybrid"
+            window = 0 if i in cfg.global_layers else cfg.sliding_window
+        elif cfg.num_experts:
+            kind, window = "moe", cfg.sliding_window
+        else:
+            kind, window = "dense", cfg.sliding_window
+        kinds.append((kind, window))
+    runs: List[Run] = []
+    for i, kw in enumerate(kinds):
+        if runs and (runs[-1].kind, runs[-1].window) == kw:
+            runs[-1] = dataclasses.replace(runs[-1],
+                                           count=runs[-1].count + 1)
+        else:
+            runs.append(Run(kind=kw[0], count=1, window=kw[1],
+                            first_layer=i))
+    return runs
+
+
+_WAITING = {"moe": "the MoE family (deepseek-moe-16b, grok-1-314b)",
+            "hybrid": "the hybrid family (hymba-1.5b: ssm_scan and "
+                      "windowed prefill)",
+            "mlstm": "the xLSTM family (xlstm-350m)",
+            "slstm": "the xLSTM family (xlstm-350m)"}
+
+
+def _not_ported(kind: str) -> NotImplementedError:
+    if kind not in _WAITING:
+        return NotImplementedError(f"unknown block kind {kind!r}")
+    return NotImplementedError(
+        f"block kind {kind!r} is not ported yet: {_WAITING[kind]} is a later "
+        "sub-slice of ROADMAP queue A, item 5")
+
+
+class Block(nn.Module):
+    """A pre-norm dense block: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator,
+                 dtype: torch.dtype):
+        super().__init__()
+        if kind != "dense":
+            raise _not_ported(kind)
+        d = cfg.d_model
+        self.ln1 = init_rms_norm(d, dtype, gen.device)
+        self.attn = attn_lib.init_attention(cfg, gen, dtype)
+        self.ln2 = init_rms_norm(d, dtype, gen.device)
+        self.mlp = mlp_lib.init_mlp(gen, d, cfg.d_ff, dtype)
+
+
+def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
+               dtype: torch.dtype) -> Block:
+    return Block(cfg, kind, gen, dtype)
+
+
+def apply_block(params: Block, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                *, positions: torch.Tensor, window: int, cache=None,
+                causal: bool = True, impl: str = "auto"):
+    """Pre-norm residual block. Returns (x, new_cache, aux_loss); a dense
+    block has no auxiliary loss (0.0)."""
+    if kind != "dense":
+        raise _not_ported(kind)
+    h = rms_norm(x, params.ln1, cfg.rmsnorm_eps)
+    attn_cache = cache["attn"] if cache is not None else None
+    a, new_attn_cache = attn_lib.attention_layer(
+        params.attn, h, cfg, positions, cache=attn_cache, window=window,
+        causal=causal, impl=impl)
+    x = x + a
+    h2 = rms_norm(x, params.ln2, cfg.rmsnorm_eps)
+    x = x + mlp_lib.mlp(params.mlp, h2)
+    new_cache = None if cache is None else dict(attn=new_attn_cache)
+    return x, new_cache, 0.0
+
+
+def init_run_cache(cfg: ModelConfig, run: Run, B: int, S: int,
+                   dtype: torch.dtype, device):
+    """A run's decode caches, stacked: ``attn`` = `KVCache` with ``k``/``v``
+    ``[count, B, Hkv, S', Dh]`` and ``length`` ``[count]``, where ``S'`` is
+    the window for a windowed run (a ring) and ``S`` otherwise."""
+    if run.kind != "dense":
+        raise _not_ported(run.kind)
+    one = attn_lib.init_kv_cache(
+        cfg, B, S if run.window == 0 else min(S, run.window), dtype, device)
+    return dict(attn=attn_lib.KVCache(
+        *(t.expand((run.count,) + t.shape).clone() for t in one)))
+
+
+def layer_cache(run_cache, li: int):
+    """Layer ``li``'s slice of a stacked run cache (views, not copies)."""
+    c = run_cache["attn"]
+    return dict(attn=attn_lib.KVCache(c.k[li], c.v[li], c.length[li]))

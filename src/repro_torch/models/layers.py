@@ -1,0 +1,69 @@
+"""Shared building blocks of the LM substrate (PyTorch).
+
+The JAX package's ``repro.models.layers`` as functions on tensors, with
+explicit ``torch.Generator``s in place of JAX keys. Its ``maybe_shard`` has
+no counterpart: the port runs on one card, with no mesh.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float64": torch.float64}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def normal_init(gen: torch.Generator, shape: Tuple[int, ...],
+                dtype: torch.dtype, scale: float = 0.02) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn in float32 on the generator's device, then
+    cast to ``dtype`` (the reference casts before scaling too)."""
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return x.to(dtype) * scale
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    """The reference's precision split: the mean square in float32, the
+    normalising multiply in the input's dtype."""
+    xf = x.float()
+    scale = torch.rsqrt(xf.mul(xf).mean(dim=-1, keepdim=True) + eps)
+    return x * scale.to(x.dtype) * w
+
+
+def init_rms_norm(d: int, dtype: torch.dtype,
+                  device: torch.device) -> nn.Parameter:
+    return nn.Parameter(torch.ones((d,), dtype=dtype, device=device))
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int,
+                dtype: torch.dtype, *, bias: bool = False) -> nn.Linear:
+    """An ``nn.Linear`` (weight stored ``[out, in]``) holding the
+    reference's ``[in, out]`` matrix ``normal_init(gen, (d_in, d_out))``
+    transposed, and a zero bias when asked for."""
+    lin = nn.Linear(d_in, d_out, bias=bias, device="meta", dtype=dtype)
+    lin.weight = nn.Parameter(normal_init(gen, (d_in, d_out), dtype).T
+                              .contiguous())
+    if bias:
+        lin.bias = nn.Parameter(torch.zeros((d_out,), dtype=dtype,
+                                            device=gen.device))
+    return lin
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids]
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int,
+                   dtype: torch.dtype) -> nn.Parameter:
+    return nn.Parameter(normal_init(gen, (vocab, d), dtype))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)

@@ -1,0 +1,151 @@
+"""The decoder-only causal LM (PyTorch): init, prefill, decode.
+
+The JAX package's ``repro.models.transformer`` for the dense family. Its
+functional API, with an ``nn.Module`` in place of the parameter pytree:
+
+    model = init_model(cfg, seed, device=...)
+    logits = prefill(model, cfg, tokens)
+    logits, caches = decode_step(model, cfg, caches, tokens, pos)
+
+``encode`` and ``train_loss`` (the encoder-decoder and training slices)
+wait; an encoder-decoder config raises. ``impl`` (``"auto"`` or
+``"plain"``) says where attention runs (`models.attention`): ``"auto"``
+runs the CUDA kernels on the card. Decode writes the caches in place and
+returns them with the lengths advanced.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Union
+
+import torch
+import torch.nn as nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.types import Device, resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import blocks as blocks_lib
+from repro_torch.models.layers import (dtype_of, embedding_lookup,
+                                       init_embedding, init_linear,
+                                       init_rms_norm, rms_norm)
+
+
+class CausalLM(nn.Module):
+    """``embed [padded_vocab, d]``, ``runs`` (one ``nn.ModuleList`` of
+    blocks per run of `layer_schedule`), ``final_norm`` and, unless the
+    embeddings are tied, ``lm_head`` (an ``nn.Linear`` to the padded
+    vocabulary)."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        if cfg.encoder_layers:
+            raise NotImplementedError(
+                f"{cfg.name}: the encoder-decoder family is a later "
+                "sub-slice of ROADMAP queue A, item 5")
+        dtype = dtype_of(cfg.param_dtype)
+        self.embed = init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype)
+        self.runs = nn.ModuleList(
+            nn.ModuleList(blocks_lib.init_block(cfg, run.kind, gen, dtype)
+                          for _ in range(run.count))
+            for run in blocks_lib.layer_schedule(cfg))
+        self.final_norm = init_rms_norm(cfg.d_model, dtype, gen.device)
+        self.lm_head = None if cfg.tie_embeddings else init_linear(
+            gen, cfg.d_model, cfg.padded_vocab, dtype)
+
+
+def init_model(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
+               device: Device = None) -> CausalLM:
+    """Random weights (normal, std 0.02; norms 1; biases 0) drawn from
+    ``key``: a seed for a generator on ``device`` (the card unless
+    ``device="cpu"``), or a ``torch.Generator``, whose device is used."""
+    if isinstance(key, torch.Generator):
+        gen = key
+    else:
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(key)
+    with torch.no_grad():
+        return CausalLM(cfg, gen)
+
+
+def _positions(cfg: ModelConfig, B: int, T: int, offset=0,
+               device=None) -> torch.Tensor:
+    """Positions ``[B, T]`` (``[3, B, T]`` under M-RoPE, rows equal for
+    text) starting at ``offset``, an int or a device tensor."""
+    pos = offset + torch.arange(T, dtype=torch.int32, device=device)
+    if cfg.rope_mode == "mrope":
+        return pos.expand(3, B, T)
+    return pos.expand(B, T)
+
+
+def _apply_stack(model: CausalLM, x: torch.Tensor, cfg: ModelConfig,
+                 runs, *, positions: torch.Tensor, caches=None,
+                 causal: bool = True, impl: str = "auto"):
+    """Apply all runs, layer by layer. ``caches``: a list aligned with
+    ``runs`` (or None). Returns (x, new_caches, aux_total)."""
+    aux_total = 0.0
+    new_caches: Optional[List] = [] if caches is not None else None
+    for ri, run in enumerate(runs):
+        rcache = caches[ri] if caches is not None else None
+        lengths = []
+        for li, block in enumerate(model.runs[ri]):
+            lc = blocks_lib.layer_cache(rcache, li) \
+                if rcache is not None else None
+            x, nc, a = blocks_lib.apply_block(
+                block, x, cfg, run.kind, positions=positions,
+                window=run.window, cache=lc, causal=causal, impl=impl)
+            aux_total = aux_total + a
+            if nc is not None:
+                lengths.append(nc["attn"].length)
+        if new_caches is not None:
+            # The layers wrote their slices of the run's buffers in place.
+            c = rcache["attn"]
+            new_caches.append(dict(attn=attn_lib.KVCache(
+                c.k, c.v, torch.stack(lengths))))
+    return x, new_caches, aux_total
+
+
+def _logits(model: CausalLM, cfg: ModelConfig, x: torch.Tensor
+            ) -> torch.Tensor:
+    x = rms_norm(x, model.final_norm, cfg.rmsnorm_eps)
+    if cfg.tie_embeddings:
+        return x @ model.embed.T
+    return model.lm_head(x)
+
+
+def init_caches(cfg: ModelConfig, B: int, S: int, *,
+                device: Device = None) -> list:
+    """Empty decode caches of capacity ``S`` for a batch of ``B``, in the
+    compute dtype, on ``device`` (the card unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    dtype = dtype_of(cfg.compute_dtype)
+    return [blocks_lib.init_run_cache(cfg, run, B, S, dtype, device)
+            for run in blocks_lib.layer_schedule(cfg)]
+
+
+@torch.no_grad()
+def prefill(model: CausalLM, cfg: ModelConfig, tokens: torch.Tensor, *,
+            impl: str = "auto") -> torch.Tensor:
+    """Forward over the prompt ``tokens [B, T]``; returns the last
+    position's logits ``[B, 1, padded_vocab]``. As in the reference it
+    builds no cache (the service teacher-forces the prompt through
+    `decode_step`)."""
+    B, T = tokens.shape
+    x = embedding_lookup(model.embed, tokens).to(dtype_of(cfg.compute_dtype))
+    positions = _positions(cfg, B, T, device=tokens.device)
+    x, _, _ = _apply_stack(model, x, cfg, blocks_lib.layer_schedule(cfg),
+                           positions=positions, impl=impl)
+    return _logits(model, cfg, x[:, -1:, :])
+
+
+@torch.no_grad()
+def decode_step(model: CausalLM, cfg: ModelConfig, caches: list,
+                tokens: torch.Tensor, pos, *, impl: str = "auto"):
+    """One decode step: ``tokens [B, 1]`` at absolute position ``pos`` (an
+    int or a device int tensor). Returns (logits ``[B, 1, padded_vocab]``,
+    caches), the caches written in place."""
+    B = tokens.shape[0]
+    x = embedding_lookup(model.embed, tokens).to(dtype_of(cfg.compute_dtype))
+    positions = _positions(cfg, B, 1, offset=pos, device=tokens.device)
+    x, new_caches, _ = _apply_stack(model, x, cfg,
+                                    blocks_lib.layer_schedule(cfg),
+                                    positions=positions, caches=caches,
+                                    impl=impl)
+    return _logits(model, cfg, x), new_caches

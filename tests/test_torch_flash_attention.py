@@ -396,3 +396,148 @@ def test_kernel_wrapper_rejects_bad_inputs_on_card(cuda):
         kfa.flash_attention_cuda(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="non-contiguous"):
         kfa.flash_attention_cuda(q.mT.contiguous().mT, q, q)
+
+
+# ---------------------------------------------------------------------------
+# Decode against a KV cache read in place
+# ---------------------------------------------------------------------------
+
+def _split_k_decode_cache(q, k, v, length, *, split):
+    """What the decode and merge kernels compute on a cache (k/v [B, Hkv,
+    S, Dh], the first min(length, S) rows keys, not causal): the split
+    grid covers S; a split starting past the keys contributes m = -inf,
+    l = 0, acc = 0 (weight 0 in the merge)."""
+    B, Hq, Tq, Dh = q.shape
+    Hkv, S = k.shape[1:3]
+    L = min(length, S)
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, Tq, Dh)
+    ms, ls, accs = [], [], []
+    for s0 in range(0, S, split):
+        if s0 >= L:
+            ms.append(qf.new_full(qf.shape[:-1] + (1,), -float("inf")))
+            ls.append(torch.zeros_like(ms[-1]))
+            accs.append(torch.zeros_like(qf))
+            continue
+        ks = k[:, :, None, s0:min(s0 + split, L)].float()
+        vs = v[:, :, None, s0:min(s0 + split, L)].float()
+        s = (qf @ ks.mT) * (Dh ** -0.5 * _LOG2E)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp2(s - m)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(p @ vs)
+    m_all = torch.stack(ms)
+    w = torch.exp2(m_all - m_all.amax(dim=0))
+    out = (w * torch.stack(accs)).sum(dim=0) / (w * torch.stack(ls)).sum(dim=0)
+    return out.reshape(B, Hq, Tq, Dh).to(q.dtype)
+
+
+#: (B, Hq, Hkv, Tq, S, Dh, length): length 1, S/2, S, a wrapped ring
+#: (length > S: every row valid) and a ragged fill.
+CACHE_CASES = [(2, 6, 2, 1, 64, 32, 1), (2, 6, 2, 1, 64, 32, 32),
+               (2, 6, 2, 1, 64, 32, 64), (2, 6, 2, 1, 64, 32, 100),
+               (1, 4, 1, 2, 300, 16, 157)]
+
+
+@functools.lru_cache(maxsize=None)
+def _cache_case(B, Hq, Hkv, Tq, S, Dh, length):
+    """Inputs and the JAX model's ``decode_attention`` on them."""
+    from repro.models.attention import KVCache, decode_attention
+
+    arrays = _rand_qkv(np.random.default_rng(S + length), B, Hq, Hkv, Tq, S,
+                       Dh)
+    jnp = jx().jnp
+    q, k, v = (jnp.asarray(np.asarray(a, np.float32)) for a in arrays)
+    want = decode_attention(q.transpose(0, 2, 1, 3), KVCache(
+        k, v, jnp.asarray(length, jnp.int32)))
+    return arrays, _np(want.transpose(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("split", [4, 16, 512])
+@pytest.mark.parametrize("case", CACHE_CASES)
+def test_cache_decode_matches_jax(case, split):
+    """The plain version (and the kernel wrapper on CPU tensors) and the
+    kernels' split-K algorithm over the capacity, splits past the keys
+    included, agree with the reference's masked decode softmax."""
+    arrays, want = _cache_case(*case)
+    q, k, v = _torch(arrays, np.float32)
+    length = torch.tensor(case[-1], dtype=torch.int32)
+    before = dict(kfa.LAUNCHES)
+    got = kfa.decode_attention_cuda(q, k, v, length)
+    assert kfa.LAUNCHES == before
+    np.testing.assert_allclose(_np(got), want, **TOL[np.float32])
+    np.testing.assert_allclose(
+        _np(kfa.decode_attention_plain(q, k, v, length)), want,
+        **TOL[np.float32])
+    np.testing.assert_allclose(
+        _np(_split_k_decode_cache(q, k, v, case[-1], split=split)), want,
+        **TOL[np.float32])
+
+
+def test_cache_decode_rejects_bad_length():
+    q = torch.zeros(1, 2, 1, 16)
+    k = torch.zeros(1, 1, 8, 16)
+    with pytest.raises(TypeError, match="int32"):
+        kfa.decode_attention_cuda(q, k, k, torch.tensor(3))
+    with pytest.raises(TypeError, match="int32"):
+        kfa.decode_attention_cuda(q, k, k, torch.tensor([3, 4],
+                                                        dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("case", CACHE_CASES + [
+    (4, 12, 2, 1, 512, 128, 1), (4, 12, 2, 1, 512, 128, 256),
+    (4, 12, 2, 1, 512, 128, 512), (4, 12, 2, 1, 512, 128, 700),
+    (3, 24, 8, 1, 1000, 64, 999), (2, 8, 1, 1, 40, 256, 17)])
+def test_cache_decode_kernel_on_card(cuda, dtype, case):
+    """The decode kernel reads the cache in place (one launch, length on
+    the card) and agrees with the plain version, on a layer's slice of a
+    stacked cache as on a cache of its own."""
+    arrays = _rand_qkv(np.random.default_rng(case[4] + case[-1]),
+                       *case[:-1])
+    q, k, v = _torch(arrays, dtype, cuda)
+    length = torch.tensor(case[-1], dtype=torch.int32, device=cuda)
+    want = kfa.decode_attention_plain(q, k, v, length)
+    before = kfa.LAUNCHES["flash_attention_decode"]
+    got = kfa.decode_attention_cuda(q, k, v, length)
+    torch.cuda.synchronize()
+    assert kfa.LAUNCHES["flash_attention_decode"] == before + 1
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    stacked_k = torch.stack([torch.zeros_like(k), k, torch.zeros_like(k)])
+    stacked_v = torch.stack([torch.zeros_like(v), v, torch.zeros_like(v)])
+    lengths = torch.tensor([0, case[-1], 0], dtype=torch.int32, device=cuda)
+    got = kfa.decode_attention_cuda(q, stacked_k[1], stacked_v[1],
+                                    lengths[1])
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 7, 64, 512])
+def test_cache_decode_splits_on_card(cuda, monkeypatch, split):
+    """Any split size, splits past the keys included."""
+    _force_split(monkeypatch, split)
+    arrays = _rand_qkv(np.random.default_rng(split), 2, 6, 2, 1, 300, 64)
+    q, k, v = _torch(arrays, np.float32, cuda)
+    for length in (1, 150, 300, 301):
+        n = torch.tensor(length, dtype=torch.int32, device=cuda)
+        np.testing.assert_allclose(
+            _np(kfa.decode_attention_cuda(q, k, v, n)),
+            _np(kfa.decode_attention_plain(q, k, v, n)), **TOL[np.float32])
+
+
+@pytest.mark.cuda
+def test_cache_decode_rejects_bad_inputs_on_card(cuda):
+    q = torch.zeros(1, 17, 1, 64, device=cuda)
+    k = torch.zeros(1, 1, 8, 64, device=cuda)
+    n = torch.tensor(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="rows per kv head"):
+        kfa.decode_attention_cuda(q, k, k, n)
+    with pytest.raises(ValueError, match="head_dim"):
+        kfa.decode_attention_cuda(q[..., :48].contiguous(),
+                                  k[..., :48].contiguous(),
+                                  k[..., :48].contiguous(), n)
+    with pytest.raises(ValueError, match="non-contiguous"):
+        kfa.decode_attention_cuda(q[:, :2], k.mT.contiguous().mT, k, n)
+    with pytest.raises(TypeError, match="device"):
+        kfa.decode_attention_cuda(q[:, :2], k, k, n.cpu())
