@@ -122,6 +122,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -1534,6 +1535,21 @@ def _compare(torch, got, want, tol, what) -> float:
     return err
 
 
+def _tight_tol(plain, q, k, v, *extra):
+    """The tight bf16 bound of an attention output on bf16 ``q, k, v``:
+    ``plain`` in float32 on the same values, and the tolerance
+    2^-8 (sum_j p_j |v_j| / l + |o|) + 1e-5 around it."""
+    q, k, v = q.float(), k.float(), v.float()
+    want = plain(q, k, v, *extra)
+    spread = plain(q, k, v.abs(), *extra)
+    return want, FA_BF16_REL * (spread + want.abs()) + FA_BF16_ABS
+
+
+def _excess(got, want, tol):
+    """Largest error over its tolerance (a tensor: no host sync)."""
+    return ((got.float() - want).abs() / tol).amax()
+
+
 def _bound(n_bytes: float, n_ops: float, op_dtype: str):
     """Least time in ms (bytes over HBM bandwidth or operations over the
     peak of their type, the larger) and which of the two it is."""
@@ -1752,11 +1768,8 @@ def phase_flash(torch) -> dict:
                             ("decode", (qd, kd, vd))):
         qs = (q.float() * FA_PEAK).to(bf16)
         got = ops.flash_attention(qs, k, v).float()
-        want = fa.flash_attention_plain(qs.float(), k.float(), v.float())
-        spread = fa.flash_attention_plain(qs.float(), k.float(),
-                                          v.float().abs())
-        tol = FA_BF16_REL * (spread + want.abs()) + FA_BF16_ABS
-        excess = ((got - want).abs() / tol).max().item()
+        want, tol = _tight_tol(fa.flash_attention_plain, qs, k, v)
+        excess = _excess(got, want, tol).item()
         err = (got - want).abs().max().item()
         typical = want.abs().median().item()
         say(f"[flash] tight bf16 {name} (q x {FA_PEAK:g}): max abs err "
@@ -1766,7 +1779,7 @@ def phase_flash(torch) -> dict:
                  f"(sum p|v|/l + |o|) + {FA_BF16_ABS:g} (ratio {excess:.3f})")
         tight.append({"what": name, "max_abs_err": err, "median_abs_out":
                       typical, "max_err_over_tol": excess})
-        del qs, got, want, spread, tol
+        del qs, got, want, tol
     torch.cuda.empty_cache()
 
     edge_kernels = {}
@@ -1984,6 +1997,88 @@ def _check_ties(what, res, noise) -> None:
              f"{noise:.4e})")
 
 
+class _DecodeTap:
+    """Stands in for `decode_attention_cuda` while the model runs. Each
+    call launches the kernel as the model's call would and holds its
+    output against the plain version in float32 on the same q and the
+    same layer cache (each layer on its own, so no error carries over
+    from the layers before) at the tight bf16 bound; then it launches the
+    kernel once more with one key too few (a planted fault) and records
+    how far that misses the same bound. ``length`` is the cache length of
+    the step under way (the kernel reads its own copy on the card)."""
+
+    def __init__(self, fa):
+        self.fa, self.kernel = fa, fa.decode_attention_cuda
+        self.length, self.fault_launches = 0, 0
+        self.ok, self.fault = {}, {}
+
+    def __enter__(self):
+        self.fa.decode_attention_cuda = self
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.decode_attention_cuda = self.kernel
+
+    def __call__(self, q, k_cache, v_cache, length, **kw):
+        out = self.kernel(q, k_cache, v_cache, length, **kw)
+        want, tol = _tight_tol(functools.partial(
+            self.fa.decode_attention_plain, **kw), q, k_cache, v_cache,
+            length)
+        bad = self.kernel(q, k_cache, v_cache, length - 1, **kw)
+        self.fault_launches += 1
+        self.ok.setdefault(self.length, []).append(_excess(out, want, tol))
+        self.fault.setdefault(self.length, []).append(
+            _excess(bad, want, tol))
+        return out
+
+    def result(self, torch) -> dict:
+        """Per cache length, the largest error over the bound across the
+        layers: the kernel's must be at most 1, the fault's over 1."""
+        lengths = sorted(self.ok)
+        ok = torch.stack([torch.stack(self.ok[n]).amax()
+                          for n in lengths]).tolist()
+        fault = torch.stack([torch.stack(self.fault[n]).amax()
+                             for n in lengths]).tolist()
+        return {"lengths": [lengths[0], lengths[-1]],
+                "calls": sum(len(c) for c in self.ok.values()),
+                "max_err_over_tol": max(ok),
+                "length_of_max": lengths[ok.index(max(ok))],
+                "fault_min_err_over_tol": min(fault),
+                "length_of_fault_min": lengths[fault.index(min(fault))],
+                "fault_caught_at": sum(f > 1.0 for f in fault),
+                "n_lengths": len(lengths)}
+
+
+def _lm_kernel_time(torch, kernel, plain, library, sets, bound,
+                    plain_iters) -> dict:
+    """A kernel at an LM shape: event time of back-to-back wrapper calls
+    (``ms``; the host's dispatch can set it) and CUDA-graph device time
+    (``graph_ms``, the kernel alone); the plain version's event time; the
+    library call's event and graph times. (At these shapes the
+    profiler's sum of kernel times undercounts, on an NVIDIA H100 80GB
+    HBM3 at 700 W below the prefill's own bound: PERF.md §6.)"""
+    b_ms, b_by = bound
+    return {"ms": _time_ms(torch, kernel, sets, iters=200),
+            "graph_ms": _graph_ms(torch, kernel, sets),
+            "plain_ms": _time_ms(torch, plain, sets, iters=plain_iters,
+                                 warmup=1),
+            "library_ms": _time_ms(torch, library, sets, iters=200),
+            "library_graph_ms": _graph_ms(torch, library, sets),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _say_lm_time(what, t) -> None:
+    say(f"[time] {what} {t['graph_ms'] * 1e3:.2f} us device (CUDA graph; "
+        f"{t['ms'] * 1e3:.2f} us back-to-back calls), "
+        f"plain {t['plain_ms'] * 1e3:.2f} us, sdpa "
+        f"{t['library_graph_ms'] * 1e3:.2f} us device "
+        f"({t['library_ms'] * 1e3:.2f} us calls), bound "
+        f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); device "
+        f"kernel/bound {t['graph_ms'] / t['bound_ms']:.2f}, kernel/sdpa "
+        f"{t['graph_ms'] / t['library_graph_ms']:.2f}; vs plain max abs err "
+        f"{t['max_abs_err']:.3e}, err/tight tol {t['max_err_over_tol']:.3f}")
+
+
 def phase_lm_decode(torch) -> dict:
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
@@ -2019,7 +2114,9 @@ def phase_lm_decode(torch) -> dict:
     model32 = copy.deepcopy(model).float()
 
     # Gate 1: the first steps with the kernel, with the plain version and
-    # in float32.
+    # in float32; every kernel call of this and the next loop is held
+    # against the plain version on its own inputs (`_DecodeTap`).
+    tap = _DecodeTap(fa)
     kernel_caches = init_caches(cfg, LM_B, LM_MAX, device="cuda")
     plain_caches = init_caches(cfg, LM_B, LM_MAX, device="cuda")
     ref_caches = init_caches(cfg32, LM_B, LM_MAX, device="cuda")
@@ -2028,7 +2125,10 @@ def phase_lm_decode(torch) -> dict:
     _reset_plain_attention_calls()
     for i in range(LM_GATE_STEPS):
         tok = prompts[:, i:i + 1]
-        lk, kernel_caches = decode_step(model, cfg, kernel_caches, tok, i)
+        tap.length = i + 1
+        with tap:
+            lk, kernel_caches = decode_step(model, cfg, kernel_caches, tok,
+                                            i)
         lp, plain_caches = decode_step(model, cfg, plain_caches, tok, i,
                                        impl="plain")
         lr, ref_caches = decode_step(model32, cfg32, ref_caches, tok, i,
@@ -2038,11 +2138,14 @@ def phase_lm_decode(torch) -> dict:
         p_vs_ref.add(lp, lr)
     torch.cuda.synchronize()
     counts, plain_calls = read_counts(), _plain_attention_calls()
-    if (counts["flash_attention_decode"] != layers * LM_GATE_STEPS
+    # Each model call launches the kernel twice: its own launch and the
+    # planted fault's.
+    if (counts["flash_attention_decode"] != 2 * layers * LM_GATE_STEPS
             or plain_calls["decode_attention"] != 2 * layers * LM_GATE_STEPS):
         fail(f"lm_decode gate run: kernel launches {counts}, plain calls "
-             f"{plain_calls}; expected {layers * LM_GATE_STEPS} kernel "
-             "launches and twice as many plain calls")
+             f"{plain_calls}; expected {2 * layers * LM_GATE_STEPS} kernel "
+             "launches (half of them the planted fault's) and as many "
+             "plain calls")
     p_vs_ref = p_vs_ref.result()
     noise = p_vs_ref["max_abs_err"]
     what = f"first {LM_GATE_STEPS} teacher-forced steps"
@@ -2056,9 +2159,33 @@ def phase_lm_decode(torch) -> dict:
     # Gate 2: prefill (the wgmma kernel) against the teacher-forced decode
     # at the last prompt position, both against float32's prefill (the
     # same function: float32 decode and prefill agree to ~1e-5).
-    for i in range(LM_GATE_STEPS, LM_PROMPT):
-        lk, kernel_caches = decode_step(model, cfg, kernel_caches,
-                                        prompts[:, i:i + 1], i)
+    with tap:
+        for i in range(LM_GATE_STEPS, LM_PROMPT):
+            tap.length = i + 1
+            lk, kernel_caches = decode_step(model, cfg, kernel_caches,
+                                            prompts[:, i:i + 1], i)
+    layer_check = tap.result(torch)
+    say(f"[lm_decode] every decode-kernel call of the {LM_PROMPT} prompt "
+        f"steps ({layer_check['calls']} = {layers} layers x "
+        f"{layer_check['n_lengths']} cache lengths "
+        f"{layer_check['lengths'][0]}..{layer_check['lengths'][1]}) vs "
+        f"plain in float32 on the same q and layer cache: max err/tol "
+        f"{layer_check['max_err_over_tol']:.3f} (at length "
+        f"{layer_check['length_of_max']}; tol 2^-8 (sum p|v|/l + |o|) + "
+        f"{FA_BF16_ABS:g}); planted fault (length - 1) exceeds it at "
+        f"{layer_check['fault_caught_at']} of {layer_check['n_lengths']} "
+        f"lengths, least err/tol {layer_check['fault_min_err_over_tol']:.3f}"
+        f" (at length {layer_check['length_of_fault_min']})")
+    if not layer_check["max_err_over_tol"] <= 1.0:
+        fail(f"lm_decode: the decode kernel misses the tight bf16 bound "
+             f"against plain on its own inputs (err/tol "
+             f"{layer_check['max_err_over_tol']:.3f} at length "
+             f"{layer_check['length_of_max']})")
+    if layer_check["fault_caught_at"] != layer_check["n_lengths"]:
+        fail(f"lm_decode: the tight bound does not catch a kernel that "
+             f"drops the last key at every length (caught at "
+             f"{layer_check['fault_caught_at']} of "
+             f"{layer_check['n_lengths']})")
     reset_counts()
     _reset_plain_attention_calls()
     torch.cuda.synchronize()
@@ -2174,48 +2301,54 @@ def phase_lm_decode(torch) -> dict:
     sets = [_qkv(torch, LM_B, Hq, Hkv, 1, LM_MAX, Dh, bf16, gen) + (full,)
             for _ in range(4)]
     q, k, v, _ = sets[0]
-    ms = _time_ms(torch, fa.decode_attention_cuda, sets, iters=200)
-    plain_ms = _time_ms(torch, fa.decode_attention_plain, sets, iters=50)
-    lib_ms = _time_ms(torch, lambda q, k, v, n: F.scaled_dot_product_attention(
-        q, k, v, enable_gqa=True), sets, iters=200)
-    err = _compare(torch, fa.decode_attention_cuda(q, k, v, full),
-                   fa.decode_attention_plain(q, k, v, full),
-                   FA_TOL["bfloat16"], "lm decode kernel at L=512")
     n_bytes = 2 * (2 * LM_B * Hkv * LM_MAX * Dh + 2 * LM_B * Hq * Dh)
     b_ms, b_by = _bound(n_bytes, 4 * LM_B * Hq * Dh * LM_MAX, "bfloat16")
-    decode_time = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
-    say(f"[time] lm decode attention B={LM_B} Hq={Hq} Hkv={Hkv} L={LM_MAX} "
-        f"Dh={Dh} bf16: split-K kernel {ms * 1e3:.2f} us, plain "
-        f"{plain_ms * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us, bound "
-        f"{b_ms * 1e3:.2f} us ({b_by}), kernel/bound {ms / b_ms:.2f}, "
-        f"kernel/sdpa {ms / lib_ms:.2f}; max abs err vs plain {err:.3e}")
-    del q, k, v, sets
+    got = fa.decode_attention_cuda(q, k, v, full)
+    err = _compare(torch, got, fa.decode_attention_plain(q, k, v, full),
+                   FA_TOL["bfloat16"], "lm decode kernel at L=512")
+    tight = _excess(got, *_tight_tol(fa.decode_attention_plain, q, k, v,
+                                      full)).item()
+    if not tight <= 1.0:
+        fail(f"lm decode kernel at L=512: err/tol {tight:.3f} over the "
+             "tight bf16 bound")
+    decode_time = _lm_kernel_time(
+        torch, fa.decode_attention_cuda, fa.decode_attention_plain,
+        lambda q, k, v, n: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True), sets, (b_ms, b_by), 50)
+    decode_time.update(max_abs_err=err, max_err_over_tol=tight)
+    _say_lm_time(f"lm decode attention B={LM_B} Hq={Hq} Hkv={Hkv} "
+                 f"L={LM_MAX} Dh={Dh} bf16: split-K kernel", decode_time)
+    del q, k, v, got, sets
+    torch.cuda.empty_cache()
     sets = [_qkv(torch, LM_B, Hq, Hkv, LM_PROMPT, LM_PROMPT, Dh, bf16, gen)
             for _ in range(2)]
     q, k, v = sets[0]
-    ms = _time_ms(torch, fa.flash_attention_cuda, sets, iters=50)
-    plain_ms = _time_ms(torch, fa.flash_attention_plain, sets, iters=3,
-                        warmup=1)
-    lib_ms = _time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), sets, iters=50)
+    got = fa.flash_attention_cuda(q, k, v)
+    err = _compare(torch, got, fa.flash_attention_plain(q, k, v),
+                   FA_TOL["bfloat16"], "lm prefill kernel at T=256")
+    tight = _excess(got, *_tight_tol(fa.flash_attention_plain, q, k,
+                                      v)).item()
+    if not tight <= 1.0:
+        fail(f"lm prefill kernel at T=256: err/tol {tight:.3f} over the "
+             "tight bf16 bound")
     b_ms, b_by = flash_bound(LM_B, Hq, Hkv, LM_PROMPT, LM_PROMPT, Dh, True,
                              "bfloat16")
-    prefill_time = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": b_ms, "bound_by": b_by,
-                    "kernel": fa.select_kernel(q, k)}
-    say(f"[time] lm prefill attention B={LM_B} Hq={Hq} Hkv={Hkv} "
-        f"T={LM_PROMPT} Dh={Dh} bf16 causal: {prefill_time['kernel']} kernel "
-        f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f} us, sdpa "
-        f"{lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}), "
-        f"kernel/bound {ms / b_ms:.2f}, kernel/sdpa {ms / lib_ms:.2f}")
-    del q, k, v, sets
+    prefill_time = _lm_kernel_time(
+        torch, fa.flash_attention_cuda, fa.flash_attention_plain,
+        lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), sets, (b_ms, b_by), 3)
+    prefill_time.update(max_abs_err=err, max_err_over_tol=tight,
+                        kernel=fa.select_kernel(q, k))
+    _say_lm_time(f"lm prefill attention B={LM_B} Hq={Hq} Hkv={Hkv} "
+                 f"T={LM_PROMPT} Dh={Dh} bf16 causal: "
+                 f"{prefill_time['kernel']} kernel", prefill_time)
+    del q, k, v, got, sets
     torch.cuda.empty_cache()
     return {"arch": LM_ARCH, "parameters": n_params,
             "noise": noise, "plain_vs_ref": p_vs_ref,
             "kernel_vs_ref": kernel_vs_ref, "kernel_vs_plain": kernel_vs_plain,
             "noise_255": noise255, "prefill_vs_ref": prefill_vs_ref,
-            "decode_vs_ref": decode_vs_ref,
+            "decode_vs_ref": decode_vs_ref, "layer_check": layer_check,
             "prefill_vs_decode": prefill_vs_decode, "prefill_s": prefill_s,
             "launches_by_path": {"lm_decode": decode_launches,
                                  "lm_prefill": prefill_launches[
@@ -2281,10 +2414,12 @@ def main() -> int:
     rows[-1].update(launches=sum(flash_paths.values()),
                     launches_by_path=flash_paths,
                     launches_by_kernel=flash["launches_by_kernel"],
-                    lm_decode={k: lm["decode_attention"][k] for k in (
-                        "ms", "plain_ms", "library_ms", "bound_ms")},
-                    lm_prefill={k: lm["prefill_attention"][k] for k in (
-                        "ms", "plain_ms", "library_ms", "bound_ms")})
+                    **{path: {k: lm[f"{name}_attention"][k] for k in (
+                        "ms", "graph_ms", "plain_ms",
+                        "library_ms", "library_graph_ms", "bound_ms",
+                        "max_abs_err")}
+                       for path, name in (("lm_decode", "decode"),
+                                          ("lm_prefill", "prefill"))})
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, **row}
             for (name, (replaces, source)), row in zip(KERNELS.items(), rows)]

@@ -6,7 +6,10 @@ runs the CUDA kernels on the card (the split-K decode kernel on the cache
 in place, in every layer of every step):
 
     python -m repro_torch.launch.serve --workload decode --arch qwen2-1.5b \
-        --batch 4 --prompt-len 32 --gen 16 [--no-reduced] [--device cpu]
+        --batch 4 --prompt-len 32 --gen 16 [--device cpu]
+
+As in the reference, ``--reduced`` cannot be turned off: the CLI serves
+the reduced config, and the full width is ``ServeConfig(reduced=False)``.
 
 ``smoother`` — the state-estimation service below.
 
@@ -917,10 +920,7 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--gen", type=int, default=16)
-    p.add_argument("--reduced", action=argparse.BooleanOptionalAction,
-                   default=True,
-                   help="decode: the family-preserving reduced config "
-                        "(--no-reduced: the architecture at full width)")
+    p.add_argument("--reduced", action="store_true", default=True)
     p.add_argument("--requests", type=int, default=64)
     p.add_argument("--n", type=int, default=512)
     p.add_argument("--max-batch", type=int, default=64)
