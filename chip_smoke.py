@@ -112,9 +112,34 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      32 decode steps (device busy, idle share); the decode kernel's time
      at L = 512 against its byte bound, the plain version and SDPA on the
      same cache, and the ``wgmma`` prefill's time;
-  16. the ``kernels`` JSON line (each combine kernel's launches per path;
-     the flash kernels' per path: ``flash``, ``lm_decode``,
-     ``lm_prefill``), then the device JSON line, last.
+  16. ``[lm_hybrid]``: the LM decode service for hymba-1.5b at full width
+     (32 layers, d_model 1600, 25 query heads padded to 32, 5 kv heads,
+     head_dim 64, d_ff 5504, SSM d_inner 3200, state 16, conv 4, a
+     1,024-row sliding window except in layers 0, 16 and 31, vocabulary
+     32,001 padded to 32,768), bf16, random weights from seed 0: batch 64,
+     a 1,024-token prompt teacher-forced, 64 greedy steps, caches of
+     1,088, so the 29 windowed layers' rings wrap at step 1,024. The
+     service with the counters zeroed before and read after: exactly 32 x
+     1,088 decode-kernel launches, nothing else, no plain attention and no
+     plain scan (the SSM step is elementwise). Then, on the same weights
+     and tokens: every decode-kernel call of the 64 steps past the window
+     against plain on its own q and ring at the tight bf16 bound, which a
+     ring read one row short misses at every step; a profile of 32 steps
+     past them; ``prefill`` of the first 8 sequences' 1,088 tokens, which
+     launches ``wgmma`` 32 times (with the window in the windowed layers)
+     and ``ssm_scan`` 32 x 5 times (chunks of 256), each call held against
+     its plain version on its own inputs (the attention at the tight bf16
+     bound, which the same call with the window one key wider misses; the
+     scan at the float32 TOL); the service's logits at its last step and
+     the prefill's, each against the same model in float32 by the bf16
+     noise (as ``[lm_decode]``), and against each other; device times of
+     the windowed ``wgmma`` prefill (SDPA with the window as a boolean
+     mask beside it), of the decode kernel on a full ring (SDPA beside
+     it) and of ``ssm_scan`` at one prefill chunk, each beside its bound;
+  17. the ``kernels`` JSON line (each combine kernel's launches per path;
+     ``ssm_scan``'s: ``ssm_scan``, ``lm_hybrid_prefill``; the flash
+     kernels': ``flash``, ``lm_decode``, ``lm_prefill``, ``lm_hybrid``,
+     ``lm_hybrid_prefill``), then the device JSON line, last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
 """
@@ -1673,12 +1698,13 @@ def _qkv(torch, B, Hq, Hkv, Tq, Tk, Dh, dt, gen):
             torch.randn((B, Hkv, Tk, Dh), **kw).to(dt))
 
 
-def flash_bound(B, Hq, Hkv, Tq, Tk, Dh, causal, dname):
+def flash_bound(B, Hq, Hkv, Tq, Tk, Dh, causal, dname, window=0):
     """Least time of one attention call: q, k, v read and o written once
-    against 4 Dh operations per (query, key) pair the mask lets through
-    (a row that sees no key averages all Tk keys)."""
+    against 4 Dh operations per (query, key) pair the mask (a causal
+    ``window`` too) lets through (a row that sees no key averages all Tk
+    keys)."""
     if causal:
-        pairs = sum(min(Tk, max(Tk - Tq + i + 1, 0)) or Tk
+        pairs = sum(min(Tk, max(Tk - Tq + i + 1, 0), window or Tk) or Tk
                     for i in range(Tq))
     else:
         pairs = Tq * Tk
@@ -1964,35 +1990,35 @@ class _Logits:
         return res
 
 
-def _say_logits(what, res) -> None:
+def _say_logits(what, res, tag="lm_decode") -> None:
     extra = (f"; top-1 equal at {res['decisive_top1_match']:.4f} of the "
              f"{res['decisive_share']:.3f} decisive positions"
              if "decisive_share" in res else "")
-    say(f"[lm_decode] {what}: max |dlogit| {res['max_abs_err']:.4e} (max "
+    say(f"[{tag}] {what}: max |dlogit| {res['max_abs_err']:.4e} (max "
         f"|logit| {res['max_abs_logit']:.4f}, ratio "
         f"{res['max_err_over_peak']:.4e}), top-1 equal at "
         f"{res['top1_match']:.4f} of {res['positions']} positions, largest "
         f"mismatch gap {res['max_mismatch_gap']:.4e}{extra}")
 
 
-def _check_noise(what, res, noise) -> None:
+def _check_noise(what, res, noise, tag="lm_decode") -> None:
     """``res``: a bf16 run of the kernels against the float32 reference."""
-    _say_logits(f"{what} vs float32", res)
+    _say_logits(f"{what} vs float32", res, tag)
     if not res["max_abs_err"] <= LM_NOISE_FACTOR * noise:
-        fail(f"lm_decode {what}: max |dlogit| {res['max_abs_err']:.4e} "
+        fail(f"{tag} {what}: max |dlogit| {res['max_abs_err']:.4e} "
              f"against float32, over {LM_NOISE_FACTOR:g} x the plain bf16 "
              f"path's {noise:.4e}")
     if not res["decisive_top1_match"] >= LM_TOP1:
-        fail(f"lm_decode {what}: top-1 equal to float32's at "
+        fail(f"{tag} {what}: top-1 equal to float32's at "
              f"{res['decisive_top1_match']:.4f} of the decisive positions, "
              f"under {LM_TOP1}")
 
 
-def _check_ties(what, res, noise) -> None:
+def _check_ties(what, res, noise, tag="lm_decode") -> None:
     """``res``: two bf16 runs against each other."""
-    _say_logits(what, res)
+    _say_logits(what, res, tag)
     if not res["max_mismatch_gap"] <= 2 * noise:
-        fail(f"lm_decode {what}: a top-1 mismatch is no near tie (gap "
+        fail(f"{tag} {what}: a top-1 mismatch is no near tie (gap "
              f"{res['max_mismatch_gap']:.4e} over twice the noise "
              f"{noise:.4e})")
 
@@ -2003,9 +2029,11 @@ class _DecodeTap:
     output against the plain version in float32 on the same q and the
     same layer cache (each layer on its own, so no error carries over
     from the layers before) at the tight bf16 bound; then it launches the
-    kernel once more with one key too few (a planted fault) and records
-    how far that misses the same bound. ``length`` is the cache length of
-    the step under way (the kernel reads its own copy on the card)."""
+    kernel once more with one key too few (a planted fault: the first
+    ``min(length, S) - 1`` rows, so a full ring is read one row short)
+    and records how far that misses the same bound. ``length`` is the
+    cache length of the step under way (the kernel reads its own copy on
+    the card)."""
 
     def __init__(self, fa):
         self.fa, self.kernel = fa, fa.decode_attention_cuda
@@ -2024,7 +2052,8 @@ class _DecodeTap:
         want, tol = _tight_tol(functools.partial(
             self.fa.decode_attention_plain, **kw), q, k_cache, v_cache,
             length)
-        bad = self.kernel(q, k_cache, v_cache, length - 1, **kw)
+        bad = self.kernel(q, k_cache, v_cache,
+                          length.clamp(max=k_cache.shape[2]) - 1, **kw)
         self.fault_launches += 1
         self.ok.setdefault(self.length, []).append(_excess(out, want, tol))
         self.fault.setdefault(self.length, []).append(
@@ -2054,7 +2083,8 @@ def _lm_kernel_time(torch, kernel, plain, library, sets, bound,
     """A kernel at an LM shape: event time of back-to-back wrapper calls
     (``ms``; the host's dispatch can set it) and CUDA-graph device time
     (``graph_ms``, the kernel alone); the plain version's event time; the
-    library call's event and graph times. (At these shapes the
+    library call's event and graph times (None where ``library`` is:
+    no PyTorch call computes the function). (At these shapes the
     profiler's sum of kernel times undercounts, on an NVIDIA H100 80GB
     HBM3 at 700 W below the prefill's own bound: PERF.md §6.)"""
     b_ms, b_by = bound
@@ -2062,21 +2092,26 @@ def _lm_kernel_time(torch, kernel, plain, library, sets, bound,
             "graph_ms": _graph_ms(torch, kernel, sets),
             "plain_ms": _time_ms(torch, plain, sets, iters=plain_iters,
                                  warmup=1),
-            "library_ms": _time_ms(torch, library, sets, iters=200),
-            "library_graph_ms": _graph_ms(torch, library, sets),
+            "library_ms": None if library is None else _time_ms(
+                torch, library, sets, iters=200),
+            "library_graph_ms": None if library is None else _graph_ms(
+                torch, library, sets),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _say_lm_time(what, t) -> None:
+    lib = ("" if t["library_ms"] is None else
+           f"sdpa {t['library_graph_ms'] * 1e3:.2f} us device "
+           f"({t['library_ms'] * 1e3:.2f} us calls), ")
+    ratio = ("" if t["library_ms"] is None else
+             f", kernel/sdpa {t['graph_ms'] / t['library_graph_ms']:.2f}")
     say(f"[time] {what} {t['graph_ms'] * 1e3:.2f} us device (CUDA graph; "
         f"{t['ms'] * 1e3:.2f} us back-to-back calls), "
-        f"plain {t['plain_ms'] * 1e3:.2f} us, sdpa "
-        f"{t['library_graph_ms'] * 1e3:.2f} us device "
-        f"({t['library_ms'] * 1e3:.2f} us calls), bound "
+        f"plain {t['plain_ms'] * 1e3:.2f} us, {lib}bound "
         f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); device "
-        f"kernel/bound {t['graph_ms'] / t['bound_ms']:.2f}, kernel/sdpa "
-        f"{t['graph_ms'] / t['library_graph_ms']:.2f}; vs plain max abs err "
-        f"{t['max_abs_err']:.3e}, err/tight tol {t['max_err_over_tol']:.3f}")
+        f"kernel/bound {t['graph_ms'] / t['bound_ms']:.2f}{ratio}; vs plain "
+        f"max abs err {t['max_abs_err']:.3e}, err/tol "
+        f"{t['max_err_over_tol']:.3f}")
 
 
 def phase_lm_decode(torch) -> dict:
@@ -2359,6 +2394,404 @@ def phase_lm_decode(torch) -> dict:
             "prefill_attention": prefill_time}
 
 
+# ---------------------------------------------------------------------------
+# LM hybrid family
+# ---------------------------------------------------------------------------
+
+#: hymba-1.5b (src/repro_torch/configs/hymba_1p5b.py) at full width:
+#: attention and a Mamba SSM in every block, a 1,024-row sliding window
+#: except in layers 0, 16 and 31. Prompts of 1,024 tokens and 64 greedy
+#: steps: the windowed layers' rings (1,024 rows) wrap at step 1,024, and
+#: every greedy step reads a full ring.
+HY_ARCH, HY_SEED = "hymba-1.5b", 0
+HY_B, HY_PROMPT, HY_GEN = 64, 1024, 64
+HY_MAX = HY_PROMPT + HY_GEN
+#: The prefill gate: the first sequences' prompt and generated tokens.
+HY_PREFILL_B = 8
+HY_PROFILE_STEPS = 32
+
+
+class _PrefillTaps:
+    """Stand in for `flash_attention_cuda` and `ssm_scan_cuda` while a
+    prefill runs. Each attention call launches the kernel as the model's
+    call would and is held against `flash_attention_plain` (with the
+    call's window) in float32 on the same q, k, v at the tight bf16
+    bound; a windowed call launches once more with the window one key
+    wider (a planted fault), which must miss that bound. Each scan is
+    held against `ssm_scan_plain` on the same ``a, b`` at the float32
+    TOL (error over the allclose tolerance)."""
+
+    def __init__(self, fa, ss):
+        self.fa, self.ss = fa, ss
+        self.attn, self.scan = fa.flash_attention_cuda, ss.ssm_scan_cuda
+        self.windows, self.ok, self.fault, self.scan_excess = [], [], [], []
+
+    def __enter__(self):
+        self.fa.flash_attention_cuda = self.attention
+        self.ss.ssm_scan_cuda = self.ssm_scan
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_cuda = self.attn
+        self.ss.ssm_scan_cuda = self.scan
+
+    def attention(self, q, k, v, *, causal=True, window=0, **kw):
+        out = self.attn(q, k, v, causal=causal, window=window, **kw)
+        want, tol = _tight_tol(functools.partial(
+            self.fa.flash_attention_plain, causal=causal, window=window),
+            q, k, v)
+        self.windows.append(window)
+        self.ok.append(_excess(out, want, tol))
+        if window:
+            bad = self.attn(q, k, v, causal=causal, window=window + 1, **kw)
+            self.fault.append(_excess(bad, want, tol))
+        return out
+
+    def ssm_scan(self, a, b):
+        h = self.scan(a, b)
+        want = self.ss.ssm_scan_plain(a, b)
+        t = SSM_TOL["float32"]
+        self.scan_excess.append(((h - want).abs() / (
+            t["atol"] + t["rtol"] * want.abs())).amax())
+        return h
+
+    def result(self, torch) -> dict:
+        ok = torch.stack(self.ok).tolist()
+        fault = torch.stack(self.fault).tolist() if self.fault else []
+        scans = torch.stack(self.scan_excess).tolist()
+        return {"attention_calls": len(ok), "windows": sorted(
+                    set(self.windows)), "max_err_over_tol": max(ok),
+                "fault_calls": len(fault),
+                "fault_min_err_over_tol": min(fault) if fault else None,
+                "fault_caught": sum(f > 1.0 for f in fault),
+                "scans": len(scans), "scan_max_err_over_tol": max(scans)}
+
+
+def _window_mask(torch, T, window):
+    """SDPA's boolean mask for a causal window (True: attend)."""
+    i = torch.arange(T, device="cuda")
+    d = i[:, None] - i[None, :]
+    return (d >= 0) & (d < window)
+
+
+def phase_lm_hybrid(torch) -> dict:
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssm_scan import ssm_scan as ss
+    from repro_torch.launch.serve import ServeConfig, serve
+    from repro_torch.models import (decode_step, init_caches, init_model,
+                                    prefill)
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.blocks import layer_schedule
+
+    tag = "lm_hybrid"
+    cfg = get_config(HY_ARCH)
+    vocab, layers = cfg.vocab_size, cfg.num_layers
+    W = cfg.sliding_window
+    din, n_state = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    chunks = -(-HY_MAX // cfg.scan_chunk)
+    windowed = sum(r.count for r in layer_schedule(cfg) if r.window)
+
+    def reset_all():
+        reset_counts()
+        _reset_plain_attention_calls()
+        ssm_lib.reset_plain_calls()
+
+    def plain_calls():
+        return {**_plain_attention_calls(), **ssm_lib.PLAIN_CALLS}
+
+    # The service, timed, with the counters zeroed before and read after.
+    serve_cfg = ServeConfig(arch=HY_ARCH, batch=HY_B, prompt_len=HY_PROMPT,
+                            gen=HY_GEN, max_len=HY_MAX, reduced=False,
+                            seed=HY_SEED)
+    torch.cuda.synchronize()
+    reset_all()
+    out = serve(serve_cfg, emit=say)
+    torch.cuda.synchronize()
+    counts, plain = read_counts(), plain_calls()
+    decode_launches = counts.pop("flash_attention_decode")
+    say(f"[{tag}] path: serve({HY_ARCH}, batch {HY_B}, prompt {HY_PROMPT}, "
+        f"gen {HY_GEN}, max_len {HY_MAX}, full width): "
+        f"{out['tok_per_s']:.1f} tok/s, {out['seconds'] / HY_MAX * 1e3:.3f} "
+        f"ms per step; decode kernel launches {decode_launches}, other "
+        f"kernels {counts}, plain calls {plain}")
+    if decode_launches != layers * HY_MAX:
+        fail(f"the {tag} path launched the decode kernel {decode_launches} "
+             f"times, expected {layers} x {HY_MAX}")
+    if any(counts.values()) or any(plain.values()):
+        fail(f"the {tag} path launched {counts}, plain calls {plain}: only "
+             "the decode kernel may run (the SSM step launches no scan)")
+    tokens = out["tokens"]
+    if (tuple(tokens.shape) != (HY_B, HY_GEN) or tokens.dtype != torch.int32
+            or not bool(((tokens >= 0) & (tokens < vocab)).all())):
+        fail(f"{tag} tokens {tuple(tokens.shape)} {tokens.dtype} are not "
+             f"[{HY_B}, {HY_GEN}] int32 ids below {vocab}")
+    serve_logits = out["logits"][:HY_PREFILL_B]
+    tok_per_s, seconds = out["tok_per_s"], out["seconds"]
+    del out
+    torch.cuda.empty_cache()
+
+    # The same weights (the service's seed) and prompts (its generator).
+    t0 = time.perf_counter()
+    model = init_model(cfg, HY_SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(HY_SEED + 1)
+    prompts = torch.randint(0, vocab, (HY_B, HY_PROMPT), generator=gen,
+                            device="cuda")
+    seq = torch.cat([prompts, tokens.long()], dim=1)   # [B, HY_MAX]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[{tag}] {HY_ARCH} full width: {layers} layers ({windowed} with a "
+        f"{W}-row window), d_model {cfg.d_model}, heads {cfg.num_heads} "
+        f"(padded {cfg.padded_heads}) / kv {cfg.num_kv_heads}, head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, SSM d_inner {din} state "
+        f"{n_state} conv {cfg.ssm_conv}, vocab {vocab} (padded "
+        f"{cfg.padded_vocab}), {n_params:,} parameters in bf16, init "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    # Every decode-kernel call of the steps past the window, held against
+    # plain on its own q and ring (or, in the global layers, linear
+    # cache); the caches are 32 steps longer than the service's, so the
+    # profile below runs past them on real positions (the rings are the
+    # service's: min(capacity, window) rows).
+    tap = _DecodeTap(fa)
+    caches = init_caches(cfg, HY_B, HY_MAX + HY_PROFILE_STEPS, device="cuda")
+    rings = sorted({c["attn"].k.shape[3] for c in caches})
+    for i in range(HY_MAX):
+        if i < HY_PROMPT:
+            lk, caches = decode_step(model, cfg, caches, seq[:, i:i + 1], i)
+            continue
+        tap.length = i + 1
+        with tap:
+            lk, caches = decode_step(model, cfg, caches, seq[:, i:i + 1], i)
+    layer_check = tap.result(torch)
+    say(f"[{tag}] every decode-kernel call of the {HY_GEN} steps past the "
+        f"window ({layer_check['calls']} = {layers} layers x "
+        f"{layer_check['n_lengths']} cache lengths "
+        f"{layer_check['lengths'][0]}..{layer_check['lengths'][1]}; cache "
+        f"rows {rings}) vs plain in float32 on the same q and cache: max "
+        f"err/tol {layer_check['max_err_over_tol']:.3f} (at length "
+        f"{layer_check['length_of_max']}); planted fault (the ring read one "
+        f"row short) exceeds it at {layer_check['fault_caught_at']} of "
+        f"{layer_check['n_lengths']} lengths, least err/tol "
+        f"{layer_check['fault_min_err_over_tol']:.3f}")
+    if not layer_check["max_err_over_tol"] <= 1.0:
+        fail(f"{tag}: the decode kernel misses the tight bf16 bound on a "
+             f"wrapped ring (err/tol {layer_check['max_err_over_tol']:.3f})")
+    if layer_check["fault_caught_at"] != layer_check["n_lengths"]:
+        fail(f"{tag}: the tight bound does not catch a ring read one row "
+             f"short at every step (caught at "
+             f"{layer_check['fault_caught_at']} of "
+             f"{layer_check['n_lengths']})")
+
+    # Device busy over 32 decode steps past the service's last.
+    tok = lk[:, :, :vocab].argmax(-1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(HY_PROFILE_STEPS):
+            lk, caches = decode_step(model, cfg, caches, tok, HY_MAX + j)
+            tok = lk[:, :, :vocab].argmax(-1)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    kernels = _device_events(ka)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    dec_us = sum(e.self_device_time_total for e in kernels
+                 if "decode_kernel" in e.key or "merge_kernel" in e.key)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    OUT.mkdir(exist_ok=True)
+    (OUT / "profile_lm_hybrid.txt").write_text(
+        ka.table(sort_by="self_device_time_total", row_limit=40) + "\n"
+        + ka.table(sort_by="cpu_time_total", row_limit=40))
+    profile_res = {
+        "steps": HY_PROFILE_STEPS, "wall_s": prof_wall,
+        "device_busy_s": busy_us / 1e6,
+        "idle_share": 1 - busy_us / 1e6 / prof_wall,
+        "kernel_launches": sum(e.count for e in kernels),
+        "decode_kernel_ms": dec_us / 1e3,
+        "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                for e in top]}
+    say(f"[{tag}] profile of {HY_PROFILE_STEPS} decode steps (positions "
+        f"{HY_MAX}..{HY_MAX + HY_PROFILE_STEPS - 1}): wall "
+        f"{prof_wall * 1e3:.1f} ms (profiled), device busy "
+        f"{busy_us / 1e3:.2f} ms in {profile_res['kernel_launches']} kernel "
+        f"launches, idle {profile_res['idle_share']:.1%}; decode+merge "
+        f"kernels {dec_us / 1e3:.3f} ms; top: " + "; ".join(
+            f"{k[:48]} {ms:.2f} ms x{n}" for k, ms, n in profile_res["top"]))
+    del caches, lk, tok
+    torch.cuda.empty_cache()
+
+    # Prefill over the first sequences' prompt and generated tokens, with
+    # the counters zeroed before and read after: wgmma once per layer (a
+    # window in the windowed layers), ssm_scan once per chunk per layer.
+    toks = seq[:HY_PREFILL_B]
+    torch.cuda.synchronize()
+    reset_all()
+    t0 = time.perf_counter()
+    lpre = prefill(model, cfg, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts, plain = read_counts(), plain_calls()
+    prefill_launches = {k: v for k, v in counts.items() if v}
+    want = {"flash_attention_wgmma": layers, "ssm_scan": layers * chunks}
+    say(f"[{tag}] prefill B={HY_PREFILL_B} T={HY_MAX}: {prefill_s:.3f}s, "
+        f"kernel launches {prefill_launches}, plain calls {plain}")
+    if prefill_launches != want or any(plain.values()):
+        fail(f"{tag} prefill launched {prefill_launches}, plain calls "
+             f"{plain}; expected {want}")
+    with _PrefillTaps(fa, ss) as taps:
+        prefill(model, cfg, toks)
+    per_call = taps.result(torch)
+    say(f"[{tag}] every prefill call vs plain on its own inputs: "
+        f"{per_call['attention_calls']} attention calls (windows "
+        f"{per_call['windows']}), max err/tol "
+        f"{per_call['max_err_over_tol']:.3f} at the tight bf16 bound; the "
+        f"window one key wider misses it in {per_call['fault_caught']} of "
+        f"{per_call['fault_calls']} windowed calls (least err/tol "
+        f"{per_call['fault_min_err_over_tol']:.3f}); {per_call['scans']} "
+        f"ssm_scan launches, max err/tol "
+        f"{per_call['scan_max_err_over_tol']:.3f} (float32 TOL)")
+    if not per_call["max_err_over_tol"] <= 1.0:
+        fail(f"{tag}: a prefill attention call misses the tight bf16 bound")
+    if (per_call["fault_calls"] != windowed
+            or per_call["fault_caught"] != windowed):
+        fail(f"{tag}: a window one key wider passes the tight bound in "
+             f"{per_call['fault_calls'] - per_call['fault_caught']} of "
+             f"{per_call['fault_calls']} windowed calls")
+    if (per_call["scans"] != layers * chunks
+            or not per_call["scan_max_err_over_tol"] <= 1.0):
+        fail(f"{tag}: an ssm_scan launch of the prefill disagrees with "
+             "ssm_scan_plain")
+
+    # Logits at position HY_MAX - 1: the service's decode, the prefill,
+    # the plain bf16 prefill (the noise), all against float32's prefill.
+    lpre_plain = prefill(model, cfg, toks, impl="plain")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = copy.deepcopy(model).float()
+    lpre_ref = prefill(model32, cfg32, toks, impl="plain")
+    del model32
+    torch.cuda.empty_cache()
+    res = {}
+    for name, got, want_ in (("noise", lpre_plain, lpre_ref),
+                             ("prefill", lpre, lpre_ref),
+                             ("decode", serve_logits, lpre_ref),
+                             ("prefill_vs_decode", lpre, serve_logits)):
+        acc = _Logits(torch, vocab)
+        acc.add(got, want_)
+        res[name] = acc
+    noise = res.pop("noise").result()["max_abs_err"]
+    what = f"position {HY_MAX - 1} (B={HY_PREFILL_B})"
+    say(f"[{tag}] {what}: plain bf16 prefill vs float32 (the noise) "
+        f"{noise:.4e}")
+    prefill_vs_ref = res["prefill"].result(noise)
+    _check_noise(f"{what}, prefill (wgmma + ssm_scan) bf16", prefill_vs_ref,
+                 noise, tag)
+    decode_vs_ref = res["decode"].result(noise)
+    _check_noise(f"{what}, the service's decode bf16", decode_vs_ref, noise,
+                 tag)
+    prefill_vs_decode = res["prefill_vs_decode"].result()
+    _check_ties(f"{what}, prefill vs the service's decode",
+                prefill_vs_decode, noise, tag)
+    del lpre, lpre_plain, lpre_ref, serve_logits, model
+    torch.cuda.empty_cache()
+
+    # Kernel times at the path's shapes.
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16 = torch.bfloat16
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    sets = [_qkv(torch, HY_PREFILL_B, Hq, Hkv, HY_MAX, HY_MAX, Dh, bf16, gen)
+            for _ in range(2)]
+    q, k, v = sets[0]
+    plain_w = functools.partial(fa.flash_attention_plain, window=W)
+    got = fa.flash_attention_cuda(q, k, v, window=W)
+    err = _compare(torch, got, plain_w(q, k, v), FA_TOL["bfloat16"],
+                   f"hymba windowed prefill at T={HY_MAX}")
+    tight = _excess(got, *_tight_tol(plain_w, q, k, v)).item()
+    if not tight <= 1.0:
+        fail(f"hymba windowed prefill: err/tol {tight:.3f} over the tight "
+             "bf16 bound")
+    mask = _window_mask(torch, HY_MAX, W)
+    prefill_time = _lm_kernel_time(
+        torch, lambda q, k, v: fa.flash_attention_cuda(q, k, v, window=W),
+        plain_w, lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), sets,
+        flash_bound(HY_PREFILL_B, Hq, Hkv, HY_MAX, HY_MAX, Dh, True,
+                    "bfloat16", window=W), 3)
+    prefill_time.update(max_abs_err=err, max_err_over_tol=tight,
+                        kernel=fa.select_kernel(q, k))
+    _say_lm_time(f"hymba windowed prefill attention B={HY_PREFILL_B} "
+                 f"Hq={Hq} Hkv={Hkv} T={HY_MAX} Dh={Dh} window={W} bf16 "
+                 f"(sdpa: the window as a boolean mask): "
+                 f"{prefill_time['kernel']} kernel", prefill_time)
+    del q, k, v, got, sets, mask
+    torch.cuda.empty_cache()
+
+    # The decode kernel on a full ring (length past the capacity).
+    full = torch.tensor(HY_MAX, dtype=torch.int32, device="cuda")
+    sets = [_qkv(torch, HY_B, Hq, Hkv, 1, W, Dh, bf16, gen) + (full,)
+            for _ in range(4)]
+    q, k, v, _ = sets[0]
+    got = fa.decode_attention_cuda(q, k, v, full)
+    err = _compare(torch, got, fa.decode_attention_plain(q, k, v, full),
+                   FA_TOL["bfloat16"], "hymba decode on a full ring")
+    tight = _excess(got, *_tight_tol(fa.decode_attention_plain, q, k, v,
+                                      full)).item()
+    if not tight <= 1.0:
+        fail(f"hymba decode on a full ring: err/tol {tight:.3f} over the "
+             "tight bf16 bound")
+    n_bytes = 2 * (2 * HY_B * Hkv * W * Dh + 2 * HY_B * Hq * Dh)
+    decode_time = _lm_kernel_time(
+        torch, fa.decode_attention_cuda, fa.decode_attention_plain,
+        lambda q, k, v, n: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True), sets,
+        _bound(n_bytes, 4 * HY_B * Hq * Dh * W, "bfloat16"), 20)
+    decode_time.update(max_abs_err=err, max_err_over_tol=tight)
+    _say_lm_time(f"hymba decode attention on a full ring B={HY_B} Hq={Hq} "
+                 f"Hkv={Hkv} rows={W} Dh={Dh} bf16: split-K kernel",
+                 decode_time)
+    del q, k, v, got, sets
+    torch.cuda.empty_cache()
+
+    # ssm_scan at one prefill chunk.
+    shape = (HY_PREFILL_B, cfg.scan_chunk, din * n_state)
+    sets = [_ssm_inputs(torch, shape, torch.float32, gen) for _ in range(2)]
+    a, b = sets[0]
+    got, want = ss.ssm_scan_cuda(a, b), ss.ssm_scan_plain(a, b)
+    t = SSM_TOL["float32"]
+    err = _compare(torch, got, want, t, f"hymba ssm_scan chunk {shape}")
+    excess = ((got - want).abs() / (t["atol"] + t["rtol"] * want.abs())
+              ).amax().item()
+    del got, want
+    n = a.numel()
+    scan_time = _lm_kernel_time(
+        torch, ss.ssm_scan_cuda, ss.ssm_scan_plain, None, sets,
+        _bound(3 * n * ITEMSIZE["float32"], 2 * n, "float32"), 3)
+    scan_time.update(max_abs_err=err, max_err_over_tol=excess)
+    _say_lm_time(f"hymba ssm_scan prefill chunk {shape} f32 (err/tol at "
+                 "the float32 TOL):", scan_time)
+    del a, b, sets
+    torch.cuda.empty_cache()
+    return {"arch": HY_ARCH, "parameters": n_params,
+            "layer_check": layer_check, "prefill_calls": per_call,
+            "noise": noise, "prefill_vs_ref": prefill_vs_ref,
+            "decode_vs_ref": decode_vs_ref,
+            "prefill_vs_decode": prefill_vs_decode, "prefill_s": prefill_s,
+            "launches_by_path": {
+                "lm_hybrid": decode_launches,
+                "lm_hybrid_prefill": prefill_launches[
+                    "flash_attention_wgmma"]},
+            "ssm_launches": prefill_launches["ssm_scan"],
+            "tok_per_s": tok_per_s, "seconds": seconds,
+            "ms_per_step": seconds / HY_MAX * 1e3,
+            "profile": profile_res, "prefill_attention": prefill_time,
+            "decode_attention": decode_time, "ssm_scan": scan_time}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -2386,6 +2819,7 @@ def main() -> int:
     ssm = phase_ssm_scan(torch)
     flash = phase_flash(torch)
     lm = phase_lm_decode(torch)
+    hybrid = phase_lm_hybrid(torch)
 
     rows = []
     for kind in ("filtering_combine", "smoothing_combine"):
@@ -2410,16 +2844,25 @@ def main() -> int:
         rows.append({k: res[k] for k in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")})
-    flash_paths = {"flash": flash["launches"], **lm["launches_by_path"]}
+    lm_times = ("ms", "graph_ms", "plain_ms", "library_ms",
+                "library_graph_ms", "bound_ms", "max_abs_err")
+    ssm_paths = {"ssm_scan": ssm["launches"],
+                 "lm_hybrid_prefill": hybrid["ssm_launches"]}
+    rows[-2].update(launches=sum(ssm_paths.values()),
+                    launches_by_path=ssm_paths,
+                    lm_hybrid_prefill={k: hybrid["ssm_scan"][k]
+                                       for k in lm_times})
+    flash_paths = {"flash": flash["launches"], **lm["launches_by_path"],
+                   **hybrid["launches_by_path"]}
     rows[-1].update(launches=sum(flash_paths.values()),
                     launches_by_path=flash_paths,
                     launches_by_kernel=flash["launches_by_kernel"],
-                    **{path: {k: lm[f"{name}_attention"][k] for k in (
-                        "ms", "graph_ms", "plain_ms",
-                        "library_ms", "library_graph_ms", "bound_ms",
-                        "max_abs_err")}
-                       for path, name in (("lm_decode", "decode"),
-                                          ("lm_prefill", "prefill"))})
+                    **{path: {k: res[f"{name}_attention"][k] for k in lm_times}
+                       for path, res, name in (
+                           ("lm_decode", lm, "decode"),
+                           ("lm_prefill", lm, "prefill"),
+                           ("lm_hybrid", hybrid, "decode"),
+                           ("lm_hybrid_prefill", hybrid, "prefill"))})
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, **row}
             for (name, (replaces, source)), row in zip(KERNELS.items(), rows)]
@@ -2433,7 +2876,7 @@ def main() -> int:
          "slr_profile": slr_prof, "matrix": matrix, "sqrt": sqrt,
          "adaptive": adaptive, "autotune": autotune, "stream": stream,
          "chaos": chaos, "tenants": tenants, "ssm_scan": ssm,
-         "flash_attention": flash, "lm_decode": lm,
+         "flash_attention": flash, "lm_decode": lm, "lm_hybrid": hybrid,
          "seconds": time.perf_counter() - t_start}, indent=1))
     say(f"[chip_smoke] all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")

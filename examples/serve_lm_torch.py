@@ -1,10 +1,10 @@
 """LM serving example on the PyTorch port: batched greedy decoding with KV
-caches for a dense architecture (reduced config). On the card the
-attention runs the port's CUDA kernels (the split-K decode kernel reads
-the cache in place in every layer of every step); ``--device cpu`` runs
-the plain PyTorch versions.
+caches for a dense or the hybrid architecture (reduced config). On the
+card the attention runs the port's CUDA kernels (the split-K decode
+kernel reads the cache, a ring in a windowed layer, in place in every
+layer of every step); ``--device cpu`` runs the plain PyTorch versions.
 
-    PYTHONPATH=src python examples/serve_lm_torch.py --arch qwen2-1.5b \\
+    PYTHONPATH=src python examples/serve_lm_torch.py --arch hymba-1.5b \\
         --device cpu
 """
 import argparse
@@ -15,8 +15,9 @@ from repro_torch.launch.serve import ServeConfig, serve
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="qwen2-1.5b",
-                   help="a dense architecture: qwen2-1.5b, llama3.2-3b, "
-                        "internlm2-1.8b or codeqwen1.5-7b")
+                   help="a dense architecture (qwen2-1.5b, llama3.2-3b, "
+                        "internlm2-1.8b, codeqwen1.5-7b) or the hybrid "
+                        "hymba-1.5b")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--gen", type=int, default=16)
     p.add_argument("--device", default=None,

@@ -37,13 +37,18 @@ def state_space_model(scenario: str, Q: np.ndarray, R: np.ndarray,
                                P0=as_t(P0))
 
 
+#: The SSM's ``[in, out]`` matrices (``nn.Linear``s in the port).
+_SSM_LINEAR = ("in_proj", "x_proj", "dt_w", "out_proj")
+
+
 def lm_params(params, cfg, *, device: Device = None,
               dtype: Optional[torch.dtype] = None):
     """The port's `CausalLM` holding the JAX ``init_model`` parameters
     ``params`` (the pytree with its leaves as numpy arrays): ``embed``,
     ``runs`` (per run, each leaf stacked over the run's layers),
-    ``final_norm`` and ``lm_head``. The runs are unstacked into blocks;
-    ``[in, out]`` matrices become ``nn.Linear`` weights ``[out, in]``.
+    ``final_norm`` and ``lm_head``. The runs are unstacked into blocks
+    (a hybrid block's ``ssm`` and ``ln_ssm`` too); ``[in, out]`` matrices
+    become ``nn.Linear`` weights ``[out, in]``.
     On ``device`` (`resolve_device`), in ``dtype`` (default the config's
     parameter dtype)."""
     from repro_torch.models.layers import dtype_of
@@ -63,8 +68,9 @@ def lm_params(params, cfg, *, device: Device = None,
     for ri, run in enumerate(params["runs"]):
         for li in range(len(model.runs[ri])):
             pre = f"runs.{ri}.{li}."
-            for norm in ("ln1", "ln2"):
-                state[pre + norm] = t(run[norm][li])
+            for norm in ("ln1", "ln2", "ln_ssm"):
+                if norm in run:
+                    state[pre + norm] = t(run[norm][li])
             for name, w in run["attn"].items():
                 if name.startswith("w"):
                     state[f"{pre}attn.{name}.weight"] = t(w[li]).T
@@ -72,5 +78,10 @@ def lm_params(params, cfg, *, device: Device = None,
                     state[f"{pre}attn.w{name[1]}.bias"] = t(w[li])
             for name, w in run["mlp"].items():
                 state[f"{pre}mlp.{name}.weight"] = t(w[li]).T
+            for name, w in run.get("ssm", {}).items():
+                if name in _SSM_LINEAR:
+                    state[f"{pre}ssm.{name}.weight"] = t(w[li]).T
+                else:  # conv_w, dt_bias, A_log, D
+                    state[f"{pre}ssm.{name}"] = t(w[li])
     model.load_state_dict({k: v.to(dtype) for k, v in state.items()})
     return model.to(dtype)

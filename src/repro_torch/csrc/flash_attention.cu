@@ -16,6 +16,16 @@
 // averages its zero padding there. m, l and the accumulator are float32
 // whatever the input type; the output is rounded to the input type once.
 //
+// Sliding window (window > 0, causal only; 0 = none): a query at position
+// p also masks (with -1e30) the keys k <= p - window, so it sees the keys
+// p - window < k <= p, the mask of the reference model's
+// blockwise_causal_attention. The prefill kernels (1 and 3) start a Q
+// tile's key loop at the tile that holds its first row's first visible
+// key, so tiles wholly below the window are never loaded (the reference's
+// lo = qi - ceil(window / chunk) skip); the decode kernel (2) masks by key
+// (its splits below the window weigh 0 in the merge). A tile whose first
+// row sees no key (Tq > Tk) visits every key, as without a window.
+//
 // What bounds it: a prefill (Tq = Tk = T) does 4 B Hq Dh T (T + 1) / 2
 // operations on 4 B H T Dh values: far above the card's ridge point, so the
 // floor is the tensor cores' rate. A decode step (Tq = 1) reads the whole
@@ -83,8 +93,9 @@
 //      O += P V     P rounded to bfloat16 in registers as the A operand, V
 //                   from shared memory as an MN-major B ([key][d], no
 //                   transpose copy).
-//    Only the tiles that cross the causal diagonal or Tk are masked; tiles
-//    past the causal limit are not loaded. The grid runs the heaviest Q
+//    Only the tiles that cross the causal diagonal, the window's lower edge
+//    or Tk are masked; tiles past the causal limit or wholly below the
+//    window are not loaded. The grid runs the heaviest Q
 //    tiles first. The 3-D tensor maps over [B*H, T, Dh] zero-fill rows past
 //    T inside one head. Rounding departure from the TPU kernel: P is
 //    rounded to bfloat16 before the second product (the TPU kernel keeps
@@ -93,15 +104,15 @@
 // C interface (loaded with ctypes; densely packed arrays; dtype 0 =
 // float32, 2 = bfloat16; each launches on `stream` and returns
 // cudaGetLastError() or the first failure):
-//   fa_attention(dtype, head_dim, B, Hq, Hkv, Tq, Tk, causal, scale, q, k,
-//                v, o, stream)                               kernel 1
-//   fa_decode(dtype, head_dim, B, Hq, Hkv, Tq, Tk, causal, scale,
+//   fa_attention(dtype, head_dim, B, Hq, Hkv, Tq, Tk, causal, window, scale,
+//                q, k, v, o, stream)                         kernel 1
+//   fa_decode(dtype, head_dim, B, Hq, Hkv, Tq, Tk, causal, window, scale,
 //             split_keys, q, k, v, o, part_ml, part_acc, stream) kernel 2
 //   fa_decode_cache(dtype, head_dim, B, Hq, Hkv, Tq, S, scale, split_keys,
 //                   q, k, v, length, o, part_ml, part_acc, stream)
 //                                        kernel 2 on a cache, not causal
-//   fa_wgmma(head_dim, B, Hq, Hkv, Tq, Tk, causal, scale, q, k, v, o,
-//            stream)                                          kernel 3
+//   fa_wgmma(head_dim, B, Hq, Hkv, Tq, Tk, causal, window, scale, q, k, v,
+//            o, stream)                                       kernel 3
 // with head_dim one of 16, 32, 64, 128, 256 (64 and 128 for fa_wgmma).
 //
 // The file compiles as several parts (one nvcc -c each, in parallel): the
@@ -161,8 +172,8 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    int Hq, int group, int64_t Tq, int64_t Tk, int causal, float scale,
-    const T* __restrict__ q, const T* __restrict__ k,
+    int Hq, int group, int64_t Tq, int64_t Tk, int causal, int window,
+    float scale, const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o) {
   using C = Cfg<D>;
   constexpr int BQ = C::BQ, RQ = C::RQ, CK = C::CK, CD = C::CD;
@@ -192,11 +203,15 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     q_s[r * QS + c] = r < rows ? widen(qg[static_cast<int64_t>(r) * D + c])
                                : 0.f;
   }
-  // Causal rows see keys up to their position. A tile whose first row
-  // sees no key (Tq > Tk) visits every key: such rows average them all.
-  int64_t k_end = Tk;
-  if (causal && q_offset + q0 >= 0 && q_offset + q0 + BQ < Tk)
-    k_end = q_offset + q0 + BQ;
+  // Causal rows see keys up to their position, and windowed rows none
+  // before their window. A tile whose first row sees no key (Tq > Tk)
+  // visits every key: such rows average them all.
+  int64_t k_begin = 0, k_end = Tk;
+  if (causal && q_offset + q0 >= 0) {
+    if (q_offset + q0 + BQ < Tk) k_end = q_offset + q0 + BQ;
+    if (window > 0 && q_offset + q0 - window + 1 > 0)
+      k_begin = (q_offset + q0 - window + 1) / kBK * kBK;
+  }
 
   float m[RQ], l[RQ], acc[RQ][CD];
 #pragma unroll
@@ -207,7 +222,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     for (int j = 0; j < CD; ++j) acc[i][j] = 0.f;
   }
 
-  for (int64_t k0 = 0; k0 < k_end; k0 += kBK) {
+  for (int64_t k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the last tile's readers are done
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, c = e % D;
@@ -247,7 +262,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
         float x = s[i][j] * scale;
         if (kpos >= Tk)
           x = -INFINITY;  // no such key: weight exactly 0
-        else if (causal && qpos < kpos)
+        else if (causal && (qpos < kpos || (window > 0 && qpos - kpos >= window)))
           x = kMasked;
         s[i][j] = x;
         mx = fmaxf(mx, x);
@@ -296,8 +311,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
 #define FA_LAUNCH_PARAMS                                                     \
   int64_t B, int Hq, int Hkv, int64_t Tq, int64_t Tk, int causal,            \
-      float scale, const void *q, const void *k, const void *v, void *o,     \
-      cudaStream_t s
+      int window, float scale, const void *q, const void *k, const void *v,  \
+      void *o, cudaStream_t s
 
 template <typename T, int D>
 int launch(FA_LAUNCH_PARAMS) {
@@ -310,7 +325,7 @@ int launch(FA_LAUNCH_PARAMS) {
   const dim3 grid(static_cast<unsigned>((Tq + C::BQ - 1) / C::BQ),
                   static_cast<unsigned>(Hq), static_cast<unsigned>(B));
   kernel<<<grid, kThreads, C::kSmemBytes, s>>>(
-      Hq, Hq / Hkv, Tq, Tk, causal, scale, static_cast<const T*>(q),
+      Hq, Hq / Hkv, Tq, Tk, causal, window, scale, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o));
   return static_cast<int>(cudaGetLastError());
 }
@@ -425,7 +440,7 @@ __device__ __forceinline__ float2 load_pair(const unsigned char* p,
 template <typename T, int D, int RB>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
     int Hq, int Hkv, int64_t Tq, int64_t S, const int* __restrict__ len,
-    int causal, float scale_log2, int split_keys, int n_splits,
+    int causal, int window, float scale_log2, int split_keys, int n_splits,
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     float* __restrict__ part_ml, float* __restrict__ part_acc) {
   using C = Cfg<T, D>;
@@ -540,7 +555,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
           float x = sc[r] * scale_log2;
-          if (causal && kpos > Tk - Tq + r % Tq) x = kMasked;
+          const int64_t qpos = Tk - Tq + r % Tq;
+          if (causal && (kpos > qpos || (window > 0 && qpos - kpos >= window)))
+            x = kMasked;
           s_s[r * SKP + kk] = x;
         }
       }
@@ -654,8 +671,9 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(
 
 #define DEC_LAUNCH_PARAMS                                                    \
   int64_t B, int Hq, int Hkv, int64_t Tq, int64_t Tk, const int *len,        \
-      int causal, float scale, int split_keys, const void *q, const void *k, \
-      const void *v, void *o, float *part_ml, float *part_acc, cudaStream_t s
+      int causal, int window, float scale, int split_keys, const void *q,    \
+      const void *k, const void *v, void *o, float *part_ml,                 \
+      float *part_acc, cudaStream_t s
 
 template <typename T, int D, int RB>
 int launch_rows(DEC_LAUNCH_PARAMS) {
@@ -670,7 +688,7 @@ int launch_rows(DEC_LAUNCH_PARAMS) {
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(static_cast<unsigned>(n_splits), static_cast<unsigned>(Hkv),
                 static_cast<unsigned>(B)),
-           kThreads, smem, s>>>(Hq, Hkv, Tq, Tk, len, causal,
+           kThreads, smem, s>>>(Hq, Hkv, Tq, Tk, len, causal, window,
                                 scale * kLog2e, split_keys,
                                 static_cast<int>(n_splits),
                                 static_cast<const T*>(q),
@@ -695,8 +713,8 @@ int launch(DEC_LAUNCH_PARAMS) {
   if (rows > kMaxRows || split_keys < 1 || split_keys > kMaxSplit)
     return static_cast<int>(cudaErrorInvalidValue);
 #define DEC_ROWS(RB) \
-  launch_rows<T, D, RB>(B, Hq, Hkv, Tq, Tk, len, causal, scale, split_keys, q, \
-                        k, v, o, part_ml, part_acc, s)
+  launch_rows<T, D, RB>(B, Hq, Hkv, Tq, Tk, len, causal, window, scale,      \
+                        split_keys, q, k, v, o, part_ml, part_acc, s)
   if (rows <= 1) return DEC_ROWS(1);
   if (rows == 2) return DEC_ROWS(2);
   if (rows == 3) return DEC_ROWS(3);
@@ -905,7 +923,7 @@ __global__ void __launch_bounds__(kThreads, 1) wgmma_kernel(
     const __grid_constant__ CUtensorMap map_q,
     const __grid_constant__ CUtensorMap map_k,
     const __grid_constant__ CUtensorMap map_v, int Hq, int group, int Tq,
-    int Tk, int causal, float scale_log2, int n_qt,
+    int Tk, int causal, int window, float scale_log2, int n_qt,
     __nv_bfloat16* __restrict__ o) {
   using C = Cfg<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -923,12 +941,17 @@ __global__ void __launch_bounds__(kThreads, 1) wgmma_kernel(
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kBQ;  // heaviest first
   const int kv_bh = (bh / Hq) * (Hq / group) + (bh % Hq) / group;
   const int q_offset = Tk - Tq;
-  // Causal rows see keys up to their position. A tile whose first row
-  // sees no key (Tq > Tk) visits every key: such rows average them all.
-  int k_end = Tk;
-  if (causal && q_offset + q0 >= 0 && q_offset + q0 + kBQ < Tk)
-    k_end = q_offset + q0 + kBQ;
-  const int n_tiles = (k_end + kBK - 1) / kBK;
+  // Causal rows see keys up to their position, and windowed rows none
+  // before their window: key tiles t_begin .. t_begin + n_tiles - 1. A tile
+  // whose first row sees no key (Tq > Tk) visits every key: such rows
+  // average them all.
+  int k_end = Tk, t_begin = 0;
+  if (causal && q_offset + q0 >= 0) {
+    if (q_offset + q0 + kBQ < Tk) k_end = q_offset + q0 + kBQ;
+    if (window > 0 && q_offset + q0 - window + 1 > 0)
+      t_begin = (q_offset + q0 - window + 1) / kBK;
+  }
+  const int n_tiles = (k_end + kBK - 1) / kBK - t_begin;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -955,11 +978,11 @@ __global__ void __launch_bounds__(kThreads, 1) wgmma_kernel(
         mbar_expect_tx(full_k + st, C::KV_BYTES);
         for (int h = 0; h < C::NH; ++h)
           tma_load_3d(k_s + st * C::KV_BYTES + h * C::HALF_KV, &map_k,
-                      full_k + st, 64 * h, it * kBK, kv_bh);
+                      full_k + st, 64 * h, (t_begin + it) * kBK, kv_bh);
         mbar_expect_tx(full_v + st, C::KV_BYTES);
         for (int h = 0; h < C::NH; ++h)
           tma_load_3d(v_s + st * C::KV_BYTES + h * C::HALF_KV, &map_v,
-                      full_v + st, 64 * h, it * kBK, kv_bh);
+                      full_v + st, 64 * h, (t_begin + it) * kBK, kv_bh);
       }
     }
   } else {
@@ -969,6 +992,9 @@ __global__ void __launch_bounds__(kThreads, 1) wgmma_kernel(
     // This thread's accumulator rows (r0, r0 + 8) and their positions.
     const int r0 = q0 + 64 * wgi + 16 * warp + lane / 4;
     const int qpos0 = q_offset + r0, qpos1 = qpos0 + 8;
+    // Keys at or below lo0 / lo1 lie outside the rows' windows (-1: none).
+    const int lo0 = window > 0 ? qpos0 - window : -1;
+    const int lo1 = window > 0 ? qpos1 - window : -1;
     const int wg_first = q_offset + q0 + 64 * wgi;
     float o_acc[D / 2];
 #pragma unroll
@@ -997,8 +1023,11 @@ __global__ void __launch_bounds__(kThreads, 1) wgmma_kernel(
 
       // Accumulator element (j, e): column 8 j + 2 (lane % 4) + e, row r0
       // in s_acc[4 j + e] and r0 + 8 in s_acc[4 j + 2 + e].
-      const int k0 = it * kBK;
-      const bool masked = k0 + kBK > Tk || (causal && k0 + kBK - 1 > wg_first);
+      const int k0 = (t_begin + it) * kBK;
+      const bool masked =
+          k0 + kBK > Tk ||
+          (causal && (k0 + kBK - 1 > wg_first ||
+                      (window > 0 && k0 <= wg_first + 63 - window)));
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kBK / 8; ++j) {
@@ -1012,8 +1041,8 @@ __global__ void __launch_bounds__(kThreads, 1) wgmma_kernel(
               x0 = -INFINITY;  // no such key: weight exactly 0
               x1 = -INFINITY;
             } else if (causal) {
-              if (kpos > qpos0) x0 = kMasked;
-              if (kpos > qpos1) x1 = kMasked;
+              if (kpos > qpos0 || kpos <= lo0) x0 = kMasked;
+              if (kpos > qpos1 || kpos <= lo1) x1 = kMasked;
             }
           }
           s_acc[4 * j + e] = x0;
@@ -1146,14 +1175,15 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int D, int64_t rows,
 
 #define WG_LAUNCH_PARAMS                                                     \
   int64_t B, int Hq, int Hkv, int64_t Tq, int64_t Tk, int causal,            \
-      float scale, const void *q, const void *k, const void *v, void *o,     \
-      cudaStream_t s
+      int window, float scale, const void *q, const void *k, const void *v,  \
+      void *o, cudaStream_t s
 
 template <int D>
 int launch(WG_LAUNCH_PARAMS) {
   using C = Cfg<D>;
   const int64_t n_qt = (Tq + kBQ - 1) / kBQ;
-  if (n_qt > 65535 || Tk > (1ll << 30) || B * Hq > (1ll << 30))
+  if (n_qt > 65535 || Tk > (1ll << 30) || B * Hq > (1ll << 30) ||
+      window < 0 || window > (1 << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, D, Tq, B * Hq, kBQ) ||
@@ -1167,7 +1197,7 @@ int launch(WG_LAUNCH_PARAMS) {
   kernel<<<dim3(static_cast<unsigned>(B * Hq), static_cast<unsigned>(n_qt)),
            kThreads, C::SMEM, s>>>(
       mq, mk, mv, Hq, Hq / Hkv, static_cast<int>(Tq), static_cast<int>(Tk),
-      causal, scale * kLog2e, static_cast<int>(n_qt),
+      causal, window, scale * kLog2e, static_cast<int>(n_qt),
       static_cast<__nv_bfloat16*>(o));
   return static_cast<int>(cudaGetLastError());
 }
@@ -1221,10 +1251,10 @@ FA_INSTANCES(extern, 256)
 #ifdef FA_ENTRY_POINTS
 namespace {
 
-#define FA_ARGS B, Hq, Hkv, Tq, Tk, causal, scale, q, k, v, o, s
-#define DEC_ARGS                                                           \
-  B, Hq, Hkv, Tq, Tk, len, causal, scale, split_keys, q, k, v, o, part_ml, \
-      part_acc, s
+#define FA_ARGS B, Hq, Hkv, Tq, Tk, causal, window, scale, q, k, v, o, s
+#define DEC_ARGS                                                        \
+  B, Hq, Hkv, Tq, Tk, len, causal, window, scale, split_keys, q, k, v, o, \
+      part_ml, part_acc, s
 
 template <typename T>
 int fma_dispatch(int head_dim, FA_LAUNCH_PARAMS) {
@@ -1278,11 +1308,12 @@ long long smem_of(int kernel, int head_dim, int rows, int split_keys) {
 }
 
 // Shapes every kernel takes: 0 = launch, -1 = nothing to do, else a CUDA
-// error code.
-int check(long long B, int Hq, int Hkv, long long Tq, long long Tk) {
+// error code. A window is causal and not negative.
+int check(long long B, int Hq, int Hkv, long long Tq, long long Tk,
+          int causal, int window) {
   if (B <= 0 || Hq <= 0 || Tq <= 0) return -1;
   if (Tk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq > 65535 || Hkv > 65535 ||
-      B > 65535)
+      B > 65535 || window < 0 || (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
@@ -1291,9 +1322,10 @@ int check(long long B, int Hq, int Hkv, long long Tq, long long Tk) {
 
 extern "C" int fa_attention(int dtype, int head_dim, long long B, int Hq,
                             int Hkv, long long Tq, long long Tk, int causal,
-                            float scale, const void* q, const void* k,
-                            const void* v, void* o, void* stream) {
-  const int c = check(B, Hq, Hkv, Tq, Tk);
+                            int window, float scale, const void* q,
+                            const void* k, const void* v, void* o,
+                            void* stream) {
+  const int c = check(B, Hq, Hkv, Tq, Tk, causal, window);
   if (c) return c < 0 ? static_cast<int>(cudaSuccess) : c;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return fma_dispatch<float>(head_dim, FA_ARGS);
@@ -1302,11 +1334,11 @@ extern "C" int fa_attention(int dtype, int head_dim, long long B, int Hq,
 }
 
 extern "C" int fa_decode(int dtype, int head_dim, long long B, int Hq, int Hkv,
-                         long long Tq, long long Tk, int causal, float scale,
-                         int split_keys, const void* q, const void* k,
-                         const void* v, void* o, void* part_ml_v,
-                         void* part_acc_v, void* stream) {
-  const int c = check(B, Hq, Hkv, Tq, Tk);
+                         long long Tq, long long Tk, int causal, int window,
+                         float scale, int split_keys, const void* q,
+                         const void* k, const void* v, void* o,
+                         void* part_ml_v, void* part_acc_v, void* stream) {
+  const int c = check(B, Hq, Hkv, Tq, Tk, causal, window);
   if (c) return c < 0 ? static_cast<int>(cudaSuccess) : c;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = nullptr;  // all Tk rows are keys
@@ -1328,8 +1360,8 @@ extern "C" int fa_decode_cache(int dtype, int head_dim, long long B, int Hq,
                                void* part_ml_v, void* part_acc_v,
                                void* stream) {
   const long long Tk = S;
-  const int causal = 0;
-  const int c = check(B, Hq, Hkv, Tq, Tk);
+  const int causal = 0, window = 0;  // a ring holds only in-window keys
+  const int c = check(B, Hq, Hkv, Tq, Tk, causal, window);
   if (c) return c < 0 ? static_cast<int>(cudaSuccess) : c;
   if (length == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1353,10 +1385,10 @@ extern "C" long long fa_smem_bytes(int kernel, int dtype, int head_dim,
 }
 
 extern "C" int fa_wgmma(int head_dim, long long B, int Hq, int Hkv,
-                        long long Tq, long long Tk, int causal, float scale,
-                        const void* q, const void* k, const void* v, void* o,
-                        void* stream) {
-  const int c = check(B, Hq, Hkv, Tq, Tk);
+                        long long Tq, long long Tk, int causal, int window,
+                        float scale, const void* q, const void* k,
+                        const void* v, void* o, void* stream) {
+  const int c = check(B, Hq, Hkv, Tq, Tk, causal, window);
   if (c) return c < 0 ? static_cast<int>(cudaSuccess) : c;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return wg::launch<64>(FA_ARGS);

@@ -27,7 +27,11 @@ and is the on-card reference.
 Conventions of all (and of the oracle ``ref.attention_ref``): queries are
 right-aligned to the keys (query ``i`` at position ``Tk - Tq + i``);
 causal masking uses -1e30; a row that sees no key (causal, ``Tq > Tk``)
-averages ``v`` over the ``Tk`` real keys. The JAX kernel averages its
+averages ``v`` over the ``Tk`` real keys. A sliding ``window > 0``
+(causal only) also masks the keys that lie ``window`` or more positions
+before the query (a query at p sees the keys ``p - window < k <= p``: the
+mask of the reference model's ``blockwise_causal_attention``); key blocks
+wholly below the window are skipped. The JAX kernel averages its
 block padding there too, so for those rows it differs from its own oracle.
 The ``wgmma`` kernel rounds the softmax weights to bfloat16 before the
 second product (the TPU kernel keeps them in float32).
@@ -136,12 +140,22 @@ def decode_split_keys(B: int, Hkv: int, Tk: int, n_sm: int) -> int:
     return split
 
 
-def _key_end(first_qpos: int, end_qpos: int, Tk: int, causal: bool) -> int:
-    """Keys a query block must visit: up to its last position when causal,
-    all of them when its first row sees no key (it averages them all)."""
+def check_window(window: int, causal: bool) -> None:
+    """Raise unless ``window`` is 0 (none) or positive with ``causal``."""
+    if window < 0 or (window and not causal):
+        raise ValueError(f"flash_attention: window={window} with causal="
+                         f"{causal}; a window is positive and causal")
+
+
+def _key_range(first_qpos: int, end_qpos: int, Tk: int, causal: bool,
+               window: int):
+    """Keys ``[lo, hi)`` a query block must visit: from the first key in
+    its first row's window up to its last position when causal, all of
+    them when its first row sees no key (it averages them all)."""
     if not causal or first_qpos < 0:
-        return Tk
-    return min(Tk, end_qpos)
+        return 0, Tk
+    lo = max(0, first_qpos - window + 1) if window > 0 else 0
+    return lo, min(Tk, end_qpos)
 
 
 # ---------------------------------------------------------------------------
@@ -151,12 +165,15 @@ def _key_end(first_qpos: int, end_qpos: int, Tk: int, causal: bool) -> int:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           scale: Optional[float] = None, block_q: int = 128,
-                          block_k: int = 128) -> torch.Tensor:
+                          block_k: int = 128, window: int = 0
+                          ) -> torch.Tensor:
     """``q [B, Hq, Tq, Dh]``, ``k/v [B, Hkv, Tk, Dh]`` -> ``[B, Hq, Tq, Dh]``
     in q's dtype: per block of ``block_q`` queries, an online softmax over
     blocks of ``block_k`` keys in float32. The query heads of one GQA group
-    share their key/value head by broadcasting (no copy)."""
+    share their key/value head by broadcasting (no copy). ``window > 0``:
+    a sliding window (see the module docstring)."""
     check_shapes(q, k, v)
+    check_window(window, causal)
     B, Hq, Tq, Dh = q.shape
     Hkv, Tk = k.shape[1:3]
     group = Hq // Hkv
@@ -177,13 +194,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = torch.zeros_like(qb)
         qpos = torch.arange(q_offset + q0, q_offset + q1,
                             device=q.device)[:, None]
-        for k0 in range(0, _key_end(q_offset + q0, q_offset + q1, Tk,
-                                    causal), block_k):
+        lo, hi = _key_range(q_offset + q0, q_offset + q1, Tk, causal, window)
+        for k0 in range(lo, hi, block_k):
             k1 = min(k0 + block_k, Tk)
             s = (qb @ kf[:, :, :, k0:k1].mT) * scale
             if causal:
                 kpos = torch.arange(k0, k1, device=q.device)[None, :]
-                s = torch.where(qpos >= kpos, s, s.new_tensor(_NEG_INF))
+                seen = qpos >= kpos
+                if window > 0:
+                    seen = seen & (qpos - kpos < window)
+                s = torch.where(seen, s, s.new_tensor(_NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
@@ -207,11 +227,11 @@ def _library():
     if not getattr(lib, "_fa_bound", False):
         i, ll, f, ptr = (ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                          ctypes.c_void_p)
-        lib.fa_attention.argtypes = [i, i, ll, i, i, ll, ll, i, f,
+        lib.fa_attention.argtypes = [i, i, ll, i, i, ll, ll, i, i, f,
                                      ptr, ptr, ptr, ptr, ptr]
-        lib.fa_decode.argtypes = [i, i, ll, i, i, ll, ll, i, f, i,
+        lib.fa_decode.argtypes = [i, i, ll, i, i, ll, ll, i, i, f, i,
                                   ptr, ptr, ptr, ptr, ptr, ptr, ptr]
-        lib.fa_wgmma.argtypes = [i, ll, i, i, ll, ll, i, f,
+        lib.fa_wgmma.argtypes = [i, ll, i, i, ll, ll, i, i, f,
                                  ptr, ptr, ptr, ptr, ptr]
         lib.fa_decode_cache.argtypes = [i, i, ll, i, i, ll, ll, f, i,
                                         ptr, ptr, ptr, ptr, ptr, ptr, ptr,
@@ -273,17 +293,21 @@ def _decode_scratch(B: int, Hkv: int, Tk: int, rows: int, Dh: int,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          scale: Optional[float] = None,
-                         kernel: Optional[str] = None) -> torch.Tensor:
+                         kernel: Optional[str] = None,
+                         window: int = 0) -> torch.Tensor:
     """Attention over contiguous ``q [B, Hq, Tq, Dh]``, ``k/v [B, Hkv, Tk,
-    Dh]``, float32 or bfloat16, ``Dh`` in `HEAD_DIMS`.
+    Dh]``, float32 or bfloat16, ``Dh`` in `HEAD_DIMS`; ``window > 0`` a
+    causal sliding window, which all three kernels take.
 
     CPU tensors take `flash_attention_plain`; CUDA tensors launch the
     kernel `select_kernel` picks (nothing for an empty output) or raise.
     ``kernel`` ("decode", "wgmma" or "fma") names one instead, for timing
     and tests, and raises if that kernel does not take these inputs."""
     check_shapes(q, k, v)
+    check_window(window, causal)
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     window=window)
     _check_card_inputs("flash_attention", q, k, v)
     B, Hq, Tq, Dh = q.shape
     Hkv, Tk = k.shape[1:3]
@@ -307,7 +331,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     lib = _library()
-    common = (B, Hq, Hkv, Tq, Tk, int(causal), float(scale))
+    common = (B, Hq, Hkv, Tq, Tk, int(causal), int(window), float(scale))
     if chosen == "decode":
         split_keys, part, part_acc = _decode_scratch(B, Hkv, Tk, rows, Dh,
                                                      q.device)

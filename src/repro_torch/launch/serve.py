@@ -1,12 +1,15 @@
 """Serving driver: two workloads behind one CLI, as in the JAX package.
 
-``decode`` — batched LM decoding with KV caches (the dense family): the
-prompt teacher-forced through `decode_step`, then greedy steps; attention
-runs the CUDA kernels on the card (the split-K decode kernel on the cache
-in place, in every layer of every step):
+``decode`` — batched LM decoding with KV caches (the dense and hybrid
+families): the prompt teacher-forced through `decode_step`, then greedy
+steps; attention runs the CUDA kernels on the card (the split-K decode
+kernel on the cache in place, a sliding-window layer's cache a ring, in
+every layer of every step; a hybrid block's SSM step is elementwise):
 
     python -m repro_torch.launch.serve --workload decode --arch qwen2-1.5b \
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
+    python -m repro_torch.launch.serve --workload decode --arch hymba-1.5b \
+        --device cpu
 
 As in the reference, ``--reduced`` cannot be turned off: the CLI serves
 the reduced config, and the full width is ``ServeConfig(reduced=False)``.
@@ -102,8 +105,9 @@ def generate(model, cfg, prompts: torch.Tensor, gen: int,
     of capacity ``max_len``, the prompt ``[B, P]`` teacher-forced through
     `decode_step` one position at a time, then ``gen`` greedy steps (argmax
     over the real vocabulary). Returns ``tokens [B, gen]`` (int32, on the
-    prompts' device), the wall ``seconds`` of the ``P + gen`` steps and
-    ``tok_per_s``. Nothing waits on the host between steps."""
+    prompts' device), the last step's ``logits [B, 1, padded_vocab]``
+    (position ``P + gen - 1``), the wall ``seconds`` of the ``P + gen``
+    steps and ``tok_per_s``. Nothing waits on the host between steps."""
     from repro_torch.models import decode_step, init_caches
 
     B, P = prompts.shape
@@ -125,7 +129,8 @@ def generate(model, cfg, prompts: torch.Tensor, gen: int,
     dt = time.perf_counter() - t0
     tokens = torch.cat(generated, dim=1) if generated else \
         prompts.new_zeros((B, 0), dtype=torch.int32)
-    return {"tokens": tokens, "seconds": dt, "tok_per_s": B * (P + gen) / dt}
+    return {"tokens": tokens, "logits": logits, "seconds": dt,
+            "tok_per_s": B * (P + gen) / dt}
 
 
 def serve(serve_cfg: ServeConfig, emit=print, *, device: Device = None

@@ -12,15 +12,17 @@ Where attention runs (``impl``):
 * ``"auto"`` — the CUDA kernels on a CUDA tensor, the plain versions on a
   CPU tensor. Prefill runs the flash kernel
   (`kernels.flash_attention.flash_attention_cuda`, the ``wgmma`` kernel at
-  bf16 prefill widths) on the real heads ``q[:, :, :num_heads]`` against
+  bf16 prefill widths, with the layer's sliding window if it has one) on
+  the real heads ``q[:, :, :num_heads]`` against
   the un-expanded k/v, and pads the padded heads back with zeros: exact,
   since their ``wo`` rows are zero and the kernel's head map
   ``i // (Hq / Hkv)`` is `expand_kv_heads`' map on the real heads. Decode
   runs the split-K decode kernel on the cache in place
   (`kernels.flash_attention.decode_attention_cuda`), reading the cache's
-  ``length`` from device memory. A configuration no kernel takes raises
-  on the card (a prefill window, a logit softcap, a head_dim without an
-  instance): nothing gives way to the plain versions.
+  ``length`` from device memory; a windowed layer's cache is a ring that
+  holds only in-window keys, so the kernel needs no window there. A
+  configuration no kernel takes raises on the card (a logit softcap, a
+  head_dim without an instance): nothing gives way to the plain versions.
 * ``"plain"`` — `blockwise_causal_attention` and `decode_attention` on any
   device (the reference's algorithms; each call adds one to
   `PLAIN_CALLS`).
@@ -214,15 +216,11 @@ def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     return KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
 
 
-def _check_kernel_config(cfg: ModelConfig, window: int, prefill: bool):
+def _check_kernel_config(cfg: ModelConfig):
     if cfg.attn_logit_softcap > 0.0:
         raise NotImplementedError(
             f"attention: no CUDA kernel takes a logit softcap "
             f"({cfg.attn_logit_softcap}); impl='plain' runs the plain version")
-    if prefill and window > 0:
-        raise NotImplementedError(
-            f"attention: no CUDA prefill kernel takes a sliding window "
-            f"({window}); impl='plain' runs the plain version")
 
 
 def _pad_heads(ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -248,11 +246,11 @@ def attention_layer(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     if cache is None:
         new_cache = None
         if kernel:
-            _check_kernel_config(cfg, window, prefill=True)
+            _check_kernel_config(cfg)
             o = kfa.flash_attention_cuda(
                 q[:, :, :H].transpose(1, 2).contiguous(),
                 k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous(), causal=causal)
+                v.transpose(1, 2).contiguous(), causal=causal, window=window)
             ctx = _pad_heads(o.transpose(1, 2), cfg)
         else:
             ke, ve = expand_kv_heads(k, v, cfg.padded_heads, H)
@@ -265,7 +263,7 @@ def attention_layer(params: Attention, x: torch.Tensor, cfg: ModelConfig,
         # wq/wo rows, and slicing keeps the grouped [Hkv, g] shape.
         q_att = q[:, :, :H]
         if kernel:
-            _check_kernel_config(cfg, window, prefill=False)
+            _check_kernel_config(cfg)
             o = kfa.decode_attention_cuda(
                 q_att.transpose(1, 2).contiguous(), new_cache.k, new_cache.v,
                 new_cache.length)

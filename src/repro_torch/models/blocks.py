@@ -5,7 +5,7 @@ the port keeps a run as an ``nn.ModuleList`` of blocks and loops over it.
 A run's decode caches are stacked as in the reference (``[count, ...]``
 leading dim), and each layer reads and writes its slice in place.
 
-This slice ports the ``dense`` kind. The other kinds (``moe``, ``hybrid``,
+The ``dense`` and ``hybrid`` kinds are ported. The other kinds (``moe``,
 ``mlstm``, ``slstm``) raise `NotImplementedError` naming their ROADMAP
 item (queue A, item 5).
 """
@@ -20,6 +20,7 @@ import torch.nn as nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import init_rms_norm, rms_norm
 
 
@@ -56,9 +57,8 @@ def layer_schedule(cfg: ModelConfig) -> List[Run]:
     return runs
 
 
+_PORTED = ("dense", "hybrid")
 _WAITING = {"moe": "the MoE family (deepseek-moe-16b, grok-1-314b)",
-            "hybrid": "the hybrid family (hymba-1.5b: ssm_scan and "
-                      "windowed prefill)",
             "mlstm": "the xLSTM family (xlstm-350m)",
             "slstm": "the xLSTM family (xlstm-350m)"}
 
@@ -72,18 +72,22 @@ def _not_ported(kind: str) -> NotImplementedError:
 
 
 class Block(nn.Module):
-    """A pre-norm dense block: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """A pre-norm block: ``ln1``, ``attn``, ``ln2``, ``mlp``; a hybrid
+    block also ``ssm`` and ``ln_ssm``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator,
                  dtype: torch.dtype):
         super().__init__()
-        if kind != "dense":
+        if kind not in _PORTED:
             raise _not_ported(kind)
         d = cfg.d_model
         self.ln1 = init_rms_norm(d, dtype, gen.device)
         self.attn = attn_lib.init_attention(cfg, gen, dtype)
         self.ln2 = init_rms_norm(d, dtype, gen.device)
         self.mlp = mlp_lib.init_mlp(gen, d, cfg.d_ff, dtype)
+        if kind == "hybrid":
+            self.ssm = ssm_lib.init_ssm(cfg, gen, dtype)
+            self.ln_ssm = init_rms_norm(d, dtype, gen.device)
 
 
 def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
@@ -94,19 +98,29 @@ def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
 def apply_block(params: Block, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 *, positions: torch.Tensor, window: int, cache=None,
                 causal: bool = True, impl: str = "auto"):
-    """Pre-norm residual block. Returns (x, new_cache, aux_loss); a dense
-    block has no auxiliary loss (0.0)."""
-    if kind != "dense":
+    """Pre-norm residual block. Returns (x, new_cache, aux_loss); the
+    ported kinds have no auxiliary loss (0.0). A hybrid block (Hymba) runs
+    attention and the SSM on the same normed input and averages them,
+    the SSM output normed first; ``impl`` says where both run."""
+    if kind not in _PORTED:
         raise _not_ported(kind)
     h = rms_norm(x, params.ln1, cfg.rmsnorm_eps)
     attn_cache = cache["attn"] if cache is not None else None
     a, new_attn_cache = attn_lib.attention_layer(
         params.attn, h, cfg, positions, cache=attn_cache, window=window,
         causal=causal, impl=impl)
-    x = x + a
+    new_cache = None if cache is None else dict(attn=new_attn_cache)
+    if kind == "hybrid":
+        s, new_ssm_cache = ssm_lib.ssm_layer(
+            params.ssm, h, cfg, cache=cache["ssm"] if cache is not None
+            else None, impl=impl)
+        x = x + 0.5 * (a + rms_norm(s, params.ln_ssm, cfg.rmsnorm_eps))
+        if cache is not None:
+            new_cache["ssm"] = new_ssm_cache
+    else:
+        x = x + a
     h2 = rms_norm(x, params.ln2, cfg.rmsnorm_eps)
     x = x + mlp_lib.mlp(params.mlp, h2)
-    new_cache = None if cache is None else dict(attn=new_attn_cache)
     return x, new_cache, 0.0
 
 
@@ -114,16 +128,28 @@ def init_run_cache(cfg: ModelConfig, run: Run, B: int, S: int,
                    dtype: torch.dtype, device):
     """A run's decode caches, stacked: ``attn`` = `KVCache` with ``k``/``v``
     ``[count, B, Hkv, S', Dh]`` and ``length`` ``[count]``, where ``S'`` is
-    the window for a windowed run (a ring) and ``S`` otherwise."""
-    if run.kind != "dense":
+    the window for a windowed run (a ring) and ``S`` otherwise; a hybrid
+    run also ``ssm`` = `SSMCache` with ``h [count, B, d_inner, n]``
+    (float32) and ``conv [count, B, K-1, d_inner]``."""
+    if run.kind not in _PORTED:
         raise _not_ported(run.kind)
-    one = attn_lib.init_kv_cache(
-        cfg, B, S if run.window == 0 else min(S, run.window), dtype, device)
-    return dict(attn=attn_lib.KVCache(
-        *(t.expand((run.count,) + t.shape).clone() for t in one)))
+
+    def stack(one):
+        return type(one)(*(t.expand((run.count,) + t.shape).clone()
+                           for t in one))
+    cache = dict(attn=stack(attn_lib.init_kv_cache(
+        cfg, B, S if run.window == 0 else min(S, run.window), dtype,
+        device)))
+    if run.kind == "hybrid":
+        cache["ssm"] = stack(ssm_lib.init_ssm_cache(cfg, B, dtype, device))
+    return cache
 
 
 def layer_cache(run_cache, li: int):
     """Layer ``li``'s slice of a stacked run cache (views, not copies)."""
     c = run_cache["attn"]
-    return dict(attn=attn_lib.KVCache(c.k[li], c.v[li], c.length[li]))
+    out = dict(attn=attn_lib.KVCache(c.k[li], c.v[li], c.length[li]))
+    if "ssm" in run_cache:
+        s = run_cache["ssm"]
+        out["ssm"] = ssm_lib.SSMCache(s.h[li], s.conv[li])
+    return out

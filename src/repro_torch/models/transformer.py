@@ -1,7 +1,8 @@
 """The decoder-only causal LM (PyTorch): init, prefill, decode.
 
-The JAX package's ``repro.models.transformer`` for the dense family. Its
-functional API, with an ``nn.Module`` in place of the parameter pytree:
+The JAX package's ``repro.models.transformer`` for the dense and hybrid
+families. Its functional API, with an ``nn.Module`` in place of the
+parameter pytree:
 
     model = init_model(cfg, seed, device=...)
     logits = prefill(model, cfg, tokens)
@@ -9,9 +10,10 @@ functional API, with an ``nn.Module`` in place of the parameter pytree:
 
 ``encode`` and ``train_loss`` (the encoder-decoder and training slices)
 wait; an encoder-decoder config raises. ``impl`` (``"auto"`` or
-``"plain"``) says where attention runs (`models.attention`): ``"auto"``
-runs the CUDA kernels on the card. Decode writes the caches in place and
-returns them with the lengths advanced.
+``"plain"``) says where attention and the SSM scan run
+(`models.attention`, `models.ssm`): ``"auto"`` runs the CUDA kernels on
+the card. Decode writes the caches in place and returns them with the
+lengths advanced.
 """
 from __future__ import annotations
 
@@ -97,7 +99,7 @@ def _apply_stack(model: CausalLM, x: torch.Tensor, cfg: ModelConfig,
         if new_caches is not None:
             # The layers wrote their slices of the run's buffers in place.
             c = rcache["attn"]
-            new_caches.append(dict(attn=attn_lib.KVCache(
+            new_caches.append(dict(rcache, attn=attn_lib.KVCache(
                 c.k, c.v, torch.stack(lengths))))
     return x, new_caches, aux_total
 

@@ -8,6 +8,8 @@ Tq in {1, 7}, non-causal, block sizes, scale — at the suite's TOL, and the
 port's oracle against the JAX oracle. For Tq > Tk (causal rows that see
 no key) the port follows the oracle ``attention_ref``, not the JAX kernel,
 which averages its block padding there; one test pins that difference.
+A sliding window (the plain version's and the kernels' ``window``) is
+held against the JAX model's ``blockwise_causal_attention(window=...)``.
 The split-K decode kernel's two passes (per-split partials, then the
 merge) are mirrored by a test-only plain function, held against the JAX
 kernel and the oracle, and the dispatch between the three CUDA kernels is
@@ -36,9 +38,11 @@ def jx():
     from repro.kernels.flash_attention import ref as jref
     from repro.kernels.flash_attention.flash_attention import \
         flash_attention_batched
+    from repro.models.attention import blockwise_causal_attention
 
     return types.SimpleNamespace(jnp=jnp, ref=jref,
-                                 pallas=flash_attention_batched)
+                                 pallas=flash_attention_batched,
+                                 blockwise=blockwise_causal_attention)
 
 
 TOL = {np.float32: dict(rtol=2e-4, atol=2e-4),
@@ -172,6 +176,74 @@ def test_empty_and_bad_shapes():
     with pytest.raises(ValueError):
         ops.flash_attention(torch.zeros(1, 2, 4, 16), torch.zeros(1, 1, 4, 8),
                             torch.zeros(1, 1, 4, 8))
+
+
+# ---------------------------------------------------------------------------
+# Sliding window
+# ---------------------------------------------------------------------------
+
+def _jax_windowed(arrays, dtype, window, chunk):
+    """The JAX model's ``blockwise_causal_attention`` on ``[B, H, T, Dh]``
+    arrays, k/v expanded to the query heads by the GQA map."""
+    jnp = jx().jnp
+    q, k, v = _jax(arrays, dtype)
+    g = q.shape[1] // k.shape[1]
+    k, v = jnp.repeat(k, g, axis=1), jnp.repeat(v, g, axis=1)
+    out = jx().blockwise(*(x.transpose(0, 2, 1, 3) for x in (q, k, v)),
+                         chunk=chunk, window=window)
+    return out.transpose(0, 2, 1, 3)
+
+
+#: (B, Hq, Hkv, T, Dh, window, JAX chunk, plain block_q/block_k): a
+#: window of one key, windows inside, across and past a block, hymba's
+#: GQA group of 5, and a window past T (plain causal attention).
+WINDOW_CASES = [(2, 4, 2, 100, 16, 1, 32, 32),
+                (1, 6, 2, 100, 32, 16, 32, 16),
+                (1, 10, 2, 130, 64, 33, 64, 128),
+                (1, 10, 2, 150, 16, 100, 64, 32),
+                (2, 4, 1, 96, 16, 64, 32, 64),
+                (1, 2, 2, 64, 16, 200, 64, 16)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,T,Dh,window,chunk,block", WINDOW_CASES)
+def test_window_matches_jax_blockwise(B, Hq, Hkv, T, Dh, window, chunk,
+                                      block, dtype):
+    arrays = _rand_qkv(np.random.default_rng(T + window), B, Hq, Hkv, T, T,
+                       Dh)
+    want = _jax_windowed(arrays, dtype, window, chunk)
+    tq = _torch(arrays, dtype)
+    got = kfa.flash_attention_cuda(*tq, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    blocked = kfa.flash_attention_plain(*tq, window=window, block_q=block,
+                                        block_k=block)
+    np.testing.assert_allclose(_np(blocked), _np(want), **TOL[dtype])
+    if window >= T:
+        np.testing.assert_array_equal(_np(blocked), _np(
+            kfa.flash_attention_plain(*tq, block_q=block, block_k=block)))
+
+
+def test_window_skips_whole_blocks_below_it():
+    """Key blocks wholly below the window are never visited: NaN keys
+    there change nothing."""
+    arrays = _rand_qkv(np.random.default_rng(1), 1, 4, 2, 256, 256, 16)
+    q, k, v = _torch(arrays, np.float32)
+    want = kfa.flash_attention_plain(q, k, v, window=64, block_q=64,
+                                     block_k=64)
+    k[:, :, :64], v[:, :, :64] = float("nan"), float("nan")
+    got = kfa.flash_attention_plain(q, k, v, window=64, block_q=64,
+                                    block_k=64)
+    assert torch.isnan(got[:, :, :128]).any()
+    np.testing.assert_array_equal(_np(got[:, :, 128:]),
+                                  _np(want[:, :, 128:]))
+
+
+def test_bad_windows_raise():
+    q = torch.zeros(1, 2, 4, 16)
+    with pytest.raises(ValueError, match="window"):
+        kfa.flash_attention_plain(q, q, q, window=-1)
+    with pytest.raises(ValueError, match="window"):
+        kfa.flash_attention_cuda(q, q, q, window=2, causal=False)
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +456,50 @@ def test_failed_launches_raise_on_card(cuda, monkeypatch):
         kfa.flash_attention_cuda(q, q, q, kernel="wgmma")  # float32
     with pytest.raises(ValueError, match="decode"):
         kfa.flash_attention_cuda(q, q, q, kernel="decode")  # 100 rows
+
+
+#: Windowed card cases: (B, Hq, Hkv, Tq, Tk, Dh, window). hymba-1.5b's
+#: head layout (25 query heads, 5 kv heads, Dh 64) in prefill and decode,
+#: a wgmma prefill whose early Q tiles skip whole key tiles (window 1024 at
+#: T = 1100, Dh 128), a window of one key, windowed rows seeing no key
+#: (Tq > Tk), decode rows over splits below the window, and a window past
+#: T.
+WINDOW_CARD_CASES = [(1, 25, 5, 300, 300, 64, 128),
+                     (2, 25, 5, 1, 300, 64, 128),
+                     (2, 6, 2, 5, 300, 64, 7),
+                     (1, 4, 2, 1100, 1100, 128, 1024),
+                     (1, 4, 2, 260, 260, 16, 1),
+                     (1, 6, 2, 300, 200, 64, 50),
+                     (1, 4, 2, 200, 200, 64, 500)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,Dh,window", WINDOW_CARD_CASES)
+def test_window_kernels_match_plain_on_card(cuda, dtype, B, Hq, Hkv, Tq, Tk,
+                                            Dh, window):
+    """The kernel the dispatch picks serves a windowed call (every one of
+    the three in some case) and agrees with the plain version."""
+    arrays = _rand_qkv(np.random.default_rng(Tq + window), B, Hq, Hkv, Tq,
+                       Tk, Dh)
+    tq = _torch(arrays, dtype, cuda)
+    kernel = _expected_kernel(dtype, Hq, Hkv, Tq, Dh)
+    before = dict(kfa.LAUNCHES)
+    got = kfa.flash_attention_cuda(*tq, window=window)
+    torch.cuda.synchronize()
+    assert {k: kfa.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == kfa.KERNEL_COUNTERS[kernel]) for k in before}
+    want = kfa.flash_attention_plain(*tq, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    if window < Tk:
+        causal = kfa.flash_attention_plain(*tq)
+        assert np.abs(_np(causal) - _np(want)).max() > 1e-2
+
+
+def test_window_card_cases_reach_every_kernel():
+    assert {_expected_kernel(d, c[1], c[2], c[3], c[5])
+            for c in WINDOW_CARD_CASES for d in ("bfloat16", np.float32)
+            } == {"decode", "wgmma", "fma"}
 
 
 @pytest.mark.cuda

@@ -1,7 +1,9 @@
-"""Port parity: the causal LM of the dense family. For each dense
-architecture's ``reduced_config`` (and a padded-heads and a sliding-window
-variant) the JAX ``init_model`` parameters, with the norms and QKV biases
-perturbed so that every leaf matters, are carried across with
+"""Port parity: the causal LM of the dense family, and the hybrid family's
+reduced config beside it (its own file, ``test_torch_lm_hybrid.py``, goes
+further). For each dense architecture's ``reduced_config`` (and a
+padded-heads and a sliding-window variant) the JAX ``init_model``
+parameters, with the norms and QKV biases perturbed so that every leaf
+matters, are carried across with
 ``convert.lm_params``; the port's ``prefill`` logits and 8 teacher-forced
 ``decode_step`` logits are held against JAX's at the suite's float32
 tolerance, and the port's decode against its own prefill. On the card
@@ -19,8 +21,10 @@ import torch
 from repro_torch import convert
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels.flash_attention import flash_attention as kfa
+from repro_torch.kernels.ssm_scan import ssm_scan as kss
 from repro_torch.models import attention as tattn
 from repro_torch.models import blocks as tblocks
+from repro_torch.models import ssm as tssm
 from repro_torch.models import (decode_step, init_caches, init_model,
                                 prefill)
 from _torch_jax import release_jax_caches  # noqa: F401
@@ -29,10 +33,12 @@ TOL = dict(rtol=2e-4, atol=2e-5)
 DENSE = ["qwen2-1.5b", "llama3.2-3b", "internlm2-1.8b", "codeqwen1.5-7b"]
 #: (arch, reduced_config overrides): the four dense architectures, then
 #: qwen2 with 4 query heads padded to 8 (tp_size 8, as 12 are padded to 16
-#: at full width) and with an 8-row sliding window (ring caches).
+#: at full width), with an 8-row sliding window (ring caches), and the
+#: reduced hybrid (hymba-1.5b: an SSM beside attention in every block).
 CASES = [(a, {}) for a in DENSE] + [
-    ("qwen2-1.5b", {"tp_size": 8}), ("llama3.2-3b", {"sliding_window": 8})]
-IDS = DENSE + ["qwen2-padded-heads", "llama-window-8"]
+    ("qwen2-1.5b", {"tp_size": 8}), ("llama3.2-3b", {"sliding_window": 8}),
+    ("hymba-1.5b", {})]
+IDS = DENSE + ["qwen2-padded-heads", "llama-window-8", "hymba"]
 B, T, STEPS = 2, 12, 8
 
 
@@ -154,8 +160,8 @@ def test_init_model_is_seeded_and_tied():
         cfg.padded_vocab, cfg.d_model)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "hymba-1.5b",
-                                  "xlstm-350m", "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-350m",
+                                  "seamless-m4t-medium"])
 def test_families_still_to_port_raise(arch):
     cfg = reduced_config(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 5"):
@@ -201,13 +207,13 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_path_matches_plain_on_card(cuda, arch, over, dtype):
     """Prefill and 8 decode steps with the kernels (one prefill launch
-    and one decode launch per layer and step, no plain call) against the
-    plain attention on the card (random weights of the port's own). The
-    head dim of the reduced configs is 16: the prefill takes the FMA or
-    decode kernel, the decode the split-K kernel. (JAX parity of the
-    same functions: the CPU tests above.)"""
-    if over.get("sliding_window"):
-        pytest.skip("no prefill kernel takes a window (tested below)")
+    and one decode launch per layer and step, a windowed layer's prefill
+    with its window; a hybrid layer's prefill also one ``ssm_scan``
+    launch; no plain call) against the plain attention and scan on the
+    card (random weights of the port's own). The head dim of the reduced
+    configs is 16: the prefill takes the FMA or decode kernel, the decode
+    the split-K kernel. (JAX parity of the same functions: the CPU tests
+    above.)"""
     name = str(dtype).split(".")[1]
     cfg = reduced_config(get_config(arch), **over, param_dtype=name,
                          compute_dtype=name)
@@ -216,7 +222,9 @@ def test_kernel_path_matches_plain_on_card(cuda, arch, over, dtype):
                          generator=torch.Generator(cuda).manual_seed(2))
     tol = TOL if dtype == torch.float32 else dict(rtol=5e-2, atol=5e-2)
     tattn.reset_plain_calls()
+    tssm.reset_plain_calls()
     kfa_before = dict(kfa.LAUNCHES)
+    ssm_before = kss.LAUNCHES["ssm_scan"]
     got = prefill(model, cfg, toks)
     want = prefill(model, cfg, toks, impl="plain")
     np.testing.assert_allclose(got.float().cpu().numpy(),
@@ -236,16 +244,20 @@ def test_kernel_path_matches_plain_on_card(cuda, arch, over, dtype):
     assert tattn.PLAIN_CALLS == {
         "blockwise_causal_attention": cfg.num_layers,
         "decode_attention": cfg.num_layers * STEPS}
+    # T = 12 is one scan chunk: one kernel scan and one plain scan a layer.
+    scans = cfg.num_layers if cfg.family == "hybrid" else 0
+    assert kss.LAUNCHES["ssm_scan"] - ssm_before == scans
+    assert tssm.PLAIN_CALLS["ssm_scan"] == scans
 
 
 @pytest.mark.cuda
 def test_configs_no_kernel_takes_raise_on_card(cuda):
-    """A logit softcap (prefill and decode), a prefill window and a head
-    dim without an instance raise on the card; the plain impl runs them."""
+    """A logit softcap (prefill and decode) and a head dim without an
+    instance raise on the card; the plain impl runs them. A window does
+    not raise: its prefill and decode run the kernels, held to plain."""
     base = get_config("llama3.2-3b")
     x_tok = torch.zeros((1, 4), dtype=torch.long, device=cuda)
     for over, calls in (({"attn_logit_softcap": 30.0}, ("prefill", "decode")),
-                        ({"sliding_window": 2}, ("prefill",)),
                         ({"head_dim": 48}, ("prefill", "decode"))):
         cfg = reduced_config(base, **over)
         model = init_model(cfg, 0, device=cuda)
@@ -260,9 +272,16 @@ def test_configs_no_kernel_takes_raise_on_card(cuda):
         prefill(model, cfg, x_tok, impl="plain")
         decode_step(model, cfg, init_caches(cfg, 1, 8, device=cuda),
                     x_tok[:, :1], 0, impl="plain")
-    # A windowed decode runs the kernel on the ring.
+    # A windowed prefill and decode run the kernels (the decode on the
+    # ring).
     cfg = reduced_config(base, sliding_window=2)
     model = init_model(cfg, 0, device=cuda)
+    tattn.reset_plain_calls()
+    got = prefill(model, cfg, x_tok + torch.arange(4, device=cuda))
+    assert tattn.PLAIN_CALLS["blockwise_causal_attention"] == 0
+    np.testing.assert_allclose(
+        got.cpu().numpy(), prefill(model, cfg, x_tok + torch.arange(
+            4, device=cuda), impl="plain").cpu().numpy(), **TOL)
     kc = init_caches(cfg, 1, 8, device=cuda)
     pc = init_caches(cfg, 1, 8, device=cuda)
     for i in range(5):
