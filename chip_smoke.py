@@ -136,10 +136,44 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      the windowed ``wgmma`` prefill (SDPA with the window as a boolean
      mask beside it), of the decode kernel on a full ring (SDPA beside
      it) and of ``ssm_scan`` at one prefill chunk, each beside its bound;
-  17. the ``kernels`` JSON line (each combine kernel's launches per path;
+  17. ``[lm_moe]``: the LM decode service for deepseek-moe-16b at full
+     width (28 layers, d_model 2048, 16 query and 16 kv heads, head_dim
+     128, 64 routed experts top-6 plus 2 shared, expert d_ff 1,408,
+     vocabulary 102,400; 33.8 GB in bf16), random weights from seed 0:
+     batch 64, a 256-token prompt teacher-forced, 64 greedy steps, caches
+     of 320. The service with the counters zeroed before and read after:
+     exactly 28 x 320 decode-kernel launches and nothing else, no plain
+     attention. Then, on the same weights, teacher-forced over the
+     service's positions: every decode-kernel call of the first 32 steps
+     against plain at the tight bf16 bound (a planted fault, one key too
+     few, misses it at every length), the dropped assignments per step
+     (a decode step has C = 8 slots per expert for 384 assignments; some
+     step must drop), a profile of 32 steps; one ``moe_layer`` at full
+     width on a layer's real decode input, under
+     ``set_sync_debug_mode("error")`` (no host sync), and in float32 on
+     the card and on the CPU from the same weights (routing equal, drops
+     > 0, outputs at the float32 TOL); ``prefill`` at B = 8, T = 256 (28
+     ``wgmma`` launches, each against plain). No model-level float32
+     logit gate: the float32 model (67.5 GB) does not fit beside the bf16
+     one, and the per-call gates carry the weight. Then grok-1-314b at
+     full width and depth 2 of 64 (22.9 GB in bf16; the card holds 80):
+     the service loop (`generate`) at batch 64, 64 prompt and 64 greedy
+     steps, caches of 128: 2 x 128 decode-kernel launches, every one with
+     the softcap 30 and held against plain with it (fault planted); a
+     profile of 16 steps; a prefill at B = 8, T = 128 (2 ``wgmma``
+     launches with the cap); and
+     the cap acting on kernel inputs at grok's head shape (48 query and 8
+     kv heads, Dh 128) scaled so that many scores pass +-60: the prefill
+     and decode kernels within the tight bound of plain with the cap,
+     which plain without it misses. Device times of the decode kernel at
+     deepseek's (1 row per kv head, L = 320) and grok's (6 rows, L = 128,
+     cap 30) shapes and of both prefills, beside their bounds and SDPA
+     (which has no softcap);
+  18. the ``kernels`` JSON line (each combine kernel's launches per path;
      ``ssm_scan``'s: ``ssm_scan``, ``lm_hybrid_prefill``; the flash
      kernels': ``flash``, ``lm_decode``, ``lm_prefill``, ``lm_hybrid``,
-     ``lm_hybrid_prefill``), then the device JSON line, last.
+     ``lm_hybrid_prefill``, ``lm_moe``, ``lm_moe_prefill``, ``lm_grok``,
+     ``lm_grok_prefill``), then the device JSON line, last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
 """
@@ -350,8 +384,9 @@ def phase_build() -> dict:
         built["flash_attention"].path, "HGMMA").items() if n}
     wgmma = {k: n for k, n in hgmma.items() if "wgmma_kernel" in k}
     say(f"[build] SASS lines with HGMMA (cuobjdump -sass): {hgmma}")
-    if len(wgmma) != 2 or set(hgmma) != set(wgmma):
-        fail(f"HGMMA expected in the two wgmma_kernel instances only: {hgmma}")
+    if len(wgmma) != 4 or set(hgmma) != set(wgmma):
+        fail(f"HGMMA expected in the four wgmma_kernel instances only (Dh 64 "
+             f"and 128, with and without the softcap): {hgmma}")
     report["flash_attention"]["sass_hgmma"] = hgmma
     say(f"[build] all sources built and loaded in {wall:.1f}s")
     return report
@@ -2038,7 +2073,7 @@ class _DecodeTap:
     def __init__(self, fa):
         self.fa, self.kernel = fa, fa.decode_attention_cuda
         self.length, self.fault_launches = 0, 0
-        self.ok, self.fault = {}, {}
+        self.ok, self.fault, self.softcaps = {}, {}, set()
 
     def __enter__(self):
         self.fa.decode_attention_cuda = self
@@ -2048,6 +2083,7 @@ class _DecodeTap:
         self.fa.decode_attention_cuda = self.kernel
 
     def __call__(self, q, k_cache, v_cache, length, **kw):
+        self.softcaps.add(kw.get("softcap", 0.0))
         out = self.kernel(q, k_cache, v_cache, length, **kw)
         want, tol = _tight_tol(functools.partial(
             self.fa.decode_attention_plain, **kw), q, k_cache, v_cache,
@@ -2075,7 +2111,7 @@ class _DecodeTap:
                 "fault_min_err_over_tol": min(fault),
                 "length_of_fault_min": lengths[fault.index(min(fault))],
                 "fault_caught_at": sum(f > 1.0 for f in fault),
-                "n_lengths": len(lengths)}
+                "n_lengths": len(lengths), "softcaps": sorted(self.softcaps)}
 
 
 def _lm_kernel_time(torch, kernel, plain, library, sets, bound,
@@ -2099,9 +2135,9 @@ def _lm_kernel_time(torch, kernel, plain, library, sets, bound,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def _say_lm_time(what, t) -> None:
+def _say_lm_time(what, t, library="sdpa") -> None:
     lib = ("" if t["library_ms"] is None else
-           f"sdpa {t['library_graph_ms'] * 1e3:.2f} us device "
+           f"{library} {t['library_graph_ms'] * 1e3:.2f} us device "
            f"({t['library_ms'] * 1e3:.2f} us calls), ")
     ratio = ("" if t["library_ms"] is None else
              f", kernel/sdpa {t['graph_ms'] / t['library_graph_ms']:.2f}")
@@ -2114,10 +2150,137 @@ def _say_lm_time(what, t) -> None:
         f"{t['max_err_over_tol']:.3f}")
 
 
-def phase_lm_decode(torch) -> dict:
-    import torch.nn.functional as F
+def _lm_profile(torch, step, steps, name) -> dict:
+    """Device busy, idle share, launches and top kernels over ``steps``
+    calls of ``step`` (one decode step each), traced with
+    ``torch.profiler``; the tables go to ``chiprun_out/profile_<name>``."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(steps):
+            step(j)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    kernels = _device_events(ka)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    dec_us = sum(e.self_device_time_total for e in kernels
+                 if "decode_kernel" in e.key or "merge_kernel" in e.key)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    OUT.mkdir(exist_ok=True)
+    (OUT / f"profile_{name}.txt").write_text(
+        ka.table(sort_by="self_device_time_total", row_limit=40) + "\n"
+        + ka.table(sort_by="cpu_time_total", row_limit=40))
+    launches = sum(e.count for e in kernels)
+    return {"steps": steps, "wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "busy_ms_per_step": busy_us / 1e3 / steps,
+            "idle_share": 1 - busy_us / 1e6 / wall,
+            "kernel_launches": launches,
+            "launches_per_step": launches / steps,
+            "decode_kernel_ms": dec_us / 1e3,
+            "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                    for e in top]}
+
+
+def _say_profile(tag, what, p) -> None:
+    say(f"[{tag}] profile of {p['steps']} decode steps ({what}): wall "
+        f"{p['wall_s'] * 1e3:.1f} ms (profiled), device busy "
+        f"{p['device_busy_s'] * 1e3:.2f} ms ({p['busy_ms_per_step']:.3f} ms "
+        f"per step) in {p['kernel_launches']} kernel launches "
+        f"({p['launches_per_step']:.1f} per step), idle "
+        f"{p['idle_share']:.1%}; decode+merge kernels "
+        f"{p['decode_kernel_ms']:.3f} ms; top: " + "; ".join(
+            f"{k[:48]} {ms:.2f} ms x{n}" for k, ms, n in p["top"]))
+
+
+def _check_layer_taps(tag, what, res) -> None:
+    if not res["max_err_over_tol"] <= 1.0:
+        fail(f"{tag} {what}: the decode kernel misses the tight bf16 bound "
+             f"against plain on its own inputs (err/tol "
+             f"{res['max_err_over_tol']:.3f} at length "
+             f"{res['length_of_max']})")
+    if res["fault_caught_at"] != res["n_lengths"]:
+        fail(f"{tag} {what}: the tight bound does not catch a kernel that "
+             f"drops the last key at every length (caught at "
+             f"{res['fault_caught_at']} of {res['n_lengths']})")
+
+
+def _say_layer_taps(tag, what, res, layers) -> None:
+    say(f"[{tag}] {what}: every decode-kernel call ({res['calls']} = "
+        f"{layers} layers x {res['n_lengths']} cache lengths "
+        f"{res['lengths'][0]}..{res['lengths'][1]}, softcaps "
+        f"{res['softcaps']}) vs plain in float32 on the same q and layer "
+        f"cache: max err/tol {res['max_err_over_tol']:.3f} (at length "
+        f"{res['length_of_max']}); planted fault (length - 1) exceeds it at "
+        f"{res['fault_caught_at']} of {res['n_lengths']} lengths, least "
+        f"err/tol {res['fault_min_err_over_tol']:.3f} (at length "
+        f"{res['length_of_fault_min']})")
+
+
+def _decode_time(torch, fa, B, Hq, Hkv, L, Dh, gen, softcap=0.0) -> dict:
+    """The decode kernel on full caches of ``L`` rows (four of them, so
+    each call reads HBM) against the plain version (with ``softcap``) and
+    SDPA (which has no softcap)."""
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    full = torch.tensor(L, dtype=torch.int32, device="cuda")
+    sets = [_qkv(torch, B, Hq, Hkv, 1, L, Dh, bf16, gen) + (full,)
+            for _ in range(4)]
+    q, k, v, _ = sets[0]
+    kernel = functools.partial(fa.decode_attention_cuda, softcap=softcap)
+    plain = functools.partial(fa.decode_attention_plain, softcap=softcap)
+    got = kernel(q, k, v, full)
+    err = _compare(torch, got, plain(q, k, v, full), FA_TOL["bfloat16"],
+                   f"decode kernel B={B} Hq={Hq} Hkv={Hkv} L={L}")
+    tight = _excess(got, *_tight_tol(plain, q, k, v, full)).item()
+    if not tight <= 1.0:
+        fail(f"decode kernel B={B} Hq={Hq} Hkv={Hkv} L={L}: err/tol "
+             f"{tight:.3f} over the tight bf16 bound")
+    n_bytes = 2 * (2 * B * Hkv * L * Dh + 2 * B * Hq * Dh)
+    sdpa = lambda q, k, v, n: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, enable_gqa=True)
+    t = _lm_kernel_time(
+        torch, kernel, plain, sdpa, sets,
+        _bound(n_bytes, 4 * B * Hq * Dh * L, "bfloat16"), 20)
+    t.update(max_abs_err=err, max_err_over_tol=tight)
+    del q, k, v, got, sets
+    torch.cuda.empty_cache()
+    return t
+
+
+def _prefill_time(torch, fa, B, Hq, Hkv, T, Dh, gen, softcap=0.0) -> dict:
+    """The prefill kernel (causal) at ``[B, Hq|Hkv, T, Dh]`` against the
+    plain version (with ``softcap``) and causal SDPA (no softcap)."""
+    import torch.nn.functional as F
+
+    sets = [_qkv(torch, B, Hq, Hkv, T, T, Dh, torch.bfloat16, gen)
+            for _ in range(2)]
+    q, k, v = sets[0]
+    kernel = functools.partial(fa.flash_attention_cuda, softcap=softcap)
+    plain = functools.partial(fa.flash_attention_plain, softcap=softcap)
+    got = kernel(q, k, v)
+    err = _compare(torch, got, plain(q, k, v), FA_TOL["bfloat16"],
+                   f"prefill kernel B={B} Hq={Hq} Hkv={Hkv} T={T}")
+    tight = _excess(got, *_tight_tol(plain, q, k, v)).item()
+    if not tight <= 1.0:
+        fail(f"prefill kernel B={B} Hq={Hq} Hkv={Hkv} T={T}: err/tol "
+             f"{tight:.3f} over the tight bf16 bound")
+    t = _lm_kernel_time(
+        torch, kernel, plain, lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), sets,
+        flash_bound(B, Hq, Hkv, T, T, Dh, True, "bfloat16"), 3)
+    t.update(max_abs_err=err, max_err_over_tol=tight,
+             kernel=fa.select_kernel(q, k))
+    del q, k, v, got, sets
+    torch.cuda.empty_cache()
+    return t
+
+
+def phase_lm_decode(torch) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.launch.serve import ServeConfig, serve
@@ -2200,27 +2363,9 @@ def phase_lm_decode(torch) -> dict:
             lk, kernel_caches = decode_step(model, cfg, kernel_caches,
                                             prompts[:, i:i + 1], i)
     layer_check = tap.result(torch)
-    say(f"[lm_decode] every decode-kernel call of the {LM_PROMPT} prompt "
-        f"steps ({layer_check['calls']} = {layers} layers x "
-        f"{layer_check['n_lengths']} cache lengths "
-        f"{layer_check['lengths'][0]}..{layer_check['lengths'][1]}) vs "
-        f"plain in float32 on the same q and layer cache: max err/tol "
-        f"{layer_check['max_err_over_tol']:.3f} (at length "
-        f"{layer_check['length_of_max']}; tol 2^-8 (sum p|v|/l + |o|) + "
-        f"{FA_BF16_ABS:g}); planted fault (length - 1) exceeds it at "
-        f"{layer_check['fault_caught_at']} of {layer_check['n_lengths']} "
-        f"lengths, least err/tol {layer_check['fault_min_err_over_tol']:.3f}"
-        f" (at length {layer_check['length_of_fault_min']})")
-    if not layer_check["max_err_over_tol"] <= 1.0:
-        fail(f"lm_decode: the decode kernel misses the tight bf16 bound "
-             f"against plain on its own inputs (err/tol "
-             f"{layer_check['max_err_over_tol']:.3f} at length "
-             f"{layer_check['length_of_max']})")
-    if layer_check["fault_caught_at"] != layer_check["n_lengths"]:
-        fail(f"lm_decode: the tight bound does not catch a kernel that "
-             f"drops the last key at every length (caught at "
-             f"{layer_check['fault_caught_at']} of "
-             f"{layer_check['n_lengths']})")
+    _say_layer_taps("lm_decode", f"the {LM_PROMPT} prompt steps",
+                    layer_check, layers)
+    _check_layer_taps("lm_decode", LM_ARCH, layer_check)
     reset_counts()
     _reset_plain_attention_calls()
     torch.cuda.synchronize()
@@ -2261,43 +2406,17 @@ def phase_lm_decode(torch) -> dict:
                 noise255)
 
     # Device busy over decode steps at cache lengths 256..287.
-    pos = LM_PROMPT
-    tok = lk[:, :, :vocab].argmax(-1)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for j in range(LM_PROFILE_STEPS):
-            lk, kernel_caches = decode_step(model, cfg, kernel_caches, tok,
-                                            pos + j)
-            tok = lk[:, :, :vocab].argmax(-1)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    ka = prof.key_averages()
-    kernels = _device_events(ka)
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    dec_us = sum(e.self_device_time_total for e in kernels
-                 if "decode_kernel" in e.key or "merge_kernel" in e.key)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    OUT.mkdir(exist_ok=True)
-    (OUT / "profile_lm_decode.txt").write_text(
-        ka.table(sort_by="self_device_time_total", row_limit=40) + "\n"
-        + ka.table(sort_by="cpu_time_total", row_limit=40))
-    profile_res = {
-        "steps": LM_PROFILE_STEPS, "wall_s": prof_wall,
-        "device_busy_s": busy_us / 1e6, "idle_share": 1 - busy_us / 1e6
-        / prof_wall, "kernel_launches": sum(e.count for e in kernels),
-        "decode_kernel_ms": dec_us / 1e3,
-        "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
-                for e in top]}
-    say(f"[lm_decode] profile of {LM_PROFILE_STEPS} decode steps (cache "
-        f"{pos}..{pos + LM_PROFILE_STEPS - 1}): wall {prof_wall * 1e3:.1f} "
-        f"ms (profiled), device busy {busy_us / 1e3:.2f} ms in "
-        f"{profile_res['kernel_launches']} kernel launches, idle "
-        f"{profile_res['idle_share']:.1%}; decode+merge kernels "
-        f"{dec_us / 1e3:.3f} ms; top: " + "; ".join(
-            f"{k[:48]} {ms:.2f} ms x{n}" for k, ms, n in profile_res["top"]))
-    del kernel_caches, lk, lp, lr, lpre, lpre_plain, lpre_ref, model
+    state = {"caches": kernel_caches, "tok": lk[:, :, :vocab].argmax(-1)}
+
+    def step(j):
+        logits, state["caches"] = decode_step(model, cfg, state["caches"],
+                                              state["tok"], LM_PROMPT + j)
+        state["tok"] = logits[:, :, :vocab].argmax(-1)
+
+    profile_res = _lm_profile(torch, step, LM_PROFILE_STEPS, "lm_decode")
+    _say_profile("lm_decode", f"cache {LM_PROMPT}.."
+                 f"{LM_PROMPT + LM_PROFILE_STEPS - 1}", profile_res)
+    del kernel_caches, state, lk, lp, lr, lpre, lpre_plain, lpre_ref, model
     torch.cuda.empty_cache()
 
     # The service, timed, with the counters zeroed before and read after.
@@ -2328,57 +2447,15 @@ def phase_lm_decode(torch) -> dict:
 
     # Kernel times at the path's shapes.
     gen = torch.Generator(device="cuda").manual_seed(3)
-    bf16 = torch.bfloat16
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    full = torch.tensor(LM_MAX, dtype=torch.int32, device="cuda")
-    # Four caches (134 MB, over the 50 MB L2): each call reads from HBM,
-    # as each layer of a step does.
-    sets = [_qkv(torch, LM_B, Hq, Hkv, 1, LM_MAX, Dh, bf16, gen) + (full,)
-            for _ in range(4)]
-    q, k, v, _ = sets[0]
-    n_bytes = 2 * (2 * LM_B * Hkv * LM_MAX * Dh + 2 * LM_B * Hq * Dh)
-    b_ms, b_by = _bound(n_bytes, 4 * LM_B * Hq * Dh * LM_MAX, "bfloat16")
-    got = fa.decode_attention_cuda(q, k, v, full)
-    err = _compare(torch, got, fa.decode_attention_plain(q, k, v, full),
-                   FA_TOL["bfloat16"], "lm decode kernel at L=512")
-    tight = _excess(got, *_tight_tol(fa.decode_attention_plain, q, k, v,
-                                      full)).item()
-    if not tight <= 1.0:
-        fail(f"lm decode kernel at L=512: err/tol {tight:.3f} over the "
-             "tight bf16 bound")
-    decode_time = _lm_kernel_time(
-        torch, fa.decode_attention_cuda, fa.decode_attention_plain,
-        lambda q, k, v, n: F.scaled_dot_product_attention(
-            q, k, v, enable_gqa=True), sets, (b_ms, b_by), 50)
-    decode_time.update(max_abs_err=err, max_err_over_tol=tight)
+    decode_time = _decode_time(torch, fa, LM_B, Hq, Hkv, LM_MAX, Dh, gen)
     _say_lm_time(f"lm decode attention B={LM_B} Hq={Hq} Hkv={Hkv} "
                  f"L={LM_MAX} Dh={Dh} bf16: split-K kernel", decode_time)
-    del q, k, v, got, sets
-    torch.cuda.empty_cache()
-    sets = [_qkv(torch, LM_B, Hq, Hkv, LM_PROMPT, LM_PROMPT, Dh, bf16, gen)
-            for _ in range(2)]
-    q, k, v = sets[0]
-    got = fa.flash_attention_cuda(q, k, v)
-    err = _compare(torch, got, fa.flash_attention_plain(q, k, v),
-                   FA_TOL["bfloat16"], "lm prefill kernel at T=256")
-    tight = _excess(got, *_tight_tol(fa.flash_attention_plain, q, k,
-                                      v)).item()
-    if not tight <= 1.0:
-        fail(f"lm prefill kernel at T=256: err/tol {tight:.3f} over the "
-             "tight bf16 bound")
-    b_ms, b_by = flash_bound(LM_B, Hq, Hkv, LM_PROMPT, LM_PROMPT, Dh, True,
-                             "bfloat16")
-    prefill_time = _lm_kernel_time(
-        torch, fa.flash_attention_cuda, fa.flash_attention_plain,
-        lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), sets, (b_ms, b_by), 3)
-    prefill_time.update(max_abs_err=err, max_err_over_tol=tight,
-                        kernel=fa.select_kernel(q, k))
+    prefill_time = _prefill_time(torch, fa, LM_B, Hq, Hkv, LM_PROMPT, Dh,
+                                 gen)
     _say_lm_time(f"lm prefill attention B={LM_B} Hq={Hq} Hkv={Hkv} "
                  f"T={LM_PROMPT} Dh={Dh} bf16 causal: "
                  f"{prefill_time['kernel']} kernel", prefill_time)
-    del q, k, v, got, sets
-    torch.cuda.empty_cache()
     return {"arch": LM_ARCH, "parameters": n_params,
             "noise": noise, "plain_vs_ref": p_vs_ref,
             "kernel_vs_ref": kernel_vs_ref, "kernel_vs_plain": kernel_vs_plain,
@@ -2425,6 +2502,7 @@ class _PrefillTaps:
         self.fa, self.ss = fa, ss
         self.attn, self.scan = fa.flash_attention_cuda, ss.ssm_scan_cuda
         self.windows, self.ok, self.fault, self.scan_excess = [], [], [], []
+        self.softcaps = set()
 
     def __enter__(self):
         self.fa.flash_attention_cuda = self.attention
@@ -2435,15 +2513,19 @@ class _PrefillTaps:
         self.fa.flash_attention_cuda = self.attn
         self.ss.ssm_scan_cuda = self.scan
 
-    def attention(self, q, k, v, *, causal=True, window=0, **kw):
-        out = self.attn(q, k, v, causal=causal, window=window, **kw)
+    def attention(self, q, k, v, *, causal=True, window=0, softcap=0.0,
+                  **kw):
+        out = self.attn(q, k, v, causal=causal, window=window,
+                        softcap=softcap, **kw)
         want, tol = _tight_tol(functools.partial(
-            self.fa.flash_attention_plain, causal=causal, window=window),
-            q, k, v)
+            self.fa.flash_attention_plain, causal=causal, window=window,
+            softcap=softcap), q, k, v)
         self.windows.append(window)
+        self.softcaps.add(softcap)
         self.ok.append(_excess(out, want, tol))
         if window:
-            bad = self.attn(q, k, v, causal=causal, window=window + 1, **kw)
+            bad = self.attn(q, k, v, causal=causal, window=window + 1,
+                            softcap=softcap, **kw)
             self.fault.append(_excess(bad, want, tol))
         return out
 
@@ -2458,13 +2540,16 @@ class _PrefillTaps:
     def result(self, torch) -> dict:
         ok = torch.stack(self.ok).tolist()
         fault = torch.stack(self.fault).tolist() if self.fault else []
-        scans = torch.stack(self.scan_excess).tolist()
+        scans = (torch.stack(self.scan_excess).tolist()
+                 if self.scan_excess else [0.0])
         return {"attention_calls": len(ok), "windows": sorted(
-                    set(self.windows)), "max_err_over_tol": max(ok),
+                    set(self.windows)), "softcaps": sorted(self.softcaps),
+                "max_err_over_tol": max(ok),
                 "fault_calls": len(fault),
                 "fault_min_err_over_tol": min(fault) if fault else None,
                 "fault_caught": sum(f > 1.0 for f in fault),
-                "scans": len(scans), "scan_max_err_over_tol": max(scans)}
+                "scans": len(self.scan_excess),
+                "scan_max_err_over_tol": max(scans)}
 
 
 def _window_mask(torch, T, window):
@@ -2476,7 +2561,6 @@ def _window_mask(torch, T, window):
 
 def phase_lm_hybrid(torch) -> dict:
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fa
@@ -2567,62 +2651,23 @@ def phase_lm_hybrid(torch) -> dict:
         with tap:
             lk, caches = decode_step(model, cfg, caches, seq[:, i:i + 1], i)
     layer_check = tap.result(torch)
-    say(f"[{tag}] every decode-kernel call of the {HY_GEN} steps past the "
-        f"window ({layer_check['calls']} = {layers} layers x "
-        f"{layer_check['n_lengths']} cache lengths "
-        f"{layer_check['lengths'][0]}..{layer_check['lengths'][1]}; cache "
-        f"rows {rings}) vs plain in float32 on the same q and cache: max "
-        f"err/tol {layer_check['max_err_over_tol']:.3f} (at length "
-        f"{layer_check['length_of_max']}); planted fault (the ring read one "
-        f"row short) exceeds it at {layer_check['fault_caught_at']} of "
-        f"{layer_check['n_lengths']} lengths, least err/tol "
-        f"{layer_check['fault_min_err_over_tol']:.3f}")
-    if not layer_check["max_err_over_tol"] <= 1.0:
-        fail(f"{tag}: the decode kernel misses the tight bf16 bound on a "
-             f"wrapped ring (err/tol {layer_check['max_err_over_tol']:.3f})")
-    if layer_check["fault_caught_at"] != layer_check["n_lengths"]:
-        fail(f"{tag}: the tight bound does not catch a ring read one row "
-             f"short at every step (caught at "
-             f"{layer_check['fault_caught_at']} of "
-             f"{layer_check['n_lengths']})")
+    _say_layer_taps(tag, f"the {HY_GEN} steps past the window (cache rows "
+                    f"{rings}; the fault reads a ring one row short)",
+                    layer_check, layers)
+    _check_layer_taps(tag, HY_ARCH, layer_check)
 
     # Device busy over 32 decode steps past the service's last.
-    tok = lk[:, :, :vocab].argmax(-1)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for j in range(HY_PROFILE_STEPS):
-            lk, caches = decode_step(model, cfg, caches, tok, HY_MAX + j)
-            tok = lk[:, :, :vocab].argmax(-1)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    ka = prof.key_averages()
-    kernels = _device_events(ka)
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    dec_us = sum(e.self_device_time_total for e in kernels
-                 if "decode_kernel" in e.key or "merge_kernel" in e.key)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    OUT.mkdir(exist_ok=True)
-    (OUT / "profile_lm_hybrid.txt").write_text(
-        ka.table(sort_by="self_device_time_total", row_limit=40) + "\n"
-        + ka.table(sort_by="cpu_time_total", row_limit=40))
-    profile_res = {
-        "steps": HY_PROFILE_STEPS, "wall_s": prof_wall,
-        "device_busy_s": busy_us / 1e6,
-        "idle_share": 1 - busy_us / 1e6 / prof_wall,
-        "kernel_launches": sum(e.count for e in kernels),
-        "decode_kernel_ms": dec_us / 1e3,
-        "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
-                for e in top]}
-    say(f"[{tag}] profile of {HY_PROFILE_STEPS} decode steps (positions "
-        f"{HY_MAX}..{HY_MAX + HY_PROFILE_STEPS - 1}): wall "
-        f"{prof_wall * 1e3:.1f} ms (profiled), device busy "
-        f"{busy_us / 1e3:.2f} ms in {profile_res['kernel_launches']} kernel "
-        f"launches, idle {profile_res['idle_share']:.1%}; decode+merge "
-        f"kernels {dec_us / 1e3:.3f} ms; top: " + "; ".join(
-            f"{k[:48]} {ms:.2f} ms x{n}" for k, ms, n in profile_res["top"]))
-    del caches, lk, tok
+    state = {"caches": caches, "tok": lk[:, :, :vocab].argmax(-1)}
+
+    def step(j):
+        logits, state["caches"] = decode_step(model, cfg, state["caches"],
+                                              state["tok"], HY_MAX + j)
+        state["tok"] = logits[:, :, :vocab].argmax(-1)
+
+    profile_res = _lm_profile(torch, step, HY_PROFILE_STEPS, tag)
+    _say_profile(tag, f"positions {HY_MAX}.."
+                 f"{HY_MAX + HY_PROFILE_STEPS - 1}", profile_res)
+    del caches, state, lk
     torch.cuda.empty_cache()
 
     # Prefill over the first sequences' prompt and generated tokens, with
@@ -2792,6 +2837,526 @@ def phase_lm_hybrid(torch) -> dict:
             "decode_attention": decode_time, "ssm_scan": scan_time}
 
 
+# ---------------------------------------------------------------------------
+# LM MoE family
+# ---------------------------------------------------------------------------
+
+#: deepseek-moe-16b (src/repro_torch/configs/deepseek_moe_16b.py) at full
+#: width, nothing cut: 28 layers, d_model 2048, 16 query and 16 kv heads,
+#: head_dim 128, 64 routed experts top-6 plus 2 shared, per-expert d_ff
+#: 1,408, vocabulary 102,400 (16.9 B parameters, 33.8 GB in bf16). A
+#: 256-token prompt teacher-forced and 64 greedy steps, caches of 320. A
+#: decode step's 64 tokens make 384 assignments for 64 experts of 8 slots
+#: each (capacity factor 1.25), so an expert that draws more than 8 drops
+#: the rest: the full width drops in decode, the reduced config never.
+MOE_ARCH, MOE_SEED = "deepseek-moe-16b", 0
+MOE_B, MOE_PROMPT, MOE_GEN = 64, 256, 64
+MOE_MAX = MOE_PROMPT + MOE_GEN
+#: Every decode-kernel call of the first prompt steps is held to plain.
+MOE_GATE_STEPS = 32
+MOE_PREFILL_B = 8
+MOE_PROFILE_STEPS = 32
+#: grok-1-314b (configs/grok_1_314b.py) at full width (d_model 6,144, 48
+#: query and 8 kv heads, head_dim 128, 8 experts top-2 of d_ff 32,768,
+#: vocabulary 131,072, logit softcap 30) and depth 2 of its 64 layers:
+#: ~630 GB in bf16 at full depth, 22.9 GB at 2 layers (the card holds 80).
+GROK_ARCH, GROK_SEED, GROK_LAYERS = "grok-1-314b", 0, 2
+GROK_B, GROK_PROMPT, GROK_GEN = 64, 64, 64
+GROK_MAX = GROK_PROMPT + GROK_GEN
+GROK_PREFILL_B = 8
+GROK_PROFILE_STEPS = 16
+#: The softcap gates' inputs at grok's head shape: q and k scaled by this,
+#: so that the scores q.k / sqrt(128) spread with a standard deviation of
+#: ~64 and many lie past +-60 (twice the cap). Random weights at std 0.02
+#: give scores far below the cap: the model runs alone never show it act.
+CAP_PEAK = 8.0
+CAP_PREFILL_B, CAP_PREFILL_T = 2, 256
+
+
+class _RouteTap:
+    """Stands in for `models.moe.route` while a model runs: records each
+    call's dropped assignments (a device tensor, read once at the end)
+    and, while ``capture`` is set, each layer's input ``xt`` with its
+    drops."""
+
+    def __init__(self, moe_lib, layer_of):
+        self.moe_lib, self.route = moe_lib, moe_lib.route
+        self.layer_of = layer_of   # id(MoE module) -> layer index
+        self.drops, self.capture, self.inputs = [], False, {}
+
+    def __enter__(self):
+        self.moe_lib.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe_lib.route = self.route
+
+    def __call__(self, params, xt, cfg):
+        r = self.route(params, xt, cfg)
+        self.drops.append(self.moe_lib.dropped(r))
+        if self.capture:
+            self.inputs[self.layer_of[id(params)]] = (xt, self.drops[-1])
+        return r
+
+    def per_step(self, torch, steps: int, layers: int) -> dict:
+        d = torch.stack(self.drops).reshape(steps, layers).sum(1).float()
+        return {"mean": d.mean().item(), "max": d.max().item(),
+                "steps_with_drops": int((d > 0).sum().item()),
+                "steps": steps}
+
+
+def _check_service(tag, arch, counts, plain, decode_launches, want,
+                   tokens, shape, vocab, torch) -> None:
+    if decode_launches != want:
+        fail(f"the {tag} path ({arch}) launched the decode kernel "
+             f"{decode_launches} times, expected {want}")
+    if any(counts.values()) or any(plain.values()):
+        fail(f"the {tag} path ({arch}) launched {counts}, plain calls "
+             f"{plain}: only the decode kernel may run")
+    if (tuple(tokens.shape) != shape or tokens.dtype != torch.int32
+            or not bool(((tokens >= 0) & (tokens < vocab)).all())):
+        fail(f"{tag} {arch} tokens {tuple(tokens.shape)} {tokens.dtype} are "
+             f"not {list(shape)} int32 ids below {vocab}")
+
+
+def _prefill_gate(torch, tag, arch, model, cfg, toks, softcap) -> dict:
+    """``prefill`` with the counters zeroed before and read after (the
+    ``wgmma`` kernel once per layer, nothing else, no plain attention,
+    finite logits), then again with every attention call held against
+    plain (with the layer's softcap) at the tight bf16 bound."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssm_scan import ssm_scan as ss
+    from repro_torch.models import prefill
+
+    layers = cfg.num_layers
+    torch.cuda.synchronize()
+    reset_counts()
+    _reset_plain_attention_calls()
+    t0 = time.perf_counter()
+    logits = prefill(model, cfg, toks)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, plain = read_counts(), _plain_attention_calls()
+    launches = {k: v for k, v in counts.items() if v}
+    B, T = toks.shape
+    say(f"[{tag}] {arch} prefill B={B} T={T}: {seconds:.3f}s, kernel "
+        f"launches {launches}, plain calls {plain}")
+    if launches != {"flash_attention_wgmma": layers} or any(plain.values()):
+        fail(f"{tag} {arch} prefill launched {launches}, plain calls "
+             f"{plain}; expected the wgmma kernel once per layer")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{tag} {arch} prefill: non-finite logits")
+    with _PrefillTaps(fa, ss) as taps:
+        prefill(model, cfg, toks)
+    per_call = taps.result(torch)
+    say(f"[{tag}] {arch} every prefill attention call vs plain on its own "
+        f"inputs: {per_call['attention_calls']} calls (softcaps "
+        f"{per_call['softcaps']}), max err/tol "
+        f"{per_call['max_err_over_tol']:.3f} at the tight bf16 bound")
+    if (per_call["attention_calls"] != layers
+            or per_call["softcaps"] != [softcap]
+            or not per_call["max_err_over_tol"] <= 1.0):
+        fail(f"{tag} {arch}: a prefill attention call misses the tight bf16 "
+             f"bound or the softcap {softcap} ({per_call})")
+    return {"seconds": seconds, "launches": launches["flash_attention_wgmma"],
+            "per_call": per_call}
+
+
+def _moe_layer_gate(torch, tag, cfg, layer, x) -> dict:
+    """One ``moe_layer`` at full width on a layer's real decode input
+    ``x [B, 1, d]`` (bf16): once under ``set_sync_debug_mode("error")``
+    (no host sync), then in float32 on the card and on the CPU from the
+    same weights: the routing (expert ids, ``keep``, slots, token order)
+    must be equal, some assignments dropped, and the outputs and aux loss
+    equal at the float32 TOL (the card's ``index_add_`` sums in any
+    order)."""
+    from repro_torch.models import moe as moe_lib
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail(f"{tag}: TF32 matmuls are on; the float32 gate needs them off")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            y16, _ = moe_lib.moe_layer(layer, x, cfg)
+    except RuntimeError as e:
+        fail(f"{tag}: moe_layer synchronises with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    l32 = copy.deepcopy(layer).float()
+    lcpu = copy.deepcopy(l32).cpu()
+    x32 = x.float()
+    n, d = x.shape[0] * x.shape[1], x.shape[2]
+    with torch.no_grad():
+        r_card = moe_lib.route(l32, x32.reshape(n, d), cfg)
+        y_card, aux_card = moe_lib.moe_layer(l32, x32, cfg)
+        r_cpu = moe_lib.route(lcpu, x32.cpu().reshape(n, d), cfg)
+        y_cpu, aux_cpu = moe_lib.moe_layer(lcpu, x32.cpu(), cfg)
+    equal = {name: bool(torch.equal(r_card[name].cpu(), r_cpu[name]))
+             for name in ("experts", "keep", "slot", "tok")}
+    if not all(equal.values()):
+        fail(f"{tag}: the card's float32 routing differs from the CPU's: "
+             f"{equal}")
+    dropped = int(moe_lib.dropped(r_cpu))
+    err = _compare(torch, y_card.cpu(), y_cpu, TOL["float32"],
+                   f"{tag} moe_layer card vs CPU (float32)")
+    aux_err = abs(aux_card.item() - aux_cpu.item())
+    bf16_err = (y16.float() - y_card).abs().max().item()
+    res = {"routing_equal": equal, "dropped": dropped,
+           "assignments": n * cfg.num_experts_per_tok, "capacity": r_cpu["C"],
+           "max_abs_err": err, "max_abs_out": y_cpu.abs().max().item(),
+           "aux": aux_cpu.item(), "aux_err": aux_err,
+           "bf16_vs_float32": bf16_err}
+    del l32, lcpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_lm_moe(torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.serve import ServeConfig, serve
+    from repro_torch.models import decode_step, init_caches, init_model
+    from repro_torch.models import moe as moe_lib
+
+    tag = "lm_moe"
+    cfg = get_config(MOE_ARCH)
+    vocab, layers = cfg.vocab_size, cfg.num_layers
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    C = moe_lib._capacity(MOE_B, cfg)
+
+    # The service, timed, with the counters zeroed before and read after.
+    serve_cfg = ServeConfig(arch=MOE_ARCH, batch=MOE_B,
+                            prompt_len=MOE_PROMPT, gen=MOE_GEN,
+                            max_len=MOE_MAX, reduced=False, seed=MOE_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _reset_plain_attention_calls()
+    out = serve(serve_cfg, emit=say)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts, plain = read_counts(), _plain_attention_calls()
+    decode_launches = counts.pop("flash_attention_decode")
+    say(f"[{tag}] path: serve({MOE_ARCH}, batch {MOE_B}, prompt "
+        f"{MOE_PROMPT}, gen {MOE_GEN}, max_len {MOE_MAX}, full width): "
+        f"{out['tok_per_s']:.1f} tok/s, {out['seconds'] / MOE_MAX * 1e3:.3f} "
+        f"ms per step; decode kernel launches {decode_launches}, other "
+        f"kernels {counts}, plain calls {plain}; peak device memory "
+        f"{peak_gb:.2f} GB")
+    tokens = out["tokens"]
+    _check_service(tag, MOE_ARCH, counts, plain, decode_launches,
+                   layers * MOE_MAX, tokens, (MOE_B, MOE_GEN), vocab, torch)
+    if not bool(torch.isfinite(out["logits"]).all()):
+        fail(f"{tag}: non-finite logits at the service's last step")
+    serve_logits = out["logits"]
+    tok_per_s, seconds = out["tok_per_s"], out["seconds"]
+    del out
+    torch.cuda.empty_cache()
+
+    # The same weights (the service's seed) and prompts (its generator),
+    # teacher-forced over the prompt and the service's greedy tokens.
+    t0 = time.perf_counter()
+    model = init_model(cfg, MOE_SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(MOE_SEED + 1)
+    prompts = torch.randint(0, vocab, (MOE_B, MOE_PROMPT), generator=gen,
+                            device="cuda")
+    seq = torch.cat([prompts, tokens.long()], dim=1)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[{tag}] {MOE_ARCH} full width: {layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads} / kv {cfg.num_kv_heads}, "
+        f"head_dim {cfg.resolved_head_dim}, {E} routed experts top-{k} + "
+        f"{cfg.num_shared_experts} shared, expert d_ff "
+        f"{cfg.d_ff_per_expert}, vocab {vocab} (padded {cfg.padded_vocab}), "
+        f"{n_params:,} parameters in bf16, init "
+        f"{time.perf_counter() - t0:.2f}s; decode capacity C = {C} per "
+        f"expert for {MOE_B * k} assignments")
+    blocks = [b for run in model.runs for b in run]
+    decode_tap = _DecodeTap(fa)
+    route_tap = _RouteTap(moe_lib, {id(b.moe): li
+                                    for li, b in enumerate(blocks)})
+    caches = init_caches(cfg, MOE_B, MOE_MAX + MOE_PROFILE_STEPS,
+                         device="cuda")
+    with route_tap:
+        for i in range(MOE_MAX):
+            route_tap.capture = i == MOE_PROMPT - 1
+            decode_tap.length = i + 1
+            if i < MOE_GATE_STEPS:
+                with decode_tap:
+                    lk, caches = decode_step(model, cfg, caches,
+                                             seq[:, i:i + 1], i)
+            else:
+                lk, caches = decode_step(model, cfg, caches, seq[:, i:i + 1],
+                                         i)
+    layer_check = decode_tap.result(torch)
+    _say_layer_taps(tag, f"{MOE_ARCH}, the first {MOE_GATE_STEPS} prompt "
+                    "steps", layer_check, layers)
+    _check_layer_taps(tag, MOE_ARCH, layer_check)
+    drops = route_tap.per_step(torch, MOE_MAX, layers)
+    acc = _Logits(torch, vocab)
+    acc.add(lk, serve_logits)
+    tf_vs_service = acc.result()
+    say(f"[{tag}] dropped assignments per decode step (teacher-forced over "
+        f"the service's {MOE_MAX} positions; {layers} layers x {MOE_B * k} "
+        f"assignments, C = {C}): mean {drops['mean']:.2f}, max "
+        f"{drops['max']:.0f}, {drops['steps_with_drops']} of "
+        f"{drops['steps']} steps drop; its last logits vs the service's "
+        f"(the same function; bf16 routing near ties and the float32 "
+        f"combine's atomics may differ): max |dlogit| "
+        f"{tf_vs_service['max_abs_err']:.4e}, top-1 equal at "
+        f"{tf_vs_service['top1_match']:.4f}")
+    if not drops["steps_with_drops"]:
+        fail(f"{tag}: no decode step dropped an assignment at C = {C}")
+
+    # Device busy over decode steps past the service's last.
+    state = {"caches": caches, "tok": lk[:, :, :vocab].argmax(-1)}
+
+    def step(j):
+        logits, state["caches"] = decode_step(model, cfg, state["caches"],
+                                              state["tok"], MOE_MAX + j)
+        state["tok"] = logits[:, :, :vocab].argmax(-1)
+
+    profile_res = _lm_profile(torch, step, MOE_PROFILE_STEPS, tag)
+    _say_profile(tag, f"{MOE_ARCH}, positions {MOE_MAX}..."
+                 f"{MOE_MAX + MOE_PROFILE_STEPS - 1}", profile_res)
+    del caches, state, lk
+    torch.cuda.empty_cache()
+
+    # One moe_layer at full width on a real decode input: the layer whose
+    # input dropped the most at the last prompt step.
+    li, (xt, _) = max(route_tap.inputs.items(),
+                      key=lambda kv: int(kv[1][1]))
+    layer_gate = _moe_layer_gate(torch, tag, cfg, blocks[li].moe,
+                                 xt.reshape(MOE_B, 1, cfg.d_model))
+    say(f"[{tag}] moe_layer at full width (layer {li}'s input at position "
+        f"{MOE_PROMPT - 1}, B={MOE_B}): no host sync under "
+        f"set_sync_debug_mode('error'); float32 card vs CPU: routing equal "
+        f"{layer_gate['routing_equal']}, {layer_gate['dropped']} of "
+        f"{layer_gate['assignments']} assignments dropped (C = "
+        f"{layer_gate['capacity']}), max abs err "
+        f"{layer_gate['max_abs_err']:.3e} (max |out| "
+        f"{layer_gate['max_abs_out']:.4f}; TOL rtol 2e-4 atol 2e-5), aux "
+        f"{layer_gate['aux']:.6f} (err {layer_gate['aux_err']:.2e}); bf16 "
+        f"layer vs float32 {layer_gate['bf16_vs_float32']:.3e}")
+    if not layer_gate["dropped"] > 0:
+        fail(f"{tag}: the full-width moe_layer gate dropped nothing")
+    if not layer_gate["aux_err"] <= 2e-5 + 2e-4 * abs(layer_gate["aux"]):
+        fail(f"{tag}: aux loss card vs CPU {layer_gate['aux_err']:.3e}")
+    del route_tap, xt, blocks
+    torch.cuda.empty_cache()
+
+    prefill_res = _prefill_gate(torch, tag, MOE_ARCH, model, cfg,
+                                prompts[:MOE_PREFILL_B], 0.0)
+    del model, prompts, seq, serve_logits
+    torch.cuda.empty_cache()
+
+    # Kernel times at the path's shapes.
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    decode_time = _decode_time(torch, fa, MOE_B, Hq, Hkv, MOE_MAX, Dh, gen)
+    _say_lm_time(f"deepseek decode attention B={MOE_B} Hq={Hq} Hkv={Hkv} "
+                 f"L={MOE_MAX} Dh={Dh} bf16 (1 row per kv head): split-K "
+                 "kernel", decode_time)
+    prefill_time = _prefill_time(torch, fa, MOE_PREFILL_B, Hq, Hkv,
+                                 MOE_PROMPT, Dh, gen)
+    _say_lm_time(f"deepseek prefill attention B={MOE_PREFILL_B} Hq={Hq} "
+                 f"Hkv={Hkv} T={MOE_PROMPT} Dh={Dh} bf16 causal: "
+                 f"{prefill_time['kernel']} kernel", prefill_time)
+    return {"arch": MOE_ARCH, "parameters": n_params, "capacity": C,
+            "peak_memory_gb": peak_gb, "layer_check": layer_check,
+            "drops_per_step": drops, "teacher_forced_vs_service":
+            tf_vs_service, "moe_layer": layer_gate, "prefill": prefill_res,
+            "launches_by_path": {"lm_moe": decode_launches,
+                                 "lm_moe_prefill": prefill_res["launches"]},
+            "tok_per_s": tok_per_s, "seconds": seconds,
+            "ms_per_step": seconds / MOE_MAX * 1e3,
+            "profile": profile_res, "decode_attention": decode_time,
+            "prefill_attention": prefill_time}
+
+
+def _cap_gate(torch, tag, what, cap, kernel, plain, args, want_kernel):
+    """``kernel`` (a wrapper with the softcap ``cap``) on inputs whose
+    scores pass the cap: within the tight bf16 bound of ``plain`` with the
+    cap, which ``plain`` without the cap must miss."""
+    before = read_counts()
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    moved = {n: v - before[n] for n, v in read_counts().items()
+             if v != before[n]}
+    want, tol = _tight_tol(functools.partial(plain, softcap=cap), *args)
+    ok = _excess(got, want, tol).item()
+    nocap = _excess(plain(*args), want, tol).item()
+    q, k = args[0].float(), args[1].float()
+    group = q.shape[1] // k.shape[1]
+    s = (q[:, ::group] @ k.mT) / q.shape[-1] ** 0.5
+    res = {"err_over_tol": ok, "uncapped_err_over_tol": nocap,
+           "max_abs_score": s.abs().max().item(),
+           "share_past_2cap": (s.abs() > 2 * cap).float().mean().item(),
+           "launches": moved}
+    say(f"[{tag}] softcap {cap:g} {what}: launches {moved}, max |score| "
+        f"{res['max_abs_score']:.1f} ({res['share_past_2cap']:.3f} past "
+        f"twice the cap); err/tol vs plain with the cap {ok:.3f}; plain "
+        f"without the cap {nocap:.1f}")
+    if moved != {want_kernel: 1}:
+        fail(f"{tag} softcap {what}: launched {moved}, not {want_kernel}")
+    if not ok <= 1.0:
+        fail(f"{tag} softcap {what}: err/tol {ok:.3f} over the tight bound")
+    if not nocap > 1.0:
+        fail(f"{tag} softcap {what}: the cap-free plain version passes the "
+             f"tight bound ({nocap:.3f}): the cap does not act")
+    return res
+
+
+def phase_lm_grok(torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, init_caches, init_model
+    from repro_torch.models import moe as moe_lib
+
+    tag = "lm_moe"
+    full = get_config(GROK_ARCH)
+    cfg = dataclasses.replace(full, num_layers=GROK_LAYERS)
+    vocab, layers, cap = cfg.vocab_size, cfg.num_layers, cfg.attn_logit_softcap
+    C = moe_lib._capacity(GROK_B, cfg)
+
+    # The service's loop (`generate`) on random weights from the seed and
+    # prompts drawn as `serve` draws them, with the counters zeroed before
+    # and read after.
+    t0 = time.perf_counter()
+    model = init_model(cfg, GROK_SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(GROK_SEED + 1)
+    prompts = torch.randint(0, vocab, (GROK_B, GROK_PROMPT), generator=gen,
+                            device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[{tag}] {GROK_ARCH} full width, depth {layers} of "
+        f"{full.num_layers}: d_model {cfg.d_model}, heads {cfg.num_heads} / "
+        f"kv {cfg.num_kv_heads}, head_dim {cfg.resolved_head_dim}, "
+        f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok}, expert "
+        f"d_ff {cfg.d_ff_per_expert}, softcap {cap}, vocab {vocab}, "
+        f"{n_params:,} parameters in bf16, init "
+        f"{time.perf_counter() - t0:.2f}s; decode capacity C = {C}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _reset_plain_attention_calls()
+    out = generate(model, cfg, prompts, GROK_GEN, GROK_MAX)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts, plain = read_counts(), _plain_attention_calls()
+    decode_launches = counts.pop("flash_attention_decode")
+    say(f"[{tag}] path: generate({GROK_ARCH} depth {layers}, batch "
+        f"{GROK_B}, prompt {GROK_PROMPT}, gen {GROK_GEN}, max_len "
+        f"{GROK_MAX}): {out['tok_per_s']:.1f} tok/s, "
+        f"{out['seconds'] / GROK_MAX * 1e3:.3f} ms per step; decode kernel "
+        f"launches {decode_launches}, other kernels {counts}, plain calls "
+        f"{plain}; peak device memory {peak_gb:.2f} GB")
+    tokens = out["tokens"]
+    _check_service(tag, GROK_ARCH, counts, plain, decode_launches,
+                   layers * GROK_MAX, tokens, (GROK_B, GROK_GEN), vocab,
+                   torch)
+    tok_per_s, seconds = out["tok_per_s"], out["seconds"]
+    del out
+
+    # Every decode-kernel call, teacher-forced over the same positions,
+    # against plain with the cap; the cap passed to every call.
+    seq = torch.cat([prompts, tokens.long()], dim=1)
+    tap = _DecodeTap(fa)
+    blocks = [b for run in model.runs for b in run]
+    route_tap = _RouteTap(moe_lib, {id(b.moe): li
+                                    for li, b in enumerate(blocks)})
+    caches = init_caches(cfg, GROK_B, GROK_MAX + GROK_PROFILE_STEPS,
+                         device="cuda")
+    with route_tap, tap:
+        for i in range(GROK_MAX):
+            tap.length = i + 1
+            lk, caches = decode_step(model, cfg, caches, seq[:, i:i + 1], i)
+    layer_check = tap.result(torch)
+    _say_layer_taps(tag, f"{GROK_ARCH}, all {GROK_MAX} steps", layer_check,
+                    layers)
+    _check_layer_taps(tag, GROK_ARCH, layer_check)
+    if layer_check["softcaps"] != [cap]:
+        fail(f"{tag}: grok's decode calls passed softcaps "
+             f"{layer_check['softcaps']}, not [{cap}]")
+    drops = route_tap.per_step(torch, GROK_MAX, layers)
+    say(f"[{tag}] {GROK_ARCH} dropped assignments per decode step ({layers} "
+        f"layers x {GROK_B * cfg.num_experts_per_tok} assignments, C = "
+        f"{C}): mean {drops['mean']:.2f}, max {drops['max']:.0f}, "
+        f"{drops['steps_with_drops']} of {drops['steps']} steps drop")
+    if not bool(torch.isfinite(lk).all()):
+        fail(f"{tag} {GROK_ARCH}: non-finite decode logits")
+
+    # Device busy over decode steps past the service's last.
+    state = {"caches": caches, "tok": lk[:, :, :vocab].argmax(-1)}
+
+    def step(j):
+        logits, state["caches"] = decode_step(model, cfg, state["caches"],
+                                              state["tok"], GROK_MAX + j)
+        state["tok"] = logits[:, :, :vocab].argmax(-1)
+
+    profile_res = _lm_profile(torch, step, GROK_PROFILE_STEPS, "lm_grok")
+    _say_profile(tag, f"{GROK_ARCH}, positions {GROK_MAX}..."
+                 f"{GROK_MAX + GROK_PROFILE_STEPS - 1}", profile_res)
+    del caches, state, lk, route_tap, blocks
+    torch.cuda.empty_cache()
+
+    prefill_res = _prefill_gate(torch, tag, GROK_ARCH, model, cfg,
+                                seq[:GROK_PREFILL_B], cap)
+    del model, prompts, seq
+    torch.cuda.empty_cache()
+
+    # The cap acting, on kernel inputs at grok's head shape scaled so that
+    # many scores pass +-60.
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    bf16 = torch.bfloat16
+
+    def scaled(B, Tq, Tk):
+        q, k, v = _qkv(torch, B, Hq, Hkv, Tq, Tk, Dh, torch.float32, gen)
+        return ((q * CAP_PEAK).to(bf16), (k * CAP_PEAK).to(bf16), v.to(bf16))
+
+    cap_prefill = _cap_gate(
+        torch, tag, f"prefill B={CAP_PREFILL_B} Hq={Hq} Hkv={Hkv} "
+        f"T={CAP_PREFILL_T} Dh={Dh} bf16", cap,
+        functools.partial(fa.flash_attention_cuda, softcap=cap),
+        fa.flash_attention_plain, scaled(CAP_PREFILL_B, CAP_PREFILL_T,
+                                         CAP_PREFILL_T),
+        "flash_attention_wgmma")
+    full_len = torch.tensor(GROK_MAX, dtype=torch.int32, device="cuda")
+    cap_decode = _cap_gate(
+        torch, tag, f"decode B={GROK_B} Hq={Hq} Hkv={Hkv} L={GROK_MAX} "
+        f"Dh={Dh} bf16", cap, functools.partial(fa.decode_attention_cuda,
+                                                softcap=cap),
+        fa.decode_attention_plain, scaled(GROK_B, 1, GROK_MAX) + (full_len,),
+        "flash_attention_decode")
+
+    # Kernel times at the path's shapes (SDPA has no softcap).
+    decode_time = _decode_time(torch, fa, GROK_B, Hq, Hkv, GROK_MAX, Dh, gen,
+                               softcap=cap)
+    _say_lm_time(f"grok decode attention B={GROK_B} Hq={Hq} Hkv={Hkv} "
+                 f"L={GROK_MAX} Dh={Dh} bf16 softcap {cap}: split-K kernel",
+                 decode_time, library="SDPA without the cap")
+    prefill_time = _prefill_time(torch, fa, GROK_PREFILL_B, Hq, Hkv,
+                                 GROK_MAX, Dh, gen, softcap=cap)
+    _say_lm_time(f"grok prefill attention B={GROK_PREFILL_B} Hq={Hq} "
+                 f"Hkv={Hkv} T={GROK_MAX} Dh={Dh} bf16 causal softcap {cap}: "
+                 f"{prefill_time['kernel']} kernel", prefill_time,
+                 library="SDPA without the cap")
+    return {"arch": GROK_ARCH, "layers": layers, "parameters": n_params,
+            "capacity": C, "peak_memory_gb": peak_gb,
+            "layer_check": layer_check, "profile": profile_res,
+            "drops_per_step": drops, "prefill": prefill_res,
+            "cap_prefill": cap_prefill, "cap_decode": cap_decode,
+            "launches_by_path": {"lm_grok": decode_launches,
+                                 "lm_grok_prefill": prefill_res["launches"]},
+            "tok_per_s": tok_per_s, "seconds": seconds,
+            "ms_per_step": seconds / GROK_MAX * 1e3,
+            "decode_attention": decode_time,
+            "prefill_attention": prefill_time}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -2820,6 +3385,8 @@ def main() -> int:
     flash = phase_flash(torch)
     lm = phase_lm_decode(torch)
     hybrid = phase_lm_hybrid(torch)
+    moe = phase_lm_moe(torch)
+    grok = phase_lm_grok(torch)
 
     rows = []
     for kind in ("filtering_combine", "smoothing_combine"):
@@ -2853,7 +3420,8 @@ def main() -> int:
                     lm_hybrid_prefill={k: hybrid["ssm_scan"][k]
                                        for k in lm_times})
     flash_paths = {"flash": flash["launches"], **lm["launches_by_path"],
-                   **hybrid["launches_by_path"]}
+                   **hybrid["launches_by_path"], **moe["launches_by_path"],
+                   **grok["launches_by_path"]}
     rows[-1].update(launches=sum(flash_paths.values()),
                     launches_by_path=flash_paths,
                     launches_by_kernel=flash["launches_by_kernel"],
@@ -2862,7 +3430,11 @@ def main() -> int:
                            ("lm_decode", lm, "decode"),
                            ("lm_prefill", lm, "prefill"),
                            ("lm_hybrid", hybrid, "decode"),
-                           ("lm_hybrid_prefill", hybrid, "prefill"))})
+                           ("lm_hybrid_prefill", hybrid, "prefill"),
+                           ("lm_moe", moe, "decode"),
+                           ("lm_moe_prefill", moe, "prefill"),
+                           ("lm_grok", grok, "decode"),
+                           ("lm_grok_prefill", grok, "prefill"))})
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, **row}
             for (name, (replaces, source)), row in zip(KERNELS.items(), rows)]
@@ -2877,6 +3449,7 @@ def main() -> int:
          "adaptive": adaptive, "autotune": autotune, "stream": stream,
          "chaos": chaos, "tenants": tenants, "ssm_scan": ssm,
          "flash_attention": flash, "lm_decode": lm, "lm_hybrid": hybrid,
+         "lm_moe": moe, "lm_grok": grok,
          "seconds": time.perf_counter() - t_start}, indent=1))
     say(f"[chip_smoke] all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")

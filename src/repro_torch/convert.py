@@ -47,10 +47,12 @@ def lm_params(params, cfg, *, device: Device = None,
     ``params`` (the pytree with its leaves as numpy arrays): ``embed``,
     ``runs`` (per run, each leaf stacked over the run's layers),
     ``final_norm`` and ``lm_head``. The runs are unstacked into blocks
-    (a hybrid block's ``ssm`` and ``ln_ssm`` too); ``[in, out]`` matrices
-    become ``nn.Linear`` weights ``[out, in]``.
+    (a hybrid block's ``ssm`` and ``ln_ssm`` too, an MoE block's ``moe``);
+    ``[in, out]`` matrices become ``nn.Linear`` weights ``[out, in]``, and
+    the MoE's router and stacked experts stay as they are.
     On ``device`` (`resolve_device`), in ``dtype`` (default the config's
-    parameter dtype)."""
+    parameter dtype). It first builds a random model of ``cfg``
+    (`init_model`), so it is for the reduced configs only."""
     from repro_torch.models.layers import dtype_of
     from repro_torch.models.transformer import init_model
 
@@ -76,8 +78,14 @@ def lm_params(params, cfg, *, device: Device = None,
                     state[f"{pre}attn.{name}.weight"] = t(w[li]).T
                 else:  # bq, bk, bv
                     state[f"{pre}attn.w{name[1]}.bias"] = t(w[li])
-            for name, w in run["mlp"].items():
+            for name, w in run.get("mlp", {}).items():
                 state[f"{pre}mlp.{name}.weight"] = t(w[li]).T
+            for name, w in run.get("moe", {}).items():
+                if name == "shared":  # [in, out] matrices of an MLP
+                    for sub, ws in w.items():
+                        state[f"{pre}moe.shared.{sub}.weight"] = t(ws[li]).T
+                else:  # router [d, E], experts [E, d, dff] / [E, dff, d]
+                    state[f"{pre}moe.{name}"] = t(w[li])
             for name, w in run.get("ssm", {}).items():
                 if name in _SSM_LINEAR:
                     state[f"{pre}ssm.{name}.weight"] = t(w[li]).T

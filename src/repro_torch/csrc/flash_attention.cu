@@ -26,6 +26,18 @@
 // (its splits below the window weigh 0 in the merge). A tile whose first
 // row sees no key (Tq > Tk) visits every key, as without a window.
 //
+// Logit softcap (softcap > 0; 0 = none; grok-1's attention): each scaled
+// score s = scale q.k becomes softcap tanh(s / softcap) before the causal,
+// window and length masks, as the reference model's attention applies it
+// (src/repro/models/attention.py, _softcap before the masks); masked
+// scores stay at -1e30. tanhf (full precision, ~2 ulp; no fast math). The
+// decode and wgmma kernels fold log2(e) into the scale for exp2, so they
+// cap in units of the raw product q.k (cap_raw = softcap / scale:
+// cap_raw tanh(q.k / cap_raw) times scale is the natural-unit cap) and
+// then apply scale log2(e). Both are compiled twice, with and without the
+// cap (template flag CAP), so an uncapped call runs the code it ran before
+// the cap existed; the FMA kernel tests the cap at run time.
+//
 // What bounds it: a prefill (Tq = Tk = T) does 4 B Hq Dh T (T + 1) / 2
 // operations on 4 B H T Dh values: far above the card's ridge point, so the
 // floor is the tensor cores' rate. A decode step (Tq = 1) reads the whole
@@ -105,14 +117,15 @@
 // float32, 2 = bfloat16; each launches on `stream` and returns
 // cudaGetLastError() or the first failure):
 //   fa_attention(dtype, head_dim, B, Hq, Hkv, Tq, Tk, causal, window, scale,
-//                q, k, v, o, stream)                         kernel 1
+//                softcap, q, k, v, o, stream)                kernel 1
 //   fa_decode(dtype, head_dim, B, Hq, Hkv, Tq, Tk, causal, window, scale,
-//             split_keys, q, k, v, o, part_ml, part_acc, stream) kernel 2
-//   fa_decode_cache(dtype, head_dim, B, Hq, Hkv, Tq, S, scale, split_keys,
-//                   q, k, v, length, o, part_ml, part_acc, stream)
-//                                        kernel 2 on a cache, not causal
-//   fa_wgmma(head_dim, B, Hq, Hkv, Tq, Tk, causal, window, scale, q, k, v,
-//            o, stream)                                       kernel 3
+//             softcap, split_keys, q, k, v, o, part_ml, part_acc, stream)
+//                                                             kernel 2
+//   fa_decode_cache(dtype, head_dim, B, Hq, Hkv, Tq, S, scale, softcap,
+//                   split_keys, q, k, v, length, o, part_ml, part_acc,
+//                   stream)              kernel 2 on a cache, not causal
+//   fa_wgmma(head_dim, B, Hq, Hkv, Tq, Tk, causal, window, scale, softcap,
+//            q, k, v, o, stream)                              kernel 3
 // with head_dim one of 16, 32, 64, 128, 256 (64 and 128 for fa_wgmma).
 //
 // The file compiles as several parts (one nvcc -c each, in parallel): the
@@ -173,8 +186,8 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     int Hq, int group, int64_t Tq, int64_t Tk, int causal, int window,
-    float scale, const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o) {
+    float scale, float softcap, const T* __restrict__ q,
+    const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o) {
   using C = Cfg<D>;
   constexpr int BQ = C::BQ, RQ = C::RQ, CK = C::CK, CD = C::CD;
   constexpr int QS = C::QS, PS = C::PS;
@@ -260,6 +273,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       for (int j = 0; j < CK; ++j) {
         const int64_t kpos = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
         if (kpos >= Tk)
           x = -INFINITY;  // no such key: weight exactly 0
         else if (causal && (qpos < kpos || (window > 0 && qpos - kpos >= window)))
@@ -311,8 +325,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
 #define FA_LAUNCH_PARAMS                                                     \
   int64_t B, int Hq, int Hkv, int64_t Tq, int64_t Tk, int causal,            \
-      int window, float scale, const void *q, const void *k, const void *v,  \
-      void *o, cudaStream_t s
+      int window, float scale, float softcap, const void *q, const void *k,  \
+      const void *v, void *o, cudaStream_t s
 
 template <typename T, int D>
 int launch(FA_LAUNCH_PARAMS) {
@@ -325,8 +339,9 @@ int launch(FA_LAUNCH_PARAMS) {
   const dim3 grid(static_cast<unsigned>((Tq + C::BQ - 1) / C::BQ),
                   static_cast<unsigned>(Hq), static_cast<unsigned>(B));
   kernel<<<grid, kThreads, C::kSmemBytes, s>>>(
-      Hq, Hq / Hkv, Tq, Tk, causal, window, scale, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o));
+      Hq, Hq / Hkv, Tq, Tk, causal, window, scale, softcap,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -436,13 +451,15 @@ __device__ __forceinline__ float2 load_pair(const unsigned char* p,
 }
 
 // Rows of one CTA: r = g * Tq + i is query i of head kv_head * group + g;
-// rows R..RB-1 are zero padding up to the compiled row count RB.
-template <typename T, int D, int RB>
+// rows R..RB-1 are zero padding up to the compiled row count RB. CAP: the
+// softcap cap_raw (> 0) is applied.
+template <typename T, int D, int RB, bool CAP>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
     int Hq, int Hkv, int64_t Tq, int64_t S, const int* __restrict__ len,
-    int causal, int window, float scale_log2, int split_keys, int n_splits,
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    float* __restrict__ part_ml, float* __restrict__ part_acc) {
+    int causal, int window, float scale_log2, float cap_raw, int split_keys,
+    int n_splits, const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, float* __restrict__ part_ml,
+    float* __restrict__ part_acc) {
   using C = Cfg<T, D>;
   constexpr int KT = C::KT, RS = C::RS, DS = C::DS, CH = C::CH;
   constexpr int VEC = C::VEC, CG = C::CG, KG = C::KG;
@@ -552,6 +569,13 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
       const int kk = t * KT + j;
       if (h == 0 && kk < nk) {
         const int64_t kpos = s0 + kk;
+        if constexpr (CAP) {
+          // The softcap in units of the raw product (see the note above).
+          const float inv_cap = 1.f / cap_raw;
+#pragma unroll
+          for (int r = 0; r < RB; ++r)
+            sc[r] = cap_raw * tanhf(sc[r] * inv_cap);
+        }
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
           float x = sc[r] * scale_log2;
@@ -671,8 +695,8 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(
 
 #define DEC_LAUNCH_PARAMS                                                    \
   int64_t B, int Hq, int Hkv, int64_t Tq, int64_t Tk, const int *len,        \
-      int causal, int window, float scale, int split_keys, const void *q,    \
-      const void *k, const void *v, void *o, float *part_ml,                 \
+      int causal, int window, float scale, float softcap, int split_keys,    \
+      const void *q, const void *k, const void *v, void *o, float *part_ml,  \
       float *part_acc, cudaStream_t s
 
 template <typename T, int D, int RB>
@@ -681,7 +705,8 @@ int launch_rows(DEC_LAUNCH_PARAMS) {
   const int64_t n_splits = (Tk + split_keys - 1) / split_keys;
   if (n_splits > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes<T, D, RB>(split_keys);
-  auto kernel = decode_kernel<T, D, RB>;
+  auto kernel = softcap > 0.f ? decode_kernel<T, D, RB, true>
+                              : decode_kernel<T, D, RB, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -689,7 +714,9 @@ int launch_rows(DEC_LAUNCH_PARAMS) {
   kernel<<<dim3(static_cast<unsigned>(n_splits), static_cast<unsigned>(Hkv),
                 static_cast<unsigned>(B)),
            kThreads, smem, s>>>(Hq, Hkv, Tq, Tk, len, causal, window,
-                                scale * kLog2e, split_keys,
+                                scale * kLog2e,
+                                softcap > 0.f ? softcap / scale : 0.f,
+                                split_keys,
                                 static_cast<int>(n_splits),
                                 static_cast<const T*>(q),
                                 static_cast<const T*>(k),
@@ -714,7 +741,7 @@ int launch(DEC_LAUNCH_PARAMS) {
     return static_cast<int>(cudaErrorInvalidValue);
 #define DEC_ROWS(RB) \
   launch_rows<T, D, RB>(B, Hq, Hkv, Tq, Tk, len, causal, window, scale,      \
-                        split_keys, q, k, v, o, part_ml, part_acc, s)
+                        softcap, split_keys, q, k, v, o, part_ml, part_acc, s)
   if (rows <= 1) return DEC_ROWS(1);
   if (rows == 2) return DEC_ROWS(2);
   if (rows == 3) return DEC_ROWS(3);
@@ -918,13 +945,13 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
   wgmma_rs_n128(d, a, db);
 }
 
-template <int D>
+template <int D, bool CAP>
 __global__ void __launch_bounds__(kThreads, 1) wgmma_kernel(
     const __grid_constant__ CUtensorMap map_q,
     const __grid_constant__ CUtensorMap map_k,
     const __grid_constant__ CUtensorMap map_v, int Hq, int group, int Tq,
-    int Tk, int causal, int window, float scale_log2, int n_qt,
-    __nv_bfloat16* __restrict__ o) {
+    int Tk, int causal, int window, float scale_log2, float cap_raw,
+    int n_qt, __nv_bfloat16* __restrict__ o) {
   using C = Cfg<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s = reinterpret_cast<unsigned char*>(
@@ -1020,6 +1047,13 @@ __global__ void __launch_bounds__(kThreads, 1) wgmma_kernel(
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s_acc);
+      if constexpr (CAP) {
+        // The softcap in units of the raw product (see the note above).
+        const float inv_cap = 1.f / cap_raw;
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i)
+          s_acc[i] = cap_raw * tanhf(s_acc[i] * inv_cap);
+      }
 
       // Accumulator element (j, e): column 8 j + 2 (lane % 4) + e, row r0
       // in s_acc[4 j + e] and r0 + 8 in s_acc[4 j + 2 + e].
@@ -1173,10 +1207,7 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int D, int64_t rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-#define WG_LAUNCH_PARAMS                                                     \
-  int64_t B, int Hq, int Hkv, int64_t Tq, int64_t Tk, int causal,            \
-      int window, float scale, const void *q, const void *k, const void *v,  \
-      void *o, cudaStream_t s
+#define WG_LAUNCH_PARAMS FA_LAUNCH_PARAMS
 
 template <int D>
 int launch(WG_LAUNCH_PARAMS) {
@@ -1190,15 +1221,15 @@ int launch(WG_LAUNCH_PARAMS) {
       !make_map(&mk, k, D, Tk, B * Hkv, kBK) ||
       !make_map(&mv, v, D, Tk, B * Hkv, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = wgmma_kernel<D>;
+  auto kernel = softcap > 0.f ? wgmma_kernel<D, true> : wgmma_kernel<D, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(static_cast<unsigned>(B * Hq), static_cast<unsigned>(n_qt)),
            kThreads, C::SMEM, s>>>(
       mq, mk, mv, Hq, Hq / Hkv, static_cast<int>(Tq), static_cast<int>(Tk),
-      causal, window, scale * kLog2e, static_cast<int>(n_qt),
-      static_cast<__nv_bfloat16*>(o));
+      causal, window, scale * kLog2e, softcap > 0.f ? softcap / scale : 0.f,
+      static_cast<int>(n_qt), static_cast<__nv_bfloat16*>(o));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1251,10 +1282,11 @@ FA_INSTANCES(extern, 256)
 #ifdef FA_ENTRY_POINTS
 namespace {
 
-#define FA_ARGS B, Hq, Hkv, Tq, Tk, causal, window, scale, q, k, v, o, s
+#define FA_ARGS \
+  B, Hq, Hkv, Tq, Tk, causal, window, scale, softcap, q, k, v, o, s
 #define DEC_ARGS                                                        \
-  B, Hq, Hkv, Tq, Tk, len, causal, window, scale, split_keys, q, k, v, o, \
-      part_ml, part_acc, s
+  B, Hq, Hkv, Tq, Tk, len, causal, window, scale, softcap, split_keys, q, \
+      k, v, o, part_ml, part_acc, s
 
 template <typename T>
 int fma_dispatch(int head_dim, FA_LAUNCH_PARAMS) {
@@ -1322,9 +1354,9 @@ int check(long long B, int Hq, int Hkv, long long Tq, long long Tk,
 
 extern "C" int fa_attention(int dtype, int head_dim, long long B, int Hq,
                             int Hkv, long long Tq, long long Tk, int causal,
-                            int window, float scale, const void* q,
-                            const void* k, const void* v, void* o,
-                            void* stream) {
+                            int window, float scale, float softcap,
+                            const void* q, const void* k, const void* v,
+                            void* o, void* stream) {
   const int c = check(B, Hq, Hkv, Tq, Tk, causal, window);
   if (c) return c < 0 ? static_cast<int>(cudaSuccess) : c;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1335,8 +1367,8 @@ extern "C" int fa_attention(int dtype, int head_dim, long long B, int Hq,
 
 extern "C" int fa_decode(int dtype, int head_dim, long long B, int Hq, int Hkv,
                          long long Tq, long long Tk, int causal, int window,
-                         float scale, int split_keys, const void* q,
-                         const void* k, const void* v, void* o,
+                         float scale, float softcap, int split_keys,
+                         const void* q, const void* k, const void* v, void* o,
                          void* part_ml_v, void* part_acc_v, void* stream) {
   const int c = check(B, Hq, Hkv, Tq, Tk, causal, window);
   if (c) return c < 0 ? static_cast<int>(cudaSuccess) : c;
@@ -1355,10 +1387,10 @@ extern "C" int fa_decode(int dtype, int head_dim, long long B, int Hq, int Hkv,
 // is a key of every query row. The split grid covers the capacity S.
 extern "C" int fa_decode_cache(int dtype, int head_dim, long long B, int Hq,
                                int Hkv, long long Tq, long long S, float scale,
-                               int split_keys, const void* q, const void* k,
-                               const void* v, const void* length, void* o,
-                               void* part_ml_v, void* part_acc_v,
-                               void* stream) {
+                               float softcap, int split_keys, const void* q,
+                               const void* k, const void* v,
+                               const void* length, void* o, void* part_ml_v,
+                               void* part_acc_v, void* stream) {
   const long long Tk = S;
   const int causal = 0, window = 0;  // a ring holds only in-window keys
   const int c = check(B, Hq, Hkv, Tq, Tk, causal, window);
@@ -1386,8 +1418,8 @@ extern "C" long long fa_smem_bytes(int kernel, int dtype, int head_dim,
 
 extern "C" int fa_wgmma(int head_dim, long long B, int Hq, int Hkv,
                         long long Tq, long long Tk, int causal, int window,
-                        float scale, const void* q, const void* k,
-                        const void* v, void* o, void* stream) {
+                        float scale, float softcap, const void* q,
+                        const void* k, const void* v, void* o, void* stream) {
   const int c = check(B, Hq, Hkv, Tq, Tk, causal, window);
   if (c) return c < 0 ? static_cast<int>(cudaSuccess) : c;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -33,6 +33,10 @@ before the query (a query at p sees the keys ``p - window < k <= p``: the
 mask of the reference model's ``blockwise_causal_attention``); key blocks
 wholly below the window are skipped. The JAX kernel averages its
 block padding there too, so for those rows it differs from its own oracle.
+A logit ``softcap > 0`` (grok's attention) maps each scaled score ``s``
+to ``softcap * tanh(s / softcap)`` before the masks, as the reference
+model's attention does (``repro/models/attention.py``); masked scores
+stay at -1e30. All three kernels and both plain versions take it.
 The ``wgmma`` kernel rounds the softmax weights to bfloat16 before the
 second product (the TPU kernel keeps them in float32).
 
@@ -165,13 +169,14 @@ def _key_range(first_qpos: int, end_qpos: int, Tk: int, causal: bool,
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           scale: Optional[float] = None, block_q: int = 128,
-                          block_k: int = 128, window: int = 0
-                          ) -> torch.Tensor:
+                          block_k: int = 128, window: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
     """``q [B, Hq, Tq, Dh]``, ``k/v [B, Hkv, Tk, Dh]`` -> ``[B, Hq, Tq, Dh]``
     in q's dtype: per block of ``block_q`` queries, an online softmax over
     blocks of ``block_k`` keys in float32. The query heads of one GQA group
     share their key/value head by broadcasting (no copy). ``window > 0``:
-    a sliding window (see the module docstring)."""
+    a sliding window; ``softcap > 0``: the logit softcap (see the module
+    docstring)."""
     check_shapes(q, k, v)
     check_window(window, causal)
     B, Hq, Tq, Dh = q.shape
@@ -198,6 +203,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for k0 in range(lo, hi, block_k):
             k1 = min(k0 + block_k, Tk)
             s = (qb @ kf[:, :, :, k0:k1].mT) * scale
+            if softcap > 0.0:
+                s = softcap * torch.tanh(s / softcap)
             if causal:
                 kpos = torch.arange(k0, k1, device=q.device)[None, :]
                 seen = qpos >= kpos
@@ -227,13 +234,13 @@ def _library():
     if not getattr(lib, "_fa_bound", False):
         i, ll, f, ptr = (ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                          ctypes.c_void_p)
-        lib.fa_attention.argtypes = [i, i, ll, i, i, ll, ll, i, i, f,
+        lib.fa_attention.argtypes = [i, i, ll, i, i, ll, ll, i, i, f, f,
                                      ptr, ptr, ptr, ptr, ptr]
-        lib.fa_decode.argtypes = [i, i, ll, i, i, ll, ll, i, i, f, i,
+        lib.fa_decode.argtypes = [i, i, ll, i, i, ll, ll, i, i, f, f, i,
                                   ptr, ptr, ptr, ptr, ptr, ptr, ptr]
-        lib.fa_wgmma.argtypes = [i, ll, i, i, ll, ll, i, i, f,
+        lib.fa_wgmma.argtypes = [i, ll, i, i, ll, ll, i, i, f, f,
                                  ptr, ptr, ptr, ptr, ptr]
-        lib.fa_decode_cache.argtypes = [i, i, ll, i, i, ll, ll, f, i,
+        lib.fa_decode_cache.argtypes = [i, i, ll, i, i, ll, ll, f, f, i,
                                         ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                         ptr]
         for fn in (lib.fa_attention, lib.fa_decode, lib.fa_wgmma,
@@ -294,10 +301,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          scale: Optional[float] = None,
                          kernel: Optional[str] = None,
-                         window: int = 0) -> torch.Tensor:
+                         window: int = 0,
+                         softcap: float = 0.0) -> torch.Tensor:
     """Attention over contiguous ``q [B, Hq, Tq, Dh]``, ``k/v [B, Hkv, Tk,
     Dh]``, float32 or bfloat16, ``Dh`` in `HEAD_DIMS`; ``window > 0`` a
-    causal sliding window, which all three kernels take.
+    causal sliding window and ``softcap > 0`` a logit softcap, which all
+    three kernels take.
 
     CPU tensors take `flash_attention_plain`; CUDA tensors launch the
     kernel `select_kernel` picks (nothing for an empty output) or raise.
@@ -307,7 +316,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_window(window, causal)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     window=window)
+                                     window=window, softcap=softcap)
     _check_card_inputs("flash_attention", q, k, v)
     B, Hq, Tq, Dh = q.shape
     Hkv, Tk = k.shape[1:3]
@@ -331,7 +340,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     lib = _library()
-    common = (B, Hq, Hkv, Tq, Tk, int(causal), int(window), float(scale))
+    common = (B, Hq, Hkv, Tq, Tk, int(causal), int(window), float(scale),
+              float(softcap))
     if chosen == "decode":
         split_keys, part, part_acc = _decode_scratch(B, Hkv, Tk, rows, Dh,
                                                      q.device)
@@ -380,15 +390,17 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, length: torch.Tensor, *,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          softcap: float = 0.0) -> torch.Tensor:
     """The split-K decode kernel on a cache read in place: contiguous ``q
     [B, Hq, Tq, Dh]`` (at most `DECODE_MAX_ROWS` rows ``group * Tq`` per
     kv head) against contiguous ``k/v [B, Hkv, S, Dh]``, of which the
     first ``min(length, S)`` rows are keys; ``length`` is a one-element
     int32 tensor on q's device, read by the kernel. float32 or bfloat16,
     ``Dh`` in `HEAD_DIMS`. Not causal: every valid row is a key of every
-    query row. A ``length`` of 0 gives zeros (the plain version averages
-    the masked buffer then); the model always writes before it reads.
+    query row. ``softcap > 0``: the logit softcap. A ``length`` of 0
+    gives zeros (the plain version averages the masked buffer then); the
+    model always writes before it reads.
 
     CPU tensors take `decode_attention_plain`; CUDA tensors launch the
     kernel (one ``flash_attention_decode`` launch) or raise."""
@@ -398,7 +410,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                         f"{length.dtype} of shape {tuple(length.shape)}")
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, length,
-                                      scale=scale)
+                                      scale=scale, softcap=softcap)
     _check_card_inputs("decode_attention", q, k_cache, v_cache)
     if length.device != q.device:
         raise TypeError("decode_attention: length is not on q's device")
@@ -418,8 +430,8 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     err = _library().fa_decode_cache(
         _DTYPE_CODE[q.dtype], Dh, B, Hq, Hkv, Tq, S, float(scale),
-        int(split_keys), *map(_ptr, (q, k_cache, v_cache, length, out, part)),
-        part_acc, stream)
+        float(softcap), int(split_keys),
+        *map(_ptr, (q, k_cache, v_cache, length, out, part)), part_acc, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention decode kernel launch failed "
                            f"(KV cache): CUDA error {err}")

@@ -1,7 +1,8 @@
 """Sequence-model substrate (PyTorch): layers, attention, the selective
-SSM and the causal LM assembly, for the dense and hybrid families. The
-MoE, xLSTM and encoder-decoder families and training (``encode``,
-``train_loss``) are later sub-slices (ROADMAP queue A, item 5)."""
+SSM, the MoE layer and the causal LM assembly, for the dense, hybrid and
+MoE families. The xLSTM and encoder-decoder families and training
+(``encode``, ``train_loss``) are later sub-slices (ROADMAP queue A, item
+5)."""
 from repro_torch.models.transformer import (decode_step, init_caches,
                                             init_model, prefill)
 

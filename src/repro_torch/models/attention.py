@@ -20,9 +20,11 @@ Where attention runs (``impl``):
   runs the split-K decode kernel on the cache in place
   (`kernels.flash_attention.decode_attention_cuda`), reading the cache's
   ``length`` from device memory; a windowed layer's cache is a ring that
-  holds only in-window keys, so the kernel needs no window there. A
-  configuration no kernel takes raises on the card (a logit softcap, a
-  head_dim without an instance): nothing gives way to the plain versions.
+  holds only in-window keys, so the kernel needs no window there. Both
+  kernels take the config's logit softcap (grok's 30), applied to the
+  scaled scores before the masks as the reference does. A head_dim
+  without a kernel instance raises on the card: nothing gives way to the
+  plain versions.
 * ``"plain"`` — `blockwise_causal_attention` and `decode_attention` on any
   device (the reference's algorithms; each call adds one to
   `PLAIN_CALLS`).
@@ -216,13 +218,6 @@ def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     return KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
 
 
-def _check_kernel_config(cfg: ModelConfig):
-    if cfg.attn_logit_softcap > 0.0:
-        raise NotImplementedError(
-            f"attention: no CUDA kernel takes a logit softcap "
-            f"({cfg.attn_logit_softcap}); impl='plain' runs the plain version")
-
-
 def _pad_heads(ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """ctx ``[B, T, num_heads, Dh]`` -> ``[B, T, padded_heads, Dh]``, the
     padded heads zero."""
@@ -246,11 +241,11 @@ def attention_layer(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     if cache is None:
         new_cache = None
         if kernel:
-            _check_kernel_config(cfg)
             o = kfa.flash_attention_cuda(
                 q[:, :, :H].transpose(1, 2).contiguous(),
                 k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous(), causal=causal, window=window)
+                v.transpose(1, 2).contiguous(), causal=causal, window=window,
+                softcap=cfg.attn_logit_softcap)
             ctx = _pad_heads(o.transpose(1, 2), cfg)
         else:
             ke, ve = expand_kv_heads(k, v, cfg.padded_heads, H)
@@ -263,10 +258,9 @@ def attention_layer(params: Attention, x: torch.Tensor, cfg: ModelConfig,
         # wq/wo rows, and slicing keeps the grouped [Hkv, g] shape.
         q_att = q[:, :, :H]
         if kernel:
-            _check_kernel_config(cfg)
             o = kfa.decode_attention_cuda(
                 q_att.transpose(1, 2).contiguous(), new_cache.k, new_cache.v,
-                new_cache.length)
+                new_cache.length, softcap=cfg.attn_logit_softcap)
             ctx = o.transpose(1, 2)
         else:
             ctx = decode_attention(q_att, new_cache, window=window,

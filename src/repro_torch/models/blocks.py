@@ -5,8 +5,8 @@ the port keeps a run as an ``nn.ModuleList`` of blocks and loops over it.
 A run's decode caches are stacked as in the reference (``[count, ...]``
 leading dim), and each layer reads and writes its slice in place.
 
-The ``dense`` and ``hybrid`` kinds are ported. The other kinds (``moe``,
-``mlstm``, ``slstm``) raise `NotImplementedError` naming their ROADMAP
+The ``dense``, ``hybrid`` and ``moe`` kinds are ported. The xLSTM kinds
+(``mlstm``, ``slstm``) raise `NotImplementedError` naming their ROADMAP
 item (queue A, item 5).
 """
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch.nn as nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import init_rms_norm, rms_norm
 
@@ -57,9 +58,8 @@ def layer_schedule(cfg: ModelConfig) -> List[Run]:
     return runs
 
 
-_PORTED = ("dense", "hybrid")
-_WAITING = {"moe": "the MoE family (deepseek-moe-16b, grok-1-314b)",
-            "mlstm": "the xLSTM family (xlstm-350m)",
+_PORTED = ("dense", "hybrid", "moe")
+_WAITING = {"mlstm": "the xLSTM family (xlstm-350m)",
             "slstm": "the xLSTM family (xlstm-350m)"}
 
 
@@ -72,8 +72,9 @@ def _not_ported(kind: str) -> NotImplementedError:
 
 
 class Block(nn.Module):
-    """A pre-norm block: ``ln1``, ``attn``, ``ln2``, ``mlp``; a hybrid
-    block also ``ssm`` and ``ln_ssm``."""
+    """A pre-norm block: ``ln1``, ``attn``, ``ln2``, ``mlp`` (``moe`` in
+    its place in an MoE block); a hybrid block also ``ssm`` and
+    ``ln_ssm``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator,
                  dtype: torch.dtype):
@@ -84,7 +85,10 @@ class Block(nn.Module):
         self.ln1 = init_rms_norm(d, dtype, gen.device)
         self.attn = attn_lib.init_attention(cfg, gen, dtype)
         self.ln2 = init_rms_norm(d, dtype, gen.device)
-        self.mlp = mlp_lib.init_mlp(gen, d, cfg.d_ff, dtype)
+        if kind == "moe":
+            self.moe = moe_lib.init_moe(cfg, gen, dtype)
+        else:
+            self.mlp = mlp_lib.init_mlp(gen, d, cfg.d_ff, dtype)
         if kind == "hybrid":
             self.ssm = ssm_lib.init_ssm(cfg, gen, dtype)
             self.ln_ssm = init_rms_norm(d, dtype, gen.device)
@@ -98,8 +102,9 @@ def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
 def apply_block(params: Block, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 *, positions: torch.Tensor, window: int, cache=None,
                 causal: bool = True, impl: str = "auto"):
-    """Pre-norm residual block. Returns (x, new_cache, aux_loss); the
-    ported kinds have no auxiliary loss (0.0). A hybrid block (Hymba) runs
+    """Pre-norm residual block. Returns (x, new_cache, aux_loss): an MoE
+    block's load-balance loss (a float32 scalar tensor), 0.0 for the
+    other kinds. A hybrid block (Hymba) runs
     attention and the SSM on the same normed input and averages them,
     the SSM output normed first; ``impl`` says where both run."""
     if kind not in _PORTED:
@@ -120,17 +125,22 @@ def apply_block(params: Block, x: torch.Tensor, cfg: ModelConfig, kind: str,
     else:
         x = x + a
     h2 = rms_norm(x, params.ln2, cfg.rmsnorm_eps)
-    x = x + mlp_lib.mlp(params.mlp, h2)
-    return x, new_cache, 0.0
+    aux = 0.0
+    if kind == "moe":
+        m, aux = moe_lib.moe_layer(params.moe, h2, cfg)
+    else:
+        m = mlp_lib.mlp(params.mlp, h2)
+    return x + m, new_cache, aux
 
 
 def init_run_cache(cfg: ModelConfig, run: Run, B: int, S: int,
                    dtype: torch.dtype, device):
     """A run's decode caches, stacked: ``attn`` = `KVCache` with ``k``/``v``
     ``[count, B, Hkv, S', Dh]`` and ``length`` ``[count]``, where ``S'`` is
-    the window for a windowed run (a ring) and ``S`` otherwise; a hybrid
-    run also ``ssm`` = `SSMCache` with ``h [count, B, d_inner, n]``
-    (float32) and ``conv [count, B, K-1, d_inner]``."""
+    the window for a windowed run (a ring) and ``S`` otherwise (a dense
+    or MoE run holds nothing else); a hybrid run also ``ssm`` = `SSMCache`
+    with ``h [count, B, d_inner, n]`` (float32) and ``conv [count, B, K-1,
+    d_inner]``."""
     if run.kind not in _PORTED:
         raise _not_ported(run.kind)
 

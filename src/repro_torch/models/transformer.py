@@ -1,7 +1,7 @@
 """The decoder-only causal LM (PyTorch): init, prefill, decode.
 
-The JAX package's ``repro.models.transformer`` for the dense and hybrid
-families. Its functional API, with an ``nn.Module`` in place of the
+The JAX package's ``repro.models.transformer`` for the dense, hybrid and
+MoE families. Its functional API, with an ``nn.Module`` in place of the
 parameter pytree:
 
     model = init_model(cfg, seed, device=...)
@@ -9,7 +9,9 @@ parameter pytree:
     logits, caches = decode_step(model, cfg, caches, tokens, pos)
 
 ``encode`` and ``train_loss`` (the encoder-decoder and training slices)
-wait; an encoder-decoder config raises. ``impl`` (``"auto"`` or
+wait; an encoder-decoder config raises. The MoE layers' load-balance
+losses are summed by `_apply_stack` (training reads them; `prefill` and
+`decode_step` drop them, as the reference's do). ``impl`` (``"auto"`` or
 ``"plain"``) says where attention and the SSM scan run
 (`models.attention`, `models.ssm`): ``"auto"`` runs the CUDA kernels on
 the card. Decode writes the caches in place and returns them with the
@@ -81,7 +83,8 @@ def _apply_stack(model: CausalLM, x: torch.Tensor, cfg: ModelConfig,
                  runs, *, positions: torch.Tensor, caches=None,
                  causal: bool = True, impl: str = "auto"):
     """Apply all runs, layer by layer. ``caches``: a list aligned with
-    ``runs`` (or None). Returns (x, new_caches, aux_total)."""
+    ``runs`` (or None). Returns (x, new_caches, aux_total): the MoE
+    layers' aux losses summed (a float32 tensor; 0.0 without MoE)."""
     aux_total = 0.0
     new_caches: Optional[List] = [] if caches is not None else None
     for ri, run in enumerate(runs):

@@ -7,10 +7,11 @@ matters, are carried across with
 ``convert.lm_params``; the port's ``prefill`` logits and 8 teacher-forced
 ``decode_step`` logits are held against JAX's at the suite's float32
 tolerance, and the port's decode against its own prefill. On the card
-(marker ``cuda``) the kernel path is held against the plain path, and a
-configuration no kernel takes raises. JAX is imported on first use, not
-at module level, so on a card's machine without JAX the marked tests run
-with ``pytest --noconftest -m cuda``."""
+(marker ``cuda``) the kernel path is held against the plain path, a
+softcap runs the kernels, and a head dim no kernel takes raises. JAX is
+imported on first use, not at module level, so on a card's machine
+without JAX the marked tests run with ``pytest --noconftest -m cuda``."""
+import dataclasses
 import functools
 import types
 
@@ -160,8 +161,7 @@ def test_init_model_is_seeded_and_tied():
         cfg.padded_vocab, cfg.d_model)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-350m",
-                                  "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "seamless-m4t-medium"])
 def test_families_still_to_port_raise(arch):
     cfg = reduced_config(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 5"):
@@ -252,26 +252,50 @@ def test_kernel_path_matches_plain_on_card(cuda, arch, over, dtype):
 
 @pytest.mark.cuda
 def test_configs_no_kernel_takes_raise_on_card(cuda):
-    """A logit softcap (prefill and decode) and a head dim without an
-    instance raise on the card; the plain impl runs them. A window does
-    not raise: its prefill and decode run the kernels, held to plain."""
+    """A head dim without an instance raises on the card (prefill and
+    decode); the plain impl runs it. A logit softcap and a window do not
+    raise: their prefill and decode run the kernels (the softcap's with
+    scores scaled past the cap), held to plain."""
     base = get_config("llama3.2-3b")
     x_tok = torch.zeros((1, 4), dtype=torch.long, device=cuda)
-    for over, calls in (({"attn_logit_softcap": 30.0}, ("prefill", "decode")),
-                        ({"head_dim": 48}, ("prefill", "decode"))):
-        cfg = reduced_config(base, **over)
-        model = init_model(cfg, 0, device=cuda)
-        err = (ValueError if "head_dim" in over else NotImplementedError)
-        if "prefill" in calls:
-            with pytest.raises(err):
-                prefill(model, cfg, x_tok)
-        if "decode" in calls:
-            caches = init_caches(cfg, 1, 8, device=cuda)
-            with pytest.raises(err):
-                decode_step(model, cfg, caches, x_tok[:, :1], 0)
-        prefill(model, cfg, x_tok, impl="plain")
-        decode_step(model, cfg, init_caches(cfg, 1, 8, device=cuda),
-                    x_tok[:, :1], 0, impl="plain")
+    cfg = reduced_config(base, head_dim=48)
+    model = init_model(cfg, 0, device=cuda)
+    with pytest.raises(ValueError):
+        prefill(model, cfg, x_tok)
+    caches = init_caches(cfg, 1, 8, device=cuda)
+    with pytest.raises(ValueError):
+        decode_step(model, cfg, caches, x_tok[:, :1], 0)
+    prefill(model, cfg, x_tok, impl="plain")
+    decode_step(model, cfg, init_caches(cfg, 1, 8, device=cuda),
+                x_tok[:, :1], 0, impl="plain")
+    # A softcap of 2 with q and k scaled up: the cap acts on most scores.
+    cfg = reduced_config(base, attn_logit_softcap=2.0)
+    model = init_model(cfg, 0, device=cuda)
+    with torch.no_grad():
+        for block in model.runs[0]:
+            block.attn.wq.weight.mul_(40.0)
+            block.attn.wk.weight.mul_(40.0)
+    toks = x_tok + torch.arange(4, device=cuda)
+    tattn.reset_plain_calls()
+    before = dict(kfa.LAUNCHES)
+    got = prefill(model, cfg, toks)
+    kc = init_caches(cfg, 1, 8, device=cuda)
+    pc = init_caches(cfg, 1, 8, device=cuda)
+    for i in range(4):
+        lk, kc = decode_step(model, cfg, kc, toks[:, i:i + 1], i)
+        lp, pc = decode_step(model, cfg, pc, toks[:, i:i + 1], i,
+                             impl="plain")
+        np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(), **TOL)
+    torch.cuda.synchronize()
+    assert sum(kfa.LAUNCHES[k] - before[k] for k in before) == \
+        cfg.num_layers * 5
+    assert tattn.PLAIN_CALLS == {"blockwise_causal_attention": 0,
+                                 "decode_attention": cfg.num_layers * 4}
+    want = prefill(model, cfg, toks, impl="plain")
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    uncapped = dataclasses.replace(cfg, attn_logit_softcap=0.0)
+    assert not np.allclose(prefill(model, uncapped, toks).cpu().numpy(),
+                           want.cpu().numpy(), **TOL)
     # A windowed prefill and decode run the kernels (the decode on the
     # ring).
     cfg = reduced_config(base, sliding_window=2)
