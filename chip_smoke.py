@@ -169,8 +169,33 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      deepseek's (1 row per kv head, L = 320) and grok's (6 rows, L = 128,
      cap 30) shapes and of both prefills, beside their bounds and SDPA
      (which has no softcap);
-  18. the ``kernels`` JSON line (each combine kernel's launches per path;
-     ``ssm_scan``'s: ``ssm_scan``, ``lm_hybrid_prefill``; the flash
+  18. ``[lm_xlstm]``: the LM decode service for xlstm-350m at full width
+     (24 blocks, sLSTM at 7, 15 and 23, mLSTM elsewhere; d_model 1,024, 4
+     heads, mLSTM inner width 2,048 so dh 512; vocabulary 50,304, untied),
+     bf16, random weights from seed 0, nothing cut: batch 64, 256 prompt
+     and 256 greedy steps. The service with the counters zeroed before
+     and read after: no kernel launch and no plain call (a decode step is
+     plain PyTorch on a state of fixed size, written in place); peak
+     device memory and the state's bytes; a profile of 32 steps; the
+     matrix memory's step (`xlstm._memory_step`) at B = 64 by CUDA graph
+     beside one read and one write of ``C``. ``prefill`` at B = 8, T =
+     1,024 (4 chunks of 256) launches ``ssm_scan`` once per mLSTM layer
+     (21) over ``[8, 4, 4 x (512^2 + 512)]``, each call held against
+     ``ssm_scan_plain`` on its own inputs at the float32 TOL, which a scan
+     that loses one chunk's state misses in every call (the carry into a
+     chunk dropped is reported beside it: the random model's forget
+     gates underflow the carry to 0 within a chunk, so no model call can
+     show it); the chunk carry where it matters (forget gates
+     ``log_sigmoid(6 + z)``, full width): ``_mlstm_chunked`` on the
+     kernel against the recurrent step, which the carry dropped misses;
+     float32 ``prefill`` (kernel) against the float32 model teacher-forced
+     through ``decode_step`` to the same position, and the bf16
+     ``prefill`` on the kernel against plain, each relative to the
+     largest logit; device time of ``ssm_scan`` at the prefill's shape
+     beside its bound;
+  19. the ``kernels`` JSON line (each combine kernel's launches per path;
+     ``ssm_scan``'s: ``ssm_scan``, ``lm_hybrid_prefill``,
+     ``lm_xlstm_prefill``; the flash
      kernels': ``flash``, ``lm_decode``, ``lm_prefill``, ``lm_hybrid``,
      ``lm_hybrid_prefill``, ``lm_moe``, ``lm_moe_prefill``, ``lm_grok``,
      ``lm_grok_prefill``), then the device JSON line, last.
@@ -3357,6 +3382,365 @@ def phase_lm_grok(torch) -> dict:
             "prefill_attention": prefill_time}
 
 
+# ---------------------------------------------------------------------------
+# LM xLSTM family
+# ---------------------------------------------------------------------------
+
+#: xlstm-350m (src/repro_torch/configs/xlstm_350m.py) at full width,
+#: nothing cut: 24 blocks (sLSTM at 7, 15, 23, mLSTM elsewhere), d_model
+#: 1,024, 4 heads, mLSTM inner width 2,048 (dh 512), vocabulary 50,304,
+#: embeddings untied. The decode state has a fixed size whatever the
+#: length: 21 x C [64, 4, 512, 512] float32 is 5.64 GB at B = 64, five
+#: times the weights.
+XL_ARCH, XL_SEED = "xlstm-350m", 0
+XL_B, XL_PROMPT, XL_GEN = 64, 256, 256
+XL_MAX = XL_PROMPT + XL_GEN
+#: The prefill gates: 4 chunks of 256, so one scan over [8, 4, 1,050,624].
+XL_PREFILL_B, XL_PREFILL_T = 8, 1024
+XL_PROFILE_STEPS = 32
+#: Whole-model logit gates, relative to the largest logit: float32
+#: chunkwise against float32 recurrent (the suite's float32 rtol), and
+#: bf16 kernel against bf16 plain (one bf16 rounding).
+XL_F32_REL = 2e-4
+XL_BF16_REL = 2.0 ** -8
+#: Forget gates log_sigmoid(6 + z): memory that outlasts a 256-step chunk
+#: (the random model's gates forget within one).
+XL_LONG_FORGET = 6.0
+
+
+class _ScanTap:
+    """Stands in for `ssm_scan_cuda` while the mLSTM prefill runs. Each
+    call launches the kernel as the model's call would and is held
+    against `ssm_scan_plain` on the same ``a, b [B, nc, D]`` at the
+    float32 TOL (error over the allclose tolerance). Two planted faults
+    launch the kernel again: the carry into the second chunk dropped
+    (``a[:, 1] = 0``), and the state after it lost as well (``a[:, 1] =
+    b[:, 1] = 0``); the largest carry factor ``a`` of the call is
+    recorded beside them. With ``plant`` the carry-dropped output is what
+    the model gets."""
+
+    def __init__(self, ss, plant=False):
+        self.ss, self.scan, self.plant = ss, ss.ssm_scan_cuda, plant
+        self.ok, self.lost, self.carry, self.carry_max = [], [], [], []
+
+    def __enter__(self):
+        self.ss.ssm_scan_cuda = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ss.ssm_scan_cuda = self.scan
+
+    def __call__(self, a, b):
+        h = self.scan(a, b)
+        want = self.ss.ssm_scan_plain(a, b)
+        t = SSM_TOL["float32"]
+        tol = t["atol"] + t["rtol"] * want.abs()
+        a_bad, b_bad = a.clone(), b.clone()
+        a_bad[:, 1] = 0
+        dropped = self.scan(a_bad, b)
+        b_bad[:, 1] = 0
+        lost = self.scan(a_bad, b_bad)
+        for acc, out in ((self.ok, h), (self.lost, lost),
+                         (self.carry, dropped)):
+            acc.append(((out - want).abs() / tol).amax())
+        self.carry_max.append(a[:, 1:].amax())
+        return dropped if self.plant else h
+
+    def result(self, torch) -> dict:
+        ok, lost, carry = (torch.stack(x).tolist()
+                           for x in (self.ok, self.lost, self.carry))
+        return {"scans": len(ok), "max_err_over_tol": max(ok),
+                "lost_min_err_over_tol": min(lost),
+                "lost_caught": sum(s > 1.0 for s in lost),
+                "carry_dropped_max_err_over_tol": max(carry),
+                "carry_dropped_caught": sum(c > 1.0 for c in carry),
+                "max_carry_factor": torch.stack(self.carry_max).amax().item()}
+
+
+def _recurrent_mlstm(torch, xl, q, k, v, lf, li):
+    """The mLSTM over T from a zero state by the port's decode step
+    (`xlstm._memory_step`, held against JAX's on the CPU): h ``[B, H, T,
+    dh]`` and the final ``(C, n)``, float32."""
+    B, H, T, dh = q.shape
+    C, n = q.new_zeros((B, H, dh, dh)), q.new_zeros((B, H, dh))
+    f, i = lf.exp(), li.exp()
+    hs = [xl._memory_step(C, n, f[..., t], i[..., t], q[:, :, t], k[:, :, t],
+                          v[:, :, t]) for t in range(T)]
+    return torch.cat(hs, dim=2), (C, n)
+
+
+def _rel(got, want) -> float:
+    """Largest error over the reference's largest magnitude."""
+    return ((got.float() - want.float()).abs().amax()
+            / want.float().abs().amax()).item()
+
+
+def phase_lm_xlstm(torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ssm_scan as ss
+    from repro_torch.launch.serve import ServeConfig, serve
+    from repro_torch.models import (decode_step, init_caches, init_model,
+                                    prefill)
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import xlstm as xl
+
+    tag = "lm_xlstm"
+    cfg = get_config(XL_ARCH)
+    vocab, layers = cfg.vocab_size, cfg.num_layers
+    H, CT = cfg.num_heads, cfg.scan_chunk
+    din = int(cfg.mlstm_proj_factor * cfg.d_model)
+    dh = din // H
+    n_mlstm = layers - len(cfg.slstm_layers)
+    nc = XL_PREFILL_T // CT
+
+    def reset_all():
+        reset_counts()
+        _reset_plain_attention_calls()
+        ssm_lib.reset_plain_calls()
+
+    def plain_calls():
+        return {**_plain_attention_calls(), **ssm_lib.PLAIN_CALLS}
+
+    # The service, timed, with the counters zeroed before and read after:
+    # no kernel and no plain call (the decode step is plain PyTorch).
+    serve_cfg = ServeConfig(arch=XL_ARCH, batch=XL_B, prompt_len=XL_PROMPT,
+                            gen=XL_GEN, max_len=XL_MAX, reduced=False,
+                            seed=XL_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all()
+    out = serve(serve_cfg, emit=say)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts, plain = read_counts(), plain_calls()
+    say(f"[{tag}] path: serve({XL_ARCH}, batch {XL_B}, prompt {XL_PROMPT}, "
+        f"gen {XL_GEN}, max_len {XL_MAX}, full width): "
+        f"{out['tok_per_s']:.1f} tok/s, {out['seconds'] / XL_MAX * 1e3:.3f} "
+        f"ms per step; kernel launches {counts}, plain calls {plain}; peak "
+        f"device memory {peak_gb:.2f} GB")
+    _check_service(tag, XL_ARCH, counts, plain, 0, 0, out["tokens"],
+                   (XL_B, XL_GEN), vocab, torch)
+    if not bool(torch.isfinite(out["logits"]).all()):
+        fail(f"{tag}: non-finite logits at the service's last step")
+    tok_per_s, seconds = out["tok_per_s"], out["seconds"]
+    del out
+    torch.cuda.empty_cache()
+
+    # The same weights (the service's seed); the decode state's bytes.
+    t0 = time.perf_counter()
+    model = init_model(cfg, XL_SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    caches = init_caches(cfg, XL_B, XL_MAX, device="cuda")
+    state_bytes = sum(t.numel() * t.element_size() for c in caches
+                      for t in c)
+    c_bytes = sum(c.C.numel() * 4 for c in caches if hasattr(c, "C"))
+    say(f"[{tag}] {XL_ARCH} full width: {layers} blocks ({n_mlstm} mLSTM, "
+        f"sLSTM at {list(cfg.slstm_layers)}), d_model {cfg.d_model}, heads "
+        f"{H}, mLSTM inner {din} (dh {dh}), conv {cfg.ssm_conv}, vocab "
+        f"{vocab} (padded {cfg.padded_vocab}), {n_params:,} parameters in "
+        f"bf16, init {time.perf_counter() - t0:.2f}s; decode state at B="
+        f"{XL_B}: {state_bytes / 1e9:.3f} GB ({c_bytes / 1e9:.3f} GB of C)")
+
+    # Device busy over 32 decode steps (the state's size, and so the
+    # step's work, does not depend on the position).
+    gen = torch.Generator(device="cuda").manual_seed(XL_SEED + 1)
+    state = {"caches": caches, "tok": torch.randint(
+        0, vocab, (XL_B, 1), generator=gen, device="cuda")}
+
+    def step(j):
+        logits, state["caches"] = decode_step(model, cfg, state["caches"],
+                                              state["tok"], j)
+        state["tok"] = logits[:, :, :vocab].argmax(-1)
+
+    for j in range(4):
+        step(j)
+    profile_res = _lm_profile(torch, step, XL_PROFILE_STEPS, tag)
+    _say_profile(tag, "a constant-size state", profile_res)
+    del caches, state
+    torch.cuda.empty_cache()
+
+    # The matrix memory's step (`_memory_step`: C <- f C + (i k) v^T in
+    # place, and the readout C^T q) of one layer at B = 64, by CUDA graph,
+    # beside one read and one write of C.
+    g4 = torch.Generator(device="cuda").manual_seed(5)
+    kw = dict(device="cuda", generator=g4)
+    mem_sets = [(torch.randn((XL_B, H, dh, dh), **kw),
+                 torch.randn((XL_B, H, dh), **kw),
+                 torch.rand((XL_B, H), **kw), torch.rand((XL_B, H), **kw),
+                 *(torch.randn((XL_B, H, dh), **kw) for _ in range(3)))
+                for _ in range(2)]
+    mem_ms = _graph_ms(torch, xl._memory_step, mem_sets)
+    # C and n read and written once, q, k, v and the gates read, the
+    # readout written; per element of C a multiply, an FMA and an FMA.
+    mem_bound, mem_by = _bound(
+        4 * XL_B * H * (2 * dh * dh + 6 * dh + 2), 5 * XL_B * H * dh * dh,
+        "float32")
+    say(f"[time] xlstm decode memory step (C update in place + readout) "
+        f"B={XL_B} H={H} dh={dh} f32: {mem_ms * 1e3:.2f} us device per "
+        f"layer (CUDA graph), bound {mem_bound * 1e3:.2f} us ({mem_by}: one "
+        f"read and one write of C); x {n_mlstm} layers {mem_ms * n_mlstm:.3f}"
+        f" ms per step against {mem_bound * n_mlstm:.3f} ms")
+    del mem_sets
+    torch.cuda.empty_cache()
+
+    # Prefill at B = 8, T = 1,024 with the counters zeroed before and read
+    # after: one ssm_scan launch per mLSTM layer, no plain call.
+    toks = torch.randint(0, vocab, (XL_PREFILL_B, XL_PREFILL_T),
+                         generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    reset_all()
+    t0 = time.perf_counter()
+    lpre = prefill(model, cfg, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts, plain = read_counts(), plain_calls()
+    prefill_launches = {k: v for k, v in counts.items() if v}
+    say(f"[{tag}] prefill B={XL_PREFILL_B} T={XL_PREFILL_T} ({nc} chunks "
+        f"of {CT}): {prefill_s:.3f}s, kernel launches {prefill_launches}, "
+        f"plain calls {plain}")
+    if prefill_launches != {"ssm_scan": n_mlstm} or any(plain.values()):
+        fail(f"{tag} prefill launched {prefill_launches}, plain calls "
+             f"{plain}; expected ssm_scan x {n_mlstm} and nothing else")
+    with _ScanTap(ss) as tap:
+        prefill(model, cfg, toks)
+    per_call = tap.result(torch)
+    say(f"[{tag}] every prefill scan vs ssm_scan_plain on its own inputs "
+        f"[{XL_PREFILL_B}, {nc}, {H * (dh * dh + dh)}]: "
+        f"{per_call['scans']} calls, max err/tol "
+        f"{per_call['max_err_over_tol']:.3f} (float32 TOL); the state "
+        f"after chunk 1 lost misses it in {per_call['lost_caught']} of "
+        f"{per_call['scans']} (least err/tol "
+        f"{per_call['lost_min_err_over_tol']:.3e}); the carry into chunk 1 "
+        f"dropped: max err/tol "
+        f"{per_call['carry_dropped_max_err_over_tol']:.3e}, caught in "
+        f"{per_call['carry_dropped_caught']} (largest carry factor "
+        f"{per_call['max_carry_factor']:.3e}: the random gates forget "
+        f"within a chunk)")
+    if per_call["scans"] != n_mlstm or not per_call["max_err_over_tol"] <= 1:
+        fail(f"{tag}: a prefill scan disagrees with ssm_scan_plain")
+    if per_call["lost_caught"] != n_mlstm:
+        fail(f"{tag}: a scan that loses a chunk's state passes the float32 "
+             "TOL")
+
+    # The carry where it matters: forget gates near 1, at the full width.
+    long = [torch.randn((XL_PREFILL_B, H, XL_PREFILL_T, dh), **kw)
+            for _ in range(3)]
+    long[0] /= dh ** 0.5
+    z = torch.randn((2, XL_PREFILL_B, H, XL_PREFILL_T), **kw)
+    lf = torch.nn.functional.logsigmoid(XL_LONG_FORGET + z[0])
+    li = torch.nn.functional.logsigmoid(z[1])
+    h_ref, (C_ref, _) = _recurrent_mlstm(torch, xl, *long, lf, li)
+    carry = {}
+    for plant in (False, True):
+        with _ScanTap(ss, plant=plant) as ctap:
+            h, (C_end, _) = xl._mlstm_chunked(*long, lf, li, CT)
+        carry["dropped" if plant else "kernel"] = {
+            "h_rel": _rel(h, h_ref), "C_rel": _rel(C_end, C_ref),
+            "scan": ctap.result(torch)}
+    del long, z, lf, li, h, C_end, h_ref, C_ref
+    torch.cuda.empty_cache()
+    ck, cd = carry["kernel"], carry["dropped"]
+    say(f"[{tag}] chunk carry at full width, forget gates "
+        f"log_sigmoid({XL_LONG_FORGET:g} + z) (carry factor up to "
+        f"{ck['scan']['max_carry_factor']:.3f}): chunkwise on the kernel vs "
+        f"the recurrent step, max |dh| / max |h| {ck['h_rel']:.3e}, final C "
+        f"{ck['C_rel']:.3e} (bound {XL_F32_REL:g}); scan err/tol "
+        f"{ck['scan']['max_err_over_tol']:.3f}; the carry into chunk 1 "
+        f"dropped: {cd['h_rel']:.3e}, final C {cd['C_rel']:.3e}, scan "
+        f"err/tol {cd['scan']['carry_dropped_max_err_over_tol']:.3e}")
+    if not (ck["h_rel"] <= XL_F32_REL and ck["C_rel"] <= XL_F32_REL
+            and ck["scan"]["max_err_over_tol"] <= 1.0):
+        fail(f"{tag}: the chunkwise mLSTM on the kernel disagrees with the "
+             "recurrent step where the carry matters")
+    if not (cd["h_rel"] > XL_F32_REL and cd["C_rel"] > XL_F32_REL
+            and cd["scan"]["carry_dropped_caught"] == 1):
+        fail(f"{tag}: a dropped chunk carry passes the bounds")
+
+    # Whole model: bf16 kernel vs bf16 plain; float32 chunkwise (kernel)
+    # vs float32 recurrent (decode_step teacher-forced to T - 1).
+    lpre_plain = prefill(model, cfg, toks, impl="plain")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = copy.deepcopy(model).float()
+    del model
+    torch.cuda.empty_cache()
+    reset_all()
+    lpre32 = prefill(model32, cfg32, toks)
+    torch.cuda.synchronize()
+    if read_counts()["ssm_scan"] != n_mlstm:
+        fail(f"{tag}: the float32 prefill did not run the kernel")
+    t0 = time.perf_counter()
+    caches = init_caches(cfg32, XL_PREFILL_B, XL_PREFILL_T, device="cuda")
+    for i in range(XL_PREFILL_T):
+        ldec32, caches = decode_step(model32, cfg32, caches,
+                                     toks[:, i:i + 1], i)
+    torch.cuda.synchronize()
+    forced_s = time.perf_counter() - t0
+    del caches, model32
+    torch.cuda.empty_cache()
+    V = slice(0, vocab)
+    logit_res = {
+        "f32_prefill_vs_decode": _rel(lpre32[..., V], ldec32[..., V]),
+        "bf16_kernel_vs_plain": _rel(lpre[..., V], lpre_plain[..., V]),
+        "bf16_noise": _rel(lpre_plain[..., V], lpre32[..., V]),
+        "bf16_kernel_vs_f32": _rel(lpre[..., V], lpre32[..., V]),
+        "max_abs_logit_f32": lpre32[..., V].abs().amax().item(),
+        "top1_f32_equal": (lpre32[..., V].argmax(-1)
+                           == ldec32[..., V].argmax(-1)).float().mean().item(),
+        "finite": bool(torch.isfinite(lpre).all()
+                       and torch.isfinite(lpre32).all()),
+        "forced_s": forced_s}
+    say(f"[{tag}] position {XL_PREFILL_T - 1} (B={XL_PREFILL_B}), relative "
+        f"to the largest logit: float32 prefill (ssm_scan) vs float32 "
+        f"teacher-forced decode ({forced_s:.1f}s) "
+        f"{logit_res['f32_prefill_vs_decode']:.3e} (bound {XL_F32_REL:g}, "
+        f"top-1 equal {logit_res['top1_f32_equal']:.3f}); bf16 prefill "
+        f"kernel vs plain {logit_res['bf16_kernel_vs_plain']:.3e} (bound "
+        f"2^-8 = {XL_BF16_REL:.3e}); bf16 noise (plain bf16 vs float32) "
+        f"{logit_res['bf16_noise']:.3e}, kernel bf16 vs float32 "
+        f"{logit_res['bf16_kernel_vs_f32']:.3e}; max |logit| "
+        f"{logit_res['max_abs_logit_f32']:.4f}")
+    if not logit_res["finite"]:
+        fail(f"{tag}: non-finite prefill logits")
+    if not logit_res["f32_prefill_vs_decode"] <= XL_F32_REL:
+        fail(f"{tag}: the float32 chunkwise prefill differs from the "
+             "float32 recurrent decode")
+    if not logit_res["bf16_kernel_vs_plain"] <= XL_BF16_REL:
+        fail(f"{tag}: the bf16 prefill on the kernel differs from plain")
+    del lpre, lpre_plain, lpre32, ldec32
+    torch.cuda.empty_cache()
+
+    # ssm_scan at the prefill's shape.
+    shape = (XL_PREFILL_B, nc, H * (dh * dh + dh))
+    sets = [_ssm_inputs(torch, shape, torch.float32, g4) for _ in range(2)]
+    a, b = sets[0]
+    got, want = ss.ssm_scan_cuda(a, b), ss.ssm_scan_plain(a, b)
+    t = SSM_TOL["float32"]
+    err = _compare(torch, got, want, t, f"xlstm ssm_scan {shape}")
+    excess = ((got - want).abs() / (t["atol"] + t["rtol"] * want.abs())
+              ).amax().item()
+    del got, want
+    n = a.numel()
+    scan_time = _lm_kernel_time(
+        torch, ss.ssm_scan_cuda, ss.ssm_scan_plain, None, sets,
+        _bound(3 * n * ITEMSIZE["float32"], 2 * n, "float32"), 3)
+    scan_time.update(max_abs_err=err, max_err_over_tol=excess)
+    _say_lm_time(f"xlstm ssm_scan mLSTM chunk states {shape} f32 (err/tol "
+                 "at the float32 TOL):", scan_time)
+    del a, b, sets
+    torch.cuda.empty_cache()
+    return {"arch": XL_ARCH, "parameters": n_params,
+            "state_bytes": state_bytes, "C_bytes": c_bytes,
+            "peak_gb": peak_gb, "tok_per_s": tok_per_s, "seconds": seconds,
+            "ms_per_step": seconds / XL_MAX * 1e3, "profile": profile_res,
+            "memory_step_ms": mem_ms, "memory_step_bound_ms": mem_bound,
+            "prefill_s": prefill_s, "prefill_calls": per_call,
+            "carry": carry, "logits": logit_res,
+            "ssm_launches": prefill_launches["ssm_scan"],
+            "ssm_scan": scan_time}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -3387,6 +3771,7 @@ def main() -> int:
     hybrid = phase_lm_hybrid(torch)
     moe = phase_lm_moe(torch)
     grok = phase_lm_grok(torch)
+    xlstm = phase_lm_xlstm(torch)
 
     rows = []
     for kind in ("filtering_combine", "smoothing_combine"):
@@ -3414,11 +3799,13 @@ def main() -> int:
     lm_times = ("ms", "graph_ms", "plain_ms", "library_ms",
                 "library_graph_ms", "bound_ms", "max_abs_err")
     ssm_paths = {"ssm_scan": ssm["launches"],
-                 "lm_hybrid_prefill": hybrid["ssm_launches"]}
+                 "lm_hybrid_prefill": hybrid["ssm_launches"],
+                 "lm_xlstm_prefill": xlstm["ssm_launches"]}
     rows[-2].update(launches=sum(ssm_paths.values()),
                     launches_by_path=ssm_paths,
-                    lm_hybrid_prefill={k: hybrid["ssm_scan"][k]
-                                       for k in lm_times})
+                    **{path: {k: res["ssm_scan"][k] for k in lm_times}
+                       for path, res in (("lm_hybrid_prefill", hybrid),
+                                         ("lm_xlstm_prefill", xlstm))})
     flash_paths = {"flash": flash["launches"], **lm["launches_by_path"],
                    **hybrid["launches_by_path"], **moe["launches_by_path"],
                    **grok["launches_by_path"]}
@@ -3449,7 +3836,7 @@ def main() -> int:
          "adaptive": adaptive, "autotune": autotune, "stream": stream,
          "chaos": chaos, "tenants": tenants, "ssm_scan": ssm,
          "flash_attention": flash, "lm_decode": lm, "lm_hybrid": hybrid,
-         "lm_moe": moe, "lm_grok": grok,
+         "lm_moe": moe, "lm_grok": grok, "lm_xlstm": xlstm,
          "seconds": time.perf_counter() - t_start}, indent=1))
     say(f"[chip_smoke] all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")

@@ -37,8 +37,12 @@ def state_space_model(scenario: str, Q: np.ndarray, R: np.ndarray,
                                P0=as_t(P0))
 
 
-#: The SSM's ``[in, out]`` matrices (``nn.Linear``s in the port).
-_SSM_LINEAR = ("in_proj", "x_proj", "dt_w", "out_proj")
+#: Each sequence mixer's ``[in, out]`` matrices (``nn.Linear``s in the
+#: port); its other leaves are parameters as they are.
+_MIXER_LINEAR = {"ssm": ("in_proj", "x_proj", "dt_w", "out_proj"),
+                 "mlstm": ("in_proj", "wq", "wk", "wv", "w_gates",
+                           "out_proj"),
+                 "slstm": ("w_in", "up", "down")}
 
 
 def lm_params(params, cfg, *, device: Device = None,
@@ -47,7 +51,8 @@ def lm_params(params, cfg, *, device: Device = None,
     ``params`` (the pytree with its leaves as numpy arrays): ``embed``,
     ``runs`` (per run, each leaf stacked over the run's layers),
     ``final_norm`` and ``lm_head``. The runs are unstacked into blocks
-    (a hybrid block's ``ssm`` and ``ln_ssm`` too, an MoE block's ``moe``);
+    (a hybrid block's ``ssm`` and ``ln_ssm`` too, an MoE block's ``moe``,
+    an xLSTM block's ``mlstm`` or ``slstm``);
     ``[in, out]`` matrices become ``nn.Linear`` weights ``[out, in]``, and
     the MoE's router and stacked experts stay as they are.
     On ``device`` (`resolve_device`), in ``dtype`` (default the config's
@@ -73,7 +78,7 @@ def lm_params(params, cfg, *, device: Device = None,
             for norm in ("ln1", "ln2", "ln_ssm"):
                 if norm in run:
                     state[pre + norm] = t(run[norm][li])
-            for name, w in run["attn"].items():
+            for name, w in run.get("attn", {}).items():
                 if name.startswith("w"):
                     state[f"{pre}attn.{name}.weight"] = t(w[li]).T
                 else:  # bq, bk, bv
@@ -86,10 +91,11 @@ def lm_params(params, cfg, *, device: Device = None,
                         state[f"{pre}moe.shared.{sub}.weight"] = t(ws[li]).T
                 else:  # router [d, E], experts [E, d, dff] / [E, dff, d]
                     state[f"{pre}moe.{name}"] = t(w[li])
-            for name, w in run.get("ssm", {}).items():
-                if name in _SSM_LINEAR:
-                    state[f"{pre}ssm.{name}.weight"] = t(w[li]).T
-                else:  # conv_w, dt_bias, A_log, D
-                    state[f"{pre}ssm.{name}"] = t(w[li])
+            for mixer, linear in _MIXER_LINEAR.items():
+                for name, w in run.get(mixer, {}).items():
+                    if name in linear:
+                        state[f"{pre}{mixer}.{name}.weight"] = t(w[li]).T
+                    else:  # conv_w, dt_bias, A_log, D, norm_w, r, b
+                        state[f"{pre}{mixer}.{name}"] = t(w[li])
     model.load_state_dict({k: v.to(dtype) for k, v in state.items()})
     return model.to(dtype)

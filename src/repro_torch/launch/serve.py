@@ -1,20 +1,21 @@
 """Serving driver: two workloads behind one CLI, as in the JAX package.
 
-``decode`` — batched LM decoding with KV caches (the dense, hybrid and
-MoE families): the prompt teacher-forced through `decode_step`, then
-greedy steps; attention runs the CUDA kernels on the card (the split-K
-decode kernel on the cache in place, a sliding-window layer's cache a
-ring, grok's logit softcap inside the kernel, in every layer of every
-step; a hybrid block's SSM step is elementwise; an MoE block dispatches
-the step's tokens to its experts by the reference's sort-based capacity
-dispatch, with no host sync):
+``decode`` — batched LM decoding with KV caches or recurrent state (the
+dense, hybrid, MoE and xLSTM families): the prompt teacher-forced
+through `decode_step`, then greedy steps; attention runs the CUDA kernels
+on the card (the split-K decode kernel on the cache in place, a
+sliding-window layer's cache a ring, grok's logit softcap inside the
+kernel, in every layer of every step; a hybrid block's SSM step is
+elementwise; an MoE block dispatches the step's tokens to its experts by
+the reference's sort-based capacity dispatch, with no host sync; an
+xLSTM block updates its fixed-size state in place):
 
     python -m repro_torch.launch.serve --workload decode --arch qwen2-1.5b \
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
     python -m repro_torch.launch.serve --workload decode --arch hymba-1.5b \
         --device cpu
     python -m repro_torch.launch.serve --workload decode \
-        --arch deepseek-moe-16b|grok-1-314b --device cpu
+        --arch deepseek-moe-16b|grok-1-314b|xlstm-350m --device cpu
 
 As in the reference, ``--reduced`` cannot be turned off: the CLI serves
 the reduced config, and the full width is ``ServeConfig(reduced=False)``.

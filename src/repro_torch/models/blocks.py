@@ -5,9 +5,10 @@ the port keeps a run as an ``nn.ModuleList`` of blocks and loops over it.
 A run's decode caches are stacked as in the reference (``[count, ...]``
 leading dim), and each layer reads and writes its slice in place.
 
-The ``dense``, ``hybrid`` and ``moe`` kinds are ported. The xLSTM kinds
-(``mlstm``, ``slstm``) raise `NotImplementedError` naming their ROADMAP
-item (queue A, item 5).
+All five kinds are ported: ``dense``, ``hybrid`` and ``moe`` (attention
+and an MLP, an SSM beside attention, or an MoE layer), and the xLSTM
+kinds ``mlstm`` and ``slstm`` (a norm and the recurrent layer, no
+attention: their run caches are the recurrent state alone).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import init_rms_norm, rms_norm
 
 
@@ -58,31 +60,32 @@ def layer_schedule(cfg: ModelConfig) -> List[Run]:
     return runs
 
 
-_PORTED = ("dense", "hybrid", "moe")
-_WAITING = {"mlstm": "the xLSTM family (xlstm-350m)",
-            "slstm": "the xLSTM family (xlstm-350m)"}
+ATTENTION_KINDS = ("dense", "hybrid", "moe")
+XLSTM_KINDS = ("mlstm", "slstm")
 
 
-def _not_ported(kind: str) -> NotImplementedError:
-    if kind not in _WAITING:
-        return NotImplementedError(f"unknown block kind {kind!r}")
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet: {_WAITING[kind]} is a later "
-        "sub-slice of ROADMAP queue A, item 5")
+def _check_kind(kind: str) -> None:
+    if kind not in ATTENTION_KINDS + XLSTM_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 class Block(nn.Module):
     """A pre-norm block: ``ln1``, ``attn``, ``ln2``, ``mlp`` (``moe`` in
     its place in an MoE block); a hybrid block also ``ssm`` and
-    ``ln_ssm``."""
+    ``ln_ssm``; an xLSTM block ``ln1`` and ``mlstm`` or ``slstm``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator,
                  dtype: torch.dtype):
         super().__init__()
-        if kind not in _PORTED:
-            raise _not_ported(kind)
+        _check_kind(kind)
         d = cfg.d_model
         self.ln1 = init_rms_norm(d, dtype, gen.device)
+        if kind == "mlstm":
+            self.mlstm = xlstm_lib.init_mlstm(cfg, gen, dtype)
+            return
+        if kind == "slstm":
+            self.slstm = xlstm_lib.init_slstm(cfg, gen, dtype)
+            return
         self.attn = attn_lib.init_attention(cfg, gen, dtype)
         self.ln2 = init_rms_norm(d, dtype, gen.device)
         if kind == "moe":
@@ -106,10 +109,19 @@ def apply_block(params: Block, x: torch.Tensor, cfg: ModelConfig, kind: str,
     block's load-balance loss (a float32 scalar tensor), 0.0 for the
     other kinds. A hybrid block (Hymba) runs
     attention and the SSM on the same normed input and averages them,
-    the SSM output normed first; ``impl`` says where both run."""
-    if kind not in _PORTED:
-        raise _not_ported(kind)
+    the SSM output normed first; ``impl`` says where both run (and the
+    mLSTM's chunk scan). An xLSTM block adds its layer's output to the
+    residual; ``positions`` and ``window`` are unused there."""
+    _check_kind(kind)
     h = rms_norm(x, params.ln1, cfg.rmsnorm_eps)
+    if kind == "mlstm":
+        y, new_cache = xlstm_lib.mlstm_layer(params.mlstm, h, cfg,
+                                             cache=cache, impl=impl)
+        return x + y, new_cache, 0.0
+    if kind == "slstm":
+        y, new_cache = xlstm_lib.slstm_layer(params.slstm, h, cfg,
+                                             cache=cache)
+        return x + y, new_cache, 0.0
     attn_cache = cache["attn"] if cache is not None else None
     a, new_attn_cache = attn_lib.attention_layer(
         params.attn, h, cfg, positions, cache=attn_cache, window=window,
@@ -140,13 +152,19 @@ def init_run_cache(cfg: ModelConfig, run: Run, B: int, S: int,
     the window for a windowed run (a ring) and ``S`` otherwise (a dense
     or MoE run holds nothing else); a hybrid run also ``ssm`` = `SSMCache`
     with ``h [count, B, d_inner, n]`` (float32) and ``conv [count, B, K-1,
-    d_inner]``."""
-    if run.kind not in _PORTED:
-        raise _not_ported(run.kind)
+    d_inner]``. An xLSTM run's cache is its state alone, as in the
+    reference: `MLSTMCache` (``C [count, B, H, dh, dh]``, ``n``, ``conv``)
+    or `SLSTMCache` (``c``, ``n``, ``h``, ``m``, each ``[count, B, d]``),
+    and ``S`` is unused."""
+    _check_kind(run.kind)
 
     def stack(one):
         return type(one)(*(t.expand((run.count,) + t.shape).clone()
                            for t in one))
+    if run.kind == "mlstm":
+        return stack(xlstm_lib.init_mlstm_cache(cfg, B, dtype, device))
+    if run.kind == "slstm":
+        return stack(xlstm_lib.init_slstm_cache(cfg, B, device))
     cache = dict(attn=stack(attn_lib.init_kv_cache(
         cfg, B, S if run.window == 0 else min(S, run.window), dtype,
         device)))
@@ -157,6 +175,8 @@ def init_run_cache(cfg: ModelConfig, run: Run, B: int, S: int,
 
 def layer_cache(run_cache, li: int):
     """Layer ``li``'s slice of a stacked run cache (views, not copies)."""
+    if not isinstance(run_cache, dict):  # an xLSTM run's state
+        return type(run_cache)(*(t[li] for t in run_cache))
     c = run_cache["attn"]
     out = dict(attn=attn_lib.KVCache(c.k[li], c.v[li], c.length[li]))
     if "ssm" in run_cache:

@@ -1,8 +1,8 @@
 """The decoder-only causal LM (PyTorch): init, prefill, decode.
 
-The JAX package's ``repro.models.transformer`` for the dense, hybrid and
-MoE families. Its functional API, with an ``nn.Module`` in place of the
-parameter pytree:
+The JAX package's ``repro.models.transformer`` for the dense, hybrid,
+MoE and xLSTM families. Its functional API, with an ``nn.Module`` in
+place of the parameter pytree:
 
     model = init_model(cfg, seed, device=...)
     logits = prefill(model, cfg, tokens)
@@ -12,10 +12,10 @@ parameter pytree:
 wait; an encoder-decoder config raises. The MoE layers' load-balance
 losses are summed by `_apply_stack` (training reads them; `prefill` and
 `decode_step` drop them, as the reference's do). ``impl`` (``"auto"`` or
-``"plain"``) says where attention and the SSM scan run
-(`models.attention`, `models.ssm`): ``"auto"`` runs the CUDA kernels on
-the card. Decode writes the caches in place and returns them with the
-lengths advanced.
+``"plain"``) says where attention and the SSM and mLSTM scans run
+(`models.attention`, `models.ssm`, `models.xlstm`): ``"auto"`` runs the
+CUDA kernels on the card. Decode writes the caches in place and returns
+them with the attention caches' lengths advanced.
 """
 from __future__ import annotations
 
@@ -89,6 +89,7 @@ def _apply_stack(model: CausalLM, x: torch.Tensor, cfg: ModelConfig,
     new_caches: Optional[List] = [] if caches is not None else None
     for ri, run in enumerate(runs):
         rcache = caches[ri] if caches is not None else None
+        attends = run.kind in blocks_lib.ATTENTION_KINDS
         lengths = []
         for li, block in enumerate(model.runs[ri]):
             lc = blocks_lib.layer_cache(rcache, li) \
@@ -97,13 +98,16 @@ def _apply_stack(model: CausalLM, x: torch.Tensor, cfg: ModelConfig,
                 block, x, cfg, run.kind, positions=positions,
                 window=run.window, cache=lc, causal=causal, impl=impl)
             aux_total = aux_total + a
-            if nc is not None:
+            if nc is not None and attends:
                 lengths.append(nc["attn"].length)
         if new_caches is not None:
-            # The layers wrote their slices of the run's buffers in place.
-            c = rcache["attn"]
-            new_caches.append(dict(rcache, attn=attn_lib.KVCache(
-                c.k, c.v, torch.stack(lengths))))
+            # The layers wrote their slices of the run's buffers in place;
+            # an attention run's lengths advance.
+            if attends:
+                c = rcache["attn"]
+                rcache = dict(rcache, attn=attn_lib.KVCache(
+                    c.k, c.v, torch.stack(lengths)))
+            new_caches.append(rcache)
     return x, new_caches, aux_total
 
 
