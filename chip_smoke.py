@@ -193,12 +193,56 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      ``prefill`` on the kernel against plain, each relative to the
      largest logit; device time of ``ssm_scan`` at the prefill's shape
      beside its bound;
-  19. the ``kernels`` JSON line (each combine kernel's launches per path;
+  19. ``[lm_encdec]``: the LM decode service for seamless-m4t-medium at
+     full width (12 encoder and 12 decoder layers, d_model 1,024, 16 query
+     and 16 kv heads, head_dim 64, d_ff 4,096, vocabulary 256,206 padded
+     to 258,048, untied, an encoder memory of 1,024 frames), bf16, random
+     weights from seed 0, nothing cut: batch 64, 256 prompt and 256 greedy
+     steps, caches of 512. The service encodes a zero frontend once, as
+     the reference does: that memory, and every cross-attention output
+     against it, is exactly 0 (printed). With the counters zeroed before
+     and read after it must launch exactly 12 ``wgmma`` kernels (the
+     encode) and 12 x 512 x 2 split-K decode kernels (self- and
+     cross-attention), nothing else, no plain call; tok/s, wall per step,
+     peak memory. Then, on the same weights, the first 8 sequences and a
+     random frontend (std 1): ``encode`` (the ``wgmma`` kernel
+     non-causal) against the float32 model by the bf16 noise; every
+     encoder kernel call against plain at the tight bf16 bound, which the
+     same call made causal misses; ``prefill(enc_emb=)`` at T = 256 (36
+     ``wgmma`` launches: encoder, self, cross), each call held to plain,
+     each cross call's fault (the memory one key short) caught; 64
+     teacher-forced ``decode_step(memory=)`` steps, every self-attention
+     call (fault: ``length - 1``) and cross-attention call (fault: one key
+     short) held to plain, the logits against float32 by the noise rule;
+     the decode at position 255 against ``prefill``; a profile of 32
+     steps at B = 64 with the memory K/V projection named; that
+     projection by CUDA graph beside its bound; device times of the
+     encoder's non-causal ``wgmma`` (B = 64, S = 1,024), the cross
+     ``wgmma`` (B = 8, Tq = 256, Tk = 1,024), the cross split-K decode (B
+     = 64, 1 row per kv head, Tk = 1,024) and the self decode at L = 512,
+     each beside its bound and SDPA;
+  20. ``[lm_mrope]``: qwen2-vl-72b at full width (d_model 8,192, 64 query
+     and 8 kv heads, head_dim 128, QKV bias, M-RoPE sections (16, 24,
+     24), vocabulary 152,064 padded to 153,600) and depth 4 of 80 (~12.1
+     GB in bf16), random weights from seed 0: `generate` at batch 64, 64
+     prompt and 64 greedy steps, caches of 128: exactly 4 x 128 decode
+     launches (8 rows per kv head), nothing else; every decode-kernel call
+     teacher-forced over the same positions against plain with the
+     ``length - 1`` fault; a profile of 16 steps; ``prefill`` at B = 8, T
+     = 128 (4 ``wgmma`` launches, each held to plain); layer 0's attention
+     sublayer on vision positions of a 4 x 16 x 16 patch grid (the three
+     rows differ, so the sections act) against plain at the tight bound,
+     which the same input on text positions (rows equal) misses; device
+     times of the decode kernel (8 rows, L = 128) and the prefill beside
+     their bounds and SDPA;
+  21. the ``kernels`` JSON line (each combine kernel's launches per path;
      ``ssm_scan``'s: ``ssm_scan``, ``lm_hybrid_prefill``,
      ``lm_xlstm_prefill``; the flash
      kernels': ``flash``, ``lm_decode``, ``lm_prefill``, ``lm_hybrid``,
      ``lm_hybrid_prefill``, ``lm_moe``, ``lm_moe_prefill``, ``lm_grok``,
-     ``lm_grok_prefill``), then the device JSON line, last.
+     ``lm_grok_prefill``, ``lm_encdec``, ``lm_encdec_prefill``,
+     ``lm_mrope``, ``lm_mrope_prefill``), then the device JSON line,
+     last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
 """
@@ -2175,14 +2219,18 @@ def _say_lm_time(what, t, library="sdpa") -> None:
         f"{t['max_err_over_tol']:.3f}")
 
 
-def _lm_profile(torch, step, steps, name) -> dict:
+def _lm_profile(torch, step, steps, name, named=None) -> dict:
     """Device busy, idle share, launches and top kernels over ``steps``
     calls of ``step`` (one decode step each), traced with
-    ``torch.profiler``; the tables go to ``chiprun_out/profile_<name>``."""
+    ``torch.profiler``; the tables go to ``chiprun_out/profile_<name>``.
+    ``named``: label -> (operator, its first input's shape); each label's
+    device time (the kernels the operator launched, summed over the
+    calls with that shape) is reported under ``named_ms``; the trace then
+    records shapes."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=named is not None) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for j in range(steps):
@@ -2200,7 +2248,18 @@ def _lm_profile(torch, step, steps, name) -> dict:
         ka.table(sort_by="self_device_time_total", row_limit=40) + "\n"
         + ka.table(sort_by="cpu_time_total", row_limit=40))
     launches = sum(e.count for e in kernels)
+    named_ms = {}
+    if named:
+        by_shape = prof.key_averages(group_by_input_shape=True)
+        for label, (op, shape) in named.items():
+            hits = [e for e in by_shape if e.key == op and e.input_shapes
+                    and list(e.input_shapes[0]) == list(shape)]
+            named_ms[label] = {
+                "ms": sum(getattr(e, "device_time_total", 0)
+                          for e in hits) / 1e3,
+                "calls": sum(e.count for e in hits)}
     return {"steps": steps, "wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "named_ms": named_ms,
             "busy_ms_per_step": busy_us / 1e3 / steps,
             "idle_share": 1 - busy_us / 1e6 / wall,
             "kernel_launches": launches,
@@ -2218,7 +2277,9 @@ def _say_profile(tag, what, p) -> None:
         f"({p['launches_per_step']:.1f} per step), idle "
         f"{p['idle_share']:.1%}; decode+merge kernels "
         f"{p['decode_kernel_ms']:.3f} ms; top: " + "; ".join(
-            f"{k[:48]} {ms:.2f} ms x{n}" for k, ms, n in p["top"]))
+            f"{k[:48]} {ms:.2f} ms x{n}" for k, ms, n in p["top"])
+        + "".join(f"; {label}: {v['ms']:.2f} ms in {v['calls']} calls"
+                  for label, v in p.get("named_ms", {}).items()))
 
 
 def _check_layer_taps(tag, what, res) -> None:
@@ -2277,27 +2338,34 @@ def _decode_time(torch, fa, B, Hq, Hkv, L, Dh, gen, softcap=0.0) -> dict:
     return t
 
 
-def _prefill_time(torch, fa, B, Hq, Hkv, T, Dh, gen, softcap=0.0) -> dict:
-    """The prefill kernel (causal) at ``[B, Hq|Hkv, T, Dh]`` against the
-    plain version (with ``softcap``) and causal SDPA (no softcap)."""
+def _prefill_time(torch, fa, B, Hq, Hkv, T, Dh, gen, softcap=0.0,
+                  causal=True, Tk=None) -> dict:
+    """`flash_attention_cuda` (the kernel `select_kernel` picks) on ``q
+    [B, Hq, T, Dh]`` and ``k/v [B, Hkv, Tk, Dh]`` (``Tk`` = ``T`` unless
+    given), causal unless told otherwise, against the plain version (with
+    ``softcap``) and SDPA with the same mask (no softcap)."""
     import torch.nn.functional as F
 
-    sets = [_qkv(torch, B, Hq, Hkv, T, T, Dh, torch.bfloat16, gen)
+    Tk = T if Tk is None else Tk
+    what = (f"{'causal' if causal else 'non-causal'} attention B={B} "
+            f"Hq={Hq} Hkv={Hkv} T={T} Tk={Tk}")
+    sets = [_qkv(torch, B, Hq, Hkv, T, Tk, Dh, torch.bfloat16, gen)
             for _ in range(2)]
     q, k, v = sets[0]
-    kernel = functools.partial(fa.flash_attention_cuda, softcap=softcap)
-    plain = functools.partial(fa.flash_attention_plain, softcap=softcap)
+    kernel = functools.partial(fa.flash_attention_cuda, causal=causal,
+                               softcap=softcap)
+    plain = functools.partial(fa.flash_attention_plain, causal=causal,
+                              softcap=softcap)
     got = kernel(q, k, v)
     err = _compare(torch, got, plain(q, k, v), FA_TOL["bfloat16"],
-                   f"prefill kernel B={B} Hq={Hq} Hkv={Hkv} T={T}")
+                   f"{what} kernel")
     tight = _excess(got, *_tight_tol(plain, q, k, v)).item()
     if not tight <= 1.0:
-        fail(f"prefill kernel B={B} Hq={Hq} Hkv={Hkv} T={T}: err/tol "
-             f"{tight:.3f} over the tight bf16 bound")
+        fail(f"{what} kernel: err/tol {tight:.3f} over the tight bf16 bound")
     t = _lm_kernel_time(
         torch, kernel, plain, lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), sets,
-        flash_bound(B, Hq, Hkv, T, T, Dh, True, "bfloat16"), 3)
+            q, k, v, is_causal=causal, enable_gqa=True), sets,
+        flash_bound(B, Hq, Hkv, T, Tk, Dh, causal, "bfloat16"), 3)
     t.update(max_abs_err=err, max_err_over_tol=tight,
              kernel=fa.select_kernel(q, k))
     del q, k, v, got, sets
@@ -3741,6 +3809,627 @@ def phase_lm_xlstm(torch) -> dict:
             "ssm_scan": scan_time}
 
 
+# ---------------------------------------------------------------------------
+# LM encoder-decoder family and the M-RoPE model
+# ---------------------------------------------------------------------------
+
+#: seamless-m4t-medium (src/repro_torch/configs/seamless_m4t_medium.py) at
+#: full width, nothing cut: 12 encoder and 12 decoder layers, d_model
+#: 1,024, 16 query and 16 kv heads, head_dim 64, d_ff 4,096, vocabulary
+#: 256,206 padded to 258,048, untied, an encoder memory of 1,024 frames. A
+#: 256-token prompt teacher-forced and 256 greedy steps, caches of 512.
+ED_ARCH, ED_SEED = "seamless-m4t-medium", 0
+ED_B, ED_PROMPT, ED_GEN = 64, 256, 256
+ED_MAX = ED_PROMPT + ED_GEN
+#: The gates run on the first sequences and a random frontend: the
+#: service's memory is exactly zero, so it shows nothing of `encode` or
+#: of cross-attention.
+ED_GATE_B = 8
+ED_GATE_STEPS = 64
+ED_PROFILE_STEPS = 32
+#: qwen2-vl-72b (configs/qwen2_vl_72b.py) at full width (d_model 8,192, 64
+#: query and 8 kv heads, head_dim 128, d_ff 29,568, QKV bias, M-RoPE
+#: sections (16, 24, 24), vocabulary 152,064 padded to 153,600, untied)
+#: and depth 4 of its 80 layers: ~145 GB in bf16 at full depth, ~12.1 GB
+#: at 4 layers (the card holds 80).
+VL_ARCH, VL_SEED, VL_LAYERS = "qwen2-vl-72b", 0, 4
+VL_B, VL_PROMPT, VL_GEN = 64, 64, 64
+VL_MAX = VL_PROMPT + VL_GEN
+VL_PREFILL_B = 8
+VL_PROFILE_STEPS = 16
+#: The vision-position gate: a (t, h, w) patch grid of 4 x 16 x 16 = 1,024
+#: tokens per sequence.
+VL_GRID = (4, 16, 16)
+
+
+class _FlashTap:
+    """Stands in for `flash_attention_cuda` while an encoder-decoder model
+    runs. Each call launches the kernel as the model's call would and is
+    held against `flash_attention_plain` in float32 on the same q, k, v at
+    the tight bf16 bound. By kind: a causal call is the decoder's
+    self-attention in prefill; a non-causal call with as many queries as
+    keys the encoder's self-attention, launched once more causal (its
+    planted fault); any other non-causal call a cross-attention against
+    the memory (prefill or a decode step), launched once more with the
+    memory's last key dropped (its planted fault). Each fault must miss
+    the bound."""
+
+    KINDS = ("encoder", "self", "cross")
+
+    def __init__(self, fa):
+        self.fa, self.kernel = fa, fa.flash_attention_cuda
+        self.ok = {k: [] for k in self.KINDS}
+        self.fault = {k: [] for k in self.KINDS}
+        self.kernels = {k: set() for k in self.KINDS}
+
+    def __enter__(self):
+        self.fa.flash_attention_cuda = self
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_cuda = self.kernel
+
+    def __call__(self, q, k, v, *, causal=True, **kw):
+        out = self.kernel(q, k, v, causal=causal, **kw)
+        want, tol = _tight_tol(functools.partial(
+            self.fa.flash_attention_plain, causal=causal, **kw), q, k, v)
+        bad = None
+        if causal:
+            kind = "self"
+        elif q.shape[2] == k.shape[2]:
+            kind = "encoder"
+            bad = self.kernel(q, k, v, causal=True, **kw)
+        else:
+            kind = "cross"
+            bad = self.kernel(q, k[:, :, :-1].contiguous(),
+                              v[:, :, :-1].contiguous(), causal=False, **kw)
+        self.kernels[kind].add(self.fa.select_kernel(q, k))
+        self.ok[kind].append(_excess(out, want, tol))
+        if bad is not None:
+            self.fault[kind].append(_excess(bad, want, tol))
+        return out
+
+    def result(self, torch) -> dict:
+        res = {}
+        for kind in self.KINDS:
+            if not self.ok[kind]:
+                continue
+            ok = torch.stack(self.ok[kind]).tolist()
+            fault = (torch.stack(self.fault[kind]).tolist()
+                     if self.fault[kind] else [])
+            res[kind] = {"calls": len(ok), "kernels": sorted(
+                self.kernels[kind]), "max_err_over_tol": max(ok),
+                "fault_calls": len(fault),
+                "fault_caught": sum(f > 1.0 for f in fault),
+                "fault_min_err_over_tol": min(fault) if fault else None}
+        return res
+
+
+def _check_flash_taps(tag, what, res, want) -> None:
+    """``want``: kind -> (calls, kernel); every call within the bound,
+    every planted fault past it."""
+    faults = {"encoder": "causal", "cross": "one key short"}
+    for kind, r in res.items():
+        fault = (f"; planted fault ({faults[kind]}) caught in "
+                 f"{r['fault_caught']} of {r['fault_calls']}, least err/tol "
+                 f"{r['fault_min_err_over_tol']:.3f}" if r["fault_calls"]
+                 else "")
+        say(f"[{tag}] {what}, {kind} attention: {r['calls']} kernel calls "
+            f"({', '.join(r['kernels'])}) vs plain in float32 on their own "
+            f"inputs: max err/tol {r['max_err_over_tol']:.3f} at the tight "
+            f"bf16 bound{fault}")
+    got = {kind: (r["calls"], r["kernels"]) for kind, r in res.items()}
+    if got != {kind: (n, [kernel]) for kind, (n, kernel) in want.items()}:
+        fail(f"{tag} {what}: attention calls by kind {got}, expected {want}")
+    for kind, r in res.items():
+        if not r["max_err_over_tol"] <= 1.0:
+            fail(f"{tag} {what}: a {kind} attention call misses the tight "
+                 f"bf16 bound (err/tol {r['max_err_over_tol']:.3f})")
+        if kind in faults and r["fault_caught"] != r["calls"]:
+            fail(f"{tag} {what}: the tight bound does not catch the {kind} "
+                 f"fault ({faults[kind]}) in every call ({r['fault_caught']}"
+                 f" of {r['calls']})")
+
+
+def _launched(torch) -> dict:
+    torch.cuda.synchronize()
+    return {k: v for k, v in read_counts().items() if v}
+
+
+def phase_lm_encdec(torch) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.serve import ServeConfig, serve
+    from repro_torch.models import (decode_step, encode, init_caches,
+                                    init_model, prefill)
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models.layers import embedding_lookup, rms_norm
+
+    tag = "lm_encdec"
+    cfg = get_config(ED_ARCH)
+    vocab, layers, enc_layers = (cfg.vocab_size, cfg.num_layers,
+                                 cfg.encoder_layers)
+    S, d, H, Dh = (cfg.encoder_seq_len, cfg.d_model, cfg.num_heads,
+                   cfg.resolved_head_dim)
+
+    # The service, timed, with the counters zeroed before and read after.
+    serve_cfg = ServeConfig(arch=ED_ARCH, batch=ED_B, prompt_len=ED_PROMPT,
+                            gen=ED_GEN, max_len=ED_MAX, reduced=False,
+                            seed=ED_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _reset_plain_attention_calls()
+    out = serve(serve_cfg, emit=say)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts, plain = read_counts(), _plain_attention_calls()
+    decode_launches = counts.pop("flash_attention_decode")
+    wgmma_launches = counts.pop("flash_attention_wgmma")
+    say(f"[{tag}] path: serve({ED_ARCH}, batch {ED_B}, prompt {ED_PROMPT}, "
+        f"gen {ED_GEN}, max_len {ED_MAX}, full width): "
+        f"{out['tok_per_s']:.1f} tok/s, {out['seconds'] / ED_MAX * 1e3:.3f} "
+        f"ms per step; wgmma launches {wgmma_launches} (the encode), decode "
+        f"kernel launches {decode_launches} (self- and cross-attention), "
+        f"other kernels {counts}, plain calls {plain}; peak device memory "
+        f"{peak_gb:.2f} GB")
+    if wgmma_launches != enc_layers:
+        fail(f"the {tag} path launched the wgmma kernel {wgmma_launches} "
+             f"times, expected {enc_layers} (one encode)")
+    _check_service(tag, ED_ARCH, counts, plain, decode_launches,
+                   2 * layers * ED_MAX, out["tokens"], (ED_B, ED_GEN), vocab,
+                   torch)
+    if not bool(torch.isfinite(out["logits"]).all()):
+        fail(f"{tag}: non-finite logits at the service's last step")
+    tok_per_s, seconds = out["tok_per_s"], out["seconds"]
+    del out
+    torch.cuda.empty_cache()
+
+    # The same weights (the service's seed) and prompts (its generator);
+    # the float32 model widened from them; a random frontend.
+    t0 = time.perf_counter()
+    model = init_model(cfg, ED_SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(ED_SEED + 1)
+    prompts = torch.randint(0, vocab, (ED_B, ED_PROMPT), generator=gen,
+                            device="cuda")
+    torch.cuda.synchronize()
+
+    def count(*mods):
+        return sum(p.numel() for m in mods for p in (
+            m.parameters() if hasattr(m, "parameters") else [m]))
+    parts = {"embed": count(model.embed), "lm_head": count(model.lm_head),
+             "decoder": count(model.runs, model.final_norm),
+             "encoder": count(model.encoder, model.enc_norm),
+             "cross": count(model.cross_attn, model.ln_cross)}
+    n_params = sum(parts.values())
+    say(f"[{tag}] {ED_ARCH} full width: {enc_layers} encoder + {layers} "
+        f"decoder layers, d_model {d}, heads {H} / kv {cfg.num_kv_heads}, "
+        f"head_dim {Dh}, d_ff {cfg.d_ff}, memory {S} frames, vocab {vocab} "
+        f"(padded {cfg.padded_vocab}), {n_params:,} parameters in bf16 "
+        f"({parts}), init {time.perf_counter() - t0:.2f}s")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = copy.deepcopy(model).float()
+    fgen = torch.Generator(device="cuda").manual_seed(7)
+    emb = torch.randn((ED_GATE_B, S, d), generator=fgen, device="cuda")
+    toks = prompts[:ED_GATE_B]
+
+    # Gate 1: encode, the wgmma kernel non-causal at Tq = Tk = S.
+    reset_counts()
+    _reset_plain_attention_calls()
+    mem = encode(model, cfg, emb)
+    launched, plain = _launched(torch), _plain_attention_calls()
+    if launched != {"flash_attention_wgmma": enc_layers} or any(
+            plain.values()):
+        fail(f"{tag} encode launched {launched}, plain calls {plain}; "
+             f"expected the wgmma kernel once per encoder layer")
+    mem_plain = encode(model, cfg, emb, impl="plain")
+    mem32 = encode(model32, cfg32, emb, impl="plain")
+    enc = {"noise": (mem_plain.float() - mem32).abs().max().item(),
+           "kernel_vs_ref": (mem.float() - mem32).abs().max().item(),
+           "kernel_vs_plain": (mem.float() - mem_plain.float()).abs()
+           .max().item(), "max_abs_memory": mem32.abs().max().item()}
+    say(f"[{tag}] encode B={ED_GATE_B} S={S} (random frontend, std 1): "
+        f"launches {launched}; memory kernel bf16 vs float32 max |d| "
+        f"{enc['kernel_vs_ref']:.4e} against the plain bf16 path's "
+        f"{enc['noise']:.4e} (the noise; max |memory| "
+        f"{enc['max_abs_memory']:.4f}); kernel vs plain bf16 "
+        f"{enc['kernel_vs_plain']:.4e}")
+    if not enc["kernel_vs_ref"] <= LM_NOISE_FACTOR * enc["noise"]:
+        fail(f"{tag} encode: kernel bf16 vs float32 {enc['kernel_vs_ref']:.4e}"
+             f" over {LM_NOISE_FACTOR:g} x the noise {enc['noise']:.4e}")
+    with _FlashTap(fa) as tap:
+        encode(model, cfg, emb)
+    enc_calls = tap.result(torch)
+    _check_flash_taps(tag, "encode", enc_calls,
+                      {"encoder": (enc_layers, "wgmma")})
+
+    # The service's memory: a zero frontend encodes to exactly zero, and
+    # every cross-attention output against it is exactly zero.
+    zero_mem = encode(model, cfg, torch.zeros_like(emb))
+    h = rms_norm(embedding_lookup(model.embed, toks[:, :1]).to(mem.dtype),
+                 model.ln_cross[0], cfg.rmsnorm_eps)
+    zero = {"max_abs_memory": zero_mem.abs().max().item(),
+            "max_abs_cross": attn_lib.cross_attention_layer(
+                model.cross_attn[0], h, zero_mem, cfg).abs().max().item(),
+            "max_abs_cross_random": attn_lib.cross_attention_layer(
+                model.cross_attn[0], h, mem, cfg).abs().max().item()}
+    say(f"[{tag}] the service's zero frontend: max |memory| "
+        f"{zero['max_abs_memory']}, max |cross output| (layer 0) "
+        f"{zero['max_abs_cross']}; on the random frontend "
+        f"{zero['max_abs_cross_random']:.4e}: the gates run on the random "
+        "frontend")
+    if zero["max_abs_memory"] != 0.0 or zero["max_abs_cross"] != 0.0:
+        fail(f"{tag}: the zero frontend's memory or cross output is not "
+             f"exactly zero ({zero})")
+    del zero_mem, h
+
+    # Gate 2: prefill(enc_emb=), 12 encoder + 12 self + 12 cross launches
+    # of the wgmma kernel.
+    reset_counts()
+    _reset_plain_attention_calls()
+    t0 = time.perf_counter()
+    lpre = prefill(model, cfg, toks, emb)
+    launched, plain = _launched(torch), _plain_attention_calls()
+    prefill_s = time.perf_counter() - t0
+    say(f"[{tag}] prefill B={ED_GATE_B} T={ED_PROMPT} (enc_emb S={S}): "
+        f"{prefill_s:.3f}s, kernel launches {launched}, plain calls {plain}")
+    if launched != {"flash_attention_wgmma": enc_layers + 2 * layers} or any(
+            plain.values()):
+        fail(f"{tag} prefill launched {launched}, plain calls {plain}; "
+             f"expected the wgmma kernel {enc_layers + 2 * layers} times")
+    with _FlashTap(fa) as tap:
+        prefill(model, cfg, toks, emb)
+    pre_calls = tap.result(torch)
+    _check_flash_taps(tag, "prefill", pre_calls, {
+        "encoder": (enc_layers, "wgmma"), "self": (layers, "wgmma"),
+        "cross": (layers, "wgmma")})
+    lpre_plain = prefill(model, cfg, toks, emb, impl="plain")
+    lpre_ref = prefill(model32, cfg32, toks, emb, impl="plain")
+
+    # Gate 3: teacher-forced decode over the first steps, with the kernels
+    # (every self-attention call against plain on its cache, every cross
+    # call against plain on the memory's k/v, each with its fault), with
+    # the plain versions and in float32.
+    dtap, ftap = _DecodeTap(fa), _FlashTap(fa)
+    kc, pc = (init_caches(cfg, ED_GATE_B, ED_PROMPT, device="cuda")
+              for _ in range(2))
+    rc = init_caches(cfg32, ED_GATE_B, ED_PROMPT, device="cuda")
+    k_vs_p, k_vs_ref, p_vs_ref = (_Logits(torch, vocab) for _ in range(3))
+    reset_counts()
+    _reset_plain_attention_calls()
+    for i in range(ED_GATE_STEPS):
+        tok = toks[:, i:i + 1]
+        dtap.length = i + 1
+        with dtap, ftap:
+            lk, kc = decode_step(model, cfg, kc, tok, i, mem)
+        lp, pc = decode_step(model, cfg, pc, tok, i, mem_plain, impl="plain")
+        lr, rc = decode_step(model32, cfg32, rc, tok, i, mem32, impl="plain")
+        k_vs_p.add(lk, lp)
+        k_vs_ref.add(lk, lr)
+        p_vs_ref.add(lp, lr)
+    launched, plain = _launched(torch), _plain_attention_calls()
+    n = layers * ED_GATE_STEPS
+    if launched != {"flash_attention_decode": 4 * n} or plain != {
+            "blockwise_causal_attention": 0, "decode_attention": 2 * n,
+            "chunked_cross": 2 * n}:
+        fail(f"{tag} decode gate run: kernel launches {launched}, plain "
+             f"calls {plain}; expected {4 * n} decode launches (self, cross "
+             f"and their faults) and {2 * n} plain calls of each kind")
+    self_check = dtap.result(torch)
+    _say_layer_taps(tag, f"the first {ED_GATE_STEPS} steps, self-attention",
+                    self_check, layers)
+    _check_layer_taps(tag, ED_ARCH, self_check)
+    cross_calls = ftap.result(torch)
+    _check_flash_taps(tag, f"the first {ED_GATE_STEPS} decode steps",
+                      cross_calls, {"cross": (n, "decode")})
+    p_vs_ref = p_vs_ref.result()
+    noise = p_vs_ref["max_abs_err"]
+    what = f"first {ED_GATE_STEPS} teacher-forced steps"
+    _say_logits(f"{what}, plain bf16 vs float32 (the noise)", p_vs_ref, tag)
+    kernel_vs_ref = k_vs_ref.result(noise)
+    _check_noise(f"{what}, kernel bf16", kernel_vs_ref, noise, tag)
+    kernel_vs_plain = k_vs_p.result()
+    _check_ties(f"{what}, kernel vs plain bf16", kernel_vs_plain, noise, tag)
+    del pc, rc, lp, lr
+
+    # Gate 4: the decode at the last prompt position against prefill.
+    for i in range(ED_GATE_STEPS, ED_PROMPT):
+        lk, kc = decode_step(model, cfg, kc, toks[:, i:i + 1], i, mem)
+    del model32, mem32, kc
+    torch.cuda.empty_cache()
+    results = {}
+    for name, got in (("plain prefill", lpre_plain), ("prefill", lpre),
+                      ("decode", lk)):
+        acc = _Logits(torch, vocab)
+        acc.add(got, lpre_ref)
+        results[name] = acc
+    noise255 = results.pop("plain prefill").result()["max_abs_err"]
+    what = f"position {ED_PROMPT - 1}"
+    say(f"[{tag}] {what}: plain bf16 prefill vs float32 (the noise) "
+        f"{noise255:.4e}")
+    prefill_vs_ref = results["prefill"].result(noise255)
+    _check_noise(f"{what}, prefill (wgmma) bf16", prefill_vs_ref, noise255,
+                 tag)
+    decode_vs_ref = results["decode"].result(noise255)
+    _check_noise(f"{what}, decode (split-K) bf16", decode_vs_ref, noise255,
+                 tag)
+    acc = _Logits(torch, vocab)
+    acc.add(lpre, lk)
+    prefill_vs_decode = acc.result()
+    _check_ties(f"{what}, prefill vs decode bf16", prefill_vs_decode,
+                noise255, tag)
+    del lpre, lpre_plain, lpre_ref, lk, mem, mem_plain, emb
+    torch.cuda.empty_cache()
+
+    # Device busy over the service's steps: its zero memory, the prompt
+    # teacher-forced, then greedy steps profiled.
+    mem64 = encode(model, cfg, torch.zeros((ED_B, S, d), device="cuda"))
+    caches = init_caches(cfg, ED_B, ED_PROMPT + ED_PROFILE_STEPS,
+                         device="cuda")
+    for i in range(ED_PROMPT):
+        lk, caches = decode_step(model, cfg, caches, prompts[:, i:i + 1], i,
+                                 mem64)
+    state = {"caches": caches, "tok": lk[:, :, :vocab].argmax(-1)}
+    del caches
+
+    def step(j):
+        logits, state["caches"] = decode_step(
+            model, cfg, state["caches"], state["tok"], ED_PROMPT + j, mem64)
+        state["tok"] = logits[:, :, :vocab].argmax(-1)
+
+    kv_label = f"memory K/V projection [{ED_B}, {S}, {d}]"
+    profile_res = _lm_profile(torch, step, ED_PROFILE_STEPS, tag, named={
+        kv_label: ("aten::linear", (ED_B, S, d))})
+    _say_profile(tag, f"B={ED_B}, positions {ED_PROMPT}.."
+                 f"{ED_PROMPT + ED_PROFILE_STEPS - 1}", profile_res)
+    del state, lk
+    torch.cuda.empty_cache()
+
+    # One layer's memory K/V projection (the reference recomputes it in
+    # every layer of every step) by CUDA graph, beside its bound.
+    xa = model.cross_attn[0]
+    proj = lambda m: (F.linear(m, xa.wk.weight),  # noqa: E731
+                      F.linear(m, xa.wv.weight))
+    kv_ms = _graph_ms(torch, proj, [(mem64,)], iters=10)
+    kv_flops = 2 * 2 * ED_B * S * d * cfg.num_kv_heads * Dh
+    kv_bytes = 2 * (ED_B * S * d + 2 * d * cfg.num_kv_heads * Dh
+                    + 2 * ED_B * S * cfg.num_kv_heads * Dh)
+    kv_bound, kv_by = _bound(kv_bytes, kv_flops, "bfloat16")
+    kv = {"graph_ms": kv_ms, "bound_ms": kv_bound, "bound_by": kv_by,
+          "per_step_ms": kv_ms * layers,
+          "tflops": kv_flops / kv_ms / 1e9}
+    say(f"[time] {tag} memory K/V projection B={ED_B} S={S} d={d} (one "
+        f"layer, two GEMMs) {kv_ms * 1e3:.2f} us device (CUDA graph), bound "
+        f"{kv_bound * 1e3:.2f} us ({kv_by}), {kv['tflops']:.1f} TFLOP/s; x "
+        f"{layers} layers = {kv['per_step_ms']:.3f} ms per decode step "
+        f"(device busy {profile_res['busy_ms_per_step']:.3f} ms per step)")
+    del mem64, model, prompts
+    torch.cuda.empty_cache()
+
+    # Kernel times at the path's shapes.
+    g = torch.Generator(device="cuda").manual_seed(8)
+    Hkv = cfg.num_kv_heads
+    encoder_time = _prefill_time(torch, fa, ED_B, H, Hkv, S, Dh, g,
+                                 causal=False)
+    _say_lm_time(f"{tag} encoder attention B={ED_B} Hq={H} Hkv={Hkv} T={S} "
+                 f"Dh={Dh} bf16 non-causal: {encoder_time['kernel']} kernel",
+                 encoder_time)
+    cross_prefill_time = _prefill_time(torch, fa, ED_GATE_B, H, Hkv,
+                                       ED_PROMPT, Dh, g, causal=False, Tk=S)
+    _say_lm_time(f"{tag} cross attention prefill B={ED_GATE_B} Hq={H} "
+                 f"Hkv={Hkv} Tq={ED_PROMPT} Tk={S} Dh={Dh} bf16: "
+                 f"{cross_prefill_time['kernel']} kernel", cross_prefill_time)
+    cross_decode_time = _prefill_time(torch, fa, ED_B, H, Hkv, 1, Dh, g,
+                                      causal=False, Tk=S)
+    _say_lm_time(f"{tag} cross attention decode B={ED_B} Hq={H} Hkv={Hkv} "
+                 f"Tq=1 Tk={S} Dh={Dh} bf16 (1 row per kv head, k/v no "
+                 f"cache): {cross_decode_time['kernel']} kernel",
+                 cross_decode_time)
+    self_decode_time = _decode_time(torch, fa, ED_B, H, Hkv, ED_MAX, Dh, g)
+    _say_lm_time(f"{tag} self attention decode B={ED_B} Hq={H} Hkv={Hkv} "
+                 f"L={ED_MAX} Dh={Dh} bf16: split-K kernel", self_decode_time)
+    return {"arch": ED_ARCH, "parameters": n_params, "parameters_by_part":
+            parts, "peak_memory_gb": peak_gb, "tok_per_s": tok_per_s,
+            "seconds": seconds, "ms_per_step": seconds / ED_MAX * 1e3,
+            "encode": enc, "encode_calls": enc_calls, "zero_frontend": zero,
+            "prefill_s": prefill_s, "prefill_calls": pre_calls,
+            "self_check": self_check, "cross_calls": cross_calls,
+            "noise": noise, "plain_vs_ref": p_vs_ref,
+            "kernel_vs_ref": kernel_vs_ref, "kernel_vs_plain": kernel_vs_plain,
+            "noise_255": noise255, "prefill_vs_ref": prefill_vs_ref,
+            "decode_vs_ref": decode_vs_ref,
+            "prefill_vs_decode": prefill_vs_decode, "profile": profile_res,
+            "memory_kv_projection": kv,
+            "launches_by_path": {
+                "lm_encdec": wgmma_launches + decode_launches,
+                "lm_encdec_prefill": enc_layers + 2 * layers},
+            "service_launches": {"flash_attention_wgmma": wgmma_launches,
+                                 "flash_attention_decode": decode_launches},
+            "encoder_attention": encoder_time,
+            "prefill_attention": cross_prefill_time,
+            "decode_attention": cross_decode_time,
+            "self_decode_attention": self_decode_time}
+
+
+class _CaptureTap:
+    """Stands in for `flash_attention_cuda`: launches the kernel and keeps
+    each call's ``(q, k, v, out)``."""
+
+    def __init__(self, fa):
+        self.fa, self.kernel, self.calls = fa, fa.flash_attention_cuda, []
+
+    def __enter__(self):
+        self.fa.flash_attention_cuda = self
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_cuda = self.kernel
+
+    def __call__(self, q, k, v, **kw):
+        out = self.kernel(q, k, v, **kw)
+        self.calls.append((q, k, v, out, kw))
+        return out
+
+
+def phase_lm_mrope(torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, init_caches, init_model
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import rope as rope_lib
+    from repro_torch.models.layers import rms_norm
+
+    tag = "lm_mrope"
+    full = get_config(VL_ARCH)
+    cfg = dataclasses.replace(full, num_layers=VL_LAYERS)
+    vocab, layers = cfg.vocab_size, cfg.num_layers
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+    # The service's loop (`generate`) on random weights from the seed and
+    # prompts drawn as `serve` draws them, with the counters zeroed before
+    # and read after.
+    t0 = time.perf_counter()
+    model = init_model(cfg, VL_SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(VL_SEED + 1)
+    prompts = torch.randint(0, vocab, (VL_B, VL_PROMPT), generator=gen,
+                            device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[{tag}] {VL_ARCH} full width, depth {layers} of "
+        f"{full.num_layers}: d_model {cfg.d_model}, heads {Hq} (padded "
+        f"{cfg.padded_heads}) / kv {Hkv}, head_dim {Dh}, d_ff {cfg.d_ff}, "
+        f"QKV bias {cfg.qkv_bias}, M-RoPE sections {cfg.mrope_sections}, "
+        f"vocab {vocab} (padded {cfg.padded_vocab}), {n_params:,} parameters "
+        f"in bf16, init {time.perf_counter() - t0:.2f}s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _reset_plain_attention_calls()
+    out = generate(model, cfg, prompts, VL_GEN, VL_MAX)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts, plain = read_counts(), _plain_attention_calls()
+    decode_launches = counts.pop("flash_attention_decode")
+    say(f"[{tag}] path: generate({VL_ARCH} depth {layers}, batch {VL_B}, "
+        f"prompt {VL_PROMPT}, gen {VL_GEN}, max_len {VL_MAX}): "
+        f"{out['tok_per_s']:.1f} tok/s, {out['seconds'] / VL_MAX * 1e3:.3f} "
+        f"ms per step; decode kernel launches {decode_launches} ("
+        f"{Hq // Hkv} rows per kv head), other kernels {counts}, plain "
+        f"calls {plain}; peak device memory {peak_gb:.2f} GB")
+    tokens = out["tokens"]
+    _check_service(tag, VL_ARCH, counts, plain, decode_launches,
+                   layers * VL_MAX, tokens, (VL_B, VL_GEN), vocab, torch)
+    tok_per_s, seconds = out["tok_per_s"], out["seconds"]
+    del out
+
+    # Every decode-kernel call, teacher-forced over the same positions,
+    # against plain with the `length - 1` fault.
+    seq = torch.cat([prompts, tokens.long()], dim=1)
+    tap = _DecodeTap(fa)
+    caches = init_caches(cfg, VL_B, VL_MAX + VL_PROFILE_STEPS, device="cuda")
+    with tap:
+        for i in range(VL_MAX):
+            tap.length = i + 1
+            lk, caches = decode_step(model, cfg, caches, seq[:, i:i + 1], i)
+    layer_check = tap.result(torch)
+    _say_layer_taps(tag, f"{VL_ARCH}, all {VL_MAX} steps", layer_check,
+                    layers)
+    _check_layer_taps(tag, VL_ARCH, layer_check)
+    if not bool(torch.isfinite(lk).all()):
+        fail(f"{tag} {VL_ARCH}: non-finite decode logits")
+
+    # Device busy over decode steps past the service's last.
+    state = {"caches": caches, "tok": lk[:, :, :vocab].argmax(-1)}
+    del caches
+
+    def step(j):
+        logits, state["caches"] = decode_step(model, cfg, state["caches"],
+                                              state["tok"], VL_MAX + j)
+        state["tok"] = logits[:, :, :vocab].argmax(-1)
+
+    profile_res = _lm_profile(torch, step, VL_PROFILE_STEPS, tag)
+    _say_profile(tag, f"{VL_ARCH}, positions {VL_MAX}.."
+                 f"{VL_MAX + VL_PROFILE_STEPS - 1}", profile_res)
+    del state, lk
+    torch.cuda.empty_cache()
+
+    prefill_res = _prefill_gate(torch, tag, VL_ARCH, model, cfg,
+                                seq[:VL_PREFILL_B], 0.0)
+
+    # Layer 0's attention sublayer on vision positions (three rows that
+    # differ), where the sections act: the kernel against plain at the
+    # tight bound; the same input on text positions (rows equal) lands far
+    # outside that bound.
+    block = model.runs[0][0]
+    gt, gh, gw = VL_GRID
+    T = gt * gh * gw
+    xg = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((VL_PREFILL_B, T, cfg.d_model), generator=xg,
+                    device="cuda").to(torch.bfloat16)
+    h = rms_norm(x, block.ln1, cfg.rmsnorm_eps)
+    vision = rope_lib.vision_mrope_positions(VL_PREFILL_B, gt, gh, gw,
+                                             device="cuda")
+    text = rope_lib.text_mrope_positions(VL_PREFILL_B, T, device="cuda")
+    reset_counts()
+    _reset_plain_attention_calls()
+    with torch.no_grad(), _CaptureTap(fa) as cap:
+        attn_lib.attention_layer(block.attn, h, cfg, vision)
+        attn_lib.attention_layer(block.attn, h, cfg, text)
+    launched, plain = _launched(torch), _plain_attention_calls()
+    (q, k, v, got, kw), (_, _, _, got_text, _) = cap.calls
+    want, tol = _tight_tol(functools.partial(fa.flash_attention_plain, **kw),
+                           q, k, v)
+    vis = {"T": T, "grid": list(VL_GRID), "launches": launched,
+           "rows_differ": bool((vision[0] != vision[1]).any()
+                               and (vision[1] != vision[2]).any()),
+           "err_over_tol": _excess(got, want, tol).item(),
+           "text_err_over_tol": _excess(got_text, want, tol).item()}
+    say(f"[{tag}] layer 0 attention on vision positions (grid "
+        f"{gt}x{gh}x{gw}, T={T}, B={VL_PREFILL_B}; rows differ "
+        f"{vis['rows_differ']}): launches {launched}, kernel vs plain in "
+        f"float32 err/tol {vis['err_over_tol']:.3f} at the tight bf16 bound; "
+        f"the same input on text positions (rows equal) err/tol "
+        f"{vis['text_err_over_tol']:.1f}")
+    if launched != {"flash_attention_wgmma": 2} or any(plain.values()):
+        fail(f"{tag} vision attention launched {launched}, plain {plain}")
+    if not vis["rows_differ"]:
+        fail(f"{tag}: the vision positions' rows do not differ")
+    if not vis["err_over_tol"] <= 1.0:
+        fail(f"{tag}: the vision-position attention misses the tight bound "
+             f"(err/tol {vis['err_over_tol']:.3f})")
+    if not vis["text_err_over_tol"] > 1.0:
+        fail(f"{tag}: text positions give the vision positions' output "
+             f"(err/tol {vis['text_err_over_tol']:.3f}): the sections do not "
+             "act")
+    del model, prompts, seq, x, h, cap, q, k, v, got, got_text, want, tol
+    torch.cuda.empty_cache()
+
+    # Kernel times at the path's shapes.
+    g = torch.Generator(device="cuda").manual_seed(10)
+    decode_time = _decode_time(torch, fa, VL_B, Hq, Hkv, VL_MAX, Dh, g)
+    _say_lm_time(f"{tag} decode attention B={VL_B} Hq={Hq} Hkv={Hkv} "
+                 f"L={VL_MAX} Dh={Dh} bf16 ({Hq // Hkv} rows per kv head): "
+                 "split-K kernel", decode_time)
+    prefill_time = _prefill_time(torch, fa, VL_PREFILL_B, Hq, Hkv, VL_MAX,
+                                 Dh, g)
+    _say_lm_time(f"{tag} prefill attention B={VL_PREFILL_B} Hq={Hq} "
+                 f"Hkv={Hkv} T={VL_MAX} Dh={Dh} bf16 causal: "
+                 f"{prefill_time['kernel']} kernel", prefill_time)
+    return {"arch": VL_ARCH, "layers": layers, "parameters": n_params,
+            "peak_memory_gb": peak_gb, "tok_per_s": tok_per_s,
+            "seconds": seconds, "ms_per_step": seconds / VL_MAX * 1e3,
+            "layer_check": layer_check, "profile": profile_res,
+            "prefill": prefill_res, "vision": vis,
+            "launches_by_path": {"lm_mrope": decode_launches,
+                                 "lm_mrope_prefill": prefill_res["launches"]},
+            "decode_attention": decode_time,
+            "prefill_attention": prefill_time}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -3772,6 +4461,8 @@ def main() -> int:
     moe = phase_lm_moe(torch)
     grok = phase_lm_grok(torch)
     xlstm = phase_lm_xlstm(torch)
+    encdec = phase_lm_encdec(torch)
+    mrope = phase_lm_mrope(torch)
 
     rows = []
     for kind in ("filtering_combine", "smoothing_combine"):
@@ -3808,7 +4499,8 @@ def main() -> int:
                                          ("lm_xlstm_prefill", xlstm))})
     flash_paths = {"flash": flash["launches"], **lm["launches_by_path"],
                    **hybrid["launches_by_path"], **moe["launches_by_path"],
-                   **grok["launches_by_path"]}
+                   **grok["launches_by_path"], **encdec["launches_by_path"],
+                   **mrope["launches_by_path"]}
     rows[-1].update(launches=sum(flash_paths.values()),
                     launches_by_path=flash_paths,
                     launches_by_kernel=flash["launches_by_kernel"],
@@ -3821,7 +4513,11 @@ def main() -> int:
                            ("lm_moe", moe, "decode"),
                            ("lm_moe_prefill", moe, "prefill"),
                            ("lm_grok", grok, "decode"),
-                           ("lm_grok_prefill", grok, "prefill"))})
+                           ("lm_grok_prefill", grok, "prefill"),
+                           ("lm_encdec", encdec, "decode"),
+                           ("lm_encdec_prefill", encdec, "prefill"),
+                           ("lm_mrope", mrope, "decode"),
+                           ("lm_mrope_prefill", mrope, "prefill"))})
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, **row}
             for (name, (replaces, source)), row in zip(KERNELS.items(), rows)]
@@ -3837,6 +4533,7 @@ def main() -> int:
          "chaos": chaos, "tenants": tenants, "ssm_scan": ssm,
          "flash_attention": flash, "lm_decode": lm, "lm_hybrid": hybrid,
          "lm_moe": moe, "lm_grok": grok, "lm_xlstm": xlstm,
+         "lm_encdec": encdec, "lm_mrope": mrope,
          "seconds": time.perf_counter() - t_start}, indent=1))
     say(f"[chip_smoke] all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")

@@ -8,7 +8,8 @@ rebuilt from the port's registered scenario config (callables do not
 cross frameworks), so both packages compute on the same model.
 
 `lm_params` turns the JAX LM's parameter pytree (as numpy) into the port's
-`CausalLM`, so both packages run the same weights.
+`CausalLM` (the encoder-decoder's encoder and cross-attention too), so
+both packages run the same weights.
 """
 from __future__ import annotations
 
@@ -50,9 +51,12 @@ def lm_params(params, cfg, *, device: Device = None,
     """The port's `CausalLM` holding the JAX ``init_model`` parameters
     ``params`` (the pytree with its leaves as numpy arrays): ``embed``,
     ``runs`` (per run, each leaf stacked over the run's layers),
-    ``final_norm`` and ``lm_head``. The runs are unstacked into blocks
+    ``final_norm``, ``lm_head`` and an encoder-decoder's ``encoder`` (a
+    stacked dense run), ``enc_norm``, ``cross_attn`` (stacked over the
+    decoder layers) and ``ln_cross``. The runs are unstacked into blocks
     (a hybrid block's ``ssm`` and ``ln_ssm`` too, an MoE block's ``moe``,
-    an xLSTM block's ``mlstm`` or ``slstm``);
+    an xLSTM block's ``mlstm`` or ``slstm``), ``encoder`` into dense
+    blocks and ``cross_attn`` into one attention per layer;
     ``[in, out]`` matrices become ``nn.Linear`` weights ``[out, in]``, and
     the MoE's router and stacked experts stay as they are.
     On ``device`` (`resolve_device`), in ``dtype`` (default the config's
@@ -70,32 +74,44 @@ def lm_params(params, cfg, *, device: Device = None,
 
     state = {"embed": t(params["embed"]),
              "final_norm": t(params["final_norm"])}
+
+    def attention(pre, attn, li):
+        for name, w in attn.items():
+            if name.startswith("w"):
+                state[f"{pre}{name}.weight"] = t(w[li]).T
+            else:  # bq, bk, bv
+                state[f"{pre}w{name[1]}.bias"] = t(w[li])
+
     if "lm_head" in params:
         state["lm_head.weight"] = t(params["lm_head"]).T
-    for ri, run in enumerate(params["runs"]):
-        for li in range(len(model.runs[ri])):
-            pre = f"runs.{ri}.{li}."
-            for norm in ("ln1", "ln2", "ln_ssm"):
-                if norm in run:
-                    state[pre + norm] = t(run[norm][li])
-            for name, w in run.get("attn", {}).items():
-                if name.startswith("w"):
-                    state[f"{pre}attn.{name}.weight"] = t(w[li]).T
-                else:  # bq, bk, bv
-                    state[f"{pre}attn.w{name[1]}.bias"] = t(w[li])
-            for name, w in run.get("mlp", {}).items():
-                state[f"{pre}mlp.{name}.weight"] = t(w[li]).T
-            for name, w in run.get("moe", {}).items():
-                if name == "shared":  # [in, out] matrices of an MLP
-                    for sub, ws in w.items():
-                        state[f"{pre}moe.shared.{sub}.weight"] = t(ws[li]).T
-                else:  # router [d, E], experts [E, d, dff] / [E, dff, d]
-                    state[f"{pre}moe.{name}"] = t(w[li])
-            for mixer, linear in _MIXER_LINEAR.items():
-                for name, w in run.get(mixer, {}).items():
-                    if name in linear:
-                        state[f"{pre}{mixer}.{name}.weight"] = t(w[li]).T
-                    else:  # conv_w, dt_bias, A_log, D, norm_w, r, b
-                        state[f"{pre}{mixer}.{name}"] = t(w[li])
+    blocks = [(f"runs.{ri}.{li}.", run, li)
+              for ri, run in enumerate(params["runs"])
+              for li in range(len(model.runs[ri]))]
+    if "encoder" in params:
+        blocks += [(f"encoder.{li}.", params["encoder"], li)
+                   for li in range(cfg.encoder_layers)]
+        state["enc_norm"] = t(params["enc_norm"])
+        state["ln_cross"] = t(params["ln_cross"])
+        for li in range(cfg.num_layers):
+            attention(f"cross_attn.{li}.", params["cross_attn"], li)
+    for pre, run, li in blocks:
+        for norm in ("ln1", "ln2", "ln_ssm"):
+            if norm in run:
+                state[pre + norm] = t(run[norm][li])
+        attention(pre + "attn.", run.get("attn", {}), li)
+        for name, w in run.get("mlp", {}).items():
+            state[f"{pre}mlp.{name}.weight"] = t(w[li]).T
+        for name, w in run.get("moe", {}).items():
+            if name == "shared":  # [in, out] matrices of an MLP
+                for sub, ws in w.items():
+                    state[f"{pre}moe.shared.{sub}.weight"] = t(ws[li]).T
+            else:  # router [d, E], experts [E, d, dff] / [E, dff, d]
+                state[f"{pre}moe.{name}"] = t(w[li])
+        for mixer, linear in _MIXER_LINEAR.items():
+            for name, w in run.get(mixer, {}).items():
+                if name in linear:
+                    state[f"{pre}{mixer}.{name}.weight"] = t(w[li]).T
+                else:  # conv_w, dt_bias, A_log, D, norm_w, r, b
+                    state[f"{pre}{mixer}.{name}"] = t(w[li])
     model.load_state_dict({k: v.to(dtype) for k, v in state.items()})
     return model.to(dtype)

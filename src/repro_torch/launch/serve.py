@@ -1,21 +1,24 @@
 """Serving driver: two workloads behind one CLI, as in the JAX package.
 
 ``decode`` — batched LM decoding with KV caches or recurrent state (the
-dense, hybrid, MoE and xLSTM families): the prompt teacher-forced
-through `decode_step`, then greedy steps; attention runs the CUDA kernels
-on the card (the split-K decode kernel on the cache in place, a
-sliding-window layer's cache a ring, grok's logit softcap inside the
-kernel, in every layer of every step; a hybrid block's SSM step is
+dense, hybrid, MoE, xLSTM and encoder-decoder families): the prompt
+teacher-forced through `decode_step`, then greedy steps; attention runs
+the CUDA kernels on the card (the split-K decode kernel on the cache in
+place, a sliding-window layer's cache a ring, grok's logit softcap inside
+the kernel, in every layer of every step; a hybrid block's SSM step is
 elementwise; an MoE block dispatches the step's tokens to its experts by
 the reference's sort-based capacity dispatch, with no host sync; an
-xLSTM block updates its fixed-size state in place):
+xLSTM block updates its fixed-size state in place; an encoder-decoder
+decoder layer also attends to the encoder memory, through the split-K
+decode kernel):
 
     python -m repro_torch.launch.serve --workload decode --arch qwen2-1.5b \
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
     python -m repro_torch.launch.serve --workload decode --arch hymba-1.5b \
         --device cpu
     python -m repro_torch.launch.serve --workload decode \
-        --arch deepseek-moe-16b|grok-1-314b|xlstm-350m --device cpu
+        --arch deepseek-moe-16b|grok-1-314b|xlstm-350m|seamless-m4t-medium \
+        --device cpu
 
 As in the reference, ``--reduced`` cannot be turned off: the CLI serves
 the reduced config, and the full width is ``ServeConfig(reduced=False)``.
@@ -106,12 +109,13 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(model, cfg, prompts: torch.Tensor, gen: int,
-             max_len: int) -> dict:
+             max_len: int, memory: Optional[torch.Tensor] = None) -> dict:
     """The reference service's loop on given weights and prompts: caches
     of capacity ``max_len``, the prompt ``[B, P]`` teacher-forced through
     `decode_step` one position at a time, then ``gen`` greedy steps (argmax
-    over the real vocabulary). Returns ``tokens [B, gen]`` (int32, on the
-    prompts' device), the last step's ``logits [B, 1, padded_vocab]``
+    over the real vocabulary); an encoder-decoder model's steps attend to
+    the encoder ``memory [B, S, d]``. Returns ``tokens [B, gen]`` (int32,
+    on the prompts' device), the last step's ``logits [B, 1, padded_vocab]``
     (position ``P + gen - 1``), the wall ``seconds`` of the ``P + gen``
     steps and ``tok_per_s``. Nothing waits on the host between steps."""
     from repro_torch.models import decode_step, init_caches
@@ -124,12 +128,12 @@ def generate(model, cfg, prompts: torch.Tensor, gen: int,
     logits = None
     for i in range(P):
         logits, caches = decode_step(model, cfg, caches, prompts[:, i:i + 1],
-                                     i)
+                                     i, memory)
     generated = []
     tok = logits[:, :, :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
     for j in range(gen):
         generated.append(tok)
-        logits, caches = decode_step(model, cfg, caches, tok, P + j)
+        logits, caches = decode_step(model, cfg, caches, tok, P + j, memory)
         tok = logits[:, :, :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
     _sync(device)
     dt = time.perf_counter() - t0
@@ -144,9 +148,14 @@ def serve(serve_cfg: ServeConfig, emit=print, *, device: Device = None
     """The reference's decode service: random weights from
     ``serve_cfg.seed``, prompts drawn from a generator seeded
     ``seed + 1`` (torch's stream, so the ids differ from JAX's), run by
-    `generate`, on ``device`` (the card unless ``device="cpu"``)."""
+    `generate`, on ``device`` (the card unless ``device="cpu"``). An
+    encoder-decoder config encodes a zero ``[B, encoder_seq_len, d_model]``
+    float32 frontend once, before the timed loop, as the reference does.
+    That memory is exactly zero (without QKV biases every block maps 0 to
+    0, and so does ``enc_norm``), so every cross-attention output of the
+    service is exactly zero too."""
     from repro_torch.configs import get_config, reduced_config
-    from repro_torch.models import init_model
+    from repro_torch.models import encode, init_model
 
     device = resolve_device(device)
     cfg = get_config(serve_cfg.arch)
@@ -157,7 +166,13 @@ def serve(serve_cfg: ServeConfig, emit=print, *, device: Device = None
     gen = torch.Generator(device=device).manual_seed(serve_cfg.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (B, serve_cfg.prompt_len),
                             generator=gen, device=device)
-    out = generate(model, cfg, prompts, serve_cfg.gen, serve_cfg.max_len)
+    memory = None
+    if cfg.encoder_layers:
+        memory = encode(model, cfg, torch.zeros(
+            (B, cfg.encoder_seq_len, cfg.d_model), dtype=torch.float32,
+            device=device))
+    out = generate(model, cfg, prompts, serve_cfg.gen, serve_cfg.max_len,
+                   memory)
     total = serve_cfg.prompt_len + serve_cfg.gen
     emit(f"[serve] {B} seqs x {total} steps in {out['seconds']:.2f}s "
          f"({out['tok_per_s']:.1f} tok/s)")
@@ -940,8 +955,6 @@ def main(argv=None):
                         "(sigma-point, IPLS)")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--tol", type=float, default=1e-6)
-    p.add_argument("--lm-lambda", type=float, default=1.0)
-    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sequential", action="store_true",
                    help="use the sequential baseline pass")
     p.add_argument("--f32", action="store_true", help="run in float32")
@@ -976,13 +989,12 @@ def main(argv=None):
             p.error("--arch is required for the decode workload")
         serve(ServeConfig(arch=args.arch, batch=args.batch,
                           prompt_len=args.prompt_len, gen=args.gen,
-                          reduced=args.reduced, seed=args.seed),
+                          reduced=args.reduced),
               device=args.device)
         return
     cfg = SmootherServeConfig(
         requests=args.requests, n=args.n, max_batch=args.max_batch,
         method=args.method, n_iter=args.iters, tol=args.tol,
-        lm_lambda=args.lm_lambda, seed=args.seed,
         parallel=not args.sequential, f64=not args.f32,
         arrival=args.arrival, policy=args.policy, rate=args.rate,
         burst_size=args.burst_size, deadline_s=args.deadline,

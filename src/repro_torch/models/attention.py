@@ -1,7 +1,7 @@
-"""GQA self-attention: init, prefill (blockwise causal), decode against a
-KV cache, sliding-window ring caches. The JAX package's
-``repro.models.attention`` on tensors (cross-attention waits for the
-encoder-decoder slice).
+"""GQA attention: init, prefill (blockwise, causal or not), decode against
+a KV cache, sliding-window ring caches, and the encoder-decoder's
+cross-attention against an encoder memory. The JAX package's
+``repro.models.attention`` on tensors.
 
 Q heads are padded up to a multiple of ``tp_size`` with zero-weight heads
 when the architecture's head count does not divide it (``cfg.padded_heads``;
@@ -52,7 +52,7 @@ IMPLS = ("auto", "plain")
 
 #: Calls of the plain attention versions since `reset_plain_calls`.
 PLAIN_CALLS: Dict[str, int] = {"blockwise_causal_attention": 0,
-                               "decode_attention": 0}
+                               "decode_attention": 0, "chunked_cross": 0}
 
 
 def reset_plain_calls() -> None:
@@ -268,3 +268,53 @@ def attention_layer(params: Attention, x: torch.Tensor, cfg: ModelConfig,
         ctx = _pad_heads(ctx, cfg)
     B, T = x.shape[:2]
     return params.wo(ctx.reshape(B, T, -1)), new_cache
+
+
+def chunked_cross(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  chunk: int) -> torch.Tensor:
+    """Non-causal cross-attention, plain: q ``[B, T, H, Dh]`` against the
+    memory's k/v ``[B, S, H, Dh]`` (pre-expanded to H heads,
+    `expand_kv_heads`), in chunks of ``chunk`` queries so the scores stay
+    O(chunk * S). Both products in float32 (q, k, p and v widened), as
+    the reference's ``_chunked_cross``; the output in q's dtype."""
+    PLAIN_CALLS["chunked_cross"] += 1
+    T, Dh = q.shape[1], q.shape[3]
+    scale = 1.0 / math.sqrt(Dh)
+    kf, vf = k.float(), v.float()
+    outs = []
+    for q0 in range(0, T, chunk):
+        s = torch.einsum("bqhd,bshd->bhqs", q[:, q0:q0 + chunk].float(),
+                         kf) * scale
+        outs.append(torch.einsum("bhqs,bshd->bqhd", torch.softmax(s, -1),
+                                 vf))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def cross_attention_layer(params: Attention, x: torch.Tensor,
+                          memory: torch.Tensor, cfg: ModelConfig, *,
+                          impl: str = "auto") -> torch.Tensor:
+    """Encoder-decoder cross-attention sublayer: q from ``x [B, T, d]``,
+    k/v from ``memory [B, S, d]``, through the layer's own projections
+    with no RoPE and no QKV bias (even where the config has one), as the
+    reference does; non-causal. The memory's k/v are projected anew on
+    every call (in every layer of every decode step), as in the
+    reference. Returns ``[B, T, d]``. ``impl``: see the module
+    docstring."""
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl {impl!r}; one of {IMPLS}")
+    B, T, _ = x.shape
+    S = memory.shape[1]
+    dh, H = cfg.resolved_head_dim, cfg.num_heads
+    q = F.linear(x, params.wq.weight).reshape(B, T, cfg.padded_heads, dh)
+    k = F.linear(memory, params.wk.weight).reshape(B, S, cfg.num_kv_heads, dh)
+    v = F.linear(memory, params.wv.weight).reshape(B, S, cfg.num_kv_heads, dh)
+    if impl == "auto" and x.is_cuda:
+        o = kfa.flash_attention_cuda(
+            q[:, :, :H].transpose(1, 2).contiguous(),
+            k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+            causal=False)
+        ctx = _pad_heads(o.transpose(1, 2), cfg)
+    else:
+        ke, ve = expand_kv_heads(k, v, cfg.padded_heads, H)
+        ctx = chunked_cross(q, ke, ve, chunk=min(cfg.attn_chunk, T))
+    return params.wo(ctx.reshape(B, T, -1))

@@ -1,21 +1,27 @@
-"""The decoder-only causal LM (PyTorch): init, prefill, decode.
+"""The causal LM and the encoder-decoder LM (PyTorch): init, encode,
+prefill, decode.
 
-The JAX package's ``repro.models.transformer`` for the dense, hybrid,
-MoE and xLSTM families. Its functional API, with an ``nn.Module`` in
-place of the parameter pytree:
+The JAX package's ``repro.models.transformer`` for all five families
+(dense, hybrid, MoE, xLSTM and encoder-decoder). Its functional API, with
+an ``nn.Module`` in place of the parameter pytree:
 
     model = init_model(cfg, seed, device=...)
-    logits = prefill(model, cfg, tokens)
-    logits, caches = decode_step(model, cfg, caches, tokens, pos)
+    memory = encode(model, cfg, enc_emb)              # encoder-decoder
+    logits = prefill(model, cfg, tokens[, enc_emb])
+    logits, caches = decode_step(model, cfg, caches, tokens, pos[, memory])
 
-``encode`` and ``train_loss`` (the encoder-decoder and training slices)
-wait; an encoder-decoder config raises. The MoE layers' load-balance
-losses are summed by `_apply_stack` (training reads them; `prefill` and
-`decode_step` drop them, as the reference's do). ``impl`` (``"auto"`` or
-``"plain"``) says where attention and the SSM and mLSTM scans run
-(`models.attention`, `models.ssm`, `models.xlstm`): ``"auto"`` runs the
-CUDA kernels on the card. Decode writes the caches in place and returns
-them with the attention caches' lengths advanced.
+An encoder-decoder config (``cfg.encoder_layers``) adds a non-causal dense
+encoder over the stub frontend's embeddings ``enc_emb [B, S, d]`` and, in
+every decoder layer after its self-attention and MLP block, a
+cross-attention sublayer against the encoder memory; its K/V are projected
+from the memory anew in every layer of every decode step, as in the
+reference. ``train_loss`` (the training slice) waits. The MoE layers'
+load-balance losses are summed by `_apply_stack` (training reads them;
+`prefill` and `decode_step` drop them, as the reference's do). ``impl``
+(``"auto"`` or ``"plain"``) says where attention and the SSM and mLSTM
+scans run (`models.attention`, `models.ssm`, `models.xlstm`): ``"auto"``
+runs the CUDA kernels on the card. Decode writes the caches in place and
+returns them with the attention caches' lengths advanced.
 """
 from __future__ import annotations
 
@@ -37,14 +43,13 @@ class CausalLM(nn.Module):
     """``embed [padded_vocab, d]``, ``runs`` (one ``nn.ModuleList`` of
     blocks per run of `layer_schedule`), ``final_norm`` and, unless the
     embeddings are tied, ``lm_head`` (an ``nn.Linear`` to the padded
-    vocabulary)."""
+    vocabulary). An encoder-decoder config also has the reference's
+    ``encoder`` (an ``nn.ModuleList`` of ``encoder_layers`` dense blocks),
+    ``enc_norm``, ``cross_attn`` (an ``nn.ModuleList`` of one `Attention`
+    per decoder layer) and ``ln_cross [num_layers, d]``."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
-        if cfg.encoder_layers:
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder family is a later "
-                "sub-slice of ROADMAP queue A, item 5")
         dtype = dtype_of(cfg.param_dtype)
         self.embed = init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype)
         self.runs = nn.ModuleList(
@@ -54,6 +59,17 @@ class CausalLM(nn.Module):
         self.final_norm = init_rms_norm(cfg.d_model, dtype, gen.device)
         self.lm_head = None if cfg.tie_embeddings else init_linear(
             gen, cfg.d_model, cfg.padded_vocab, dtype)
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(
+                blocks_lib.init_block(cfg, "dense", gen, dtype)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = init_rms_norm(cfg.d_model, dtype, gen.device)
+            self.cross_attn = nn.ModuleList(
+                attn_lib.init_attention(cfg, gen, dtype)
+                for _ in range(cfg.num_layers))
+            self.ln_cross = nn.Parameter(torch.ones(
+                (cfg.num_layers, cfg.d_model), dtype=dtype,
+                device=gen.device))
 
 
 def init_model(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
@@ -81,10 +97,14 @@ def _positions(cfg: ModelConfig, B: int, T: int, offset=0,
 
 def _apply_stack(model: CausalLM, x: torch.Tensor, cfg: ModelConfig,
                  runs, *, positions: torch.Tensor, caches=None,
-                 causal: bool = True, impl: str = "auto"):
+                 causal: bool = True, memory: Optional[torch.Tensor] = None,
+                 impl: str = "auto"):
     """Apply all runs, layer by layer. ``caches``: a list aligned with
-    ``runs`` (or None). Returns (x, new_caches, aux_total): the MoE
-    layers' aux losses summed (a float32 tensor; 0.0 without MoE)."""
+    ``runs`` (or None). ``memory`` (encoder-decoder): the encoder output
+    ``[B, S, d]``; after decoder layer ``gl``'s block, ``x`` gains
+    ``cross_attn[gl]`` of ``rms_norm(x, ln_cross[gl])`` against it.
+    Returns (x, new_caches, aux_total): the MoE layers' aux losses summed
+    (a float32 tensor; 0.0 without MoE)."""
     aux_total = 0.0
     new_caches: Optional[List] = [] if caches is not None else None
     for ri, run in enumerate(runs):
@@ -97,6 +117,11 @@ def _apply_stack(model: CausalLM, x: torch.Tensor, cfg: ModelConfig,
             x, nc, a = blocks_lib.apply_block(
                 block, x, cfg, run.kind, positions=positions,
                 window=run.window, cache=lc, causal=causal, impl=impl)
+            if memory is not None:
+                gl = run.first_layer + li
+                h = rms_norm(x, model.ln_cross[gl], cfg.rmsnorm_eps)
+                x = x + attn_lib.cross_attention_layer(
+                    model.cross_attn[gl], h, memory, cfg, impl=impl)
             aux_total = aux_total + a
             if nc is not None and attends:
                 lengths.append(nc["attn"].length)
@@ -130,31 +155,63 @@ def init_caches(cfg: ModelConfig, B: int, S: int, *,
 
 
 @torch.no_grad()
-def prefill(model: CausalLM, cfg: ModelConfig, tokens: torch.Tensor, *,
+def encode(model: CausalLM, cfg: ModelConfig, enc_emb: torch.Tensor, *,
+           impl: str = "auto") -> torch.Tensor:
+    """The encoder memory ``[B, S, d]`` (compute dtype) of the stub
+    frontend's embeddings ``enc_emb [B, S, d]``: the dense encoder blocks
+    with RoPE positions and non-causal self-attention, then ``enc_norm``."""
+    B, S, _ = enc_emb.shape
+    x = enc_emb.to(dtype_of(cfg.compute_dtype))
+    positions = _positions(cfg, B, S, device=enc_emb.device)
+    for block in model.encoder:
+        x, _, _ = blocks_lib.apply_block(block, x, cfg, "dense",
+                                         positions=positions, window=0,
+                                         causal=False, impl=impl)
+    return rms_norm(x, model.enc_norm, cfg.rmsnorm_eps)
+
+
+@torch.no_grad()
+def prefill(model: CausalLM, cfg: ModelConfig, tokens: torch.Tensor,
+            enc_emb: Optional[torch.Tensor] = None, *,
             impl: str = "auto") -> torch.Tensor:
     """Forward over the prompt ``tokens [B, T]``; returns the last
-    position's logits ``[B, 1, padded_vocab]``. As in the reference it
-    builds no cache (the service teacher-forces the prompt through
-    `decode_step`)."""
+    position's logits ``[B, 1, padded_vocab]``. An encoder-decoder config
+    encodes ``enc_emb [B, S, d]`` first and attends to its memory. As in
+    the reference it builds no cache (the service teacher-forces the
+    prompt through `decode_step`)."""
     B, T = tokens.shape
+    memory = None
+    if cfg.encoder_layers:
+        if enc_emb is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs "
+                             "the frontend embeddings (enc_emb=)")
+        memory = encode(model, cfg, enc_emb, impl=impl)
     x = embedding_lookup(model.embed, tokens).to(dtype_of(cfg.compute_dtype))
     positions = _positions(cfg, B, T, device=tokens.device)
     x, _, _ = _apply_stack(model, x, cfg, blocks_lib.layer_schedule(cfg),
-                           positions=positions, impl=impl)
+                           positions=positions, memory=memory, impl=impl)
     return _logits(model, cfg, x[:, -1:, :])
 
 
 @torch.no_grad()
 def decode_step(model: CausalLM, cfg: ModelConfig, caches: list,
-                tokens: torch.Tensor, pos, *, impl: str = "auto"):
+                tokens: torch.Tensor, pos,
+                memory: Optional[torch.Tensor] = None, *,
+                impl: str = "auto"):
     """One decode step: ``tokens [B, 1]`` at absolute position ``pos`` (an
-    int or a device int tensor). Returns (logits ``[B, 1, padded_vocab]``,
-    caches), the caches written in place."""
+    int or a device int tensor); an encoder-decoder config attends to the
+    encoder ``memory [B, S, d]`` (`encode`), which it needs. Returns
+    (logits ``[B, 1, padded_vocab]``, caches), the caches written in
+    place."""
+    if cfg.encoder_layers and memory is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder decode step needs "
+                         "the encoder memory (memory=encode(...))")
     B = tokens.shape[0]
     x = embedding_lookup(model.embed, tokens).to(dtype_of(cfg.compute_dtype))
     positions = _positions(cfg, B, 1, offset=pos, device=tokens.device)
     x, new_caches, _ = _apply_stack(model, x, cfg,
                                     blocks_lib.layer_schedule(cfg),
                                     positions=positions, caches=caches,
-                                    impl=impl)
+                                    memory=memory if cfg.encoder_layers
+                                    else None, impl=impl)
     return _logits(model, cfg, x), new_caches

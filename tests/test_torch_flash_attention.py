@@ -657,3 +657,36 @@ def test_cache_decode_rejects_bad_inputs_on_card(cuda):
         kfa.decode_attention_cuda(q[:, :2], k.mT.contiguous().mT, k, n)
     with pytest.raises(TypeError, match="device"):
         kfa.decode_attention_cuda(q[:, :2], k, k, n.cpu())
+
+
+#: The encoder-decoder's cross-attention shapes (seamless-m4t-medium: 16/16
+#: heads, Dh 64, a memory of 1,024 keys), non-causal on contiguous k/v that
+#: are no cache: (B, Tq, kernel). Prefill takes the ``wgmma`` kernel, a
+#: decode step (1 row per kv head) the split-K decode kernel.
+CROSS_CARD_CASES = [(2, 256, "wgmma"), (4, 1, "decode")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,kernel", CROSS_CARD_CASES)
+def test_cross_attention_shapes_on_card(cuda, B, Tq, kernel):
+    """bf16 q against a 1,024-key memory, non-causal: the expected kernel
+    alone serves the call, within the tight bf16 bound of the plain
+    version in float32 on the same values, 2^-8 (sum_j p_j |v_j| / l +
+    |o|) + 1e-5 (the weights and the output each rounded to bf16 once).
+    q is scaled by 4 so that each row's weights peak on a few keys."""
+    rng = np.random.default_rng(B + Tq)
+    arrays = _rand_qkv(rng, B, 16, 16, Tq, 1024, 64)
+    arrays = (arrays[0] * 4,) + tuple(arrays[1:])
+    q, k, v = _torch(arrays, "bfloat16", cuda)
+    assert kfa.select_kernel(q, k) == kernel
+    before = dict(kfa.LAUNCHES)
+    got = kfa.flash_attention_cuda(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert {n: kfa.LAUNCHES[n] - before[n] for n in before} == {
+        n: int(n == kfa.KERNEL_COUNTERS[kernel]) for n in before}
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = kfa.flash_attention_plain(qf, kf, vf, causal=False)
+    tol = 2.0 ** -8 * (kfa.flash_attention_plain(qf, kf, vf.abs(),
+                                                 causal=False)
+                       + want.abs()) + 1e-5
+    assert float(((got.float() - want).abs() / tol).amax()) <= 1.0

@@ -257,7 +257,8 @@ def test_attention_impl_on_cpu_runs_the_plain_versions():
                                      cache=cache)
     assert int(cache.length) == 1
     assert {k: tattn.PLAIN_CALLS[k] - before[k] for k in before} == {
-        "blockwise_causal_attention": 1, "decode_attention": 1}
+        "blockwise_causal_attention": 1, "decode_attention": 1,
+        "chunked_cross": 0}
     assert kfa.LAUNCHES == launches
     with pytest.raises(ValueError, match="impl"):
         tattn.attention_layer(layer, x, cfg, pos, impl="kernel")

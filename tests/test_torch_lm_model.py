@@ -1,7 +1,9 @@
 """Port parity: the causal LM of the dense family, and the hybrid family's
 reduced config beside it (its own file, ``test_torch_lm_hybrid.py``, goes
 further). For each dense architecture's ``reduced_config`` (and a
-padded-heads and a sliding-window variant) the JAX ``init_model``
+padded-heads and a sliding-window variant, and qwen2-vl-72b, whose M-RoPE
+equals RoPE on text positions; its attention layer is also held to JAX's
+on vision positions, where the sections act) the JAX ``init_model``
 parameters, with the norms and QKV biases perturbed so that every leaf
 matters, are carried across with
 ``convert.lm_params``; the port's ``prefill`` logits and 8 teacher-forced
@@ -25,6 +27,7 @@ from repro_torch.kernels.flash_attention import flash_attention as kfa
 from repro_torch.kernels.ssm_scan import ssm_scan as kss
 from repro_torch.models import attention as tattn
 from repro_torch.models import blocks as tblocks
+from repro_torch.models import rope as trope
 from repro_torch.models import ssm as tssm
 from repro_torch.models import (decode_step, init_caches, init_model,
                                 prefill)
@@ -38,8 +41,8 @@ DENSE = ["qwen2-1.5b", "llama3.2-3b", "internlm2-1.8b", "codeqwen1.5-7b"]
 #: reduced hybrid (hymba-1.5b: an SSM beside attention in every block).
 CASES = [(a, {}) for a in DENSE] + [
     ("qwen2-1.5b", {"tp_size": 8}), ("llama3.2-3b", {"sliding_window": 8}),
-    ("hymba-1.5b", {})]
-IDS = DENSE + ["qwen2-padded-heads", "llama-window-8", "hymba"]
+    ("hymba-1.5b", {}), ("qwen2-vl-72b", {})]
+IDS = DENSE + ["qwen2-padded-heads", "llama-window-8", "hymba", "qwen2-vl"]
 B, T, STEPS = 2, 12, 8
 
 
@@ -161,11 +164,34 @@ def test_init_model_is_seeded_and_tied():
         cfg.padded_vocab, cfg.d_model)
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
-def test_families_still_to_port_raise(arch):
-    cfg = reduced_config(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 5"):
-        init_model(cfg, 0, device="cpu")
+def test_mrope_attention_layer_matches_jax_on_vision_positions():
+    """qwen2-vl-72b's layer-0 attention (M-RoPE sections (4, 2, 2), QKV
+    biases perturbed) on vision positions of a 2 x 3 x 4 patch grid, whose
+    three rows differ, against JAX's ``attention_layer``; and the same
+    input on text positions (rows equal) gives another output."""
+    j = jx()
+    cfg, np_params, _, _, _ = _case("qwen2-vl-72b", ())
+    jcfg = j.configs.reduced_config(j.configs.get_config("qwen2-vl-72b"))
+    assert cfg.mrope_sections == (4, 2, 2) and cfg.rope_mode == "mrope"
+    model = convert.lm_params(np_params, cfg, device="cpu")
+    lp = j.jax.tree_util.tree_map(lambda a: j.jnp.asarray(a[0]),
+                                  np_params["runs"][0]["attn"])
+    x = np.random.default_rng(5).standard_normal(
+        (B, 24, cfg.d_model)).astype(np.float32)
+    pos = j.models.rope.vision_mrope_positions(B, 2, 3, 4)
+    want, _ = j.models.attention.attention_layer(lp, j.jnp.asarray(x), jcfg,
+                                                 pos)
+    tpos = trope.vision_mrope_positions(B, 2, 3, 4)
+    np.testing.assert_array_equal(tpos.numpy(), np.asarray(pos))
+    with torch.no_grad():
+        got, cache = tattn.attention_layer(model.runs[0][0].attn,
+                                           torch.tensor(x), cfg, tpos)
+        text, _ = tattn.attention_layer(model.runs[0][0].attn,
+                                        torch.tensor(x), cfg,
+                                        trope.text_mrope_positions(B, 24))
+    assert cache is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert not np.allclose(text.numpy(), np.asarray(want), **TOL)
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
@@ -243,7 +269,7 @@ def test_kernel_path_matches_plain_on_card(cuda, arch, over, dtype):
     assert moved["flash_attention_decode"] >= cfg.num_layers * STEPS
     assert tattn.PLAIN_CALLS == {
         "blockwise_causal_attention": cfg.num_layers,
-        "decode_attention": cfg.num_layers * STEPS}
+        "decode_attention": cfg.num_layers * STEPS, "chunked_cross": 0}
     # T = 12 is one scan chunk: one kernel scan and one plain scan a layer.
     scans = cfg.num_layers if cfg.family == "hybrid" else 0
     assert kss.LAUNCHES["ssm_scan"] - ssm_before == scans
@@ -290,7 +316,8 @@ def test_configs_no_kernel_takes_raise_on_card(cuda):
     assert sum(kfa.LAUNCHES[k] - before[k] for k in before) == \
         cfg.num_layers * 5
     assert tattn.PLAIN_CALLS == {"blockwise_causal_attention": 0,
-                                 "decode_attention": cfg.num_layers * 4}
+                                 "decode_attention": cfg.num_layers * 4,
+                                 "chunked_cross": 0}
     want = prefill(model, cfg, toks, impl="plain")
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
     uncapped = dataclasses.replace(cfg, attn_logit_softcap=0.0)

@@ -93,3 +93,14 @@ def test_serve_needs_a_card_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.serve(tserve.ServeConfig(arch="qwen2-1.5b"))
+
+
+@pytest.mark.parametrize("flag", [["--seed", "1"], ["--lm-lambda", "2.0"]])
+def test_cli_has_no_flag_the_jax_cli_lacks(flag, capsys):
+    """Neither CLI takes ``--seed`` or ``--lm-lambda`` (the configs keep
+    the fields): argparse's error, exit code 2, in both."""
+    for main in (tserve.main, jserve.main):
+        with pytest.raises(SystemExit) as exc:
+            main(["--workload", "smoother"] + flag)
+        assert exc.value.code == 2
+        assert "unrecognized arguments" in capsys.readouterr().err
