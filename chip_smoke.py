@@ -71,13 +71,33 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      (batch) through one queue, 64 requests, n <= 512, Poisson at 8/s,
      deadline policy: latency, deadline hit rate, RMSE, log-likelihood
      and kernel launches per tenant; no launch mixes tenants or errs;
-  13. ``[ssm_scan]``: the linear-recurrence entry points at Hymba-1.5B's SSM
+  13. ``[surface]``: the single-trajectory surface on the paper's
+     configuration (coordinated_turn, one trajectory of n = 4096 from seed
+     0, f64): ``ieks`` and ``ipls`` (10 passes, LM damping 1.0) with the
+     counters zeroed before and read after, each combine kernel launching
+     exactly 10 x the non-empty combine calls of one scan, no plain
+     combine and no other kernel; each result equal bit for bit to
+     ``build_smoother(...).iterate``, within PATH_TOL of
+     ``iterated_smoother`` on the plain versions, finite and not
+     diverged, and a second call warning no more; at one Taylor
+     linearization of the IEKS result, ``parallel_filter_smoother``
+     through the kernels against the textbook combines (TOL), the
+     sequential pass and the square-root form (SEQ_TOL),
+     ``parallel_filter`` + ``parallel_smoother`` and the public
+     ``associative_scan`` bit for bit, ``kalman_filter`` with its
+     log-likelihood, ``smoothed_log_likelihood`` and ``gn_cost`` against
+     the ``Smoother``'s methods; the paper's Fig. 1b panel in f32 (one
+     Gauss-Newton pass at n = 128, 1,024, 4,096 through the kernels,
+     the textbook combines and sequentially, launches and device busy
+     per pass); each combine kernel's device time at B = 1's top level
+     beside its bound;
+  14. ``[ssm_scan]``: the linear-recurrence entry points at Hymba-1.5B's SSM
      width (``ops.ssm_scan`` on B=2, T=4096, D=51,200 and
      ``linear_recurrence_scan(combine_impl="pallas")`` on [4096, 2, 3200,
      16], f32) with the counters zeroed before and read after; each held
      against the plain version in f32, f64 and bf16, with edge shapes,
      T=0 and ``h0``; CUDA-event times of kernel and plain version;
-  14. ``[flash]``: the flash attention entry point at Llama-3.2-3B's
+  15. ``[flash]``: the flash attention entry point at Llama-3.2-3B's
      attention width (Hq=24, Hkv=8, Dh=128): prefill B=2, T=4096, causal,
      and decode B=16, Tq=1, Tk=4096, bf16, with the counters zeroed before
      and read after: the prefill must launch the ``wgmma`` kernel once and
@@ -92,7 +112,7 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      and of ``scaled_dot_product_attention`` (timed only, never on the
      port's path), profiler device times, and the decode/``wgmma``
      crossover over the rows per kv head;
-  15. ``[lm_decode]``: the LM decode service (``launch.serve.serve``) for
+  16. ``[lm_decode]``: the LM decode service (``launch.serve.serve``) for
      qwen2-1.5b at full width (28 layers, d_model 1536, 12 query heads
      padded to 16, 2 kv heads, head_dim 128, vocabulary 151,936 padded to
      153,600, tied embeddings), bf16, random weights from seed 0: batch 64,
@@ -112,22 +132,23 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      32 decode steps (device busy, idle share); the decode kernel's time
      at L = 512 against its byte bound, the plain version and SDPA on the
      same cache, and the ``wgmma`` prefill's time;
-  16. ``[lm_hybrid]``: the LM decode service for hymba-1.5b at full width
-     (32 layers, d_model 1600, 25 query heads padded to 32, 5 kv heads,
-     head_dim 64, d_ff 5504, SSM d_inner 3200, state 16, conv 4, a
-     1,024-row sliding window except in layers 0, 16 and 31, vocabulary
-     32,001 padded to 32,768), bf16, random weights from seed 0: batch 64,
-     a 1,024-token prompt teacher-forced, 64 greedy steps, caches of
-     1,088, so the 29 windowed layers' rings wrap at step 1,024. The
-     service with the counters zeroed before and read after: exactly 32 x
-     1,088 decode-kernel launches, nothing else, no plain attention and no
-     plain scan (the SSM step is elementwise). Then, on the same weights
+  17. ``[lm_hybrid]``: the LM decode service's loop (``generate``) for
+     hymba-1.5b at full width and depth 16 of its 32 layers (d_model 1600,
+     25 query heads padded to 32, 5 kv heads, head_dim 64, d_ff 5504, SSM
+     d_inner 3200, state 16, conv 4, a 1,024-row sliding window except in
+     the first, middle and last layers 0, 8 and 15, vocabulary 32,001
+     padded to 32,768), bf16, random weights from seed 0: batch 64, a
+     1,024-token prompt teacher-forced, 64 greedy steps, caches of 1,088,
+     so the 13 windowed layers' rings wrap at step 1,024. The loop with
+     the counters zeroed before and read after: exactly 16 x 1,088
+     decode-kernel launches, nothing else, no plain attention and no plain
+     scan (the SSM step is elementwise). Then, on the same weights
      and tokens: every decode-kernel call of the 64 steps past the window
      against plain on its own q and ring at the tight bf16 bound, which a
      ring read one row short misses at every step; a profile of 32 steps
      past them; ``prefill`` of the first 8 sequences' 1,088 tokens, which
-     launches ``wgmma`` 32 times (with the window in the windowed layers)
-     and ``ssm_scan`` 32 x 5 times (chunks of 256), each call held against
+     launches ``wgmma`` 16 times (with the window in the windowed layers)
+     and ``ssm_scan`` 16 x 5 times (chunks of 256), each call held against
      its plain version on its own inputs (the attention at the tight bf16
      bound, which the same call with the window one key wider misses; the
      scan at the float32 TOL); the service's logits at its last step and
@@ -136,7 +157,7 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      the windowed ``wgmma`` prefill (SDPA with the window as a boolean
      mask beside it), of the decode kernel on a full ring (SDPA beside
      it) and of ``ssm_scan`` at one prefill chunk, each beside its bound;
-  17. ``[lm_moe]``: the LM decode service for deepseek-moe-16b at full
+  18. ``[lm_moe]``: the LM decode service for deepseek-moe-16b at full
      width (28 layers, d_model 2048, 16 query and 16 kv heads, head_dim
      128, 64 routed experts top-6 plus 2 shared, expert d_ff 1,408,
      vocabulary 102,400; 33.8 GB in bf16), random weights from seed 0:
@@ -169,7 +190,7 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      deepseek's (1 row per kv head, L = 320) and grok's (6 rows, L = 128,
      cap 30) shapes and of both prefills, beside their bounds and SDPA
      (which has no softcap);
-  18. ``[lm_xlstm]``: the LM decode service for xlstm-350m at full width
+  19. ``[lm_xlstm]``: the LM decode service for xlstm-350m at full width
      (24 blocks, sLSTM at 7, 15 and 23, mLSTM elsewhere; d_model 1,024, 4
      heads, mLSTM inner width 2,048 so dh 512; vocabulary 50,304, untied),
      bf16, random weights from seed 0, nothing cut: batch 64, 256 prompt
@@ -193,7 +214,7 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      ``prefill`` on the kernel against plain, each relative to the
      largest logit; device time of ``ssm_scan`` at the prefill's shape
      beside its bound;
-  19. ``[lm_encdec]``: the LM decode service for seamless-m4t-medium at
+  20. ``[lm_encdec]``: the LM decode service for seamless-m4t-medium at
      full width (12 encoder and 12 decoder layers, d_model 1,024, 16 query
      and 16 kv heads, head_dim 64, d_ff 4,096, vocabulary 256,206 padded
      to 258,048, untied, an encoder memory of 1,024 frames), bf16, random
@@ -221,7 +242,7 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      ``wgmma`` (B = 8, Tq = 256, Tk = 1,024), the cross split-K decode (B
      = 64, 1 row per kv head, Tk = 1,024) and the self decode at L = 512,
      each beside its bound and SDPA;
-  20. ``[lm_mrope]``: qwen2-vl-72b at full width (d_model 8,192, 64 query
+  21. ``[lm_mrope]``: qwen2-vl-72b at full width (d_model 8,192, 64 query
      and 8 kv heads, head_dim 128, QKV bias, M-RoPE sections (16, 24,
      24), vocabulary 152,064 padded to 153,600) and depth 4 of 80 (~12.1
      GB in bf16), random weights from seed 0: `generate` at batch 64, 64
@@ -235,7 +256,8 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      which the same input on text positions (rows equal) misses; device
      times of the decode kernel (8 rows, L = 128) and the prefill beside
      their bounds and SDPA;
-  21. the ``kernels`` JSON line (each combine kernel's launches per path;
+  22. the ``kernels`` JSON line (each combine kernel's launches per path,
+     ``surface`` among them, and its B = 1 top-level time;
      ``ssm_scan``'s: ``ssm_scan``, ``lm_hybrid_prefill``,
      ``lm_xlstm_prefill``; the flash
      kernels': ``flash``, ``lm_decode``, ``lm_prefill``, ``lm_hybrid``,
@@ -1593,6 +1615,302 @@ def phase_tenants(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The single-trajectory surface: the paper's drivers at n = 4096
+# ---------------------------------------------------------------------------
+
+#: The largest size of the paper's Fig. 1 (``benchmarks/paper_fig1.py``
+#: SIZES), the passes and damping of its IEKS/IPLS runs, and the sizes of
+#: the timed Fig. 1b panel.
+SURFACE_N, SURFACE_ITERS, SURFACE_LM = 4096, 10, 1.0
+SURFACE_SIZES = (128, 1024, 4096)
+#: Timed calls per Fig. 1b point (the median is kept). Sequential passes
+#: at or above `SURFACE_LONG_SEQ` steps (about 50 launches per time step,
+#: seconds each) are timed once, warmed by the n = 128 one (the same ops
+#: at another length), and not profiled.
+SURFACE_REPEATS, SURFACE_LONG_SEQ = 5, 1024
+
+
+def _deprecations(fn):
+    """``fn()`` and the DeprecationWarnings naming `build_smoother` that
+    it emitted."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        out = fn()
+    return out, [w for w in ws if issubclass(w.category, DeprecationWarning)
+                 and "build_smoother" in str(w.message)]
+
+
+def _err_over_tol(got, want, tol) -> float:
+    """The largest ``|got - want| / (atol + rtol |want|)`` over every field
+    of two NamedTuples of tensors (the check passes below 1)."""
+    return max(((g - w).abs() / (tol["atol"] + tol["rtol"] * w.abs()))
+               .max().item() for g, w in zip(got, want))
+
+
+def _same(a, b) -> bool:
+    """Every field of ``a`` equal to ``b``'s, bit for bit."""
+    return all(x.shape == y.shape and bool((x == y).all())
+               for x, y in zip(a, b))
+
+
+def _kernel_profile(torch, fn) -> dict:
+    """Device launches and busy time of one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = _device_events(prof.key_averages())
+    return {"launches": sum(e.count for e in kernels),
+            "busy_s": sum(e.self_device_time_total for e in kernels) / 1e6}
+
+
+def phase_surface(torch) -> dict:
+    """``[surface]``: the single-trajectory surface on the card, on the
+    paper's coordinated_turn configuration (nx = 5, ny = 2), one
+    trajectory of n = 4096 simulated on the card from seed 0.
+
+    (a) ``ieks`` and ``ipls`` (10 passes, LM damping 1.0, f64) with the
+    counters zeroed just before and read just after: each combine kernel
+    launches exactly 10 x the non-empty combine calls of one scan, no
+    plain combine and no other kernel runs; each result bit for bit equal
+    to ``build_smoother(...).iterate`` and within PATH_TOL of
+    ``iterated_smoother`` on the plain versions (``backend="jnp"``);
+    finite, not diverged; a second call warns no more. (b) One Taylor
+    linearization at the IEKS result: the single-trajectory passes
+    against each other (kernels, textbook combines, sequential,
+    square-root), the public `associative_scan` against
+    `parallel_filter`, the log-likelihood and GN cost against the
+    `Smoother`'s methods. (c) The Fig. 1b panel in f32: the wall time of
+    one Gauss-Newton pass at n in `SURFACE_SIZES` through the kernels,
+    through the textbook combines and sequentially, with launches per
+    pass and the kernel pass's device busy time at n = 4096; the device
+    time of each combine kernel at B = 1's top level beside its bound."""
+    import repro_torch.core as C
+    from repro_torch.kernels.kalman_combine import kalman_combine as kc
+    from repro_torch.scenarios import get_scenario
+
+    tag = "surface"
+    sc = get_scenario("coordinated_turn")
+    model = sc.make_model(torch.float64, "cuda")
+    xs, ys = sc.simulate(model, SURFACE_N,
+                         torch.Generator(device="cuda").manual_seed(0))
+    calls = [P for P in scan_level_pairs(SURFACE_N) if P]
+    want = SURFACE_ITERS * len(calls)
+    say(f"[{tag}] coordinated_turn, one trajectory n={SURFACE_N} (seed 0) "
+        f"f64: expect {want} launches of each combine kernel per "
+        f"{SURFACE_ITERS}-pass run ({len(calls)} non-empty combine calls "
+        f"per scan, each a [1, P] grid)")
+    report = {"n": SURFACE_N, "expected_launches": want, "drivers": {}}
+    launches = {k: 0 for k in kc.LAUNCHES}
+
+    # (a) The paper's iterated drivers through the kernels.
+    for name, method in (("ieks", "ekf"), ("ipls", "slr")):
+        def run():
+            return getattr(C, name)(model, ys, n_iter=SURFACE_ITERS,
+                                    lm_lambda=SURFACE_LM)
+
+        _, first = _deprecations(run)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        traj, again = _deprecations(run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        plain_calls = dict(kc.PLAIN_CALLS)
+        got = {k: counts.pop(k) for k in kc.LAUNCHES}
+        say(f"[{tag}] {name}(model, ys, n_iter={SURFACE_ITERS}, "
+            f"lm_lambda={SURFACE_LM}): {wall:.3f}s, kernel launches {got}, "
+            f"plain combine calls {plain_calls}, other kernels {counts}; "
+            f"DeprecationWarnings: first call {len(first)}, second "
+            f"{len(again)}")
+        if len(first) != 1 or again:
+            fail(f"{name}: {len(first)} DeprecationWarnings on the first "
+                 f"call and {len(again)} on the second, expected 1 and 0")
+        if any(v != want for v in got.values()):
+            fail(f"{name}: combine kernel launches {got}, expected {want} "
+                 "of each")
+        if any(plain_calls.values()) or any(counts.values()):
+            fail(f"{name}: plain combine calls {plain_calls}, other "
+                 f"kernels {counts}")
+        for k in launches:
+            launches[k] += got[k]
+        cfg = C.IteratedConfig(method=method, n_iter=SURFACE_ITERS,
+                               lm_lambda=SURFACE_LM)
+        ref, info = C.build_smoother(C.SmootherSpec.from_iterated_config(
+            cfg), device="cuda").iterate(model, ys, return_info=True)
+        if not _same(traj, ref):
+            fail(f"{name} differs from build_smoother(...).iterate")
+        before = dict(kc.LAUNCHES)
+        plain = C.iterated_smoother(model, ys, dataclasses.replace(
+            cfg, backend="jnp"))
+        torch.cuda.synchronize()
+        if kc.LAUNCHES != before:
+            fail(f'{name}: iterated_smoother with backend="jnp" launched '
+                 "a kernel")
+        ratio = _err_over_tol(traj, plain, PATH_TOL)
+        diff = (traj.mean - plain.mean).abs().max().item()
+        if not ratio < 1.0:
+            fail(f"{name}: kernels vs plain versions, max err/tol {ratio:.3f}"
+                 f" (max |dmean| {diff:.3e})")
+        finite = all(bool(torch.isfinite(x).all()) for x in traj)
+        code = int(info.code)
+        if not finite or code == C.LANE_DIVERGED:
+            fail(f"{name}: finite {finite}, lane code {code}")
+        rmse = _rmse(torch, traj.mean, xs)
+        say(f"[{tag}] {name}: equal to build_smoother(...).iterate bit for "
+            f"bit; vs iterated_smoother on the plain versions max |dmean| "
+            f"{diff:.3e} (err/tol {ratio:.4f} at PATH_TOL); lane code "
+            f"{code}, finite; position RMSE {rmse:.4f}")
+        report["drivers"][name] = {
+            "wall_s": wall, "launches": got, "vs_plain_max_abs": diff,
+            "vs_plain_err_over_tol": ratio, "code": code, "rmse": rmse,
+            "traj": traj}
+
+    # (b) One Taylor linearization at the IEKS result.
+    traj = report["drivers"]["ieks"].pop("traj")
+    report["drivers"]["ipls"].pop("traj")
+    lin = C.linearize_model_taylor(model, traj.mean)
+    args = (lin, ys, model.m0, model.P0)
+    reset_counts()
+    kf, ks = C.parallel_filter_smoother(*args, combine_impl="pallas")
+    torch.cuda.synchronize()
+    one = {k: kc.LAUNCHES[k] for k in kc.LAUNCHES}
+    if any(v != len(calls) for v in one.values()) or \
+            any(kc.PLAIN_CALLS.values()):
+        fail(f"parallel_filter_smoother(combine_impl='pallas'): launches "
+             f"{one}, plain calls {kc.PLAIN_CALLS}; expected {len(calls)} "
+             "launches of each and no plain call")
+    tf, ts = C.parallel_filter_smoother(*args, combine_impl="jnp")
+    sf, ss = C.filter_smoother(*args)
+    qf, qs = C.sqrt_parallel_filter_smoother(*args)
+    checks = {
+        "kernels vs textbook": (_err_over_tol(kf + ks, tf + ts,
+                                              TOL["float64"]), "TOL"),
+        "kernels vs sequential": (_err_over_tol(kf + ks, sf + ss, SEQ_TOL),
+                                  "SEQ_TOL"),
+        "sqrt vs sequential": (_err_over_tol(qf + qs, sf + ss, SEQ_TOL),
+                               "SEQ_TOL"),
+    }
+    for what, (ratio, tol) in checks.items():
+        if not ratio < 1.0:
+            fail(f"[{tag}] one linearization, {what}: err/tol {ratio:.3f} "
+                 f"at {tol}")
+    f = C.parallel_filter(*args, combine_impl="pallas")
+    s = C.parallel_smoother(lin, f, model.m0, model.P0,
+                            combine_impl="pallas")
+    if not (_same(f, kf) and _same(s, ks)):
+        fail("parallel_filter + parallel_smoother differ from "
+             "parallel_filter_smoother")
+    scanned = C.associative_scan(C.filtering_combine,
+                                 C.filtering_elements(*args),
+                                 combine_impl="pallas")
+    if not _same((scanned.b, scanned.C), f):
+        fail("associative_scan over filtering_elements differs from "
+             "parallel_filter")
+    kfl, loglik = C.kalman_filter(*args, return_loglik=True)
+    if not (_same(kfl, sf) and bool(torch.isfinite(loglik))):
+        fail(f"kalman_filter(return_loglik=True): filtered equal to "
+             f"filter_smoother's {_same(kfl, sf)}, loglik {loglik.item()}")
+    sm = C.build_smoother(sc.default_spec(n_iter=SURFACE_ITERS),
+                          device="cuda")
+    ll = C.smoothed_log_likelihood(model, ys, traj, sm.config)
+    cost = C.gn_cost(model, ys, traj)
+    if not (_same((ll, cost), (sm.log_likelihood(model, ys, traj),
+                               sm.cost(model, ys, traj)))
+            and ll.shape == () and cost.shape == ()):
+        fail("smoothed_log_likelihood / gn_cost on one trajectory differ "
+             "from the Smoother's methods")
+    say(f"[{tag}] one Taylor linearization at the IEKS result: "
+        f"parallel_filter_smoother launches {one}; " + "; ".join(
+            f"{what} err/tol {r:.2e} at {t}" for what, (r, t)
+            in checks.items())
+        + "; parallel_filter + parallel_smoother and associative_scan "
+        f"equal bit for bit; kalman_filter loglik {loglik.item():.4f}; "
+        f"smoothed loglik {ll.item():.4f} and GN cost {cost.item():.4f} "
+        "equal to the Smoother's")
+    report["one_linearization"] = {
+        "launches": one, "kalman_loglik": loglik.item(),
+        "smoothed_loglik": ll.item(), "gn_cost": cost.item(),
+        **{what: r for what, (r, _) in checks.items()}}
+
+    # (c) The Fig. 1b panel: one Gauss-Newton pass, f32.
+    model32 = sc.make_model(torch.float32, "cuda")
+    ys32 = ys.float()
+    setups = {"kernels": dict(combine_impl="pallas"),
+              "textbook": dict(combine_impl="jnp"),
+              "sequential": dict(parallel=False)}
+    fig = []
+    for n in SURFACE_SIZES:
+        y = ys32[:n]
+        for setup, kw in setups.items():
+            cfg = C.IteratedConfig(n_iter=1, lm_lambda=SURFACE_LM, **kw)
+
+            def one_pass():
+                return C.iterated_smoother(model32, y, cfg)
+
+            long_seq = setup == "sequential" and n >= SURFACE_LONG_SEQ
+            if not long_seq:
+                one_pass()
+            walls = []
+            for _ in range(1 if long_seq else SURFACE_REPEATS):
+                reset_counts()
+                out, wall = _timed(torch, one_pass)
+                walls.append(wall)
+            kernel_launches = dict(kc.LAUNCHES)
+            if not all(bool(torch.isfinite(x).all()) for x in out):
+                fail(f"[{tag}] f32 pass {setup} n={n}: non-finite output")
+            row = {"n": n, "setup": setup, "wall_s": sorted(walls)[
+                len(walls) // 2], "walls_s": walls,
+                "combine_launches": kernel_launches}
+            if not long_seq:
+                row.update(_kernel_profile(torch, one_pass))
+            fig.append(row)
+        by = {r["setup"]: r for r in fig[-len(setups):]}
+        say(f"[{tag}] f32 one Gauss-Newton pass n={n} (median of "
+            f"{SURFACE_REPEATS}; long sequential passes once): " + "; ".join(
+            f"{k} {r['wall_s'] * 1e3:.2f} ms ("
+            + (f"{r['launches']} launches, busy {r['busy_s'] * 1e3:.2f} ms"
+               if "launches" in r else "not profiled")
+            + f", combine kernels {sum(r['combine_launches'].values())})"
+            for k, r in by.items())
+            + f"; sequential / kernels "
+            f"{by['sequential']['wall_s'] / by['kernels']['wall_s']:.1f}x")
+    top = next(r for r in fig if r["n"] == SURFACE_N
+               and r["setup"] == "kernels")
+    idle = 1 - top["busy_s"] / top["wall_s"]
+    say(f"[{tag}] f32 kernel pass n={SURFACE_N}: device busy "
+        f"{top['busy_s'] * 1e3:.2f} ms of {top['wall_s'] * 1e3:.2f} ms wall "
+        f"(idle {idle:.1%}); the 10-pass IEKS of (a) (f64) took "
+        f"{report['drivers']['ieks']['wall_s']:.3f}s")
+    report["fig1b"] = fig
+    report["kernel_pass_idle"] = idle
+
+    # The combine kernels at B = 1's top level, read in place.
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    wrappers = {"filtering_combine": kc.filtering_combine_cuda,
+                "smoothing_combine": kc.smoothing_combine_cuda}
+    report["b1_top_level"] = {}
+    for kind, kernel in wrappers.items():
+        sets = [(_sl(x, 0, -1, 2), _sl(x, 1, None, 2)) for x in (
+            _level_set(torch, kind, 1, SURFACE_N, MAIN_NX, torch.float64,
+                       gen) for _ in range(3))]
+        ms = _graph_ms(torch, kernel, sets)
+        b_ms, b_by = bound(kind, SURFACE_N // 2, MAIN_NX, "float64")
+        say(f"[time] {kind} float64 B=1 top level 1 x {SURFACE_N // 2} "
+            f"pairs in place: {ms * 1e3:.2f} us per launch (graph), bound "
+            f"{b_ms * 1e3:.3f} us ({b_by})")
+        report["b1_top_level"][kind] = {"ms": ms, "bound_ms": b_ms,
+                                        "bound_by": b_by}
+    report["launches"] = launches
+    return report
+
+
+# ---------------------------------------------------------------------------
 # ssm_scan and flash attention paths
 # ---------------------------------------------------------------------------
 
@@ -2568,12 +2886,14 @@ def phase_lm_decode(torch) -> dict:
 # LM hybrid family
 # ---------------------------------------------------------------------------
 
-#: hymba-1.5b (src/repro_torch/configs/hymba_1p5b.py) at full width:
-#: attention and a Mamba SSM in every block, a 1,024-row sliding window
-#: except in layers 0, 16 and 31. Prompts of 1,024 tokens and 64 greedy
-#: steps: the windowed layers' rings (1,024 rows) wrap at step 1,024, and
-#: every greedy step reads a full ring.
-HY_ARCH, HY_SEED = "hymba-1.5b", 0
+#: hymba-1.5b (src/repro_torch/configs/hymba_1p5b.py) at full width and
+#: depth 16 of its 32 layers (cut to keep the script in its time): attention
+#: and a Mamba SSM in every block, a 1,024-row sliding window except in the
+#: first, middle and last layers (0, 8 and 15 of the 16, as 0, 16 and 31
+#: of the 32). Prompts of 1,024 tokens and 64 greedy steps: the windowed
+#: layers' rings (1,024 rows) wrap at step 1,024, and every greedy step
+#: reads a full ring.
+HY_ARCH, HY_SEED, HY_LAYERS = "hymba-1.5b", 0, 16
 HY_B, HY_PROMPT, HY_GEN = 64, 1024, 64
 HY_MAX = HY_PROMPT + HY_GEN
 #: The prefill gate: the first sequences' prompt and generated tokens.
@@ -2658,14 +2978,17 @@ def phase_lm_hybrid(torch) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.ssm_scan import ssm_scan as ss
-    from repro_torch.launch.serve import ServeConfig, serve
+    from repro_torch.launch.serve import generate
     from repro_torch.models import (decode_step, init_caches, init_model,
                                     prefill)
     from repro_torch.models import ssm as ssm_lib
     from repro_torch.models.blocks import layer_schedule
 
     tag = "lm_hybrid"
-    cfg = get_config(HY_ARCH)
+    full = get_config(HY_ARCH)
+    cfg = dataclasses.replace(
+        full, num_layers=HY_LAYERS,
+        global_layers=(0, HY_LAYERS // 2, HY_LAYERS - 1))
     vocab, layers = cfg.vocab_size, cfg.num_layers
     W = cfg.sliding_window
     din, n_state = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
@@ -2680,18 +3003,24 @@ def phase_lm_hybrid(torch) -> dict:
     def plain_calls():
         return {**_plain_attention_calls(), **ssm_lib.PLAIN_CALLS}
 
-    # The service, timed, with the counters zeroed before and read after.
-    serve_cfg = ServeConfig(arch=HY_ARCH, batch=HY_B, prompt_len=HY_PROMPT,
-                            gen=HY_GEN, max_len=HY_MAX, reduced=False,
-                            seed=HY_SEED)
+    # The service's loop (`generate`) on random weights from the seed and
+    # prompts drawn as `serve` draws them, timed, with the counters zeroed
+    # before and read after.
+    t0 = time.perf_counter()
+    model = init_model(cfg, HY_SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(HY_SEED + 1)
+    prompts = torch.randint(0, vocab, (HY_B, HY_PROMPT), generator=gen,
+                            device="cuda")
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     reset_all()
-    out = serve(serve_cfg, emit=say)
+    out = generate(model, cfg, prompts, HY_GEN, HY_MAX)
     torch.cuda.synchronize()
     counts, plain = read_counts(), plain_calls()
     decode_launches = counts.pop("flash_attention_decode")
-    say(f"[{tag}] path: serve({HY_ARCH}, batch {HY_B}, prompt {HY_PROMPT}, "
-        f"gen {HY_GEN}, max_len {HY_MAX}, full width): "
+    say(f"[{tag}] path: generate({HY_ARCH} depth {layers} of "
+        f"{full.num_layers}, batch {HY_B}, prompt {HY_PROMPT}, gen {HY_GEN}, "
+        f"max_len {HY_MAX}, full width): "
         f"{out['tok_per_s']:.1f} tok/s, {out['seconds'] / HY_MAX * 1e3:.3f} "
         f"ms per step; decode kernel launches {decode_launches}, other "
         f"kernels {counts}, plain calls {plain}")
@@ -2711,22 +3040,17 @@ def phase_lm_hybrid(torch) -> dict:
     del out
     torch.cuda.empty_cache()
 
-    # The same weights (the service's seed) and prompts (its generator).
-    t0 = time.perf_counter()
-    model = init_model(cfg, HY_SEED, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(HY_SEED + 1)
-    prompts = torch.randint(0, vocab, (HY_B, HY_PROMPT), generator=gen,
-                            device="cuda")
+    # The same weights and prompts for the gates below.
     seq = torch.cat([prompts, tokens.long()], dim=1)   # [B, HY_MAX]
-    torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    say(f"[{tag}] {HY_ARCH} full width: {layers} layers ({windowed} with a "
+    say(f"[{tag}] {HY_ARCH} full width, depth {layers} of "
+        f"{full.num_layers} ({windowed} with a "
         f"{W}-row window), d_model {cfg.d_model}, heads {cfg.num_heads} "
         f"(padded {cfg.padded_heads}) / kv {cfg.num_kv_heads}, head_dim "
         f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, SSM d_inner {din} state "
         f"{n_state} conv {cfg.ssm_conv}, vocab {vocab} (padded "
         f"{cfg.padded_vocab}), {n_params:,} parameters in bf16, init "
-        f"{time.perf_counter() - t0:.2f}s")
+        f"{init_s:.2f}s")
 
     # Every decode-kernel call of the steps past the window, held against
     # plain on its own q and ring (or, in the global layers, linear
@@ -4454,6 +4778,7 @@ def main() -> int:
     stream, stream_stats = phase_stream(torch, oneshot)
     chaos = phase_chaos(torch, stream_stats)
     tenants = phase_tenants(torch)
+    surface = phase_surface(torch)
     ssm = phase_ssm_scan(torch)
     flash = phase_flash(torch)
     lm = phase_lm_decode(torch)
@@ -4476,13 +4801,16 @@ def main() -> int:
                       for m in ("ekf", "slr")},
                    **{tag: res["launches_by_kernel"][kind] for tag, res in (
                        ("stream", stream), ("chaos", chaos),
-                       ("tenants", tenants))}}
+                       ("tenants", tenants))},
+                   "surface": surface["launches"][kind]}
         rows.append({"launches": sum(by_path.values()),
                      "launches_by_path": by_path, "max_abs_err": err,
                      "ms": t["in_place_graph_ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": None,
-                     "packed_ms": t["graph_ms"], "event_ms": t["ms"]})
+                     "packed_ms": t["graph_ms"], "event_ms": t["ms"],
+                     "surface_b1_top_level":
+                         surface["b1_top_level"][kind]})
     for res in (ssm, flash):
         rows.append({k: res[k] for k in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -4530,7 +4858,8 @@ def main() -> int:
          "main_path": main_path, "profile": prof, "slr": slr,
          "slr_profile": slr_prof, "matrix": matrix, "sqrt": sqrt,
          "adaptive": adaptive, "autotune": autotune, "stream": stream,
-         "chaos": chaos, "tenants": tenants, "ssm_scan": ssm,
+         "chaos": chaos, "tenants": tenants, "surface": surface,
+         "ssm_scan": ssm,
          "flash_attention": flash, "lm_decode": lm, "lm_hybrid": hybrid,
          "lm_moe": moe, "lm_grok": grok, "lm_xlstm": xlstm,
          "lm_encdec": encdec, "lm_mrope": mrope,

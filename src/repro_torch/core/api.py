@@ -6,7 +6,8 @@ packages for equal fields — routes and autobatch signatures are shared.
 `build_smoother(spec, device=...)` returns a `Smoother` bound to a device
 (``cuda`` unless the caller names another; it raises on a host without a
 card rather than falling back to the CPU). Its methods take batched
-inputs ``ys [B, n, ny]``; a single trajectory ``[n, ny]`` runs as B=1.
+inputs ``ys [B, n, ny]`` or a single trajectory ``[n, ny]``, which runs
+through the single-trajectory drivers (each the batched one on one lane).
 
 Every axis value of the JAX package builds a working smoother:
 ``linearization`` taylor/slr (three sigma schemes), ``form``
@@ -22,8 +23,10 @@ Quickstart::
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import hashlib
+import sys
 from typing import Optional
 
 import torch
@@ -120,6 +123,23 @@ class SmootherSpec:
         prefix = self.model_id.split(":")[0] if self.model_id else "anon"
         return f"{prefix}/{digest}"
 
+    @classmethod
+    def from_iterated_config(cls, cfg: IteratedConfig,
+                             **overrides) -> "SmootherSpec":
+        """Lift a legacy `IteratedConfig` onto the spec axes (the bridge
+        the deprecated shims use)."""
+        kw = dict(
+            mode="parallel" if cfg.parallel else "sequential",
+            form=cfg.form,
+            linearization="taylor" if cfg.method == "ekf" else "slr",
+            sigma_scheme=cfg.sigma_scheme,
+            n_iter=cfg.n_iter, tol=cfg.tol, lm_lambda=cfg.lm_lambda,
+            combine_impl=cfg.combine_impl, jitter=cfg.jitter,
+            model_id=cfg.model_id, damping=cfg.damping,
+            backend=cfg.backend)
+        kw.update(overrides)
+        return cls(**kw)
+
     def iterated_config(self) -> IteratedConfig:
         """The execution `IteratedConfig` (``model_id`` = ``spec_id``)."""
         return IteratedConfig(
@@ -131,14 +151,11 @@ class SmootherSpec:
             damping=self.damping, backend=self.backend)
 
 
-def _single(x: torch.Tensor, batched: bool) -> torch.Tensor:
-    return x if batched else x[0]
-
-
 class Smoother:
     """Configured estimator built by :func:`build_smoother`, bound to one
-    device. ``ys [B, n, ny]`` runs the batched path; ``ys [n, ny]`` runs
-    as B=1 and comes back without the batch axis. Calling the object is
+    device. ``ys [B, n, ny]`` runs the batched drivers, ``ys [n, ny]`` the
+    single-trajectory ones (each the batched driver on one lane), so each
+    (mode, form) cell has one code path. Calling the object is
     :meth:`iterate`."""
 
     __slots__ = ("spec", "config", "device")
@@ -158,11 +175,11 @@ class Smoother:
 
     @staticmethod
     def _launch_shape(ys, m0):
-        """``(B, T, nx)`` of a batched call site (None for a single
-        trajectory) — the ``backend="auto"`` autotune-cache key."""
-        if ys.ndim != 3:
-            return None
-        return (int(ys.shape[0]), int(ys.shape[1]), int(m0.shape[-1]))
+        """``(B, T, nx)`` of a call site (``B = 1`` for a single
+        trajectory, which runs as one lane) — the ``backend="auto"``
+        autotune-cache key."""
+        B = int(ys.shape[0]) if ys.ndim == 3 else 1
+        return (B, int(ys.shape[-2]), int(m0.shape[-1]))
 
     # -- backend autotuning -------------------------------------------------
 
@@ -194,37 +211,38 @@ class Smoother:
 
     def filter(self, lin: LinearizedSSM, ys, m0, P0) -> Gaussian:
         """One filtering pass over an already-linearized SSM: filtered
-        ``[B, n, ...]`` for batched ``lin``/``ys``."""
+        ``[n, ...]`` for ``ys [n, ny]``, ``[B, n, ...]`` for batched
+        ``lin``/``ys``."""
         self._check_device(ys)
         batched = ys.ndim == 3
-        if not batched:
-            lin, ys = LinearizedSSM(*(x[None] for x in lin)), ys[None]
         if self.spec.mode == "sequential":
-            out = _sequential.kalman_filter_batched(lin, ys, m0, P0)
-        elif self.spec.form == "sqrt":
-            out = _sqrt.sqrt_parallel_filter_batched(lin, ys, m0, P0)
-        else:
-            out = _parallel.parallel_filter_batched(
-                lin, ys, m0, P0, combine_impl=self._combine_impl(ys, m0))
-        return Gaussian(*(_single(x, batched) for x in out))
+            fn = (_sequential.kalman_filter_batched if batched
+                  else _sequential.kalman_filter)
+            return fn(lin, ys, m0, P0)
+        if self.spec.form == "sqrt":
+            fn = (_sqrt.sqrt_parallel_filter_batched if batched
+                  else _sqrt.sqrt_parallel_filter)
+            return fn(lin, ys, m0, P0)
+        fn = (_parallel.parallel_filter_batched if batched
+              else _parallel.parallel_filter)
+        return fn(lin, ys, m0, P0, combine_impl=self._combine_impl(ys, m0))
 
     def smooth(self, lin: LinearizedSSM, ys, m0, P0):
         """One filtering + smoothing pass: ``(filtered, smoothed)``,
         smoothed with ``n + 1`` rows."""
         self._check_device(ys)
         batched = ys.ndim == 3
-        if not batched:
-            lin, ys = LinearizedSSM(*(x[None] for x in lin)), ys[None]
         if self.spec.mode == "sequential":
-            filt, smth = _sequential._filter_smoother_batched(lin, ys, m0, P0)
-        elif self.spec.form == "sqrt":
-            filt, smth = _sqrt._sqrt_parallel_filter_smoother_batched(
-                lin, ys, m0, P0)
-        else:
-            filt, smth = _parallel._parallel_filter_smoother_batched(
-                lin, ys, m0, P0, combine_impl=self._combine_impl(ys, m0))
-        return (Gaussian(*(_single(x, batched) for x in filt)),
-                Gaussian(*(_single(x, batched) for x in smth)))
+            fn = (_sequential._filter_smoother_batched if batched
+                  else _sequential.filter_smoother)
+            return fn(lin, ys, m0, P0)
+        if self.spec.form == "sqrt":
+            fn = (_sqrt._sqrt_parallel_filter_smoother_batched if batched
+                  else _sqrt.sqrt_parallel_filter_smoother)
+            return fn(lin, ys, m0, P0)
+        fn = (_parallel._parallel_filter_smoother_batched if batched
+              else _parallel.parallel_filter_smoother)
+        return fn(lin, ys, m0, P0, combine_impl=self._combine_impl(ys, m0))
 
     # -- the full iterated smoother ----------------------------------------
 
@@ -232,52 +250,34 @@ class Smoother:
                 return_history: bool = False, return_info: bool = False):
         """Run up to ``n_iter`` linearize->filter->smooth passes
         (early-stopped under ``tol``, per-lane adaptive damping under
-        ``damping="adaptive"``): ``[B, n + 1, ...]`` marginals, then the
-        mean history ``[n_iter, B, n + 1, nx]`` with
-        ``return_history=True`` and the per-lane `LaneStatus` with
+        ``damping="adaptive"``): ``[B, n + 1, ...]`` marginals (``[n + 1,
+        ...]`` for ``ys [n, ny]``), then the mean history with
+        ``return_history=True`` and the `LaneStatus` with
         ``return_info=True``."""
         self._check_device(ys)
-        batched = ys.ndim == 3
-        if not batched:
-            ys = ys[None]
-            init = None if init is None else Gaussian(*(x[None] for x in init))
-        out = _iterated._iterated_smoother_batched(
-            model, ys, self.config, init=init,
-            return_history=return_history, return_info=return_info)
-        if batched:
-            return out
-        if not (return_history or return_info):
-            return Gaussian(*(x[0] for x in out))
-        out = list(out)
-        out[0] = Gaussian(*(x[0] for x in out[0]))
-        if return_history:
-            out[1] = out[1][:, 0]
-        if return_info:
-            out[-1] = type(out[-1])(*(x[0] for x in out[-1]))
-        return tuple(out)
+        fn = (_iterated._iterated_smoother_batched if ys.ndim == 3
+              else _iterated.iterated_smoother)
+        return fn(model, ys, self.config, init=init,
+                  return_history=return_history, return_info=return_info)
 
     __call__ = iterate
 
     def log_likelihood(self, model, ys, traj: Gaussian,
                        per_step: bool = False) -> torch.Tensor:
         """Measurement log-likelihood of ``ys`` under the smoothed
-        posterior ``traj``: ``[B]``, or per-step ``[B, n]``."""
+        posterior ``traj``: a scalar for one trajectory, ``[B]`` batched,
+        the per-step terms with ``per_step=True``."""
         self._check_device(ys)
-        batched = ys.ndim == 3
-        if not batched:
-            ys, traj = ys[None], Gaussian(*(x[None] for x in traj))
-        return _single(_iterated.smoothed_log_likelihood(
-            model, ys, traj, self.config, per_step=per_step), batched)
+        return _iterated.smoothed_log_likelihood(
+            model, ys, traj, self.config, per_step=per_step)
 
     def cost(self, model, ys, traj: Gaussian) -> torch.Tensor:
-        """Gauss-Newton smoothing cost of ``traj`` (`core.cost.gn_cost`)."""
+        """Gauss-Newton smoothing cost of ``traj`` (`core.cost.gn_cost`):
+        a scalar for one trajectory, ``[B]`` batched."""
         self._check_device(ys)
-        batched = ys.ndim == 3
-        if not batched:
-            ys, traj = ys[None], Gaussian(*(x[None] for x in traj))
-        return _single(_cost.gn_cost(model, ys, traj, self.spec.method,
-                                     self.spec.sigma_scheme,
-                                     self.spec.jitter), batched)
+        return _cost.gn_cost(model, ys, traj, method=self.spec.method,
+                             scheme=self.spec.sigma_scheme,
+                             jitter=self.spec.jitter)
 
 
 def build_smoother(spec: Optional[SmootherSpec] = None, *,
@@ -300,3 +300,67 @@ def build_smoother(spec: Optional[SmootherSpec] = None, *,
     if autotune_for is not None:
         smoother.autotune(*autotune_for)
     return smoother
+
+
+# ---------------------------------------------------------------------------
+# Public-API surface dump
+# ---------------------------------------------------------------------------
+
+def _describe(name: str, obj) -> list:
+    """One deterministic line per exported name (methods get their own
+    lines), in the JAX package's format."""
+    import inspect
+
+    if dataclasses.is_dataclass(obj) and isinstance(obj, type):
+        fields = ", ".join(
+            (f.name if f.default is dataclasses.MISSING
+             else f"{f.name}={f.default!r}")
+            for f in dataclasses.fields(obj))
+        return [f"{name} = dataclass({fields})"]
+    if isinstance(obj, type) and issubclass(obj, tuple) \
+            and hasattr(obj, "_fields"):
+        return [f"{name} = namedtuple({', '.join(obj._fields)})"]
+    if isinstance(obj, type):
+        lines = [f"{name} = class"]
+        for m in sorted(vars(obj)):
+            if m.startswith("_") and m != "__call__":
+                continue
+            member = inspect.getattr_static(obj, m)
+            if isinstance(member, property):
+                lines.append(f"{name}.{m} = property")
+            elif callable(member):
+                lines.append(f"{name}.{m}{inspect.signature(member)}")
+        return lines
+    if callable(obj):
+        return [f"{name}{inspect.signature(obj)}"]
+    return [f"{name} = constant"]
+
+
+def dump_surface() -> str:
+    """The public `repro_torch.core` surface as stable text, one line per
+    name (dataclass fields and defaults, function signatures, class
+    methods)."""
+    import repro_torch.core as core
+
+    lines = [f"# repro_torch.core public API surface "
+             f"({len(core.__all__)} names)"]
+    for name in sorted(core.__all__):
+        lines.extend(_describe(name, getattr(core, name)))
+    return "\n".join(lines) + "\n"
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        description="repro_torch.core public-API tooling")
+    p.add_argument("--dump-surface", action="store_true",
+                   help="print the API surface snapshot text")
+    args = p.parse_args(argv)
+    if args.dump_surface:
+        sys.stdout.write(dump_surface())
+        return 0
+    p.error("nothing to do (pass --dump-surface)")
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,7 +19,8 @@ import torch
 from .linearization import (linearize_model_slr_batched,
                             linearize_model_taylor_batched)
 from .sigma_points import SigmaScheme, get_scheme
-from .types import Gaussian, LinearizedSSM, StateSpaceModel, bmv, cholesky
+from .types import (Gaussian, LinearizedSSM, StateSpaceModel, add_lane, bmv,
+                    cholesky)
 
 
 def _half_quad(diff: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
@@ -47,10 +48,14 @@ def gn_cost(model: StateSpaceModel, ys: torch.Tensor, traj: Gaussian,
             scheme: Optional[Union[SigmaScheme, str]] = None,
             jitter: float = 0.0) -> torch.Tensor:
     """Linearize ``model`` at ``traj`` (Taylor for ``method="ekf"``, SLR
-    for ``"slr"``) and evaluate :func:`smoothing_cost` at its means;
+    for ``"slr"``) and evaluate :func:`smoothing_cost` at its means: a
+    scalar for ``ys [n, ny]`` with ``traj [n+1, ...]`` (run as one lane),
     ``[B]`` for ``ys [B, n, ny]``. ``scheme`` may be a `SigmaScheme` or a
     scheme name (resolved against ``model.nx``); it defaults to cubature
     for SLR."""
+    if ys.ndim == 2:
+        return gn_cost(model, ys[None], add_lane(traj), method, scheme,
+                       jitter)[0]
     if method == "ekf":
         lin = linearize_model_taylor_batched(model, traj.mean)
     elif method == "slr":

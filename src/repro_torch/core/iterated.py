@@ -13,6 +13,12 @@ the loop stops once every lane is done: the JAX package's ``while_loop``
 becomes a Python loop that synchronizes once per pass on
 ``active.any()``. ``tol = 0`` runs exactly ``n_iter`` passes (the
 adaptive loop still stops when every lane has diverged).
+
+`iterated_smoother` runs one trajectory as a batch of one lane, so on the
+card its scans take the combine kernels on ``[1, P]`` pair grids (the JAX
+package resolves ``combine_impl="auto"`` to the textbook combines there).
+`ieks`, `ipls` and `iterated_smoother_batched` are the legacy entry
+points: shims that warn once and run `build_smoother` on ``ys.device``.
 """
 from __future__ import annotations
 
@@ -23,12 +29,13 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 
 from . import parallel, sequential, sqrt_parallel
+from ._deprecation import warn_deprecated
 from .cost import gn_cost
 from .linearization import (linearize_model_slr_batched,
                             linearize_model_taylor_batched)
 from .sigma_points import SCHEMES, SigmaScheme, get_scheme
-from .types import (Gaussian, LinearizedSSM, StateSpaceModel, bmm, bmv,
-                    mvn_logpdf)
+from .types import (Gaussian, LinearizedSSM, StateSpaceModel, add_lane, bmm,
+                    bmv, drop_lane, mvn_logpdf)
 
 #: Axis vocabularies shared with `repro_torch.core.api.SmootherSpec` (the
 #: JAX package's, value for value, so validation and ``spec_id`` agree).
@@ -183,6 +190,9 @@ class LaneStatus(NamedTuple):
     final_cost: torch.Tensor
 
 
+#: Legacy alias: `IterationInfo` grew lane-health fields and became
+#: `LaneStatus` (same leading fields).
+IterationInfo = LaneStatus
 
 
 def _augment_lm(lin: LinearizedSSM, prev_means: torch.Tensor,
@@ -253,6 +263,12 @@ def _one_pass_batched(model: StateSpaceModel, ys: torch.Tensor,
                 shape=(ys.shape[0], ys.shape[1], traj.mean.shape[-1]),
                 device=ys.device))
     return smoothed
+
+
+def initial_trajectory(model: StateSpaceModel, n: int) -> Gaussian:
+    """Nominal initialization of one trajectory: the prior tiled along
+    its ``n + 1`` states, on the model's device."""
+    return drop_lane(initial_trajectory_batched(model, 1, n))
 
 
 def initial_trajectory_batched(model: StateSpaceModel, B: int, n: int
@@ -444,6 +460,32 @@ def _iterated_smoother_batched(model: StateSpaceModel, ys: torch.Tensor,
     return _pack_result(traj, hist, M, info, return_history, return_info)
 
 
+def iterated_smoother(model: StateSpaceModel, ys: torch.Tensor,
+                      cfg: IteratedConfig = IteratedConfig(),
+                      init: Optional[Gaussian] = None,
+                      return_history: bool = False,
+                      return_info: bool = False):
+    """Run up to ``cfg.n_iter`` linearize->filter->smooth passes over one
+    trajectory ``ys [n, ny]``: the batched driver on one lane.
+
+    Returns the smoothed trajectory ``[n+1, ...]``; then, as asked, the
+    mean history ``[M, n+1, nx]`` (rows past the executed passes repeat
+    the final mean) and the `LaneStatus` with scalar fields.
+    """
+    out = _iterated_smoother_batched(
+        model, ys[None], cfg, init=None if init is None else add_lane(init),
+        return_history=return_history, return_info=return_info)
+    if not (return_history or return_info):
+        return drop_lane(out)
+    out = list(out)
+    out[0] = drop_lane(out[0])
+    if return_history:
+        out[1] = out[1][:, 0]
+    if return_info:
+        out[-1] = drop_lane(out[-1])
+    return tuple(out)
+
+
 def smoothed_log_likelihood(model: StateSpaceModel, ys: torch.Tensor,
                             traj: Gaussian,
                             cfg: IteratedConfig = IteratedConfig(),
@@ -455,8 +497,12 @@ def smoothed_log_likelihood(model: StateSpaceModel, ys: torch.Tensor,
     iterated with (``cfg.method``/``cfg.sigma_scheme``):
     ``y_k ~ N(H_k m_k + d_k, H_k P_k H_k^T + Rp_k)``, summed over time
     (``per_step=True`` returns the per-step terms — serving masks padded
-    steps before summing). ``ys [B, n, ny]`` gives ``[B]``.
+    steps before summing). ``ys [n, ny]`` with ``traj [n+1, ...]`` gives a
+    scalar (run as one lane); ``ys [B, n, ny]`` gives ``[B]``.
     """
+    if ys.ndim == 2:
+        return smoothed_log_likelihood(model, ys[None], add_lane(traj), cfg,
+                                       per_step)[0]
     cfg.check_backend()
     lin = _linearize(model, traj, cfg, _scheme_for(model, cfg))
     mean_post = traj.mean[..., 1:, :]
@@ -465,3 +511,49 @@ def smoothed_log_likelihood(model: StateSpaceModel, ys: torch.Tensor,
     y_cov = bmm(bmm(lin.H, cov_post), lin.H.transpose(-1, -2)) + lin.Rp
     lls = mvn_logpdf(ys, y_mean, y_cov)
     return lls if per_step else torch.sum(lls, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Legacy entry points (delegating shims; warn once per process)
+# ---------------------------------------------------------------------------
+
+def iterated_smoother_batched(model, ys,
+                              cfg: IteratedConfig = IteratedConfig(),
+                              init=None, return_history: bool = False,
+                              return_info: bool = False):
+    """Deprecated: `build_smoother(spec).iterate` dispatches single vs
+    batched from ``ys.ndim``. Runs on ``ys.device``."""
+    from .api import SmootherSpec, build_smoother
+    warn_deprecated("iterated_smoother_batched",
+                    "build_smoother(SmootherSpec(...)).iterate(model, ys)")
+    return build_smoother(SmootherSpec.from_iterated_config(cfg),
+                          device=ys.device).iterate(
+        model, ys, init=init, return_history=return_history,
+        return_info=return_info)
+
+
+def ieks(model, ys, n_iter: int = 10, parallel_mode: bool = True, **kw):
+    """Deprecated alias for the paper's IEKS: Taylor linearization
+    through `build_smoother`, on ``ys.device``."""
+    from .api import SmootherSpec, build_smoother
+    warn_deprecated(
+        "ieks", 'build_smoother(SmootherSpec(linearization="taylor", '
+        '...)).iterate(model, ys)')
+    cfg = IteratedConfig(method="ekf", n_iter=n_iter, parallel=parallel_mode,
+                         **kw)
+    return build_smoother(SmootherSpec.from_iterated_config(cfg),
+                          device=ys.device).iterate(model, ys)
+
+
+def ipls(model, ys, n_iter: int = 10, parallel_mode: bool = True,
+         sigma_scheme: str = "cubature", **kw):
+    """Deprecated alias for the paper's IPLS: sigma-point SLR
+    linearization through `build_smoother`, on ``ys.device``."""
+    from .api import SmootherSpec, build_smoother
+    warn_deprecated(
+        "ipls", 'build_smoother(SmootherSpec(linearization="slr", '
+        '...)).iterate(model, ys)')
+    cfg = IteratedConfig(method="slr", n_iter=n_iter, parallel=parallel_mode,
+                         sigma_scheme=sigma_scheme, **kw)
+    return build_smoother(SmootherSpec.from_iterated_config(cfg),
+                          device=ys.device).iterate(model, ys)

@@ -10,7 +10,8 @@ Taylor (paper Eq. 10): ``F = d phi/dx (m)`` (``torch.func.jacfwd``),
 moment-matched regression through transformed sigma points; ``Lambda`` is
 the SLR residual covariance. The batched forms linearize all ``B*n`` rows
 of a fleet at once: one ``torch.func.vmap`` per map over the rows
-(Taylor) or over all ``B*n*s`` sigma points (SLR).
+(Taylor) or over all ``B*n*s`` sigma points (SLR); the single-trajectory
+forms are the batched ones on one lane.
 """
 from __future__ import annotations
 
@@ -19,17 +20,28 @@ from typing import Callable, Tuple
 import torch
 
 from .sigma_points import SigmaScheme
-from .types import (Gaussian, LinearizedSSM, StateSpaceModel, bmv, solve,
-                    symmetrize)
+from .types import (Gaussian, LinearizedSSM, StateSpaceModel, add_lane, bmv,
+                    drop_lane, solve, symmetrize)
 
 AffineParams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (F, c, Lambda)
 
 
 def _value_and_jacobian(phi: Callable) -> Callable:
+    """``m -> (d phi/dx (m), phi(m))``, the Jacobian in ``m``'s dtype.
+
+    Forward-mode AD promotes the tangent of a 0-d tensor times a Python
+    float to float64 (``x[0] * 2.0`` under ``jacfwd``), so a float32 model
+    written with Python constants would get a float64 Jacobian; it is cast
+    back, as JAX's ``jacfwd`` keeps the primal's dtype."""
     def with_aux(m):
         z = phi(m)
         return z, z
-    return torch.func.jacfwd(with_aux, has_aux=True)
+    jac = torch.func.jacfwd(with_aux, has_aux=True)
+
+    def value_and_jacobian(m):
+        F, z = jac(m)
+        return F.to(m.dtype), z
+    return value_and_jacobian
 
 
 def linearize_taylor(phi: Callable, m: torch.Tensor, P: torch.Tensor = None
@@ -129,3 +141,20 @@ def linearize_model_slr_batched(model: StateSpaceModel, traj: Gaussian,
     R = broadcast_noise_batched(model.R, B, n) + Oms
     return LinearizedSSM(F=Fs, c=cs, Qp=symmetrize(Q), H=Hs, d=ds,
                          Rp=symmetrize(R))
+
+
+def linearize_model_taylor(model: StateSpaceModel, traj_means: torch.Tensor
+                           ) -> LinearizedSSM:
+    """Taylor-linearize around one nominal trajectory ``[n+1, nx]``:
+    a `LinearizedSSM` with leading dim n."""
+    return drop_lane(linearize_model_taylor_batched(model,
+                                                    traj_means[None]))
+
+
+def linearize_model_slr(model: StateSpaceModel, traj: Gaussian,
+                        scheme: SigmaScheme, jitter: float = 0.0
+                        ) -> LinearizedSSM:
+    """SLR-linearize around one smoothed trajectory ``traj =
+    Gaussian(means [n+1, nx], covs [n+1, nx, nx])``."""
+    return drop_lane(linearize_model_slr_batched(model, add_lane(traj),
+                                                 scheme, jitter))

@@ -10,21 +10,24 @@ smoothing marginal ``N(x_k; g, L)``.
 
 Both scans run through :func:`repro_torch.core.scan.associative_scan`
 with ``batch_dims=1``: each Blelloch level is one combine call over all
-``B x P`` element pairs of the fleet. The paper typos the JAX package
+``B x P`` element pairs of the fleet. The single-trajectory drivers
+(``filtering_elements``, ``parallel_filter``, ...) are the batched ones
+on one lane: on the card each of their scan levels is a ``[1, P]`` grid
+of pairs for the kernels. The paper typos the JAX package
 corrects (Eq. 13 ``b_k`` uses ``d_k``; Eq. 14 ``eta_k`` has no extra
 ``H``) are corrected here the same way.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import scan as scan_lib
 from .types import (FilteringElement, Gaussian, LinearizedSSM,
-                    SmoothingElement, bcast_prior as _bcast_prior,
-                    bmm as _mm, bmv as _mv, gauss_jordan_inverse, solve,
-                    symmetrize)
+                    SmoothingElement, add_lane, bcast_prior as _bcast_prior,
+                    bmm as _mm, bmv as _mv, drop_lane, gauss_jordan_inverse,
+                    solve, symmetrize)
 
 
 def _T(A: torch.Tensor) -> torch.Tensor:
@@ -186,19 +189,22 @@ def smoothing_elements_batched(lin: LinearizedSSM, filtered: Gaussian
 
 def parallel_filter_batched(lin: LinearizedSSM, ys: torch.Tensor,
                             m0: torch.Tensor, P0: torch.Tensor, *,
-                            combine_impl: str = "fused") -> Gaussian:
+                            combine_impl: str = "fused",
+                            axis_name: Optional[str] = None) -> Gaussian:
     """Batched parallel Kalman filter over ``[B, n]`` trajectories: a
-    prefix scan with ``batch_dims=1``."""
+    prefix scan with ``batch_dims=1``. ``axis_name`` (the cross-device
+    scan) raises: it waits for ROADMAP A, item 4."""
     elems = filtering_elements_batched(lin, ys, m0, P0)
     scanned = scan_lib.associative_scan(
         filtering_combine, elems, reverse=False, combine_impl=combine_impl,
-        batch_dims=1)
+        axis_name=axis_name, batch_dims=1)
     return Gaussian(mean=scanned.b, cov=scanned.C)
 
 
 def parallel_smoother_batched(lin: LinearizedSSM, filtered: Gaussian,
                               m0: torch.Tensor, P0: torch.Tensor, *,
-                              combine_impl: str = "fused") -> Gaussian:
+                              combine_impl: str = "fused",
+                              axis_name: Optional[str] = None) -> Gaussian:
     """Batched parallel RTS smoother (suffix scan with ``batch_dims=1``).
 
     Returns smoothed marginals ``[B, n+1, nx]``; the x_0 row is one extra
@@ -208,7 +214,7 @@ def parallel_smoother_batched(lin: LinearizedSSM, filtered: Gaussian,
     elems = smoothing_elements_batched(lin, filtered)
     scanned = scan_lib.associative_scan(
         smoothing_combine, elems, reverse=True, combine_impl=combine_impl,
-        batch_dims=1)
+        axis_name=axis_name, batch_dims=1)
     means, covs = scanned.g, scanned.L
 
     F, c, Qp = lin.F[:, 0], lin.c[:, 0], lin.Qp[:, 0]
@@ -224,10 +230,89 @@ def parallel_smoother_batched(lin: LinearizedSSM, filtered: Gaussian,
 
 def _parallel_filter_smoother_batched(lin: LinearizedSSM, ys: torch.Tensor,
                                       m0: torch.Tensor, P0: torch.Tensor,
-                                      *, combine_impl: str = "fused"
+                                      *, combine_impl: str = "fused",
+                                      axis_name: Optional[str] = None
                                       ) -> Tuple[Gaussian, Gaussian]:
     filtered = parallel_filter_batched(lin, ys, m0, P0,
-                                       combine_impl=combine_impl)
+                                       combine_impl=combine_impl,
+                                       axis_name=axis_name)
     smoothed = parallel_smoother_batched(lin, filtered, m0, P0,
-                                         combine_impl=combine_impl)
+                                         combine_impl=combine_impl,
+                                         axis_name=axis_name)
     return filtered, smoothed
+
+
+def parallel_filter_smoother_batched(lin: LinearizedSSM, ys: torch.Tensor,
+                                     m0: torch.Tensor, P0: torch.Tensor,
+                                     *, combine_impl: str = "fused",
+                                     axis_name: Optional[str] = None
+                                     ) -> Tuple[Gaussian, Gaussian]:
+    """Deprecated: `build_smoother(spec).smooth` dispatches single vs
+    batched from ``ys.ndim``. Runs on ``ys.device``."""
+    from ._deprecation import warn_deprecated
+    from .api import build_smoother
+    warn_deprecated(
+        "parallel_filter_smoother_batched",
+        'build_smoother(mode="parallel").smooth(lin, ys, m0, P0)')
+    if axis_name is not None:
+        # Not representable on the spec axes: the scan raises (item 4).
+        return _parallel_filter_smoother_batched(
+            lin, ys, m0, P0, combine_impl=combine_impl,
+            axis_name=axis_name)
+    return build_smoother(combine_impl=combine_impl, device=ys.device
+                          ).smooth(lin, ys, m0, P0)
+
+
+# ---------------------------------------------------------------------------
+# Single-trajectory drivers: the batched ones on one lane
+# ---------------------------------------------------------------------------
+
+def filtering_elements(lin: LinearizedSSM, ys: torch.Tensor,
+                       m0: torch.Tensor, P0: torch.Tensor
+                       ) -> FilteringElement:
+    """All n filtering elements of one trajectory (leading dim n)."""
+    return drop_lane(filtering_elements_batched(add_lane(lin), ys[None],
+                                                m0, P0))
+
+
+def smoothing_elements(lin: LinearizedSSM, filtered: Gaussian
+                       ) -> SmoothingElement:
+    """All n smoothing elements of one trajectory from its filtering
+    results (Eq. 17-18); element k (row k-1) uses ``F[k]``."""
+    return drop_lane(smoothing_elements_batched(add_lane(lin),
+                                                add_lane(filtered)))
+
+
+def parallel_filter(lin: LinearizedSSM, ys: torch.Tensor, m0: torch.Tensor,
+                    P0: torch.Tensor, *, combine_impl: str = "jnp",
+                    axis_name: Optional[str] = None) -> Gaussian:
+    """Parallel Kalman filter of one trajectory: a prefix scan of its
+    filtering elements. Filtered posteriors ``[n, ...]``."""
+    return drop_lane(parallel_filter_batched(
+        add_lane(lin), ys[None], m0, P0, combine_impl=combine_impl,
+        axis_name=axis_name))
+
+
+def parallel_smoother(lin: LinearizedSSM, filtered: Gaussian,
+                      m0: torch.Tensor, P0: torch.Tensor, *,
+                      combine_impl: str = "jnp",
+                      axis_name: Optional[str] = None) -> Gaussian:
+    """Parallel RTS smoother of one trajectory: a suffix scan of its
+    smoothing elements, then one backward step to x_0. Smoothed marginals
+    ``[n+1, ...]``."""
+    return drop_lane(parallel_smoother_batched(
+        add_lane(lin), add_lane(filtered), m0, P0,
+        combine_impl=combine_impl, axis_name=axis_name))
+
+
+def parallel_filter_smoother(lin: LinearizedSSM, ys: torch.Tensor,
+                             m0: torch.Tensor, P0: torch.Tensor, *,
+                             combine_impl: str = "jnp",
+                             axis_name: Optional[str] = None
+                             ) -> Tuple[Gaussian, Gaussian]:
+    """One parallel filtering + smoothing pass of one trajectory:
+    ``(filtered [n, ...], smoothed [n+1, ...])``."""
+    filtered, smoothed = _parallel_filter_smoother_batched(
+        add_lane(lin), ys[None], m0, P0, combine_impl=combine_impl,
+        axis_name=axis_name)
+    return drop_lane(filtered), drop_lane(smoothed)

@@ -120,7 +120,10 @@ def _scan(op: Callable, elems, axis: int):
 
 
 def associative_scan(combine: Callable, elems, *, reverse: bool = False,
-                     combine_impl: str = "jnp", batch_dims: int = 0):
+                     combine_impl: str = "jnp",
+                     axis_name: Optional[str] = None,
+                     identity: Optional[Callable] = None,
+                     batch_dims: int = 0):
     """Inclusive associative scan over the time axis of ``elems``.
 
     Args:
@@ -133,8 +136,17 @@ def associative_scan(combine: Callable, elems, *, reverse: bool = False,
         "fused" (the plain versions of the kernel math), or "pallas" /
         "pallas:gpu" (the CUDA kernels on CUDA tensors, their plain
         versions on CPU tensors).
+      axis_name: the mesh axis of a cross-device scan; not ported yet
+        (ROADMAP A, item 4): anything but ``None`` raises.
+      identity: zero-arg callable giving the combine's identity element
+        (used only by the cross-device scan).
       batch_dims: number of leading batch axes before the time axis.
     """
+    if axis_name is not None:
+        raise NotImplementedError(
+            "associative_scan(axis_name=...): the sharded scan is not "
+            "ported yet (ROADMAP A, item 4)")
+    del identity
     batched, on_pair_grid = _batched_combine(combine, combine_impl)
     if on_pair_grid:
         batched = _pair_grid_op(batched, batch_dims + 1)

@@ -4,7 +4,8 @@ The paper's sequential baseline (span O(n)): one Python loop over time
 carrying all B lanes, so each step is ``[B, ...]`` vectorized work. It is
 ``mode="sequential"`` and, on the card, the full-width oracle of the
 parallel path that shares no algebra with the combines (LU solves and
-matmuls instead of Gauss-Jordan and the Eq. 15/19 combines).
+matmuls instead of Gauss-Jordan and the Eq. 15/19 combines). The
+single-trajectory drivers are the batched ones on one lane.
 """
 from __future__ import annotations
 
@@ -12,8 +13,9 @@ from typing import Tuple
 
 import torch
 
-from .types import (Gaussian, LinearizedSSM, bcast_prior as _bcast_prior,
-                    mvn_logpdf, solve, symmetrize)
+from .types import (Gaussian, LinearizedSSM, add_lane,
+                    bcast_prior as _bcast_prior, drop_lane, mvn_logpdf,
+                    solve, symmetrize)
 
 
 def _T(A: torch.Tensor) -> torch.Tensor:
@@ -91,3 +93,53 @@ def _filter_smoother_batched(lin: LinearizedSSM, ys: torch.Tensor,
     filtered = kalman_filter_batched(lin, ys, m0, P0)
     smoothed = rts_smoother_batched(lin, filtered, m0, P0)
     return filtered, smoothed
+
+
+def filter_smoother_batched(lin: LinearizedSSM, ys: torch.Tensor,
+                            m0: torch.Tensor, P0: torch.Tensor
+                            ) -> Tuple[Gaussian, Gaussian]:
+    """Deprecated: `build_smoother(spec).smooth` dispatches single vs
+    batched from ``ys.ndim``. Runs on ``ys.device``."""
+    from ._deprecation import warn_deprecated
+    from .api import build_smoother
+    warn_deprecated(
+        "filter_smoother_batched",
+        'build_smoother(mode="sequential").smooth(lin, ys, m0, P0)')
+    return build_smoother(mode="sequential", device=ys.device).smooth(
+        lin, ys, m0, P0)
+
+
+# ---------------------------------------------------------------------------
+# Single-trajectory drivers: the batched ones on one lane
+# ---------------------------------------------------------------------------
+
+def kalman_filter(lin: LinearizedSSM, ys: torch.Tensor, m0: torch.Tensor,
+                  P0: torch.Tensor, return_loglik: bool = False):
+    """Sequential (extended/SLR) Kalman filter of one trajectory.
+
+    ``lin`` leaves have leading dim n, ``ys [n, ny]`` (row k-1 is
+    ``y_k``). Returns the filtered posteriors of ``x_1..x_n`` and, when
+    asked, the total data log-likelihood under the linearized model (a
+    scalar)."""
+    out = kalman_filter_batched(add_lane(lin), ys[None], m0, P0,
+                                return_loglik=return_loglik)
+    if return_loglik:
+        return drop_lane(out[0]), out[1][0]
+    return drop_lane(out)
+
+
+def rts_smoother(lin: LinearizedSSM, filtered: Gaussian, m0: torch.Tensor,
+                 P0: torch.Tensor) -> Gaussian:
+    """Sequential Rauch-Tung-Striebel smoother of one trajectory: smoothed
+    posteriors of ``x_0..x_n`` (leading dim n+1)."""
+    return drop_lane(rts_smoother_batched(add_lane(lin), add_lane(filtered),
+                                          m0, P0))
+
+
+def filter_smoother(lin: LinearizedSSM, ys: torch.Tensor, m0: torch.Tensor,
+                    P0: torch.Tensor) -> Tuple[Gaussian, Gaussian]:
+    """One sequential filtering + smoothing pass of one trajectory.
+    Smoothed has leading dim n+1."""
+    filtered, smoothed = _filter_smoother_batched(add_lane(lin), ys[None],
+                                                  m0, P0)
+    return drop_lane(filtered), drop_lane(smoothed)

@@ -27,13 +27,14 @@ means, never the factors.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import scan as scan_lib
-from .types import (Gaussian, LinearizedSSM, bcast_prior as _bcast_prior,
-                    cholesky, solve, symmetrize)
+from .types import (Gaussian, LinearizedSSM, add_lane,
+                    bcast_prior as _bcast_prior, cholesky, drop_lane, solve,
+                    symmetrize)
 
 
 class SqrtFilteringElement(NamedTuple):
@@ -223,13 +224,16 @@ def sqrt_smoothing_identity(nx: int, dtype=torch.float32, device=None
 # ---------------------------------------------------------------------------
 
 def sqrt_parallel_filter_batched(lin: LinearizedSSM, ys: torch.Tensor,
-                                 m0: torch.Tensor, P0: torch.Tensor
+                                 m0: torch.Tensor, P0: torch.Tensor, *,
+                                 axis_name: Optional[str] = None
                                  ) -> Gaussian:
     """Batched square-root parallel filter over ``[B, n]`` trajectories:
-    filtered ``[B, n, ...]`` with covariances ``U Uᵀ``."""
+    filtered ``[B, n, ...]`` with covariances ``U Uᵀ``. ``axis_name``
+    raises (ROADMAP A, item 4)."""
     elems = sqrt_filtering_elements_batched(lin, ys, m0, P0)
     scanned = scan_lib.associative_scan(
-        sqrt_filtering_combine, elems, reverse=False, batch_dims=1)
+        sqrt_filtering_combine, elems, reverse=False, axis_name=axis_name,
+        batch_dims=1)
     return Gaussian(mean=scanned.b, cov=scanned.U @ _T(scanned.U))
 
 
@@ -266,7 +270,8 @@ def sqrt_smoothing_elements_batched(lin: LinearizedSSM, filtered: Gaussian
 
 
 def sqrt_parallel_smoother_batched(lin: LinearizedSSM, filtered: Gaussian,
-                                   m0: torch.Tensor, P0: torch.Tensor
+                                   m0: torch.Tensor, P0: torch.Tensor, *,
+                                   axis_name: Optional[str] = None
                                    ) -> Gaussian:
     """Batched square-root parallel RTS smoother: smoothed ``[B, n+1,
     ...]``; the x_0 row is one extra backward step per lane through the
@@ -274,7 +279,8 @@ def sqrt_parallel_smoother_batched(lin: LinearizedSSM, filtered: Gaussian,
     B = filtered.mean.shape[0]
     elems = sqrt_smoothing_elements_batched(lin, filtered)
     scanned = scan_lib.associative_scan(
-        sqrt_smoothing_combine, elems, reverse=True, batch_dims=1)
+        sqrt_smoothing_combine, elems, reverse=True, axis_name=axis_name,
+        batch_dims=1)
     means = scanned.g
     covs = scanned.D @ _T(scanned.D)
 
@@ -296,3 +302,47 @@ def _sqrt_parallel_filter_smoother_batched(lin: LinearizedSSM,
     filtered = sqrt_parallel_filter_batched(lin, ys, m0, P0)
     smoothed = sqrt_parallel_smoother_batched(lin, filtered, m0, P0)
     return filtered, smoothed
+
+
+def sqrt_parallel_filter_smoother_batched(lin: LinearizedSSM,
+                                          ys: torch.Tensor, m0: torch.Tensor,
+                                          P0: torch.Tensor
+                                          ) -> Tuple[Gaussian, Gaussian]:
+    """Deprecated: `build_smoother(spec).smooth` dispatches single vs
+    batched from ``ys.ndim``. Runs on ``ys.device``."""
+    from ._deprecation import warn_deprecated
+    from .api import build_smoother
+    warn_deprecated(
+        "sqrt_parallel_filter_smoother_batched",
+        'build_smoother(form="sqrt").smooth(lin, ys, m0, P0)')
+    return build_smoother(form="sqrt", device=ys.device).smooth(
+        lin, ys, m0, P0)
+
+
+# ---------------------------------------------------------------------------
+# Single-trajectory drivers: the batched ones on one lane
+# ---------------------------------------------------------------------------
+
+def sqrt_parallel_filter(lin: LinearizedSSM, ys, m0, P0, *,
+                         axis_name=None) -> Gaussian:
+    """Square-root parallel filter of one trajectory: filtered ``[n,
+    ...]`` with covariances ``U Uᵀ``."""
+    return drop_lane(sqrt_parallel_filter_batched(
+        add_lane(lin), ys[None], m0, P0, axis_name=axis_name))
+
+
+def sqrt_parallel_smoother(lin: LinearizedSSM, filtered: Gaussian, m0, P0,
+                           *, axis_name=None) -> Gaussian:
+    """Square-root parallel RTS smoother of one trajectory: smoothed
+    ``[n+1, ...]``."""
+    return drop_lane(sqrt_parallel_smoother_batched(
+        add_lane(lin), add_lane(filtered), m0, P0, axis_name=axis_name))
+
+
+def sqrt_parallel_filter_smoother(lin: LinearizedSSM, ys, m0, P0
+                                  ) -> Tuple[Gaussian, Gaussian]:
+    """One square-root parallel filtering + smoothing pass of one
+    trajectory."""
+    filtered, smoothed = _sqrt_parallel_filter_smoother_batched(
+        add_lane(lin), ys[None], m0, P0)
+    return drop_lane(filtered), drop_lane(smoothed)

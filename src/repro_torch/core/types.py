@@ -163,6 +163,22 @@ def bcast_prior(x: torch.Tensor, B: int, ndim: int) -> torch.Tensor:
     return x
 
 
+def add_lane(tree):
+    """A NamedTuple of tensors (or one tensor) with a batch axis of one
+    lane in front: how every single-trajectory driver reaches its batched
+    counterpart."""
+    if isinstance(tree, torch.Tensor):
+        return tree[None]
+    return type(tree)(*(x[None] for x in tree))
+
+
+def drop_lane(tree):
+    """Inverse of `add_lane`: the only lane of a batched result."""
+    if isinstance(tree, torch.Tensor):
+        return tree[0]
+    return type(tree)(*(x[0] for x in tree))
+
+
 def cholesky(M: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor that never synchronizes with the device:
     a matrix that is not positive definite yields NaNs (as

@@ -21,7 +21,8 @@ wrappers. Batching contract: each field is a view of ``[L, P]`` pairs
 the pair grid and a dense trailing block, so a scan level's slices are
 read in place, with no packing copy. A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises — never a fallback.
-Each launch adds one to the kernel's entry in ``LAUNCHES``.
+Each launch adds one to the kernel's entry in ``LAUNCHES``; each call of
+a plain version, one to its entry in ``PLAIN_CALLS``.
 """
 from __future__ import annotations
 
@@ -36,6 +37,9 @@ from repro_torch.core.types import (FilteringElement, SmoothingElement,
 
 #: Kernel launches per kernel since the last `reset_launch_counts`.
 LAUNCHES: Dict[str, int] = {"filtering_combine": 0, "smoothing_combine": 0}
+#: Calls of the plain versions since the last `reset_launch_counts`.
+PLAIN_CALLS: Dict[str, int] = {"filtering_combine": 0,
+                               "smoothing_combine": 0}
 
 MAX_NX = 16
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
@@ -56,6 +60,7 @@ _SMOOTHING_BLOCKS = (2, 1, 2)
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        PLAIN_CALLS[k] = 0
 
 
 def _bt(A: torch.Tensor) -> torch.Tensor:
@@ -99,11 +104,13 @@ def smoothing_combine_math(ei, gi, li, ej, gj, lj):
 
 def filtering_combine_plain(ei: FilteringElement, ej: FilteringElement
                             ) -> FilteringElement:
+    PLAIN_CALLS["filtering_combine"] += 1
     return FilteringElement(*filtering_combine_math(*ei, *ej))
 
 
 def smoothing_combine_plain(ei: SmoothingElement, ej: SmoothingElement
                             ) -> SmoothingElement:
+    PLAIN_CALLS["smoothing_combine"] += 1
     return SmoothingElement(*smoothing_combine_math(*ei, *ej))
 
 
