@@ -133,22 +133,22 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      at L = 512 against its byte bound, the plain version and SDPA on the
      same cache, and the ``wgmma`` prefill's time;
   17. ``[lm_hybrid]``: the LM decode service's loop (``generate``) for
-     hymba-1.5b at full width and depth 16 of its 32 layers (d_model 1600,
+     hymba-1.5b at full width and depth 8 of its 32 layers (d_model 1600,
      25 query heads padded to 32, 5 kv heads, head_dim 64, d_ff 5504, SSM
      d_inner 3200, state 16, conv 4, a 1,024-row sliding window except in
-     the first, middle and last layers 0, 8 and 15, vocabulary 32,001
+     the first, middle and last layers 0, 4 and 7, vocabulary 32,001
      padded to 32,768), bf16, random weights from seed 0: batch 64, a
      1,024-token prompt teacher-forced, 64 greedy steps, caches of 1,088,
-     so the 13 windowed layers' rings wrap at step 1,024. The loop with
-     the counters zeroed before and read after: exactly 16 x 1,088
+     so the 5 windowed layers' rings wrap at step 1,024. The loop with
+     the counters zeroed before and read after: exactly 8 x 1,088
      decode-kernel launches, nothing else, no plain attention and no plain
      scan (the SSM step is elementwise). Then, on the same weights
      and tokens: every decode-kernel call of the 64 steps past the window
      against plain on its own q and ring at the tight bf16 bound, which a
      ring read one row short misses at every step; a profile of 32 steps
      past them; ``prefill`` of the first 8 sequences' 1,088 tokens, which
-     launches ``wgmma`` 16 times (with the window in the windowed layers)
-     and ``ssm_scan`` 16 x 5 times (chunks of 256), each call held against
+     launches ``wgmma`` 8 times (with the window in the windowed layers)
+     and ``ssm_scan`` 8 x 5 times (chunks of 256), each call held against
      its plain version on its own inputs (the attention at the tight bf16
      bound, which the same call with the window one key wider misses; the
      scan at the float32 TOL); the service's logits at its last step and
@@ -256,15 +256,39 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      which the same input on text positions (rows equal) misses; device
      times of the decode kernel (8 rows, L = 128) and the prefill beside
      their bounds and SDPA;
-  22. the ``kernels`` JSON line (each combine kernel's launches per path,
-     ``surface`` among them, and its B = 1 top-level time;
+  22. ``[train]``: training on one device, TF32 off. Every kernel
+     wrapper first raises on a CUDA input that requires grad (and runs it
+     under ``no_grad``). Then qwen2-1.5b at full width (1.59 B
+     parameters, bf16, float32 AdamW moments, block remat), random
+     weights from seed 0: its step-0 gradients on the pipeline's batch 0
+     against the same weights in float32 — every parameter a finite
+     nonzero gradient, each tensor's relative distance within
+     `TRAIN_GRAD_FACTOR` x the largest such distance on batch 1, which
+     the same gradients with attention's output detached miss in every
+     attention tensor, and the two losses within `TRAIN_LOSS_BOUND`;
+     ``train()`` for 10 steps (B 8, T 128, lr 3e-4, warmup 2) with the
+     counters zeroed before and read after: no kernel launch, every loss
+     finite, the last below the first, peak memory; the same step timed
+     one step at a time (the median of 5: ms per step, tokens/s) and
+     profiled over 3 (busy, idle, launches per step), and the AdamW
+     update alone beside its byte bound. Each of the
+     five families' reduced configs trains 3 float32 steps on the card
+     and on the CPU from the same weights (seamless on a random
+     frontend): losses and grad norms at the float32 TOL. A checkpoint
+     resume on the card (reduced qwen2, float32: 6 steps checkpointed
+     every 3, then a second ``train()`` to 10) equals the uninterrupted
+     run within 1e-6; a bf16 train state round-trips bit for bit; the
+     card's checkpoint restores onto the CPU. No training path launches
+     a kernel;
+  23. the ``kernels`` JSON line (each combine kernel's launches per path,
+     ``surface`` and ``train`` among them, and its B = 1 top-level time;
      ``ssm_scan``'s: ``ssm_scan``, ``lm_hybrid_prefill``,
-     ``lm_xlstm_prefill``; the flash
+     ``lm_xlstm_prefill``, ``train``; the flash
      kernels': ``flash``, ``lm_decode``, ``lm_prefill``, ``lm_hybrid``,
      ``lm_hybrid_prefill``, ``lm_moe``, ``lm_moe_prefill``, ``lm_grok``,
      ``lm_grok_prefill``, ``lm_encdec``, ``lm_encdec_prefill``,
-     ``lm_mrope``, ``lm_mrope_prefill``), then the device JSON line,
-     last.
+     ``lm_mrope``, ``lm_mrope_prefill``, ``train``), then the device JSON
+     line, last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
 """
@@ -274,6 +298,7 @@ import copy
 import dataclasses
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2887,13 +2912,13 @@ def phase_lm_decode(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 #: hymba-1.5b (src/repro_torch/configs/hymba_1p5b.py) at full width and
-#: depth 16 of its 32 layers (cut to keep the script in its time): attention
-#: and a Mamba SSM in every block, a 1,024-row sliding window except in the
-#: first, middle and last layers (0, 8 and 15 of the 16, as 0, 16 and 31
-#: of the 32). Prompts of 1,024 tokens and 64 greedy steps: the windowed
-#: layers' rings (1,024 rows) wrap at step 1,024, and every greedy step
-#: reads a full ring.
-HY_ARCH, HY_SEED, HY_LAYERS = "hymba-1.5b", 0, 16
+#: depth 8 of its 32 layers (cut to keep the script in its time):
+#: attention and a Mamba SSM in every block, a 1,024-row sliding window
+#: except in the first, middle and last layers (0, 4 and 7 of the 8, as 0,
+#: 16 and 31 of the 32). Prompts of 1,024 tokens and 64 greedy steps: the
+#: windowed layers' rings (1,024 rows) wrap at step 1,024, and every
+#: greedy step reads a full ring.
+HY_ARCH, HY_SEED, HY_LAYERS = "hymba-1.5b", 0, 8
 HY_B, HY_PROMPT, HY_GEN = 64, 1024, 64
 HY_MAX = HY_PROMPT + HY_GEN
 #: The prefill gate: the first sequences' prompt and generated tokens.
@@ -4754,6 +4779,439 @@ def phase_lm_mrope(torch) -> dict:
             "prefill_attention": prefill_time}
 
 
+#: [train]: the full-width run (the trainer's own B and T), its steps, and
+#: the steps timed one by one (a host-bound step's time swings with the
+#: host's load: the median is reported) and profiled after it.
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_STEPS = 10
+TRAIN_TIMED_STEPS = 5
+TRAIN_PROFILE_STEPS = 3
+#: The bf16 gradients' tolerance is this factor times their distance to
+#: float32 on a calibration batch (the pipeline's batch 1); the gate runs
+#: on batch 0, the first training batch.
+TRAIN_GRAD_FACTOR = 2.0
+#: bf16 loss at step 0 against float32: 2^-7 relative (a loss of ~12
+#: carries bf16 logits of ~8 significant bits).
+TRAIN_LOSS_BOUND = 2.0 ** -7
+#: Five families card vs CPU: reduced configs, float32, this many steps
+#: at B x T tokens; the checkpoint resume on the card at the loop's own.
+TRAIN_FAMILIES = ("qwen2-1.5b", "hymba-1.5b", "deepseek-moe-16b",
+                  "xlstm-350m", "seamless-m4t-medium")
+TRAIN_FAMILY_STEPS, TRAIN_FAMILY_B, TRAIN_FAMILY_T = 3, 2, 64
+
+
+def _train_guards(torch) -> dict:
+    """Every kernel wrapper refuses a CUDA input that requires grad while
+    grad mode is on (a RuntimeError), and runs it under ``no_grad``."""
+    from repro_torch.core.types import FilteringElement, SmoothingElement
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.kalman_combine import kalman_combine as kc
+    from repro_torch.kernels.ssm_scan import ssm_scan as ss
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=dtype).requires_grad_(True)
+
+    q, k, v = (rand(1, 2, 64, 64, dtype=torch.bfloat16) for _ in range(3))
+    a, b = rand(2, 16, 8), rand(2, 16, 8)
+    eye = torch.eye(3, device=dev).expand(4, 3, 3).contiguous()
+    fe = FilteringElement(A=eye, b=rand(4, 3), C=eye, eta=rand(4, 3), J=eye)
+    se = SmoothingElement(E=eye, g=rand(4, 3), L=eye)
+    length = torch.tensor([64], dtype=torch.int32, device=dev)
+    calls = {
+        "flash_attention_cuda": lambda: fa.flash_attention_cuda(q, k, v),
+        "decode_attention_cuda": lambda: fa.decode_attention_cuda(
+            q[:, :, :1].contiguous(), k, v, length),
+        "ssm_scan_cuda": lambda: ss.ssm_scan_cuda(a, b),
+        "filtering_combine_cuda": lambda: kc.filtering_combine_cuda(fe, fe),
+        "smoothing_combine_cuda": lambda: kc.smoothing_combine_cuda(se, se)}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            out[name] = str(e).split(":")[0]
+        else:
+            fail(f"[train] {name} ran on inputs that require grad")
+        with torch.no_grad():
+            call()
+    say(f"[train] every kernel wrapper raises under grad: {sorted(out)}")
+    return out
+
+
+def _rel_errs(torch, got: dict, want: dict) -> dict:
+    """Per tensor ``||got - want|| / ||want||`` in float32."""
+    return {n: float(torch.linalg.vector_norm(got[n].float() - w.float())
+                     / torch.linalg.vector_norm(w.float()).clamp_min(1e-30))
+            for n, w in want.items()}
+
+
+def _train_grad_check(torch, model, cfg, pipe) -> dict:
+    """Step-0 gradients of the bf16 model against the same weights in
+    float32 (TF32 off), on the card: every parameter has a finite, nonzero
+    gradient; the per-tensor relative distance on batch 0 within
+    ``TRAIN_GRAD_FACTOR`` x its largest value on batch 1; the same check
+    with attention's output detached (``wq``/``wk``/``wv``/``wo`` and the
+    QKV biases then get no gradient) missing it in every such tensor; the
+    two losses within ``TRAIN_LOSS_BOUND``."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import attention as attn_lib
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch_at(i).items()} for i in (0, 1)]
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = copy.deepcopy(model).float()
+    res, errs = {}, {}
+    for i, batch in enumerate(batches):
+        loss32, _, g32 = loss_and_grads(model32, cfg32, batch)
+        loss, _, g = loss_and_grads(model, cfg, batch)
+        if i == 0:
+            dead = [n for n, t in g.items() if not bool(
+                torch.isfinite(t).all()) or not bool((t != 0).any())]
+            if dead:
+                fail(f"[train] {len(dead)} parameters have no finite "
+                     f"nonzero gradient: {dead[:4]}")
+            res.update(loss_bf16=float(loss), loss_f32=float(loss32))
+            orig = attn_lib.attention_layer
+
+            def detached(*a, **kw):
+                out, cache = orig(*a, **kw)
+                return out.detach(), cache
+
+            attn_lib.attention_layer = detached
+            try:
+                _, _, g_fault = loss_and_grads(model, cfg, batch)
+            finally:
+                attn_lib.attention_layer = orig
+            fault = _rel_errs(torch, g_fault, g32)
+            del g_fault
+        errs[i] = _rel_errs(torch, g, g32)
+        del g, g32
+    del model32
+    torch.cuda.empty_cache()
+    noise = max(errs[1].values())
+    tol = TRAIN_GRAD_FACTOR * noise
+    worst = max(errs[0], key=errs[0].get)
+    attn = [n for n in fault if ".attn." in n]
+    caught = [n for n in attn if fault[n] > tol]
+    rel_loss = abs(res["loss_bf16"] - res["loss_f32"]) / abs(res["loss_f32"])
+    res.update(tol=tol, calibration_max=noise,
+               calibration_worst=max(errs[1], key=errs[1].get),
+               max_rel_err=errs[0][worst], worst=worst,
+               median_rel_err=float(sorted(errs[0].values())[
+                   len(errs[0]) // 2]),
+               fault_caught=len(caught), fault_tensors=len(attn),
+               fault_least=min(fault[n] for n in attn),
+               loss_rel_err=rel_loss, tensors=len(errs[0]),
+               seconds=time.perf_counter() - t0)
+    say(f"[train] step-0 gradients, bf16 vs float32 on the card "
+        f"({res['tensors']} tensors): tol {tol:.4g} = "
+        f"{TRAIN_GRAD_FACTOR} x the largest relative distance on "
+        f"calibration batch 1 ({noise:.4g}, {res['calibration_worst']}); "
+        f"batch 0 max {res['max_rel_err']:.4g} ({worst}), median "
+        f"{res['median_rel_err']:.4g}; attention output detached: caught "
+        f"in {len(caught)} of {len(attn)} attention tensors (least "
+        f"{res['fault_least']:.4g}); loss bf16 {res['loss_bf16']:.6f} vs "
+        f"float32 {res['loss_f32']:.6f} (rel {rel_loss:.3g}, bound "
+        f"{TRAIN_LOSS_BOUND:.4g}); {res['seconds']:.1f} s")
+    if not res["max_rel_err"] <= tol:
+        fail(f"[train] bf16 gradient of {worst} is {res['max_rel_err']:.4g} "
+             f"from float32, over the tolerance {tol:.4g}")
+    if len(caught) != len(attn) or not attn:
+        fail(f"[train] the detached attention output passes the gradient "
+             f"gate in {len(attn) - len(caught)} tensors")
+    if not rel_loss <= TRAIN_LOSS_BOUND:
+        fail(f"[train] step-0 loss bf16 vs float32 {rel_loss:.3g} over "
+             f"{TRAIN_LOSS_BOUND:.3g}")
+    return res
+
+
+def _train_full_width(torch) -> dict:
+    """qwen2-1.5b at full width through `train()`, then the timed and
+    profiled steps and the AdamW update alone."""
+    from repro_torch.data.tokens import (SyntheticTokenPipeline,
+                                         TokenPipelineConfig)
+    from repro_torch.launch import train as tr
+    from repro_torch.launch.steps import (init_train_state, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models import init_model
+    from repro_torch.optim import AdamWConfig, adamw_update
+
+    dev = torch.device("cuda")
+    loop = tr.TrainLoopConfig(arch=TRAIN_ARCH, reduced=False, seq_len=128,
+                              global_batch=8, steps=TRAIN_STEPS, lr=3e-4,
+                              warmup_steps=2, log_every=1, device="cuda")
+    cfg = tr.loop_model_config(loop)
+    pipe = SyntheticTokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=loop.seq_len,
+        global_batch=loop.global_batch, seed=loop.seed))
+    t0 = time.perf_counter()
+    model = init_model(cfg, loop.seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[train] {cfg.name} at full width: {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} query heads padded to "
+        f"{cfg.padded_heads}, {cfg.num_kv_heads} kv, vocabulary "
+        f"{cfg.vocab_size} padded to {cfg.padded_vocab}; {n_params:,} "
+        f"parameters in {cfg.param_dtype}, float32 moments; B "
+        f"{loop.global_batch}, T {loop.seq_len}, remat {cfg.remat}; built "
+        f"in {init_s:.1f} s")
+    res = {"params": n_params, "grads": _train_grad_check(
+        torch, model, cfg, pipe)}
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    lines = []
+    t1 = time.perf_counter()
+    out = tr.train(loop, emit=lines.append, model=model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["losses"]
+    say(f"[train] path: train({TRAIN_ARCH}, reduced=False, steps "
+        f"{TRAIN_STEPS}, seq_len {loop.seq_len}, global_batch "
+        f"{loop.global_batch}, lr {loop.lr}, warmup {loop.warmup_steps}) "
+        f"in {wall:.2f} s; losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; kernel launches {counts}; peak {peak:.2f} GB")
+    if any(counts.values()):
+        fail(f"[train] training launched kernels: {counts}")
+    if len(losses) != TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses):
+        fail(f"[train] losses not finite over {TRAIN_STEPS} steps: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"[train] the loss did not fall: {losses[0]} -> {losses[-1]}")
+    res.update(losses=losses, train_wall_s=wall, launches=counts,
+               peak_gb=peak)
+
+    # The same step, timed and profiled, on the trained weights.
+    step = make_train_step(cfg, AdamWConfig(lr=loop.lr),
+                           total_steps=TRAIN_STEPS,
+                           warmup_steps=loop.warmup_steps)
+    state = init_train_state(model)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t1 = time.perf_counter()
+        state, met = step(state, batch)
+        float(met["loss"])
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    ms = sorted(step_ms)[TRAIN_TIMED_STEPS // 2]
+    holder = {"state": state}
+
+    def one(j):
+        holder["state"], _ = step(holder["state"], batch)
+
+    prof = _lm_profile(torch, one, TRAIN_PROFILE_STEPS, "train")
+    tokens = loop.global_batch * loop.seq_len
+    # AdamW alone on the last gradients (CUDA events, back-to-back).
+    _, _, grads = loss_and_grads(model, cfg, batch)
+    params = dict(model.named_parameters())
+    opt = holder["state"].opt
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    adamw_update(AdamWConfig(lr=0.0), params, grads, opt)
+    ev[0].record()
+    for _ in range(TRAIN_PROFILE_STEPS):
+        _, opt, _ = adamw_update(AdamWConfig(lr=0.0), params, grads, opt)
+    ev[1].record()
+    torch.cuda.synchronize()
+    adamw_ms = ev[0].elapsed_time(ev[1]) / TRAIN_PROFILE_STEPS
+    adamw_bytes = sum(p.numel() * (2 * p.element_size() + 16
+                                   + g.element_size())
+                      for p, g in zip(params.values(), grads.values()))
+    flops = 8 * n_params * tokens
+    res.update(ms_per_step=ms, step_ms=step_ms,
+               tokens_per_s=tokens / ms * 1e3,
+               adamw_ms=adamw_ms, adamw_bound_ms=adamw_bytes
+               / HBM_BYTES_PER_S * 1e3, adamw_tensors=len(params),
+               flops_per_step=flops, flops_bound_ms=flops
+               / PEAK_FLOPS["bfloat16"] * 1e3, profile=prof,
+               seconds=time.perf_counter() - t0)
+    say(f"[train] step at full width: {ms:.2f} ms per step (median of "
+        f"{TRAIN_TIMED_STEPS}: " + ", ".join(f"{t:.1f}" for t in step_ms)
+        + f"), "
+        f"{res['tokens_per_s']:.1f} tokens/s ({tokens} tokens per step; "
+        f"8 x params x tokens = {flops / 1e12:.2f} TFLOP, "
+        f"{res['flops_bound_ms']:.2f} ms at the bf16 peak); AdamW update "
+        f"alone {adamw_ms:.2f} ms over {len(params)} tensors (bound "
+        f"{res['adamw_bound_ms']:.2f} ms: {adamw_bytes / 1e9:.2f} GB)")
+    say(f"[train] profile of {prof['steps']} train steps: wall "
+        f"{prof['wall_s'] * 1e3:.1f} ms (profiled), device busy "
+        f"{prof['busy_ms_per_step']:.2f} ms per step, "
+        f"{prof['launches_per_step']:.1f} launches per step, idle "
+        f"{prof['idle_share']:.1%}; top: " + "; ".join(
+            f"{k[:48]} {t:.2f} ms x{n}" for k, t, n in prof["top"]))
+    del model, state, holder, grads, params, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def _train_families(torch) -> dict:
+    """Each family's reduced config trains ``TRAIN_FAMILY_STEPS`` steps on
+    the card and on the CPU from the same weights and batches (float32,
+    TF32 off; the encoder-decoder on a seeded random frontend): per-step
+    loss and grad_norm at the float32 TOL."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.tokens import (SyntheticTokenPipeline,
+                                         TokenPipelineConfig)
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim import AdamWConfig
+
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = reduced_config(get_config(arch))
+        pipe = SyntheticTokenPipeline(TokenPipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_FAMILY_T,
+            global_batch=TRAIN_FAMILY_B, seed=0))
+        rng = np.random.default_rng(0)
+        enc = rng.standard_normal((TRAIN_FAMILY_B, cfg.encoder_seq_len,
+                                   cfg.d_model)).astype(np.float32) \
+            if cfg.encoder_layers else None
+        cpu_model = init_model(cfg, 0, device="cpu")
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            state = init_train_state(copy.deepcopy(cpu_model).to(dev))
+            step = make_train_step(cfg, AdamWConfig(lr=2e-2),
+                                   total_steps=TRAIN_FAMILY_STEPS,
+                                   warmup_steps=1)
+            t0 = time.perf_counter()
+            rows = []
+            for s in range(TRAIN_FAMILY_STEPS):
+                batch = pipe.batch_at(s)
+                if enc is not None:
+                    batch = dict(batch, enc_emb=enc)
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in batch.items()}
+                state, met = step(state, batch)
+                rows.append((float(met["loss"]), float(met["grad_norm"])))
+            runs[dev] = (rows, time.perf_counter() - t0)
+        got, want = (np.array(runs[d][0]) for d in ("cuda", "cpu"))
+        err = float(np.max(np.abs(got - want) / (TOL["float32"]["atol"]
+                    + TOL["float32"]["rtol"] * np.abs(want))))
+        out[arch] = {"card": runs["cuda"][0], "cpu": runs["cpu"][0],
+                     "err_over_tol": err, "card_s": runs["cuda"][1],
+                     "cpu_s": runs["cpu"][1]}
+        say(f"[train] {cfg.name}: {TRAIN_FAMILY_STEPS} float32 steps "
+            f"(B {TRAIN_FAMILY_B}, T {TRAIN_FAMILY_T}) card vs CPU: losses "
+            + ", ".join(f"{a:.6f}/{b:.6f}" for (a, _), (b, _) in zip(
+                runs["cuda"][0], runs["cpu"][0]))
+            + f"; grad_norm last {got[-1, 1]:.6f}/{want[-1, 1]:.6f}; "
+            f"max err/tol {err:.3g} ({runs['cuda'][1]:.1f} s / "
+            f"{runs['cpu'][1]:.1f} s)")
+        if not err <= 1.0:
+            fail(f"[train] {arch}: card and CPU training differ "
+                 f"(err/tol {err:.3g})")
+    return out
+
+
+def _train_resume(torch) -> dict:
+    """Checkpoint resume on the card (reduced qwen2, float32): 6 steps
+    checkpointed every 3, then a second `train()` to 10, against an
+    uninterrupted 10-step run; a bf16 train state round-trips bit for
+    bit; the card's checkpoint restores onto the CPU."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import train as tr
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.models import init_model
+
+    t0 = time.perf_counter()
+    kw = dict(arch=TRAIN_ARCH, lr=2e-2, log_every=100, device="cuda")
+    quiet = lambda m: None  # noqa: E731
+    base = tr.train(tr.TrainLoopConfig(steps=10, **kw), emit=quiet)
+    OUT.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT) as d:
+        tr.train(tr.TrainLoopConfig(steps=6, ckpt_dir=d, ckpt_every=3, **kw),
+                 emit=quiet)
+        cfg = tr.loop_model_config(tr.TrainLoopConfig(**kw))
+        model = init_model(cfg, 5, device="cuda")
+        log = []
+        second = tr.train(tr.TrainLoopConfig(steps=10, ckpt_dir=d,
+                                             ckpt_every=3, **kw),
+                          emit=log.append, model=model)
+        if "[train] resumed from step 6" not in log:
+            fail(f"[train] the second run did not resume: {log}")
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(second["losses"], base["losses"][6:]))
+        mgr = CheckpointManager(d)
+        cpu_state = init_train_state(init_model(cfg, 1, device="cpu"))
+        mgr.restore(cpu_state)
+        card = dict(model.named_parameters())
+        onto_cpu = all(torch.equal(p, card[n].cpu()) for n, p in
+                       cpu_state.params.named_parameters())
+        bf = reduced_config(get_config(TRAIN_ARCH), param_dtype="bfloat16")
+        state = init_train_state(init_model(bf, 0, device="cuda"))
+        for m in state.opt.m.values():
+            m.normal_()
+        mgr.save(99, state)
+        other = init_train_state(init_model(bf, 1, device="cuda"))
+        mgr.restore(other, step=99)
+        bitwise = all(torch.equal(p.view(torch.int16), q.view(torch.int16))
+                      for p, q in zip(state.params.parameters(),
+                                      other.params.parameters())) and all(
+            torch.equal(state.opt.m[n], other.opt.m[n]) for n in state.opt.m)
+    say(f"[train] resume on the card ({cfg.name}, float32): steps 6-9 "
+        f"after resuming from step 6 vs uninterrupted: max rel "
+        f"{rel:.3g} (bound 1e-6); bf16 train state round trip bit-exact "
+        f"{bitwise}; card checkpoint restored onto the CPU equal {onto_cpu}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not rel <= 1e-6:
+        fail(f"[train] the resumed run differs from the uninterrupted one "
+             f"by {rel:.3g}")
+    if not (bitwise and onto_cpu):
+        fail(f"[train] checkpoint round trip: bf16 bit-exact {bitwise}, "
+             f"card onto CPU {onto_cpu}")
+    return {"max_rel": rel, "losses": second["losses"],
+            "seconds": time.perf_counter() - t0,
+            "uninterrupted": base["losses"], "bf16_bitwise": bitwise,
+            "card_onto_cpu": onto_cpu}
+
+
+def phase_train(torch) -> dict:
+    """``[train]``: training on one device (see the module docstring)."""
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts()
+    try:
+        guards = _train_guards(torch)
+        reset_counts()
+        full = _train_full_width(torch)
+        families = _train_families(torch)
+        resume = _train_resume(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"[train] the training paths launched kernels: {counts}")
+    seconds = time.perf_counter() - t0
+    say(f"[train] phase done in {seconds:.1f} s (full width "
+        f"{full['seconds']:.1f} s, five families "
+        f"{sum(f['card_s'] + f['cpu_s'] for f in families.values()):.1f} s "
+        f"of steps, resume {resume['seconds']:.1f} s); kernel launches "
+        f"across every training path {counts}")
+    return {"guards": guards, "full_width": full, "families": families,
+            "resume": resume, "launches": counts, "seconds": seconds}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -4781,13 +5239,18 @@ def main() -> int:
     surface = phase_surface(torch)
     ssm = phase_ssm_scan(torch)
     flash = phase_flash(torch)
-    lm = phase_lm_decode(torch)
-    hybrid = phase_lm_hybrid(torch)
-    moe = phase_lm_moe(torch)
-    grok = phase_lm_grok(torch)
-    xlstm = phase_lm_xlstm(torch)
-    encdec = phase_lm_encdec(torch)
-    mrope = phase_lm_mrope(torch)
+    # The LM phases infer: no gradient (the kernels refuse inputs that
+    # need one, and a layer called directly on the model's parameters
+    # would pass them one).
+    with torch.no_grad():
+        lm = phase_lm_decode(torch)
+        hybrid = phase_lm_hybrid(torch)
+        moe = phase_lm_moe(torch)
+        grok = phase_lm_grok(torch)
+        xlstm = phase_lm_xlstm(torch)
+        encdec = phase_lm_encdec(torch)
+        mrope = phase_lm_mrope(torch)
+    train = phase_train(torch)
 
     rows = []
     for kind in ("filtering_combine", "smoothing_combine"):
@@ -4802,7 +5265,8 @@ def main() -> int:
                    **{tag: res["launches_by_kernel"][kind] for tag, res in (
                        ("stream", stream), ("chaos", chaos),
                        ("tenants", tenants))},
-                   "surface": surface["launches"][kind]}
+                   "surface": surface["launches"][kind],
+                   "train": train["launches"][kind]}
         rows.append({"launches": sum(by_path.values()),
                      "launches_by_path": by_path, "max_abs_err": err,
                      "ms": t["in_place_graph_ms"],
@@ -4819,7 +5283,8 @@ def main() -> int:
                 "library_graph_ms", "bound_ms", "max_abs_err")
     ssm_paths = {"ssm_scan": ssm["launches"],
                  "lm_hybrid_prefill": hybrid["ssm_launches"],
-                 "lm_xlstm_prefill": xlstm["ssm_launches"]}
+                 "lm_xlstm_prefill": xlstm["ssm_launches"],
+                 "train": train["launches"]["ssm_scan"]}
     rows[-2].update(launches=sum(ssm_paths.values()),
                     launches_by_path=ssm_paths,
                     **{path: {k: res["ssm_scan"][k] for k in lm_times}
@@ -4828,7 +5293,9 @@ def main() -> int:
     flash_paths = {"flash": flash["launches"], **lm["launches_by_path"],
                    **hybrid["launches_by_path"], **moe["launches_by_path"],
                    **grok["launches_by_path"], **encdec["launches_by_path"],
-                   **mrope["launches_by_path"]}
+                   **mrope["launches_by_path"],
+                   "train": sum(n for k, n in train["launches"].items()
+                                if k.startswith("flash_attention"))}
     rows[-1].update(launches=sum(flash_paths.values()),
                     launches_by_path=flash_paths,
                     launches_by_kernel=flash["launches_by_kernel"],
@@ -4862,7 +5329,7 @@ def main() -> int:
          "ssm_scan": ssm,
          "flash_attention": flash, "lm_decode": lm, "lm_hybrid": hybrid,
          "lm_moe": moe, "lm_grok": grok, "lm_xlstm": xlstm,
-         "lm_encdec": encdec, "lm_mrope": mrope,
+         "lm_encdec": encdec, "lm_mrope": mrope, "train": train,
          "seconds": time.perf_counter() - t_start}, indent=1))
     say(f"[chip_smoke] all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")

@@ -9,12 +9,15 @@ cross frameworks), so both packages compute on the same model.
 
 `lm_params` turns the JAX LM's parameter pytree (as numpy) into the port's
 `CausalLM` (the encoder-decoder's encoder and cross-attention too), so
-both packages run the same weights.
+both packages run the same weights. `lm_tree` lays out any pytree shaped
+like those parameters (gradients, AdamW's moments) by the port's
+parameter names, and `jax_path` gives each port parameter the path the
+reference's optimizer decides weight decay on.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -38,80 +41,79 @@ def state_space_model(scenario: str, Q: np.ndarray, R: np.ndarray,
                                P0=as_t(P0))
 
 
-#: Each sequence mixer's ``[in, out]`` matrices (``nn.Linear``s in the
-#: port); its other leaves are parameters as they are.
-_MIXER_LINEAR = {"ssm": ("in_proj", "x_proj", "dt_w", "out_proj"),
-                 "mlstm": ("in_proj", "wq", "wk", "wv", "w_gates",
-                           "out_proj"),
-                 "slstm": ("w_in", "up", "down")}
+def jax_leaf(name: str):
+    """Where the port's parameter ``name`` (a `CausalLM` state-dict key)
+    lives in the JAX ``init_model`` pytree: (the keys down to its leaf,
+    the layer index into that leaf's stacked first axis or None, whether
+    the port holds it transposed). A block of run ``ri`` (``runs.ri.li``)
+    is layer ``li`` of ``params["runs"][ri]``; an encoder block and a
+    cross-attention are layer ``li`` of ``params["encoder"]`` and
+    ``params["cross_attn"]``; an ``nn.Linear``'s ``weight`` is the
+    reference's ``[in, out]`` matrix transposed and an attention
+    projection's ``w?.bias`` its ``b?``. Every other leaf has the
+    reference's name and layout."""
+    parts = name.split(".")
+    layer = None
+    if parts[0] == "runs":
+        keys, layer, rest = ["runs", int(parts[1])], int(parts[2]), parts[3:]
+    elif parts[0] in ("encoder", "cross_attn"):
+        keys, layer, rest = [parts[0]], int(parts[1]), parts[2:]
+    else:
+        keys, rest = [], parts
+    transposed = rest[-1] == "weight"
+    if transposed:
+        rest = rest[:-1]
+    elif rest[-1] == "bias" and len(rest) > 1:
+        rest = rest[:-2] + ["b" + rest[-2][1:]]
+    return tuple(keys + rest), layer, transposed
+
+
+def jax_path(name: str) -> str:
+    """The path of the port's parameter ``name`` as the reference's
+    optimizer spells it (``repro.optim.adamw._decay_mask``): its keys
+    joined by "/", a list index (the run) as the empty string, so block
+    ``li`` of run 0's ``attn.wq.bias`` is ``runs//attn/bq``."""
+    keys, _, _ = jax_leaf(name)
+    return "/".join("" if isinstance(k, int) else k for k in keys)
+
+
+def lm_tree(tree, names) -> Dict[str, np.ndarray]:
+    """Any pytree shaped like the JAX LM's parameters (the parameters,
+    their gradients, AdamW's moments; leaves as numpy arrays or anything
+    ``np.asarray`` takes) in the port's layout: ``{name: array}`` for each
+    port parameter name in ``names`` (`jax_leaf`)."""
+    out = {}
+    for name in names:
+        keys, layer, transposed = jax_leaf(name)
+        leaf = tree
+        for k in keys:
+            leaf = leaf[k]
+        leaf = np.asarray(leaf)
+        if layer is not None:
+            leaf = leaf[layer]
+        out[name] = leaf.T if transposed else leaf
+    return out
 
 
 def lm_params(params, cfg, *, device: Device = None,
               dtype: Optional[torch.dtype] = None):
     """The port's `CausalLM` holding the JAX ``init_model`` parameters
-    ``params`` (the pytree with its leaves as numpy arrays): ``embed``,
-    ``runs`` (per run, each leaf stacked over the run's layers),
-    ``final_norm``, ``lm_head`` and an encoder-decoder's ``encoder`` (a
-    stacked dense run), ``enc_norm``, ``cross_attn`` (stacked over the
-    decoder layers) and ``ln_cross``. The runs are unstacked into blocks
-    (a hybrid block's ``ssm`` and ``ln_ssm`` too, an MoE block's ``moe``,
-    an xLSTM block's ``mlstm`` or ``slstm``), ``encoder`` into dense
-    blocks and ``cross_attn`` into one attention per layer;
-    ``[in, out]`` matrices become ``nn.Linear`` weights ``[out, in]``, and
-    the MoE's router and stacked experts stay as they are.
-    On ``device`` (`resolve_device`), in ``dtype`` (default the config's
-    parameter dtype). It first builds a random model of ``cfg``
-    (`init_model`), so it is for the reduced configs only."""
+    ``params`` (the pytree with its leaves as numpy arrays), each leaf
+    placed by `lm_tree`: the runs unstacked into blocks, ``encoder`` into
+    dense blocks and ``cross_attn`` into one attention per layer,
+    ``[in, out]`` matrices as ``nn.Linear`` weights ``[out, in]``, the
+    MoE's router and stacked experts as they are. On ``device``
+    (`resolve_device`), in ``dtype`` (default the config's parameter
+    dtype). It first builds a random model of ``cfg`` (`init_model`), so
+    it is for the reduced configs only."""
     from repro_torch.models.layers import dtype_of
     from repro_torch.models.transformer import init_model
 
     device = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype) if dtype is None else dtype
     model = init_model(cfg, 0, device=device)
-
-    def t(a):
-        return torch.tensor(np.asarray(a, np.float32), device=device)
-
-    state = {"embed": t(params["embed"]),
-             "final_norm": t(params["final_norm"])}
-
-    def attention(pre, attn, li):
-        for name, w in attn.items():
-            if name.startswith("w"):
-                state[f"{pre}{name}.weight"] = t(w[li]).T
-            else:  # bq, bk, bv
-                state[f"{pre}w{name[1]}.bias"] = t(w[li])
-
-    if "lm_head" in params:
-        state["lm_head.weight"] = t(params["lm_head"]).T
-    blocks = [(f"runs.{ri}.{li}.", run, li)
-              for ri, run in enumerate(params["runs"])
-              for li in range(len(model.runs[ri]))]
-    if "encoder" in params:
-        blocks += [(f"encoder.{li}.", params["encoder"], li)
-                   for li in range(cfg.encoder_layers)]
-        state["enc_norm"] = t(params["enc_norm"])
-        state["ln_cross"] = t(params["ln_cross"])
-        for li in range(cfg.num_layers):
-            attention(f"cross_attn.{li}.", params["cross_attn"], li)
-    for pre, run, li in blocks:
-        for norm in ("ln1", "ln2", "ln_ssm"):
-            if norm in run:
-                state[pre + norm] = t(run[norm][li])
-        attention(pre + "attn.", run.get("attn", {}), li)
-        for name, w in run.get("mlp", {}).items():
-            state[f"{pre}mlp.{name}.weight"] = t(w[li]).T
-        for name, w in run.get("moe", {}).items():
-            if name == "shared":  # [in, out] matrices of an MLP
-                for sub, ws in w.items():
-                    state[f"{pre}moe.shared.{sub}.weight"] = t(ws[li]).T
-            else:  # router [d, E], experts [E, d, dff] / [E, dff, d]
-                state[f"{pre}moe.{name}"] = t(w[li])
-        for mixer, linear in _MIXER_LINEAR.items():
-            for name, w in run.get(mixer, {}).items():
-                if name in linear:
-                    state[f"{pre}{mixer}.{name}.weight"] = t(w[li]).T
-                else:  # conv_w, dt_bias, A_log, D, norm_w, r, b
-                    state[f"{pre}{mixer}.{name}"] = t(w[li])
-    model.load_state_dict({k: v.to(dtype) for k, v in state.items()})
+    state = lm_tree(params, model.state_dict().keys())
+    model.load_state_dict({
+        k: torch.tensor(np.asarray(v, np.float32), device=device).to(dtype)
+        for k, v in state.items()})
     return model.to(dtype)

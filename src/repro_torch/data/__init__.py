@@ -1,5 +1,6 @@
-"""Data substrates of the port: the state-estimation simulators (the LM
-token pipeline, ``tokens``, waits for ROADMAP A, item 5f)."""
+"""Data substrates of the port: the state-estimation simulators and the
+LM token pipeline (``data.tokens``, numpy only; like the reference's
+package, this one re-exports the simulators' names alone)."""
 from .tracking import (CoordinatedTurnConfig, make_coordinated_turn_model,
                        simulate_trajectory)
 

@@ -16,4 +16,23 @@ Each kernel package mirrors the JAX package's layout:
     launch counters;
   * ``ops.py``   — the static per-call-site dispatch;
   * ``ref.py``   — the textbook oracle.
+
+No kernel has a backward (the JAX package's Pallas kernels have none
+either, and its training path reaches none of them). A wrapper handed a
+CUDA tensor that needs a gradient, with grad mode on, raises
+(`refuse_autograd`): its output would otherwise cut the autograd graph
+without a word. Training runs the plain versions.
 """
+import torch
+
+
+def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
+    """Raise a ``RuntimeError`` when grad mode is on and one of
+    ``tensors`` requires grad. A guard, not a fallback: nothing runs in
+    the kernel's place."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and an input "
+            "requires grad with grad mode on; train on the plain versions "
+            "(impl='plain', as models.train_loss does) or call the kernel "
+            "under torch.no_grad()")

@@ -61,6 +61,8 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
+
 #: Kernel launches since the last `reset_launch_counts`, per kernel.
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_wgmma": 0,
                             "flash_attention_decode": 0}
@@ -274,7 +276,9 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def _check_card_inputs(what: str, q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor) -> None:
     """Raise unless the kernels take these CUDA tensors: one dtype of
-    `_DTYPE_CODE` and one device, ``Dh`` in `HEAD_DIMS`, contiguous."""
+    `_DTYPE_CODE` and one device, ``Dh`` in `HEAD_DIMS`, contiguous, and
+    none of them requiring grad under grad mode (`refuse_autograd`)."""
+    refuse_autograd(what, q, k, v)
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{what}: dtype {q.dtype} is not float32 or bfloat16")
     if any(t.dtype != q.dtype or t.device != q.device for t in (k, v)):

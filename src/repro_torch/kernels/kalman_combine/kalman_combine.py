@@ -34,6 +34,7 @@ import torch
 from repro_torch.core.types import (FilteringElement, SmoothingElement,
                                     bmm as _bmm, bmv as _bmv,
                                     gauss_jordan_inverse as _gauss_jordan_inverse)
+from repro_torch.kernels import refuse_autograd
 
 #: Kernel launches per kernel since the last `reset_launch_counts`.
 LAUNCHES: Dict[str, int] = {"filtering_combine": 0, "smoothing_combine": 0}
@@ -192,6 +193,7 @@ def _launch(fn, fields, outs, grid: Tuple[int, ...], lead, pair,
 
 def _combine_cuda(fn_name: str, name: str, blocks, ei, ej):
     fields = list(ei) + list(ej)
+    refuse_autograd(name, *fields)
     grid, lead, pair = _check(fields, blocks * 2, name)
     outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
             for t in ei]

@@ -26,6 +26,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
+
 #: Kernel launches since the last `reset_launch_counts`.
 LAUNCHES: Dict[str, int] = {"ssm_scan": 0}
 
@@ -73,11 +75,12 @@ def ssm_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         + Bp[:, :, s:]], dim=2)
         A = torch.cat([A[:, :, :s], A[:, :, s:] * A[:, :, :-s]], dim=2)
         s *= 2
-    out = torch.empty_like(Bp)
+    outs = []
     carry = a.new_zeros((B, 1, D))
     for c in range(nc):
-        out[:, c] = A[:, c] * carry + Bp[:, c]
-        carry = out[:, c, -1:]
+        outs.append(A[:, c] * carry + Bp[:, c])
+        carry = outs[-1][:, -1:]
+    out = torch.stack(outs, dim=1)  # no write in place: autograd runs it
     return out.reshape(B, nc * ct, D)[:, :T].to(out_dtype)
 
 
@@ -121,6 +124,7 @@ def ssm_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check(a, b)
     if not a.is_cuda:
         return ssm_scan_plain(a, b)
+    refuse_autograd("ssm_scan", a, b)
     B, T, D = a.shape
     h = torch.empty_like(a)
     if B * T * D == 0:

@@ -1,7 +1,8 @@
 """Shared building blocks of the LM substrate (PyTorch).
 
 The JAX package's ``repro.models.layers`` as functions on tensors, with
-explicit ``torch.Generator``s in place of JAX keys. Its ``maybe_shard`` has
+explicit ``torch.Generator``s in place of JAX keys, and the training
+loss, `cross_entropy_loss`. Its ``maybe_shard`` has
 no counterpart: the port runs on one card, with no mesh.
 """
 from __future__ import annotations
@@ -67,3 +68,26 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       vocab_size: int, *, z_loss: float = 0.0,
+                       ignore_id: int = -1) -> torch.Tensor:
+    """Mean cross-entropy over the valid tokens (``labels != ignore_id``),
+    in float32: ``logits [..., Vp]`` with the padded vocabulary
+    (``Vp > vocab_size``) masked to -1e30, ``labels [...]`` int. With
+    ``z_loss > 0`` each token adds ``z_loss * logsumexp^2``. The mean
+    divides by ``max(count, 1)``."""
+    logits = logits.float()
+    Vp = logits.shape[-1]
+    if Vp > vocab_size:
+        pad = torch.arange(Vp, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    valid = labels != ignore_id
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - torch.gather(logits, -1, safe[..., None])[..., 0]
+    if z_loss > 0.0:
+        nll = nll + z_loss * lse ** 2
+    denom = valid.sum().clamp_min(1)
+    return torch.where(valid, nll, nll.new_zeros(())).sum() / denom

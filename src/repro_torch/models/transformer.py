@@ -7,6 +7,7 @@ an ``nn.Module`` in place of the parameter pytree:
 
     model = init_model(cfg, seed, device=...)
     memory = encode(model, cfg, enc_emb)              # encoder-decoder
+    loss, metrics = train_loss(model, cfg, batch)
     logits = prefill(model, cfg, tokens[, enc_emb])
     logits, caches = decode_step(model, cfg, caches, tokens, pos[, memory])
 
@@ -15,9 +16,10 @@ encoder over the stub frontend's embeddings ``enc_emb [B, S, d]`` and, in
 every decoder layer after its self-attention and MLP block, a
 cross-attention sublayer against the encoder memory; its K/V are projected
 from the memory anew in every layer of every decode step, as in the
-reference. ``train_loss`` (the training slice) waits. The MoE layers'
-load-balance losses are summed by `_apply_stack` (training reads them;
-`prefill` and `decode_step` drop them, as the reference's do). ``impl``
+reference. `train_loss` is the training forward under autograd, on the
+plain versions. The MoE layers' load-balance losses are summed by
+`_apply_stack` (training reads them; `prefill` and `decode_step` drop
+them, as the reference's do). ``impl``
 (``"auto"`` or ``"plain"``) says where attention and the SSM and mLSTM
 scans run (`models.attention`, `models.ssm`, `models.xlstm`): ``"auto"``
 runs the CUDA kernels on the card. Decode writes the caches in place and
@@ -25,18 +27,23 @@ returns them with the attention caches' lengths advanced.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Union
+import functools
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import Device, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blocks_lib
-from repro_torch.models.layers import (dtype_of, embedding_lookup,
-                                       init_embedding, init_linear,
-                                       init_rms_norm, rms_norm)
+from repro_torch.models.layers import (cross_entropy_loss, dtype_of,
+                                       embedding_lookup, init_embedding,
+                                       init_linear, init_rms_norm, rms_norm)
+
+#: ``cfg.remat`` values (`_layer_fn`).
+REMATS = ("none", "block", "dots")
 
 
 class CausalLM(nn.Module):
@@ -98,13 +105,15 @@ def _positions(cfg: ModelConfig, B: int, T: int, offset=0,
 def _apply_stack(model: CausalLM, x: torch.Tensor, cfg: ModelConfig,
                  runs, *, positions: torch.Tensor, caches=None,
                  causal: bool = True, memory: Optional[torch.Tensor] = None,
-                 impl: str = "auto"):
+                 impl: str = "auto", remat: str = "none"):
     """Apply all runs, layer by layer. ``caches``: a list aligned with
     ``runs`` (or None). ``memory`` (encoder-decoder): the encoder output
     ``[B, S, d]``; after decoder layer ``gl``'s block, ``x`` gains
     ``cross_attn[gl]`` of ``rms_norm(x, ln_cross[gl])`` against it.
-    Returns (x, new_caches, aux_total): the MoE layers' aux losses summed
-    (a float32 tensor; 0.0 without MoE)."""
+    ``remat`` (without caches): ``"block"`` or ``"dots"`` recompute each
+    layer in the backward pass (`_layer_fn`). Returns (x, new_caches,
+    aux_total): the MoE layers' aux losses summed (a float32 tensor; 0.0
+    without MoE)."""
     aux_total = 0.0
     new_caches: Optional[List] = [] if caches is not None else None
     for ri, run in enumerate(runs):
@@ -112,18 +121,21 @@ def _apply_stack(model: CausalLM, x: torch.Tensor, cfg: ModelConfig,
         attends = run.kind in blocks_lib.ATTENTION_KINDS
         lengths = []
         for li, block in enumerate(model.runs[ri]):
-            lc = blocks_lib.layer_cache(rcache, li) \
-                if rcache is not None else None
+            if rcache is None:
+                fn = _layer_fn(model, block, cfg, run, run.first_layer + li,
+                               positions=positions, causal=causal,
+                               memory=memory, impl=impl, remat=remat)
+                x, a = fn(x)
+                aux_total = aux_total + a
+                continue
+            lc = blocks_lib.layer_cache(rcache, li)
             x, nc, a = blocks_lib.apply_block(
                 block, x, cfg, run.kind, positions=positions,
                 window=run.window, cache=lc, causal=causal, impl=impl)
             if memory is not None:
-                gl = run.first_layer + li
-                h = rms_norm(x, model.ln_cross[gl], cfg.rmsnorm_eps)
-                x = x + attn_lib.cross_attention_layer(
-                    model.cross_attn[gl], h, memory, cfg, impl=impl)
+                x = _cross(model, x, memory, cfg, run.first_layer + li, impl)
             aux_total = aux_total + a
-            if nc is not None and attends:
+            if attends:
                 lengths.append(nc["attn"].length)
         if new_caches is not None:
             # The layers wrote their slices of the run's buffers in place;
@@ -134,6 +146,40 @@ def _apply_stack(model: CausalLM, x: torch.Tensor, cfg: ModelConfig,
                     c.k, c.v, torch.stack(lengths)))
             new_caches.append(rcache)
     return x, new_caches, aux_total
+
+
+def _cross(model: CausalLM, x: torch.Tensor, memory: torch.Tensor,
+           cfg: ModelConfig, gl: int, impl: str) -> torch.Tensor:
+    h = rms_norm(x, model.ln_cross[gl], cfg.rmsnorm_eps)
+    return x + attn_lib.cross_attention_layer(model.cross_attn[gl], h,
+                                              memory, cfg, impl=impl)
+
+
+def _layer_fn(model: CausalLM, block, cfg: ModelConfig, run, gl: int, *,
+              positions: torch.Tensor, causal: bool,
+              memory: Optional[torch.Tensor], impl: str, remat: str):
+    """One layer without a cache, ``x -> (x, aux)``: the block and, with
+    ``memory``, decoder layer ``gl``'s cross-attention sublayer. Under
+    ``remat`` ``"block"`` (the reference's ``jax.checkpoint`` of a scan
+    body) the layer keeps only its input for the backward pass and runs
+    again there (`torch.utils.checkpoint`, non-reentrant); ``"dots"`` (the
+    reference saves the matmul outputs) is taken as ``"block"``. Either
+    is memory only: the numbers are those of ``"none"``."""
+    if remat not in REMATS:
+        raise ValueError(f"remat {remat!r}; one of {REMATS}")
+
+    def fn(x):
+        x, _, a = blocks_lib.apply_block(
+            block, x, cfg, run.kind, positions=positions, window=run.window,
+            causal=causal, impl=impl)
+        if memory is not None:
+            x = _cross(model, x, memory, cfg, gl, impl)
+        return x, a
+
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
 
 
 def _logits(model: CausalLM, cfg: ModelConfig, x: torch.Tensor
@@ -154,20 +200,60 @@ def init_caches(cfg: ModelConfig, B: int, S: int, *,
             for run in blocks_lib.layer_schedule(cfg)]
 
 
+def _encode(model: CausalLM, cfg: ModelConfig, enc_emb: torch.Tensor, *,
+            impl: str = "auto", remat: str = "none") -> torch.Tensor:
+    B, S, _ = enc_emb.shape
+    x = enc_emb.to(dtype_of(cfg.compute_dtype))
+    positions = _positions(cfg, B, S, device=enc_emb.device)
+    run = blocks_lib.Run(kind="dense", count=cfg.encoder_layers, window=0,
+                         first_layer=0)
+    for block in model.encoder:
+        x, _ = _layer_fn(model, block, cfg, run, 0, positions=positions,
+                         causal=False, memory=None, impl=impl,
+                         remat=remat)(x)
+    return rms_norm(x, model.enc_norm, cfg.rmsnorm_eps)
+
+
 @torch.no_grad()
 def encode(model: CausalLM, cfg: ModelConfig, enc_emb: torch.Tensor, *,
            impl: str = "auto") -> torch.Tensor:
     """The encoder memory ``[B, S, d]`` (compute dtype) of the stub
     frontend's embeddings ``enc_emb [B, S, d]``: the dense encoder blocks
-    with RoPE positions and non-causal self-attention, then ``enc_norm``."""
-    B, S, _ = enc_emb.shape
-    x = enc_emb.to(dtype_of(cfg.compute_dtype))
-    positions = _positions(cfg, B, S, device=enc_emb.device)
-    for block in model.encoder:
-        x, _, _ = blocks_lib.apply_block(block, x, cfg, "dense",
-                                         positions=positions, window=0,
-                                         causal=False, impl=impl)
-    return rms_norm(x, model.enc_norm, cfg.rmsnorm_eps)
+    with RoPE positions and non-causal self-attention, then ``enc_norm``.
+    Builds no graph (`train_loss` runs the same encoder with one)."""
+    return _encode(model, cfg, enc_emb, impl=impl)
+
+
+def train_loss(model: CausalLM, cfg: ModelConfig,
+               batch: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss of ``batch`` (``tokens``, ``labels [B, T]`` and,
+    for an encoder-decoder, ``enc_emb [B, S, d]``) under autograd: the
+    forward over the whole sequence, causal, then `cross_entropy_loss`
+    over the padded vocabulary with ``cfg.z_loss``. Returns (loss, ``{"ce",
+    "aux"}``), ``loss = ce + router_aux_coef * aux`` with ``aux`` the MoE
+    layers' load-balance losses summed (0 elsewhere), float32 scalars.
+
+    Everything runs the plain versions (``impl="plain"``) on the model's
+    device, as the reference's training path reaches no Pallas kernel;
+    the CUDA kernels have no backward and refuse inputs that need one.
+    ``cfg.remat`` recomputes each layer in the backward pass
+    (`_layer_fn`)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, T = tokens.shape
+    memory = None
+    if cfg.encoder_layers:
+        memory = _encode(model, cfg, batch["enc_emb"], impl="plain",
+                         remat=cfg.remat)
+    x = embedding_lookup(model.embed, tokens).to(dtype_of(cfg.compute_dtype))
+    positions = _positions(cfg, B, T, device=tokens.device)
+    x, _, aux = _apply_stack(model, x, cfg, blocks_lib.layer_schedule(cfg),
+                             positions=positions, memory=memory,
+                             impl="plain", remat=cfg.remat)
+    ce = cross_entropy_loss(_logits(model, cfg, x), labels, cfg.vocab_size,
+                            z_loss=cfg.z_loss)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
 
 @torch.no_grad()

@@ -1,6 +1,9 @@
-"""Fault-tolerance runtime of the port: the names the serving stack uses
-(`launch/autobatch.py`, `launch/serve.py`) — the straggler watchdog and
-the bounded-retry wrapper."""
-from .fault import StepWatchdog, StragglerReport, with_retries
+"""Fault-tolerance runtime of the port: the straggler watchdog and the
+bounded-retry wrapper (the serving stack, `launch/autobatch.py` and
+`launch/serve.py`, and the trainer) and the trainer's preemption
+handler."""
+from .fault import (PreemptionHandler, StepWatchdog, StragglerReport,
+                    with_retries)
 
-__all__ = ["StepWatchdog", "StragglerReport", "with_retries"]
+__all__ = ["PreemptionHandler", "StepWatchdog", "StragglerReport",
+           "with_retries"]

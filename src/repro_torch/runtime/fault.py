@@ -1,14 +1,17 @@
-"""Step watchdog (straggler detection) and a bounded-retry wrapper for
-transient step failures — the JAX package's ``runtime/fault.py``, value
-for value, without its training-only preemption handler.
+"""Step watchdog (straggler detection), preemption handling (SIGTERM ->
+checkpoint) and a bounded-retry wrapper for transient step failures —
+the JAX package's ``runtime/fault.py``, value for value.
 
-The service feeds the watchdog each flush's measured compute seconds: an
-EMA-based detector flags launches far above the running mean, so one
-outlier is reported and kept out of the baseline.
+The service feeds the watchdog each flush's measured compute seconds, the
+trainer each step's: an EMA-based detector flags launches far above the
+running mean, so one outlier is reported and kept out of the baseline.
+A preemption (maintenance events send SIGTERM) sets a flag; the training
+loop checkpoints and stops at the next step boundary.
 """
 from __future__ import annotations
 
 import dataclasses
+import signal
 from typing import Callable, List, Optional
 
 
@@ -47,6 +50,35 @@ class StepWatchdog:
         self._ema = self.ema_decay * self._ema + (1 - self.ema_decay) \
             * duration
         return None
+
+
+class PreemptionHandler:
+    """SIGTERM/SIGINT -> set flag; the training loop checkpoints and exits
+    cleanly at the next step boundary."""
+
+    def __init__(self, signals=(signal.SIGTERM,)):
+        self._requested = False
+        self._signals = signals
+        self._installed = False
+        self._prev = {}
+
+    def install(self):
+        for s in self._signals:
+            self._prev[s] = signal.signal(s, self._on_signal)
+        self._installed = True
+        return self
+
+    def uninstall(self):
+        for s, prev in self._prev.items():
+            signal.signal(s, prev)
+        self._installed = False
+
+    def _on_signal(self, signum, frame):
+        self._requested = True
+
+    @property
+    def preemption_requested(self) -> bool:
+        return self._requested
 
 
 def with_retries(fn: Callable, *, max_retries: int = 2,
