@@ -280,15 +280,51 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      run within 1e-6; a bf16 train state round-trips bit for bit; the
      card's checkpoint restores onto the CPU. No training path launches
      a kernel;
-  23. the ``kernels`` JSON line (each combine kernel's launches per path,
-     ``surface`` and ``train`` among them, and its B = 1 top-level time;
-     ``ssm_scan``'s: ``ssm_scan``, ``lm_hybrid_prefill``,
-     ``lm_xlstm_prefill``, ``train``; the flash
+  23. ``[mesh]``: the cross-device paths as four ranks sharing the card,
+     a 1 x 4 ("data", "model") mesh over gloo (`repro_torch.launch.mesh`;
+     the parent has built the kernels, the ranks load them), each rank's
+     counters zeroed just before each sharded call and read just after.
+     coordinated_turn in f64, one trajectory at n = 16,384 and 64 lanes
+     at n = 2,048: the filtering and smoothing
+     ``sharded_associative_scan`` of each rank's time shard through the
+     combine kernels (``combine_impl="pallas"``) against the one-rank
+     kernel scan at rtol 1e-8, atol 1e-9, with two planted faults (the
+     exchange replaced by the identity, the fix-up skipped) caught on
+     every rank they reach, and exactly the local scan's launches plus
+     one fix-up launch per rank; ``parallel_filter_smoother`` (and the
+     batched filter and smoother) with ``axis_name`` against the one-rank
+     drivers at PATH_TOL; ``linear_recurrence_scan(axis_name=)`` at
+     Hymba-1.5B's SSM width ([4 x 1,024, 51,200] f32; two ``ssm_scan``
+     launches per rank) against the one-rank scan, the exchange-free fault
+     caught. xlstm-350m at full width and depth, ``prefill`` at B = 8, T =
+     1,024 under the mesh (every mLSTM layer sequence-parallel, one
+     ``ssm_scan`` launch per layer per rank) against the one-rank float32
+     prefill by the bf16 noise (the one-rank bf16 prefill's distance to
+     it, `LM_NOISE_FACTOR`), the same in float32 against the one-rank
+     float32 prefill at 2e-4 of the largest logit, and in it each layer's
+     real q, k, v on the synthetic gates ``log_sigmoid(6 + z)`` sequence-parallel against the
+     one-rank chunked form in float32 (2e-4), which the first layer with
+     the state exchange planted away misses. deepseek-moe-16b at full width and depth 2 of
+     28, each rank holding 16 of the 64 experts (`moe.shard_model`),
+     ``prefill`` at B = 8, T = 256 (one ``wgmma`` launch per layer per
+     rank): at a drop-free capacity factor (E/k) the logits and each
+     layer's expert-parallel output against the one-rank global dispatch
+     by the bf16 noise (float32 on the same routing, `LM_NOISE_FACTOR`);
+     at the config's capacity each layer's output by the same rule and
+     each rank's drops equal to the same per-slice routing run on one
+     rank with all 64 experts. Prints the backend, each rank's device,
+     the bytes staged through the host, and each sharded call's wall
+     beside the one-rank call's (four ranks share one card: data only);
+  24. the ``kernels`` JSON line (each combine kernel's launches per path,
+     ``surface``, ``train`` and ``mesh`` among them, and its B = 1
+     top-level time; ``ssm_scan``'s: ``ssm_scan``, ``lm_hybrid_prefill``,
+     ``lm_xlstm_prefill``, ``train``, ``mesh``; the flash
      kernels': ``flash``, ``lm_decode``, ``lm_prefill``, ``lm_hybrid``,
      ``lm_hybrid_prefill``, ``lm_moe``, ``lm_moe_prefill``, ``lm_grok``,
      ``lm_grok_prefill``, ``lm_encdec``, ``lm_encdec_prefill``,
-     ``lm_mrope``, ``lm_mrope_prefill``, ``train``), then the device JSON
-     line, last.
+     ``lm_mrope``, ``lm_mrope_prefill``, ``train``, ``mesh``; the
+     ``mesh`` counts summed over the ranks), then the device JSON line,
+     last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
 """
@@ -5212,6 +5248,637 @@ def phase_train(torch) -> dict:
             "resume": resume, "launches": counts, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Across a mesh: four ranks on the card
+# ---------------------------------------------------------------------------
+
+#: Four ranks on one card as a 1 x 4 ("data", "model") mesh, over gloo (two
+#: ranks on one card are refused by NCCL).
+MESH_SHAPE = (1, 4)
+MESH_RANKS = MESH_SHAPE[0] * MESH_SHAPE[1]
+#: The sharded scans: coordinated_turn, f64, one trajectory at 4 x the
+#: [surface] cell's n and 64 lanes at 4 x the service bucket's; the linear
+#: recurrence at Hymba-1.5B's SSM width, 1,024 steps per rank.
+MESH_N1, MESH_B, MESH_NB = 4 * SURFACE_N, 64, 4 * 512
+MESH_LRS_T, MESH_LRS_D = MESH_RANKS * 1024, 51200
+#: The JAX suite's sharded-scan tolerance.
+MESH_SCAN_TOL = dict(rtol=1e-8, atol=1e-9)
+#: xlstm-350m at full width and depth; deepseek-moe-16b at full width, 2 of
+#: its 28 layers (every layer is MoE).
+MESH_XL_B, MESH_XL_T = 8, 1024
+MESH_DS_DEPTH, MESH_DS_B, MESH_DS_T = 2, 8, 256
+
+
+def _mesh_scans(torch, mesh, data, dev) -> dict:
+    """Rank side: the sharded filtering and smoothing scans and drivers on
+    this rank's time shard, through the combine kernels, each beside the
+    one-rank call on the whole input (after the counters are read)."""
+    import repro_torch.core as C
+    from repro_torch.core import scan as scan_lib
+    from repro_torch.kernels.kalman_combine import kalman_combine as kc
+
+    r, D = mesh.coords["model"], mesh.shape["model"]
+    m0, P0 = (data[k].to(dev) for k in ("m0", "P0"))
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, read_counts(), \
+            dict(kc.PLAIN_CALLS)
+
+    for tag, bd in (("single", 0), ("batched", 1)):
+        lin, ys, fe, se = (type(x)(*(t.to(dev) for t in x))
+                           if isinstance(x, tuple) else x.to(dev)
+                           for x in data[tag])
+        nl = ys.shape[bd] // D
+
+        def shard(x, extra=0):
+            return x.narrow(bd, r * nl, nl + extra)
+
+        for kind, elems, combine, ident, rev in (
+                ("filtering_combine", fe, C.filtering_combine,
+                 C.filtering_identity, False),
+                ("smoothing_combine", se, C.smoothing_combine,
+                 C.smoothing_identity, True)):
+            loc = type(elems)(*(shard(x) for x in elems))
+            e = ident(elems[1].shape[-1], torch.float64, dev)
+
+            def run():
+                return C.sharded_associative_scan(
+                    combine, loc, axis_name="model", identity=e,
+                    reverse=rev, combine_impl="pallas", batch_dims=bd)
+
+            with mesh:
+                got, wall, counts, plain = timed(run)
+                real = scan_lib.device_exclusive_scan
+                scan_lib.device_exclusive_scan = \
+                    lambda *a, identity, **k: identity
+                try:
+                    no_exchange = run()
+                finally:
+                    scan_lib.device_exclusive_scan = real
+            no_fixup = C.associative_scan(combine, loc, reverse=rev,
+                                          combine_impl="pallas",
+                                          batch_dims=bd)
+            want, one_wall, _, _ = timed(lambda: C.associative_scan(
+                combine, elems, reverse=rev, combine_impl="pallas",
+                batch_dims=bd))
+            want = type(want)(*(shard(x) for x in want))
+            out[(tag, kind)] = {
+                "wall_s": wall, "one_rank_wall_s": one_wall,
+                "launches": counts, "plain": plain,
+                "cuda": all(x.is_cuda for x in got),
+                "err_over_tol": _err_over_tol(got, want, MESH_SCAN_TOL),
+                "no_exchange": _err_over_tol(no_exchange, want,
+                                             MESH_SCAN_TOL),
+                "no_fixup": _err_over_tol(no_fixup, want, MESH_SCAN_TOL)}
+
+        llin, lys = type(lin)(*(shard(x) for x in lin)), shard(ys)
+        if bd == 0:
+            def drivers(lin_, ys_, **kw):
+                return C.parallel_filter_smoother(
+                    lin_, ys_, m0, P0, combine_impl="pallas", **kw)
+        else:
+            def drivers(lin_, ys_, **kw):
+                f = C.parallel_filter_batched(lin_, ys_, m0, P0,
+                                              combine_impl="pallas", **kw)
+                return f, C.parallel_smoother_batched(
+                    lin_, f, m0, P0, combine_impl="pallas", **kw)
+        with mesh:
+            (f, s), wall, counts, plain = timed(
+                lambda: drivers(llin, lys, axis_name="model"))
+        (f1, s1), one_wall, _, _ = timed(lambda: drivers(lin, ys))
+        out[(tag, "drivers")] = {
+            "wall_s": wall, "one_rank_wall_s": one_wall, "launches": counts,
+            "plain": plain, "cuda": f.mean.is_cuda and s.mean.is_cuda,
+            "err_over_tol": max(
+                _err_over_tol(f, type(f1)(*(shard(x) for x in f1)),
+                              PATH_TOL),
+                _err_over_tol(s, type(s1)(*(shard(x, 1) for x in s1)),
+                              PATH_TOL))}
+    return out
+
+
+def _mesh_lrs_slice(torch, j, dev):
+    """Rank ``j``'s slice of the linear recurrence's inputs, from its own
+    seed, so that any process makes the same numbers on the card."""
+    gen = torch.Generator(device=dev).manual_seed(1000 + j)
+    shape = (MESH_LRS_T // MESH_RANKS, MESH_LRS_D)
+    a = torch.rand(shape, generator=gen, device=dev) * 0.8 + 0.2
+    return a, torch.randn(shape, generator=gen, device=dev)
+
+
+def _mesh_lrs(torch, mesh, dev) -> dict:
+    """Rank side: ``linear_recurrence_scan(axis_name=)`` at Hymba-1.5B's
+    SSM width on ``ssm_scan``, against the one-rank kernel scan."""
+    import repro_torch.core as C
+    from repro_torch.core import scan as scan_lib
+
+    r = mesh.coords["model"]
+    a, b = _mesh_lrs_slice(torch, r, dev)
+    with mesh:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        h = C.linear_recurrence_scan(a, b, axis_name="model",
+                                     combine_impl="pallas")
+        torch.cuda.synchronize()
+        wall, counts = time.perf_counter() - t0, read_counts()
+        real = scan_lib.device_exclusive_scan
+        scan_lib.device_exclusive_scan = lambda *a_, identity, **k: identity
+        try:
+            bad = C.linear_recurrence_scan(a, b, axis_name="model",
+                                           combine_impl="pallas")
+        finally:
+            scan_lib.device_exclusive_scan = real
+    parts = [_mesh_lrs_slice(torch, j, dev) for j in range(MESH_RANKS)]
+    A, B_ = (torch.cat(x) for x in zip(*parts))
+    del parts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = C.linear_recurrence_scan(A, B_, combine_impl="pallas")
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    want = want[r * a.shape[0]:(r + 1) * a.shape[0]]
+    tol = SSM_TOL["float32"]
+    return {"wall_s": wall, "one_rank_wall_s": one_wall, "launches": counts,
+            "cuda": h.is_cuda, "err_over_tol": _err_over_tol((h,), (want,),
+                                                             tol),
+            "no_exchange": _err_over_tol((bad,), (want,), tol)}
+
+
+class _SPTap:
+    """Stands in for `xlstm._mlstm_sp` during a prefill: passes each
+    layer's call through, and holds the layer's real q, k, v (in float32)
+    on the synthetic gates ``lf = log_sigmoid(6 + z)``, ``li =
+    log_sigmoid(z')`` (the same on every rank: seeded per layer)
+    sequence-parallel against the one-rank chunked form; in the first
+    layer also with the state exchange planted away (``C_in = 0``)."""
+
+    def __init__(self, torch, xl):
+        self.torch, self.xl, self.sp = torch, xl, xl._mlstm_sp
+        self.rel, self.rel_fault = [], []
+
+    def __enter__(self):
+        self.xl._mlstm_sp = self
+        return self
+
+    def __exit__(self, *exc):
+        self.xl._mlstm_sp = self.sp
+
+    def __call__(self, q, k, v, lf, li, CT, mesh, *, impl="auto"):
+        torch, xl = self.torch, self.xl
+        h = self.sp(q, k, v, lf, li, CT, mesh, impl=impl)
+        gen = torch.Generator(device=q.device).manual_seed(len(self.rel))
+        z = torch.randn((2,) + tuple(lf.shape), generator=gen,
+                        device=q.device)
+        lf_s = torch.nn.functional.logsigmoid(XL_LONG_FORGET + z[0])
+        li_s = torch.nn.functional.logsigmoid(z[1])
+        q, k, v = q.float(), k.float(), v.float()
+        one, _ = xl._mlstm_chunked(q, k, v, lf_s, li_s, CT, impl=impl)
+        self.rel.append(_rel(self.sp(q, k, v, lf_s, li_s, CT, mesh,
+                                     impl=impl), one))
+        if not self.rel_fault:
+            real = xl.device_exclusive_scan
+            xl.device_exclusive_scan = lambda *a, identity, **kw: identity
+            try:
+                bad = self.sp(q, k, v, lf_s, li_s, CT, mesh, impl=impl)
+            finally:
+                xl.device_exclusive_scan = real
+            self.rel_fault.append(_rel(bad, one))
+        return h
+
+
+def _mesh_xlstm(torch, mesh, dev) -> dict:
+    """Rank side: xlstm-350m's prefill at full width and depth, every
+    mLSTM layer sequence-parallel over the ranks (counted and timed), in
+    bf16 and, with each layer also held on the synthetic gates
+    (`_SPTap`), in float32; each beside the one-rank prefill of its
+    type."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, prefill
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import xlstm as xl
+
+    cfg = get_config(XL_ARCH)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model = init_model(cfg, XL_SEED, device=dev)
+    model32 = copy.deepcopy(model).float()
+    gen = torch.Generator(device=dev).manual_seed(XL_SEED + 11)
+    toks = torch.randint(0, cfg.vocab_size, (MESH_XL_B, MESH_XL_T),
+                         generator=gen, device=dev)
+    V = slice(0, cfg.vocab_size)
+    with mesh:
+        torch.cuda.synchronize()
+        reset_counts()
+        _reset_plain_attention_calls()
+        ssm_lib.reset_plain_calls()
+        t0 = time.perf_counter()
+        logits = prefill(model, cfg, toks)
+        torch.cuda.synchronize()
+        wall, counts = time.perf_counter() - t0, read_counts()
+        plain = {**_plain_attention_calls(), **ssm_lib.PLAIN_CALLS}
+        with _SPTap(torch, xl) as tap:
+            logits32 = prefill(model32, cfg32, toks)
+    t0 = time.perf_counter()
+    ref = prefill(model, cfg, toks)
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    ref32 = prefill(model32, cfg32, toks)
+    return {"wall_s": wall, "one_rank_wall_s": one_wall, "launches": counts,
+            "plain": plain, "cuda": logits.is_cuda,
+            "bf16_vs_one_rank": _rel(logits[..., V], ref[..., V]),
+            "bf16_vs_f32": _rel(logits[..., V], ref32[..., V]),
+            "noise": _rel(ref[..., V], ref32[..., V]),
+            "f32_vs_one_rank": _rel(logits32[..., V], ref32[..., V]),
+            "layer_rel": tap.rel, "layer_rel_fault": tap.rel_fault}
+
+
+class _EPTap:
+    """Stands in for `moe._moe_layer_ep` and `moe._route_local` during a
+    prefill: records each layer's input and output (on the host) and the
+    rank's dropped assignments."""
+
+    def __init__(self, moe_lib, keep_inputs):
+        self.moe, self.ep, self.route = (moe_lib, moe_lib._moe_layer_ep,
+                                         moe_lib._route_local)
+        self.keep, self.x, self.y, self.drops = keep_inputs, [], [], []
+
+    def __enter__(self):
+        self.moe._moe_layer_ep, self.moe._route_local = self.layer, \
+            self.local
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._moe_layer_ep, self.moe._route_local = self.ep, self.route
+
+    def local(self, xt, router, cfg):
+        buf, r, parts = self.route(xt, router, cfg)
+        self.drops.append(int(self.moe.dropped(r)))
+        return buf, r, parts
+
+    def layer(self, params, x, cfg, mesh):
+        y, aux = self.ep(params, x, cfg, mesh)
+        if self.keep:
+            self.x.append(x.cpu())
+            self.y.append(y.cpu())
+        return y, aux
+
+
+def _mesh_cfg_ds(torch):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MOE_ARCH), num_layers=MESH_DS_DEPTH)
+
+
+def _mesh_deepseek(torch, mesh, dev) -> dict:
+    """Rank side: deepseek-moe-16b at full width, depth 2, the rank holding
+    16 of the 64 experts: ``prefill`` under the mesh at a drop-free
+    capacity factor (E/k) and at the config's, each layer's MoE input,
+    output and drops recorded (`_EPTap`; inputs and outputs from rank 0)."""
+    from repro_torch.models import init_model, prefill
+    from repro_torch.models import moe as moe_lib
+
+    cfg = _mesh_cfg_ds(torch)
+    model = init_model(cfg, MOE_SEED, device=dev)
+    moe_lib.shard_model(model, cfg, mesh)
+    torch.cuda.empty_cache()
+    experts = model.runs[0][0].moe.w_gate.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED + 11)
+    toks = torch.randint(0, cfg.vocab_size, (MESH_DS_B, MESH_DS_T),
+                         generator=gen, device=dev)
+    out = {"experts_held": experts}
+    free = dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    for label, c in (("drop_free", free), ("config", cfg)):
+        with mesh, _EPTap(moe_lib, mesh.rank == 0) as tap:
+            torch.cuda.synchronize()
+            reset_counts()
+            _reset_plain_attention_calls()
+            t0 = time.perf_counter()
+            logits = prefill(model, c, toks)
+            torch.cuda.synchronize()
+            wall, counts = time.perf_counter() - t0, read_counts()
+        out[label] = {"wall_s": wall, "launches": counts,
+                      "plain": _plain_attention_calls(),
+                      "cuda": logits.is_cuda, "logits": logits.cpu(),
+                      "x": tap.x, "y": tap.y, "drops": tap.drops}
+    return out
+
+
+def _mesh_rank(ctx, path) -> dict:
+    """What each rank of the ``[mesh]`` phase runs (`run_ranks`)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    if ctx.device.type != "cuda":
+        raise RuntimeError(f"rank {ctx.rank} has no card ({ctx.device})")
+    mesh = make_debug_mesh(*MESH_SHAPE)
+    data = torch.load(path, weights_only=False)
+    res = {"device": str(ctx.device), "backend": ctx.backend,
+           "card": torch.cuda.get_device_name(ctx.device)}
+    with torch.no_grad():
+        res["scans"] = _mesh_scans(torch, mesh, data, ctx.device)
+        del data
+        res["lrs"] = _mesh_lrs(torch, mesh, ctx.device)
+        torch.cuda.empty_cache()
+        res["xlstm"] = _mesh_xlstm(torch, mesh, ctx.device)
+        torch.cuda.empty_cache()
+        res["deepseek"] = _mesh_deepseek(torch, mesh, ctx.device)
+    res["staged_bytes"] = mesh.staged_bytes
+    return res
+
+
+def _mesh_inputs(torch, path, dev="cuda") -> dict:
+    """Parent side: the scans' inputs (coordinated_turn, f64, on the card)
+    written to ``path`` for the ranks; the one-rank filter gives the
+    smoothing elements."""
+    import repro_torch.core as C
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.scenarios.base import simulate_trajectory
+
+    sc = get_scenario("coordinated_turn")
+    model = sc.make_model(torch.float64, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xs, ys = sc.simulate(model, MESH_N1, gen)
+    lin = C.linearize_model_taylor(model, xs)
+    f = C.parallel_filter(lin, ys, model.m0, model.P0, combine_impl="pallas")
+    single = (lin, ys, C.filtering_elements(lin, ys, model.m0, model.P0),
+              C.smoothing_elements(lin, f))
+    xb, yb = simulate_trajectory(model, MESH_NB, gen, batch=(MESH_B,))
+    linb = C.linearize_model_taylor_batched(model, xb)
+    fb = C.parallel_filter_batched(linb, yb, model.m0, model.P0,
+                                   combine_impl="pallas")
+    batched = (linb, yb, C.filtering_elements_batched(linb, yb, model.m0,
+                                                      model.P0),
+               C.smoothing_elements_batched(linb, fb))
+    cpu = lambda x: (type(x)(*(t.cpu() for t in x))  # noqa: E731
+                     if isinstance(x, tuple) else x.cpu())
+    torch.save({"single": tuple(cpu(x) for x in single),
+                "batched": tuple(cpu(x) for x in batched),
+                "m0": model.m0.cpu(), "P0": model.P0.cpu()}, path)
+    return {"n_single": MESH_N1, "lanes": MESH_B, "n_batched": MESH_NB}
+
+
+def _moe_reference(torch, moe_lib, layer, layer32, x, cfg, slices):
+    """One rank's view of the MoE layer on ``x [B, T, d]`` with every
+    expert: each of ``slices`` T-slices routed on its own (the
+    expert-parallel routing; one slice is the global dispatch), its
+    experts and shared experts applied in bf16 and, on the same routing,
+    in float32. Returns (bf16 output, float32 output, drops per slice)."""
+    from repro_torch.models import mlp as mlp_lib
+
+    B, T, d = x.shape
+    Tl = T // slices
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    o16, o32, drops = [], [], []
+    for s in range(slices):
+        xt = x[:, s * Tl:(s + 1) * Tl].reshape(-1, d)
+        _, r, _ = moe_lib._route_local(xt, layer.router, cfg)
+        drops.append(int(moe_lib.dropped(r)))
+        for lay, xx, acc in ((layer, xt, o16), (layer32, xt.float(), o32)):
+            y = moe_lib._experts(moe_lib._dispatch(xx, r, E), lay.w_gate,
+                                 lay.w_up, lay.w_down)
+            o = moe_lib._combine_gather(y, r, xt.shape[0], k, xx.dtype) \
+                + mlp_lib.mlp(lay.shared, xx)
+            acc.append(o.reshape(B, Tl, d))
+    return torch.cat(o16, 1), torch.cat(o32, 1), drops
+
+
+def _mesh_check_deepseek(torch, ranks, tag, dev="cuda") -> dict:
+    """Parent side: the ranks' deepseek prefills against one rank with all
+    64 experts, by the bf16 noise (float32 on the same routing)."""
+    from repro_torch.models import init_model, prefill
+    from repro_torch.models import moe as moe_lib
+
+    cfg = _mesh_cfg_ds(torch)
+    model = init_model(cfg, MOE_SEED, device=dev)
+    model32 = copy.deepcopy(model).float()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    free = dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED + 11)
+    toks = torch.randint(0, cfg.vocab_size, (MESH_DS_B, MESH_DS_T),
+                         generator=gen, device=dev)
+    V = slice(0, cfg.vocab_size)
+    ds = [r["deepseek"] for r in ranks]
+    report = {"experts_held": [d["experts_held"] for d in ds]}
+    # Drop-free: the EP prefill against the one-rank global dispatch.
+    one = prefill(model, free, toks)
+    # float32 through the plain attention (no kernel instance serves
+    # float32 at head_dim 128).
+    one32 = prefill(model32, dataclasses.replace(
+        cfg32, capacity_factor=free.capacity_factor), toks, impl="plain")
+    noise = _rel(one[..., V], one32[..., V])
+    got = [d["drop_free"]["logits"].to(dev) for d in ds]
+    report["drop_free_logits"] = {
+        "noise": noise, "vs_f32": max(_rel(g[..., V], one32[..., V])
+                                      for g in got),
+        "vs_one_rank": max(_rel(g[..., V], one[..., V]) for g in got)}
+    layers = [blk.moe for blk in model.runs[0]]
+    layers32 = [blk.moe for blk in model32.runs[0]]
+    for label, c, slices in (("drop_free", free, 1),
+                             ("config", cfg, MESH_RANKS)):
+        per_layer = []
+        for li, (x, y) in enumerate(zip(ds[0][label]["x"],
+                                        ds[0][label]["y"])):
+            x, y = x.to(dev), y.to(dev)
+            r16, r32, drops = _moe_reference(torch, moe_lib, layers[li],
+                                             layers32[li], x, c, slices)
+            per_layer.append({
+                "noise": _rel(r16, r32), "vs_f32": _rel(y, r32),
+                "vs_ref": _rel(y, r16), "ref_drops": drops,
+                "rank_drops": [d[label]["drops"][li] for d in ds]})
+        report[label] = per_layer
+    for label in ("drop_free", "config"):
+        for li, p in enumerate(report[label]):
+            ok = p["vs_f32"] <= LM_NOISE_FACTOR * p["noise"]
+            if label == "config":
+                ok &= p["rank_drops"] == p["ref_drops"]
+            say(f"[{tag}] deepseek layer {li} {label}: EP output vs float32 "
+                f"{p['vs_f32']:.3e} (bf16 noise {p['noise']:.3e}; vs the "
+                f"one-rank bf16 reference {p['vs_ref']:.3e}); drops per rank "
+                f"{p['rank_drops']}, one rank per slice {p['ref_drops']}")
+            if not ok:
+                fail(f"{tag} deepseek layer {li} at {label} capacity: EP "
+                     "output or drops differ from one rank with every "
+                     "expert")
+    lg = report["drop_free_logits"]
+    say(f"[{tag}] deepseek prefill (depth {MESH_DS_DEPTH}, B={MESH_DS_B}, "
+        f"T={MESH_DS_T}), drop-free: EP logits vs float32 {lg['vs_f32']:.3e}"
+        f" of the largest (bf16 noise of the one-rank global dispatch "
+        f"{lg['noise']:.3e}), vs the one-rank bf16 prefill "
+        f"{lg['vs_one_rank']:.3e}")
+    if not lg["vs_f32"] <= LM_NOISE_FACTOR * lg["noise"]:
+        fail(f"{tag}: deepseek EP prefill logits outside the bf16 noise")
+    del model, model32
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_mesh(torch) -> dict:
+    """``[mesh]``: the cross-device paths as four ranks on the card (see
+    the module docstring)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+
+    tag = "mesh"
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "scan_inputs.pt")
+        inputs = _mesh_inputs(torch, path)
+        torch.cuda.empty_cache()
+        t_ranks = time.perf_counter()
+        ranks = run_ranks(_mesh_rank, MESH_RANKS, path, emit=say)
+        t_ranks = time.perf_counter() - t_ranks
+    say(f"[{tag}] {MESH_RANKS} ranks as a {'x'.join(map(str, MESH_SHAPE))} "
+        f"('data', 'model') mesh in {t_ranks:.1f}s: devices "
+        f"{[r['device'] for r in ranks]} ({ranks[0]['card']}), backend "
+        f"{ranks[0]['backend']}, staged through the host "
+        f"{[round(r['staged_bytes'] / 1e9, 3) for r in ranks]} GB per rank")
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # The sharded scans and drivers.
+    calls = {"single": len([P for P in scan_level_pairs(
+        MESH_N1 // MESH_RANKS) if P]), "batched": len([P for P in
+                                                        scan_level_pairs(
+        MESH_NB // MESH_RANKS) if P])}
+    for (what, kind), _ in sorted(ranks[0]["scans"].items()):
+        res = [r["scans"][(what, kind)] for r in ranks]
+        want = calls[what] + 1
+        if kind == "drivers":
+            expect = {"filtering_combine": want, "smoothing_combine": want}
+        else:
+            expect = {kind: want}
+        for i, x in enumerate(res):
+            got = {k: v for k, v in x["launches"].items() if v}
+            if got != expect or any(x["plain"].values()) or not x["cuda"]:
+                fail(f"{tag} {what} {kind} rank {i}: launches {got} (expected"
+                     f" {expect}), plain calls {x['plain']}, CUDA outputs "
+                     f"{x['cuda']}")
+            if not x["err_over_tol"] < 1.0:
+                fail(f"{tag} {what} {kind} rank {i}: err/tol "
+                     f"{x['err_over_tol']:.3f} against one rank")
+            add(x["launches"])
+        size = (f"n = {MESH_N1}" if what == "single"
+                else f"B x n = {MESH_B} x {MESH_NB}")
+        line = (f"[{tag}] {what} {kind} ({size}, f64): launches per rank "
+                f"{expect}, err/tol "
+                f"{max(x['err_over_tol'] for x in res):.3e}; wall per rank "
+                f"{[round(x['wall_s'] * 1e3, 2) for x in res]} ms, one rank "
+                f"{[round(x['one_rank_wall_s'] * 1e3, 2) for x in res]} ms")
+        if kind != "drivers":
+            # The rank the fault cannot reach: the first (prefix scan) or
+            # the last (suffix scan) holds what it would hold alone.
+            spared = MESH_RANKS - 1 if kind == "smoothing_combine" else 0
+            for fault in ("no_exchange", "no_fixup"):
+                reached = [x[fault] for i, x in enumerate(res)
+                           if i != spared]
+                caught = [e > 1.0 for e in reached]
+                line += (f"; {fault} err/tol {min(reached):.3e} (caught "
+                         f"{sum(caught)} of {len(caught)})")
+                if not all(caught):
+                    fail(f"{tag} {what} {kind}: the planted fault {fault} "
+                         "passes the gate")
+        say(line)
+
+    lrs = [r["lrs"] for r in ranks]
+    for i, x in enumerate(lrs):
+        got = {k: v for k, v in x["launches"].items() if v}
+        if got != {"ssm_scan": 2} or not x["cuda"] or \
+                not x["err_over_tol"] < 1.0:
+            fail(f"{tag} linear_recurrence_scan rank {i}: launches {got} "
+                 f"(expected {{'ssm_scan': 2}}), err/tol "
+                 f"{x['err_over_tol']:.3f}")
+        add(x["launches"])
+    caught = [x["no_exchange"] > 1.0 for x in lrs[1:]]
+    say(f"[{tag}] linear_recurrence_scan(axis_name='model') [{MESH_LRS_T}, "
+        f"{MESH_LRS_D}] f32: ssm_scan launches 2 per rank, err/tol "
+        f"{max(x['err_over_tol'] for x in lrs):.3e} (SSM_TOL); no exchange "
+        f"caught {sum(caught)} of {len(caught)}; wall per rank "
+        f"{[round(x['wall_s'] * 1e3, 2) for x in lrs]} ms, one rank "
+        f"{[round(x['one_rank_wall_s'] * 1e3, 2) for x in lrs]} ms")
+    if not all(caught):
+        fail(f"{tag}: linear_recurrence_scan without the exchange passes")
+
+    # xlstm-350m, every mLSTM layer sequence-parallel.
+    from repro_torch.configs import get_config
+
+    xs = [r["xlstm"] for r in ranks]
+    xl_cfg = get_config(XL_ARCH)
+    n_mlstm = xl_cfg.num_layers - len(xl_cfg.slstm_layers)
+    for i, x in enumerate(xs):
+        got = {k: v for k, v in x["launches"].items() if v}
+        if got != {"ssm_scan": n_mlstm} or any(x["plain"].values()) or \
+                not x["cuda"]:
+            fail(f"{tag} xlstm rank {i}: launches {got} (expected "
+                 f"{{'ssm_scan': {n_mlstm}}}), plain {x['plain']}")
+        add(x["launches"])
+    worst = {k: max(x[k] for x in xs) for k in (
+        "bf16_vs_one_rank", "bf16_vs_f32", "noise", "f32_vs_one_rank")}
+    layer_rel = max(max(x["layer_rel"]) for x in xs)
+    fault_rel = min(min(x["layer_rel_fault"]) for x in xs)
+    say(f"[{tag}] xlstm-350m prefill B={MESH_XL_B} T={MESH_XL_T}, {n_mlstm} "
+        f"mLSTM layers sequence-parallel, relative to the largest logit: "
+        f"float32 vs the one-rank float32 prefill "
+        f"{worst['f32_vs_one_rank']:.3e} (bound {XL_F32_REL:g}); bf16 vs "
+        f"the one-rank float32 {worst['bf16_vs_f32']:.3e} against the bf16 "
+        f"noise {worst['noise']:.3e} (one rank bf16 vs float32; bound "
+        f"{LM_NOISE_FACTOR:g} x), vs the one-rank bf16 "
+        f"{worst['bf16_vs_one_rank']:.3e}; each layer's real q, k, v on the "
+        f"gates log_sigmoid({XL_LONG_FORGET:g} + z) vs the one-rank chunked "
+        f"form, float32: max {layer_rel:.3e} (bound {XL_F32_REL:g}) over "
+        f"{len(xs[0]['layer_rel'])} layers x {MESH_RANKS} ranks; layer 0 "
+        f"with C_in planted to 0: min {fault_rel:.3e}; wall per rank "
+        f"{[round(x['wall_s'], 3) for x in xs]} s, one rank "
+        f"{[round(x['one_rank_wall_s'], 3) for x in xs]} s")
+    if not (worst["f32_vs_one_rank"] <= XL_F32_REL
+            and all(x["bf16_vs_f32"] <= LM_NOISE_FACTOR * x["noise"]
+                    for x in xs)
+            and layer_rel <= XL_F32_REL and fault_rel > XL_F32_REL
+            and all(len(x["layer_rel"]) == n_mlstm for x in xs)):
+        fail(f"{tag}: the sequence-parallel xlstm prefill misses its gates")
+
+    # deepseek-moe-16b, expert-parallel.
+    for i, r in enumerate(ranks):
+        for label in ("drop_free", "config"):
+            x = r["deepseek"][label]
+            got = {k: v for k, v in x["launches"].items() if v}
+            if got != {"flash_attention_wgmma": MESH_DS_DEPTH} or \
+                    any(x["plain"].values()) or not x["cuda"]:
+                fail(f"{tag} deepseek {label} rank {i}: launches {got}, "
+                     f"plain {x['plain']}")
+            add(x["launches"])
+    ds = _mesh_check_deepseek(torch, ranks, tag)
+    walls = {label: [round(r["deepseek"][label]["wall_s"], 3) for r in ranks]
+             for label in ("drop_free", "config")}
+    say(f"[{tag}] deepseek ranks hold {ds['experts_held']} experts; wall per"
+        f" rank drop-free {walls['drop_free']} s, config {walls['config']} s")
+    for r in ranks:
+        r["scans"] = {" ".join(k): v for k, v in r["scans"].items()}
+        for label in ("drop_free", "config"):
+            for k in ("logits", "x", "y"):
+                r["deepseek"][label].pop(k)
+    seconds = time.perf_counter() - t0
+    say(f"[{tag}] phase done in {seconds:.1f} s; kernel launches summed over"
+        f" the ranks {launches}")
+    return {"inputs": inputs, "ranks": ranks, "deepseek": ds,
+            "launches": launches, "seconds": seconds, "ranks_s": t_ranks}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -5251,6 +5918,8 @@ def main() -> int:
         encdec = phase_lm_encdec(torch)
         mrope = phase_lm_mrope(torch)
     train = phase_train(torch)
+    with torch.no_grad():
+        mesh = phase_mesh(torch)
 
     rows = []
     for kind in ("filtering_combine", "smoothing_combine"):
@@ -5266,7 +5935,8 @@ def main() -> int:
                        ("stream", stream), ("chaos", chaos),
                        ("tenants", tenants))},
                    "surface": surface["launches"][kind],
-                   "train": train["launches"][kind]}
+                   "train": train["launches"][kind],
+                   "mesh": mesh["launches"].get(kind, 0)}
         rows.append({"launches": sum(by_path.values()),
                      "launches_by_path": by_path, "max_abs_err": err,
                      "ms": t["in_place_graph_ms"],
@@ -5284,7 +5954,8 @@ def main() -> int:
     ssm_paths = {"ssm_scan": ssm["launches"],
                  "lm_hybrid_prefill": hybrid["ssm_launches"],
                  "lm_xlstm_prefill": xlstm["ssm_launches"],
-                 "train": train["launches"]["ssm_scan"]}
+                 "train": train["launches"]["ssm_scan"],
+                 "mesh": mesh["launches"].get("ssm_scan", 0)}
     rows[-2].update(launches=sum(ssm_paths.values()),
                     launches_by_path=ssm_paths,
                     **{path: {k: res["ssm_scan"][k] for k in lm_times}
@@ -5295,7 +5966,9 @@ def main() -> int:
                    **grok["launches_by_path"], **encdec["launches_by_path"],
                    **mrope["launches_by_path"],
                    "train": sum(n for k, n in train["launches"].items()
-                                if k.startswith("flash_attention"))}
+                                if k.startswith("flash_attention")),
+                   "mesh": sum(n for k, n in mesh["launches"].items()
+                               if k.startswith("flash_attention"))}
     rows[-1].update(launches=sum(flash_paths.values()),
                     launches_by_path=flash_paths,
                     launches_by_kernel=flash["launches_by_kernel"],
@@ -5330,7 +6003,8 @@ def main() -> int:
          "flash_attention": flash, "lm_decode": lm, "lm_hybrid": hybrid,
          "lm_moe": moe, "lm_grok": grok, "lm_xlstm": xlstm,
          "lm_encdec": encdec, "lm_mrope": mrope, "train": train,
-         "seconds": time.perf_counter() - t_start}, indent=1))
+         "mesh": mesh, "seconds": time.perf_counter() - t_start}, indent=1,
+        default=str))
     say(f"[chip_smoke] all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
     say(json.dumps({"kernels": rows}))

@@ -13,7 +13,7 @@ with ``"bfloat16"`` in the manifest: the round trip is bit-exact and
 needs no ``ml_dtypes``. `restore` copies into the tensors of a state like
 the saved one, in place (the reference returns new arrays), so a model's
 parameters stay the model's. Restoring onto another sharding (the
-reference's ``shardings=``) needs a mesh and waits for ROADMAP A, item 4.
+reference's ``shardings=``) needs a mesh and waits for ROADMAP A, item 4b.
 """
 from __future__ import annotations
 
@@ -131,7 +131,8 @@ class CheckpointManager:
         if shardings is not None:
             raise NotImplementedError(
                 "restore(shardings=...) reshards onto a mesh: the port runs "
-                "on one device until ROADMAP A, item 4 (cross-device)")
+                "on one device until ROADMAP A, item 4b (training across "
+                "a mesh)")
         if step is None:
             step = self.latest_step()
             if step is None:

@@ -96,7 +96,7 @@ def lm_tree(tree, names) -> Dict[str, np.ndarray]:
 
 
 def lm_params(params, cfg, *, device: Device = None,
-              dtype: Optional[torch.dtype] = None):
+              dtype: Optional[torch.dtype] = None, mesh=None):
     """The port's `CausalLM` holding the JAX ``init_model`` parameters
     ``params`` (the pytree with its leaves as numpy arrays), each leaf
     placed by `lm_tree`: the runs unstacked into blocks, ``encoder`` into
@@ -105,7 +105,14 @@ def lm_params(params, cfg, *, device: Device = None,
     MoE's router and stacked experts as they are. On ``device``
     (`resolve_device`), in ``dtype`` (default the config's parameter
     dtype). It first builds a random model of ``cfg`` (`init_model`), so
-    it is for the reduced configs only."""
+    it is for the reduced configs only.
+
+    With ``mesh`` (a `repro_torch.launch.mesh.Mesh`, on one of its
+    ranks), every MoE layer keeps only what the rank's coordinate on
+    "model" holds for the expert-parallel dispatch (`moe.shard_model`):
+    its ``E / tp`` experts and its shards of the shared experts. Every
+    other weight is whole on every rank."""
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models.layers import dtype_of
     from repro_torch.models.transformer import init_model
 
@@ -116,4 +123,6 @@ def lm_params(params, cfg, *, device: Device = None,
     model.load_state_dict({
         k: torch.tensor(np.asarray(v, np.float32), device=device).to(dtype)
         for k, v in state.items()})
+    if mesh is not None:
+        moe_lib.shard_model(model, cfg, mesh)
     return model.to(dtype)

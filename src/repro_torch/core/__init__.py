@@ -1,7 +1,5 @@
 """Core smoothing stack of the port: the JAX package's public
-`repro.core` surface, name for name, except the two scans that need a
-mesh (`sharded_associative_scan`, `device_exclusive_scan`: ROADMAP A,
-item 4), plus `resolve_device`.
+`repro.core` surface, name for name, plus `resolve_device`.
 
   * THE estimator surface: `SmootherSpec` + `build_smoother(spec,
     device=...)` -> `Smoother` with ``filter``/``smooth``/``iterate``/
@@ -18,7 +16,9 @@ item 4), plus `resolve_device`.
     batched twin on one lane.
   * scan engine: associative_scan (``batch_dims``-aware; the combine
     kernels on CUDA tensors under ``combine_impl="pallas"``),
-    linear_recurrence_scan
+    sharded_associative_scan and device_exclusive_scan (the cross-device
+    scan over the ranks of a mesh axis, `repro_torch.launch.mesh`: every
+    ``axis_name`` above), linear_recurrence_scan
   * deprecated shims (warn once, delegate to build_smoother on
     ``ys.device``): ieks, ipls, and the ``*_filter_smoother_batched`` /
     ``iterated_smoother_batched`` twins
@@ -53,7 +53,8 @@ from .iterated import (IteratedConfig, IterationInfo, LaneStatus,
                        iterated_smoother_batched, ieks, ipls,
                        initial_trajectory, initial_trajectory_batched,
                        smoothed_log_likelihood)
-from .scan import (associative_scan, linear_recurrence_scan,
+from .scan import (associative_scan, sharded_associative_scan,
+                   device_exclusive_scan, linear_recurrence_scan,
                    linear_recurrence_combine, LinearRecurrenceElement)
 from .sqrt_parallel import (SqrtFilteringElement, SqrtSmoothingElement,
                             sqrt_filtering_combine, sqrt_smoothing_combine,
@@ -88,7 +89,8 @@ __all__ = [
     "iterated_smoother_batched", "ieks", "ipls",
     "initial_trajectory", "initial_trajectory_batched",
     "smoothed_log_likelihood",
-    "associative_scan", "linear_recurrence_scan",
+    "associative_scan", "sharded_associative_scan", "device_exclusive_scan",
+    "linear_recurrence_scan",
     "linear_recurrence_combine", "LinearRecurrenceElement",
     "SqrtFilteringElement", "SqrtSmoothingElement",
     "sqrt_filtering_combine", "sqrt_smoothing_combine",

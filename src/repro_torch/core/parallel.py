@@ -16,12 +16,27 @@ on one lane: on the card each of their scan levels is a ``[1, P]`` grid
 of pairs for the kernels. The paper typos the JAX package
 corrects (Eq. 13 ``b_k`` uses ``d_k``; Eq. 14 ``eta_k`` has no extra
 ``H``) are corrected here the same way.
+
+``axis_name`` shards the time axis over that axis of the ambient mesh
+(`repro_torch.launch.mesh`): each rank passes its shard of ``lin`` and
+``ys`` and the scans run as `sharded_associative_scan`. Unlike the
+reference (ROADMAP C7), every shard's rows are the unsharded driver's:
+the first filtering element is built from the prior only at axis index
+0 and is the generic element elsewhere; a shard's last smoothing element
+uses the next shard's first transition (one `ppermute` backwards) and is
+the terminal element only on the last shard. The smoother keeps the
+reference's shape contract of ``n_local + 1`` rows per shard: row 0 is
+x_0 on the first shard and the previous shard's last smoothed state
+elsewhere (one `ppermute` forwards), so dropping row 0 of every shard
+but the first and concatenating gives the unsharded ``n + 1`` rows.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.launch.mesh import axis_index, axis_size, ppermute
 
 from . import scan as scan_lib
 from .types import (FilteringElement, Gaussian, LinearizedSSM,
@@ -135,6 +150,14 @@ def filtering_elements_batched(lin: LinearizedSSM, ys: torch.Tensor,
     one Gauss-Jordan inverse of S; the k=1 element is written in-batch
     into row 0 of every lane.
     """
+    return _filtering_elements_batched(lin, ys, m0, P0, first=True)
+
+
+def _filtering_elements_batched(lin: LinearizedSSM, ys: torch.Tensor,
+                                m0: torch.Tensor, P0: torch.Tensor, *,
+                                first: bool) -> FilteringElement:
+    """`filtering_elements_batched`; ``first=False`` (a shard that does
+    not hold k=1) keeps the generic element in row 0."""
     B = ys.shape[0]
     F, c, Qp, H, d, Rp = lin
     nx = F.shape[-1]
@@ -151,11 +174,13 @@ def filtering_elements_batched(lin: LinearizedSSM, ys: torch.Tensor,
         C=symmetrize(_mm(IKH, Qp)),
         eta=_mv(_T(HF), _mv(Sinv, innov)),
         J=symmetrize(_mm(_T(HF), _mm(Sinv, HF))))
-    first = _first_filtering_element(
+    if not first:
+        return generic
+    k1 = _first_filtering_element(
         F[:, 0], c[:, 0], Qp[:, 0], H[:, 0], d[:, 0], Rp[:, 0], ys[:, 0],
         _bcast_prior(m0, B, 1), _bcast_prior(P0, B, 2))
     return FilteringElement(*(_set_row(g, 0, f)
-                              for g, f in zip(generic, first)))
+                              for g, f in zip(generic, k1)))
 
 
 def smoothing_elements_batched(lin: LinearizedSSM, filtered: Gaussian
@@ -164,17 +189,24 @@ def smoothing_elements_batched(lin: LinearizedSSM, filtered: Gaussian
     Gauss-Jordan inverse of the PD ``P_pred``), with the k=n boundary
     element written in-batch into the last row. Element k (row k-1) uses
     the transition k -> k+1, i.e. ``F[k]``."""
+    return _smoothing_elements_batched(lin, filtered, None)
+
+
+def _smoothing_elements_batched(lin: LinearizedSSM, filtered: Gaussian,
+                                nxt: Optional[tuple]) -> SmoothingElement:
+    """`smoothing_elements_batched`; with ``nxt``, the transition ``(F, c,
+    Qp)`` ``[B, ...]`` out of the last row (a shard followed by another),
+    every row is a generic element and none the terminal one."""
+    if nxt is not None:
+        mf, Pf = filtered.mean, filtered.cov
+        F, c, Qp = (torch.cat([x[:, 1:], x_next[:, None]], dim=1)
+                    for x, x_next in zip((lin.F, lin.c, lin.Qp), nxt))
+        return _generic_smoothing_elements(mf, Pf, F, c, Qp)
     B = filtered.mean.shape[0]
     nx = filtered.mean.shape[-1]
-    mf, Pf = filtered.mean[:, :-1], filtered.cov[:, :-1]
-    F, c, Qp = lin.F[:, 1:], lin.c[:, 1:], lin.Qp[:, 1:]
-    FPf = _mm(F, Pf)
-    P_pred = symmetrize(_mm(FPf, _T(F)) + Qp)
-    E = _mm(_T(FPf), gauss_jordan_inverse(P_pred))  # P F^T P_pred^{-1}
-    body = SmoothingElement(
-        E=E,
-        g=mf - _mv(E, _mv(F, mf) + c),
-        L=symmetrize(Pf - _mm(E, FPf)))
+    body = _generic_smoothing_elements(
+        filtered.mean[:, :-1], filtered.cov[:, :-1], lin.F[:, 1:],
+        lin.c[:, 1:], lin.Qp[:, 1:])
     last = SmoothingElement(
         E=torch.zeros((B, nx, nx), dtype=filtered.mean.dtype,
                       device=filtered.mean.device),
@@ -183,21 +215,65 @@ def smoothing_elements_batched(lin: LinearizedSSM, filtered: Gaussian
                               for b, l in zip(body, last)))
 
 
+def _generic_smoothing_elements(mf, Pf, F, c, Qp) -> SmoothingElement:
+    """Eq. 17-18 on ``[B, m]`` rows: filtered ``mf, Pf`` and the
+    transition ``F, c, Qp`` out of each row."""
+    FPf = _mm(F, Pf)
+    P_pred = symmetrize(_mm(FPf, _T(F)) + Qp)
+    E = _mm(_T(FPf), gauss_jordan_inverse(P_pred))  # P F^T P_pred^{-1}
+    return SmoothingElement(
+        E=E,
+        g=mf - _mv(E, _mv(F, mf) + c),
+        L=symmetrize(Pf - _mm(E, FPf)))
+
+
 # ---------------------------------------------------------------------------
 # Batched passes: B trajectories, one combine call per Blelloch level
 # ---------------------------------------------------------------------------
+
+def _holds_first(axis_name: Optional[str]) -> bool:
+    """Whether this rank's shard holds time step 1 (always, unsharded)."""
+    return axis_name is None or axis_index(axis_name) == 0
+
+
+def _next_transition(lin: LinearizedSSM, axis_name: Optional[str]):
+    """The transition ``(F, c, Qp)`` ``[B, ...]`` out of this shard's last
+    row: the next shard's first, by one `ppermute` backwards along
+    ``axis_name``. None unsharded and on the last shard (its last row is
+    the terminal element)."""
+    if axis_name is None:
+        return None
+    D = axis_size(axis_name)
+    nxt = ppermute((lin.F[:, 0], lin.c[:, 0], lin.Qp[:, 0]), axis_name,
+                   [(i, i - 1) for i in range(1, D)])
+    return None if axis_index(axis_name) == D - 1 else nxt
+
+
+def _previous_smoothed(means: torch.Tensor, covs: torch.Tensor,
+                      axis_name: str):
+    """The previous shard's last smoothed ``(mean, cov)`` ``[B, ...]``
+    (one `ppermute` forwards along ``axis_name``); None on the first
+    shard, which computes x_0 instead."""
+    D = axis_size(axis_name)
+    prev = ppermute((means[:, -1], covs[:, -1]), axis_name,
+                    [(i, i + 1) for i in range(D - 1)])
+    return None if axis_index(axis_name) == 0 else prev
+
 
 def parallel_filter_batched(lin: LinearizedSSM, ys: torch.Tensor,
                             m0: torch.Tensor, P0: torch.Tensor, *,
                             combine_impl: str = "fused",
                             axis_name: Optional[str] = None) -> Gaussian:
     """Batched parallel Kalman filter over ``[B, n]`` trajectories: a
-    prefix scan with ``batch_dims=1``. ``axis_name`` (the cross-device
-    scan) raises: it waits for ROADMAP A, item 4."""
-    elems = filtering_elements_batched(lin, ys, m0, P0)
+    prefix scan with ``batch_dims=1``; with ``axis_name``, of this rank's
+    time shard (module docstring)."""
+    elems = _filtering_elements_batched(lin, ys, m0, P0,
+                                        first=_holds_first(axis_name))
     scanned = scan_lib.associative_scan(
         filtering_combine, elems, reverse=False, combine_impl=combine_impl,
-        axis_name=axis_name, batch_dims=1)
+        axis_name=axis_name, batch_dims=1,
+        identity=lambda: filtering_identity(lin.F.shape[-1], lin.F.dtype,
+                                            lin.F.device))
     return Gaussian(mean=scanned.b, cov=scanned.C)
 
 
@@ -208,14 +284,23 @@ def parallel_smoother_batched(lin: LinearizedSSM, filtered: Gaussian,
     """Batched parallel RTS smoother (suffix scan with ``batch_dims=1``).
 
     Returns smoothed marginals ``[B, n+1, nx]``; the x_0 row is one extra
-    backward step per lane through the first transition.
+    backward step per lane through the first transition. With
+    ``axis_name``, ``[B, n_local+1, nx]`` per shard (module docstring).
     """
     B = filtered.mean.shape[0]
-    elems = smoothing_elements_batched(lin, filtered)
+    elems = _smoothing_elements_batched(lin, filtered,
+                                        _next_transition(lin, axis_name))
     scanned = scan_lib.associative_scan(
         smoothing_combine, elems, reverse=True, combine_impl=combine_impl,
-        axis_name=axis_name, batch_dims=1)
+        axis_name=axis_name, batch_dims=1,
+        identity=lambda: smoothing_identity(lin.F.shape[-1], lin.F.dtype,
+                                            lin.F.device))
     means, covs = scanned.g, scanned.L
+    if axis_name is not None:
+        prev = _previous_smoothed(means, covs, axis_name)
+        if prev is not None:
+            return Gaussian(mean=torch.cat([prev[0][:, None], means], dim=1),
+                            cov=torch.cat([prev[1][:, None], covs], dim=1))
 
     F, c, Qp = lin.F[:, 0], lin.c[:, 0], lin.Qp[:, 0]
     m0b = _bcast_prior(m0, B, 1)
@@ -255,7 +340,7 @@ def parallel_filter_smoother_batched(lin: LinearizedSSM, ys: torch.Tensor,
         "parallel_filter_smoother_batched",
         'build_smoother(mode="parallel").smooth(lin, ys, m0, P0)')
     if axis_name is not None:
-        # Not representable on the spec axes: the scan raises (item 4).
+        # The sharded path is not representable on the spec axes.
         return _parallel_filter_smoother_batched(
             lin, ys, m0, P0, combine_impl=combine_impl,
             axis_name=axis_name)

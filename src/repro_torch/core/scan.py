@@ -25,6 +25,15 @@ over leading axes (the plain versions) get the slices as they are.
 
 `linear_recurrence_scan` is the diagonal special case used by SSM layers;
 its "pallas" path runs the ssm_scan kernel instead of the recursion.
+
+Cross-device scans (``axis_name``; `sharded_associative_scan`,
+`device_exclusive_scan`): the time axis is sharded over a mesh axis of
+ranks (`repro_torch.launch.mesh`); each rank scans its shard, the ranks
+exchange their shards' aggregates by a Hillis-Steele exclusive scan of
+``ceil(log2 D)`` `ppermute` rounds and one shift, and each rank combines
+what comes before it into its shard. That is the cluster-level form of
+the paper's method: span O(log n_local + log D). The batch axes are never
+sharded.
 """
 from __future__ import annotations
 
@@ -32,6 +41,8 @@ import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.launch.mesh import axis_index, axis_size, ppermute
 
 
 #: Copies `_pair_grid_op` made because a level's leading batch axes did
@@ -136,17 +147,21 @@ def associative_scan(combine: Callable, elems, *, reverse: bool = False,
         "fused" (the plain versions of the kernel math), or "pallas" /
         "pallas:gpu" (the CUDA kernels on CUDA tensors, their plain
         versions on CPU tensors).
-      axis_name: the mesh axis of a cross-device scan; not ported yet
-        (ROADMAP A, item 4): anything but ``None`` raises.
+      axis_name: if set, the cross-device scan along this axis of the
+        ambient mesh (`sharded_associative_scan`; call inside ``with
+        mesh:`` on a rank): the time axis of ``elems`` is this rank's
+        shard. Outside a mesh it raises ``NameError``.
       identity: zero-arg callable giving the combine's identity element
-        (used only by the cross-device scan).
+        (required by the cross-device scan).
       batch_dims: number of leading batch axes before the time axis.
     """
     if axis_name is not None:
-        raise NotImplementedError(
-            "associative_scan(axis_name=...): the sharded scan is not "
-            "ported yet (ROADMAP A, item 4)")
-    del identity
+        if identity is None:
+            raise ValueError("sharded scan requires an identity element")
+        return sharded_associative_scan(
+            combine, elems, axis_name=axis_name, identity=identity(),
+            reverse=reverse, combine_impl=combine_impl,
+            batch_dims=batch_dims)
     batched, on_pair_grid = _batched_combine(combine, combine_impl)
     if on_pair_grid:
         batched = _pair_grid_op(batched, batch_dims + 1)
@@ -157,6 +172,86 @@ def associative_scan(combine: Callable, elems, *, reverse: bool = False,
         out = _scan(op, flipped, axis)
         return type(out)(*(torch.flip(x, (axis,)) for x in out))
     return _scan(batched, elems, axis)
+
+
+# ---------------------------------------------------------------------------
+# Cross-device scan (ranks of a mesh axis, `ppermute`)
+# ---------------------------------------------------------------------------
+
+def device_exclusive_scan(combine: Callable, agg, *, axis_name: str,
+                          identity, reverse: bool = False):
+    """Exclusive scan of one element per rank along ``axis_name``.
+
+    Hillis-Steele over the mesh axis, as the reference's: ``ceil(log2
+    D)`` `ppermute` rounds and one final shift, the same rounds and
+    association, so the rounding agrees. ``agg`` is this rank's aggregate
+    element (a NamedTuple or tuple of tensors, no time axis); ``identity``
+    the combine's identity with the same shapes. A rank combines only
+    where the reference's ``where`` keeps the combination; every rank
+    takes part in every exchange.
+    """
+    D = axis_size(axis_name)
+    idx = axis_index(axis_name)
+    p = agg
+    shift = 1
+    while shift < D:
+        if not reverse:
+            # Bring the aggregate of the rank `shift` to the left.
+            recv = ppermute(p, axis_name,
+                            [(i, (i + shift) % D) for i in range(D)])
+            if idx >= shift:
+                p = combine(recv, p)
+        else:
+            recv = ppermute(p, axis_name,
+                            [(i, (i - shift) % D) for i in range(D)])
+            if idx < D - shift:
+                p = combine(p, recv)
+        shift *= 2
+    if not reverse:
+        excl = ppermute(p, axis_name, [(i, (i + 1) % D) for i in range(D)])
+        first = idx == 0
+    else:
+        excl = ppermute(p, axis_name, [(i, (i - 1) % D) for i in range(D)])
+        first = idx == D - 1
+    return identity if first else excl
+
+
+def sharded_associative_scan(combine: Callable, elems, *, axis_name: str,
+                             identity, reverse: bool = False,
+                             combine_impl: str = "jnp",
+                             batch_dims: int = 0):
+    """Distributed inclusive scan: the local scan of this rank's shard,
+    the cross-rank exclusive scan of the shards' aggregates, and the
+    local fix-up.
+
+    Call inside ``with mesh:`` with the time axis (axis ``batch_dims``)
+    sharded along ``axis_name``; ``identity`` is the combine's identity
+    element (unbatched). The local scan runs as `associative_scan` under
+    ``combine_impl`` (on the card, "pallas" launches the combine kernels
+    on the ``[L, P]`` grid of each level). The aggregate exchange carries
+    every batch lane in one element per round and combines with the
+    textbook ``combine``, as the reference's. The fix-up ``excl (x) loc``
+    (``loc (x) excl`` reversed) is one more call of the local scan's
+    operator on the whole shard, with ``excl`` read through a stride of 0
+    along time: under "pallas" one more kernel launch over ``[B,
+    n_local]`` pairs.
+    """
+    local = associative_scan(combine, elems, reverse=reverse,
+                             combine_impl=combine_impl,
+                             batch_dims=batch_dims)
+    cls = type(local)
+    agg = cls(*(x.select(batch_dims, 0 if reverse else -1) for x in local))
+    lead = agg[0].shape[:batch_dims]
+    ident = cls(*(i.to(a.device, a.dtype).expand(lead + i.shape)
+                  for i, a in zip(identity, agg)))
+    excl = device_exclusive_scan(combine, agg, axis_name=axis_name,
+                                 identity=ident, reverse=reverse)
+    excl = cls(*(e.unsqueeze(batch_dims).expand(x.shape)
+                 for e, x in zip(excl, local)))
+    batched, on_pair_grid = _batched_combine(combine, combine_impl)
+    if on_pair_grid:
+        batched = _pair_grid_op(batched, batch_dims + 1)
+    return batched(local, excl) if reverse else batched(excl, local)
 
 
 # ---------------------------------------------------------------------------
@@ -194,22 +289,47 @@ def linear_recurrence_scan(a: torch.Tensor, b: torch.Tensor, *,
     `linear_recurrence_combine`; "pallas"/"pallas:gpu" flatten the trailing
     axes to ``[1, T, prod(...)]`` and run the ssm_scan kernel (its plain
     version on CPU tensors), for inputs of any rank.
-    """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "linear_recurrence_scan(axis_name=...): the sharded scan is not "
-            "ported yet (ROADMAP A, item 4)")
-    if h0 is not None and a.shape[0] > 0:
-        b = torch.cat([(a[0] * h0 + b[0])[None], b[1:]])
-    if combine_impl == "pallas" or combine_impl.startswith("pallas:"):
-        from repro_torch.kernels.kalman_combine import ops as kc_ops
-        from repro_torch.kernels.ssm_scan import ops as ssm_ops
 
-        kc_ops.resolve_backend(combine_impl.partition(":")[2] or None)
-        flat = (1, a.shape[0], math.prod(a.shape[1:]))
-        return ssm_ops.ssm_scan(a.reshape(flat), b.reshape(flat)
-                                ).reshape(a.shape)
-    if combine_impl not in ("jnp", "fused"):
+    ``axis_name``: the time axis is this rank's shard along that axis of
+    the ambient mesh, and ``h0`` is folded in only on the rank at axis
+    index 0. Under "jnp"/"fused" it is `sharded_associative_scan`; under
+    "pallas" the shard's own states ``h_loc`` and the running product
+    ``A_loc`` of ``a`` (the recurrence with ``b = 0`` from ``h = 1``) are
+    two ssm_scan launches, the ranks exchange their last ``(A_loc,
+    h_loc)`` by `device_exclusive_scan`, and ``h = A_loc h_in + h_loc``.
+    """
+    if combine_impl not in ("jnp", "fused") and not (
+            combine_impl == "pallas" or combine_impl.startswith("pallas:")):
         raise ValueError(f"unknown combine_impl {combine_impl!r}")
-    return associative_scan(linear_recurrence_combine,
-                            LinearRecurrenceElement(a=a, b=b)).b
+    first = axis_name is None or axis_index(axis_name) == 0
+    if h0 is not None and a.shape[0] > 0 and first:
+        b = torch.cat([(a[0] * h0 + b[0])[None], b[1:]])
+    if combine_impl in ("jnp", "fused"):
+        elems = LinearRecurrenceElement(a=a, b=b)
+        if axis_name is None:
+            return associative_scan(linear_recurrence_combine, elems).b
+        ident = LinearRecurrenceElement(a=torch.ones_like(a[0]),
+                                        b=torch.zeros_like(b[0]))
+        return sharded_associative_scan(
+            linear_recurrence_combine, elems, axis_name=axis_name,
+            identity=ident, combine_impl=combine_impl).b
+
+    from repro_torch.kernels.kalman_combine import ops as kc_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    kc_ops.resolve_backend(combine_impl.partition(":")[2] or None)
+    flat = (1, a.shape[0], math.prod(a.shape[1:]))
+    af = a.reshape(flat)
+    h = ssm_ops.ssm_scan(af, b.reshape(flat)).reshape(a.shape)
+    if axis_name is None:
+        return h
+    # A_loc: the product of a up to each step, h_0 = 1 folded into b[0].
+    A = ssm_ops.ssm_scan(af, torch.zeros_like(af),
+                         torch.ones_like(af[:, 0])).reshape(a.shape)
+    ident = LinearRecurrenceElement(a=torch.ones_like(a[0]),
+                                    b=torch.zeros_like(b[0]))
+    h_in = device_exclusive_scan(
+        linear_recurrence_combine,
+        LinearRecurrenceElement(a=A[-1], b=h[-1]), axis_name=axis_name,
+        identity=ident).b
+    return A * h_in + h

@@ -24,6 +24,13 @@ plain PyTorch (``torch.linalg.qr``, ``solve_triangular``). Factors are
 unique only up to orthogonal right-multiplication (QR sign conventions
 differ between libraries): compare ``U Uᵀ``, ``Z Zᵀ``, ``D Dᵀ`` and the
 means, never the factors.
+
+``axis_name`` shards the time axis as in `repro_torch.core.parallel`,
+with the same repair of the reference's shard boundaries (ROADMAP C7):
+the prior's element only at axis index 0, the next shard's first
+transition in a shard's last smoothing element, and row 0 of the
+smoother's ``n_local + 1`` rows the previous shard's last smoothed state
+on every shard but the first.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import scan as scan_lib
+from .parallel import _holds_first, _next_transition, _previous_smoothed
 from .types import (Gaussian, LinearizedSSM, add_lane,
                     bcast_prior as _bcast_prior, cholesky, drop_lane, solve,
                     symmetrize)
@@ -150,16 +158,26 @@ def sqrt_filtering_elements_batched(lin: LinearizedSSM, ys: torch.Tensor,
                                     ) -> SqrtFilteringElement:
     """All ``B x n`` square-root filtering elements in one batched
     computation; the k=1 case is written into row 0 of every lane."""
+    return _sqrt_filtering_elements_batched(lin, ys, m0, P0, first=True)
+
+
+def _sqrt_filtering_elements_batched(lin: LinearizedSSM, ys: torch.Tensor,
+                                     m0: torch.Tensor, P0: torch.Tensor, *,
+                                     first: bool) -> SqrtFilteringElement:
+    """`sqrt_filtering_elements_batched`; ``first=False`` keeps the
+    generic element in row 0 (a shard that does not hold k=1)."""
     B = ys.shape[0]
     LQ = cholesky(symmetrize(lin.Qp))
     LR = cholesky(symmetrize(lin.Rp))
-    LP0 = cholesky(symmetrize(_bcast_prior(P0, B, 2)))
     generic = _generic_sqrt_element(lin.F, lin.c, LQ, lin.H, lin.d, LR, ys)
-    first = _first_sqrt_element(
+    if not first:
+        return generic
+    LP0 = cholesky(symmetrize(_bcast_prior(P0, B, 2)))
+    k1 = _first_sqrt_element(
         lin.F[:, 0], lin.c[:, 0], LQ[:, 0], lin.H[:, 0], lin.d[:, 0],
         LR[:, 0], ys[:, 0], _bcast_prior(m0, B, 1), LP0)
     return SqrtFilteringElement(*(torch.cat([f[:, None], g[:, 1:]], dim=1)
-                                  for f, g in zip(first, generic)))
+                                  for f, g in zip(k1, generic)))
 
 
 # ---------------------------------------------------------------------------
@@ -228,12 +246,15 @@ def sqrt_parallel_filter_batched(lin: LinearizedSSM, ys: torch.Tensor,
                                  axis_name: Optional[str] = None
                                  ) -> Gaussian:
     """Batched square-root parallel filter over ``[B, n]`` trajectories:
-    filtered ``[B, n, ...]`` with covariances ``U Uᵀ``. ``axis_name``
-    raises (ROADMAP A, item 4)."""
-    elems = sqrt_filtering_elements_batched(lin, ys, m0, P0)
+    filtered ``[B, n, ...]`` with covariances ``U Uᵀ``; with
+    ``axis_name``, of this rank's time shard (module docstring)."""
+    elems = _sqrt_filtering_elements_batched(lin, ys, m0, P0,
+                                             first=_holds_first(axis_name))
     scanned = scan_lib.associative_scan(
         sqrt_filtering_combine, elems, reverse=False, axis_name=axis_name,
-        batch_dims=1)
+        batch_dims=1,
+        identity=lambda: sqrt_filtering_identity(
+            lin.F.shape[-1], lin.F.dtype, lin.F.device))
     return Gaussian(mean=scanned.b, cov=scanned.U @ _T(scanned.U))
 
 
@@ -257,6 +278,19 @@ def sqrt_smoothing_elements_batched(lin: LinearizedSSM, filtered: Gaussian
     """Batched square-root smoothing elements over all ``B*(n-1)`` rows,
     with the k=n boundary element in the last row. Element k (row k-1)
     uses the transition k -> k+1, i.e. ``F[k]``."""
+    return _sqrt_smoothing_elements_batched(lin, filtered, None)
+
+
+def _sqrt_smoothing_elements_batched(lin: LinearizedSSM, filtered: Gaussian,
+                                     nxt: Optional[tuple]
+                                     ) -> SqrtSmoothingElement:
+    """`sqrt_smoothing_elements_batched`; with ``nxt``, the transition
+    ``(F, c, Qp)`` out of the last row, every row is a generic element."""
+    if nxt is not None:
+        F, c, Qp = (torch.cat([x[:, 1:], x_next[:, None]], dim=1)
+                    for x, x_next in zip((lin.F, lin.c, lin.Qp), nxt))
+        return _generic_sqrt_smoothing_element(
+            filtered.mean, filtered.cov, F, c, cholesky(symmetrize(Qp)))
     LQ = cholesky(symmetrize(lin.Qp))
     body = _generic_sqrt_smoothing_element(
         filtered.mean[:, :-1], filtered.cov[:, :-1],
@@ -277,12 +311,20 @@ def sqrt_parallel_smoother_batched(lin: LinearizedSSM, filtered: Gaussian,
     ...]``; the x_0 row is one extra backward step per lane through the
     first transition."""
     B = filtered.mean.shape[0]
-    elems = sqrt_smoothing_elements_batched(lin, filtered)
+    elems = _sqrt_smoothing_elements_batched(
+        lin, filtered, _next_transition(lin, axis_name))
     scanned = scan_lib.associative_scan(
         sqrt_smoothing_combine, elems, reverse=True, axis_name=axis_name,
-        batch_dims=1)
+        batch_dims=1,
+        identity=lambda: sqrt_smoothing_identity(
+            lin.F.shape[-1], lin.F.dtype, lin.F.device))
     means = scanned.g
     covs = scanned.D @ _T(scanned.D)
+    if axis_name is not None:
+        prev = _previous_smoothed(means, covs, axis_name)
+        if prev is not None:
+            return Gaussian(mean=torch.cat([prev[0][:, None], means], dim=1),
+                            cov=torch.cat([prev[1][:, None], covs], dim=1))
 
     F, c, Qp = lin.F[:, 0], lin.c[:, 0], lin.Qp[:, 0]
     m0b = _bcast_prior(m0, B, 1)

@@ -3,7 +3,7 @@
 `models.train_loss`, the warmup-cosine LR scale at the optimizer's step,
 then `optim.adamw_update` — in eager PyTorch on the model's device. Its
 sharding tables (and the prefill/decode cell plans of the dry-run) need
-a mesh and wait for ROADMAP A, item 4.
+a mesh and wait for ROADMAP A, item 4b.
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ The loop is the reference's: resume from the latest checkpoint, a
 straggler watchdog over step times, a non-blocking checkpoint every
 ``ckpt_every`` steps, a blocking one at a preemption (SIGTERM) and at
 the end. A mesh other than one device (``mesh_shape`` None or ``(1,
-1)``) waits for ROADMAP A, item 4, and raises.
+1)``) waits for ROADMAP A, item 4b, and raises.
 """
 from __future__ import annotations
 
@@ -67,7 +67,8 @@ def train(loop_cfg: TrainLoopConfig, emit=print, *,
     if mesh is not None and tuple(mesh) != (1, 1):
         raise ValueError(
             f"mesh_shape {tuple(mesh)}: the port trains on one device (None "
-            "or (1, 1)); a mesh waits for ROADMAP A, item 4 (cross-device)")
+            "or (1, 1)); a mesh waits for ROADMAP A, item 4b (training "
+            "across a mesh)")
     device = resolve_device(loop_cfg.device)
     cfg = loop_model_config(loop_cfg)
     pipeline = SyntheticTokenPipeline(TokenPipelineConfig(
@@ -143,7 +144,7 @@ def main(argv=None):
     p.add_argument("--full", dest="reduced", action="store_false")
     p.add_argument("--mesh", type=str, default=None,
                    help="'1x1' (one device, the default); any other mesh "
-                        "raises until ROADMAP A, item 4")
+                        "raises until ROADMAP A, item 4b")
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; cpu runs there)")

@@ -3,7 +3,9 @@
 The JAX package's ``repro.models.layers`` as functions on tensors, with
 explicit ``torch.Generator``s in place of JAX keys, and the training
 loss, `cross_entropy_loss`. Its ``maybe_shard`` has
-no counterpart: the port runs on one card, with no mesh.
+no counterpart: a rank of a mesh holds its shard and computes on it
+directly (`repro_torch.launch.mesh`); `_active_mesh` is how the mixers
+see that mesh.
 """
 from __future__ import annotations
 
@@ -18,6 +20,19 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def _active_mesh():
+    """The ambient mesh (``with mesh:``), or None."""
+    from repro_torch.launch.mesh import active_mesh
+
+    return active_mesh()
+
+
+def _active_mesh_axes() -> tuple:
+    """Axis names of the ambient mesh (``with mesh:``), or ()."""
+    mesh = _active_mesh()
+    return () if mesh is None else tuple(mesh.axis_names)
 
 
 def normal_init(gen: torch.Generator, shape: Tuple[int, ...],

@@ -1,8 +1,8 @@
 """Mixture-of-Experts layer (PyTorch): top-k routing with the reference's
 sort-based capacity dispatch, shared experts (DeepSeek-MoE) and the
-auxiliary load-balancing loss. The JAX package's ``repro.models.moe``
-global path (``_moe_layer_global``); its expert-parallel path needs a
-mesh and waits for the cross-device slice (ROADMAP queue A).
+auxiliary load-balancing loss. The JAX package's ``repro.models.moe``:
+its global dispatch (``_moe_layer_global``, `moe_layer` on one device)
+and its expert-parallel dispatch (`_moe_layer_ep`, under a mesh).
 
 The dispatch has static shapes: each of the ``n * k`` assignments (token
 ``t``, its ``j``-th expert ``e``) is laid out token-major, sorted by
@@ -17,6 +17,23 @@ its renormalised gate, is summed back into its token in float32.
 `moe_layer` makes no host sync (no ``bincount``, ``nonzero``, boolean-mask
 indexing or ``.item()``; the counts per expert are a ``scatter_add_``),
 so a decode step that runs it never waits on the device.
+
+Expert parallelism (`_moe_layer_ep`): under ``with mesh:`` on a rank of a
+mesh whose "model" axis has ``tp > 1`` ranks, with ``E`` and ``T``
+multiples of ``tp``, each rank routes its ``T / tp`` slice of the tokens
+locally (capacity ``_capacity(n_local)`` per expert and slice), sends each
+expert's slots to the rank that owns the expert (``E / tp`` experts per
+rank, one ``all_to_all``), runs its experts on what every rank sent, and
+sends the outputs back (a second ``all_to_all``); each token then reads
+its ``k`` outputs by inverting the sort (a gather, no ``index_add_``). The
+shared experts run on the rank's column shard of ``w_gate``/``w_up`` and
+row shard of ``w_down`` over the whole T (``all_gather``), summed back to
+the slice in float32 by ``psum_scatter``, and an ``all_gather`` along T returns
+``[B_local, T, d]`` on every rank, as the reference's ``shard_map``
+``out_specs`` do. A rank may hold all the experts or only its own
+(`shard_experts`, `convert.lm_params(mesh=)`); the global dispatch needs
+all of them. Decode (``T = 1``) and an expert count that ``tp`` does not
+divide (grok) take the global dispatch.
 """
 from __future__ import annotations
 
@@ -26,8 +43,10 @@ import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import (all_gather, all_to_all, axis_index,
+                                     pmean, psum_scatter)
 from repro_torch.models import mlp as mlp_lib
-from repro_torch.models.layers import normal_init, silu
+from repro_torch.models.layers import _active_mesh, normal_init, silu
 
 
 class MoE(nn.Module):
@@ -64,17 +83,53 @@ def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
     return max(4, ((cap + 3) // 4) * 4)
 
 
-def route(params: MoE, xt: torch.Tensor, cfg: ModelConfig):
-    """The routing and dispatch of ``xt [n, d]``, as the reference's.
-    Returns a dict: ``experts [n, k]`` (top-k, highest first), ``aux``
-    (float32 scalar), ``C``, and per assignment in expert order ``tok``,
-    ``gate_sorted`` (the renormalised float32 gate), ``keep`` and ``slot``
-    (``E * C`` for a dropped one)."""
+def shard_experts(params: MoE, cfg: ModelConfig, rank: int, tp: int
+                  ) -> None:
+    """Keep, in place, only what expert-parallel rank ``rank`` of ``tp``
+    holds: experts ``rank * E / tp ...`` of the stacked weights, and the
+    shared experts' column shard of ``w_gate``/``w_up`` and row shard of
+    ``w_down`` (the reference's ``P(None, "model")`` / ``P("model",
+    None)``). The router stays whole."""
+    E = cfg.num_experts
+    if E % tp:
+        raise ValueError(f"{E} experts do not shard over {tp} ranks")
+    El = E // tp
+    for name in ("w_gate", "w_up", "w_down"):
+        w = getattr(params, name)
+        setattr(params, name, torch.nn.Parameter(
+            w[rank * El:(rank + 1) * El].clone(), requires_grad=False))
+    if params.shared is not None:
+        for name, dim in (("w_gate", 0), ("w_up", 0), ("w_down", 1)):
+            lin = getattr(params.shared, name)
+            part = lin.weight.shape[dim] // tp
+            lin.weight = torch.nn.Parameter(
+                lin.weight.narrow(dim, rank * part, part).clone(),
+                requires_grad=False)
+            lin.in_features, lin.out_features = (lin.weight.shape[1],
+                                                 lin.weight.shape[0])
+
+
+def shard_model(model: nn.Module, cfg: ModelConfig, mesh) -> None:
+    """`shard_experts` on every MoE layer of ``model`` for this rank of
+    ``mesh``'s "model" axis (nothing where that axis has one rank or does
+    not divide the experts: those take the global dispatch)."""
+    tp = mesh.shape.get("model", 1)
+    if tp == 1 or cfg.num_experts % tp:
+        return
+    for m in model.modules():
+        if isinstance(m, MoE):
+            shard_experts(m, cfg, mesh.coords["model"], tp)
+
+
+def _route_parts(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig):
+    """`route` from the router matrix, with the aux loss's two halves
+    ``me`` (mean probability per expert) and ``ce`` (share of tokens
+    whose first choice it is) in place of ``aux``."""
     n = xt.shape[0]
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     dev = xt.device
     # The router's product in the parameter dtype, then float32.
-    probs = torch.softmax((xt @ params.router).float(), dim=-1)   # [n, E]
+    probs = torch.softmax((xt @ router).float(), dim=-1)          # [n, E]
     # Ties in the probabilities are improbable in float32; torch.topk's
     # order among them is unspecified (lax.top_k takes the lower index).
     gate, experts = torch.topk(probs, k, dim=-1)                  # [n, k]
@@ -82,7 +137,6 @@ def route(params: MoE, xt: torch.Tensor, cfg: ModelConfig):
 
     # Aux loss (Switch-style): mean prob mass vs. token fraction per expert.
     first = (experts[:, :1] == torch.arange(E, device=dev)).float()
-    aux = E * torch.sum(probs.mean(dim=0) * first.mean(dim=0))
 
     C = _capacity(n, cfg)
     flat_e = experts.reshape(-1)                                  # [n k]
@@ -94,27 +148,88 @@ def route(params: MoE, xt: torch.Tensor, cfg: ModelConfig):
     keep = rank < C
     slot = torch.where(keep, e_sorted * C + rank, E * C)
     # Token-major layout: assignment i belongs to token i // k.
-    return {"experts": experts, "aux": aux, "C": C, "tok": order // k,
+    return {"experts": experts, "me": probs.mean(dim=0),
+            "ce": first.mean(dim=0), "C": C, "tok": order // k,
             "gate_sorted": gate.reshape(-1)[order], "keep": keep,
             "slot": slot}
+
+
+def route(params: MoE, xt: torch.Tensor, cfg: ModelConfig):
+    """The routing and dispatch of ``xt [n, d]``, as the reference's.
+    Returns a dict: ``experts [n, k]`` (top-k, highest first), ``aux``
+    (float32 scalar), ``C``, and per assignment in expert order ``tok``,
+    ``gate_sorted`` (the renormalised float32 gate), ``keep`` and ``slot``
+    (``E * C`` for a dropped one)."""
+    r = _route_parts(params.router, xt, cfg)
+    r["aux"] = cfg.num_experts * torch.sum(r.pop("me") * r.pop("ce"))
+    return r
+
+
+def _route_local(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """Routing and capacity buckets of a rank's token slice ``xt [n,
+    d]``: ``(buf [E, C, d], routing, (me, ce))``, ``routing`` as
+    `route`'s without ``aux`` (the reference's combine metadata and
+    more)."""
+    r = _route_parts(router, xt, cfg)
+    return _dispatch(xt, r, cfg.num_experts), r, (r.pop("me"), r.pop("ce"))
+
+
+def _dispatch(xt: torch.Tensor, r: dict, E: int) -> torch.Tensor:
+    """The ``[E, C, d]`` capacity buckets of ``xt [n, d]`` (`route`)."""
+    C, d = r["C"], xt.shape[-1]
+    buf = xt.new_zeros((E * C + 1, d))
+    # Dropped ones land in the last row, cut off.
+    buf.index_copy_(0, r["slot"], xt[r["tok"]])
+    return buf[:-1].reshape(E, C, d)
+
+
+def _experts(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU on their buckets ``[E, C, d]``, batched over E."""
+    h = silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+    return torch.bmm(h, w_down)
+
+
+def _combine_gather(y: torch.Tensor, r: dict, n: int, k: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """Each of ``n`` tokens' ``k`` expert outputs ``y [E, C, d]`` weighed
+    by its gates and summed in float32, read by inverting the sort: per
+    token its assignments in expert order (the reference's order), a
+    dropped one reading a zero row. ``[n, d]`` in ``dtype``."""
+    E, C, d = y.shape
+    y_flat = torch.cat([y.reshape(E * C, d), y.new_zeros((1, d))])
+    inv = torch.argsort(r["tok"] * (n * k)
+                        + torch.arange(n * k, device=y.device))
+    slot = torch.where(r["keep"], r["slot"], E * C)[inv].reshape(n, k)
+    gate = r["gate_sorted"][inv].reshape(n, k)
+    picked = y_flat[slot].float()                             # [n, k, d]
+    return torch.einsum("nk,nkd->nd", gate, picked).to(dtype)
 
 
 def moe_layer(params: MoE, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x [B, T, d]`` -> (out ``[B, T, d]`` in x's dtype, aux load-balance
-    loss, a float32 scalar tensor). The reference's global dispatch."""
+    loss, a float32 scalar tensor). Under a mesh with "model" ranks that
+    divide E and T, the expert-parallel dispatch (`_moe_layer_ep`); else
+    the reference's global dispatch, which needs every expert."""
+    mesh = _active_mesh()
+    if mesh is not None and "model" in mesh.axis_names:
+        tp = mesh.shape["model"]
+        if tp > 1 and cfg.num_experts % tp == 0 and x.shape[1] % tp == 0:
+            return _moe_layer_ep(params, x, cfg, mesh)
     B, T, d = x.shape
     E = cfg.num_experts
+    if params.w_gate.shape[0] != E:
+        raise ValueError(
+            f"moe_layer: this rank holds {params.w_gate.shape[0]} of {E} "
+            f"experts; the global dispatch (T = {T} here) needs them all")
     xt = x.reshape(B * T, d)
     r = route(params, xt, cfg)
     C, keep, slot, tok = r["C"], r["keep"], r["slot"], r["tok"]
 
-    buf = x.new_zeros((E * C + 1, d))
-    buf.index_copy_(0, slot, xt[tok])     # dropped ones land in the last row
-    buf = buf[:-1].reshape(E, C, d)
-
-    h = silu(torch.bmm(buf, params.w_gate)) * torch.bmm(buf, params.w_up)
-    y = torch.bmm(h, params.w_down).reshape(E * C, d)
+    buf = _dispatch(xt, r, E)
+    y = _experts(buf, params.w_gate, params.w_up,
+                 params.w_down).reshape(E * C, d)
 
     gathered = y[torch.where(keep, slot, 0)]
     gathered = torch.where(keep[:, None], gathered, gathered.new_zeros(()))
@@ -124,6 +239,63 @@ def moe_layer(params: MoE, x: torch.Tensor, cfg: ModelConfig
     if params.shared is not None:
         out = out + mlp_lib.mlp(params.shared, xt)
     return out.reshape(B, T, d), r["aux"]
+
+
+def _rank_slice(w: torch.Tensor, whole: int, rank: int, tp: int, dim: int
+                ) -> torch.Tensor:
+    """Rank ``rank``'s block of ``w`` along ``dim`` when ``w`` is whole
+    (``whole`` long there), else ``w`` itself (already the rank's)."""
+    if w.shape[dim] != whole:
+        return w
+    part = whole // tp
+    return w.narrow(dim, rank * part, part)
+
+
+def _moe_layer_ep(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel dispatch on this rank of ``mesh`` (module
+    docstring): ``x [B_local, T, d]``, replicated over "model", ->
+    (``[B_local, T, d]`` on every rank of "model", the aux loss averaged
+    over every axis of the mesh)."""
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    tp, rank = mesh.shape["model"], axis_index("model")
+    El = E // tp
+    B, T, d = x.shape
+    Tl = T // tp
+    xt = x[:, rank * Tl:(rank + 1) * Tl].reshape(B * Tl, d)
+    n = xt.shape[0]
+    buf, r, (me, ce) = _route_local(xt, params.router, cfg)
+    axes = mesh.axis_names
+    aux = E * torch.sum(pmean(me, axes) * pmean(ce, axes))
+    C = r["C"]
+
+    # To the experts' owners: [E, C, d] as [tp, El, C, d]; block p goes to
+    # rank p, and block p received holds rank p's slots for my El experts.
+    recv = all_to_all(buf.reshape(tp, El, C, d), "model", 0, 0, tiled=True)
+    toks = recv.transpose(0, 1).reshape(El, tp * C, d)
+    y = _experts(toks, *(_rank_slice(w, E, rank, tp, 0) for w in (
+        params.w_gate, params.w_up, params.w_down)))        # [El, tp C, d]
+    back = y.reshape(El, tp, C, d).transpose(0, 1)
+    mine = all_to_all(back, "model", 0, 0, tiled=True)      # [tp, El, C, d]
+    out = _combine_gather(mine.reshape(E, C, d), r, n, k, x.dtype)
+
+    if params.shared is not None:
+        # The whole T's tokens through the rank's shard of the shared
+        # experts' hidden width, summed back to the rank's slice.
+        sh = params.shared
+        dsh = cfg.d_ff_per_expert * cfg.num_shared_experts
+        sg, su = (_rank_slice(lin.weight, dsh, rank, tp, 0)
+                  for lin in (sh.w_gate, sh.w_up))
+        sd = _rank_slice(sh.w_down.weight, dsh, rank, tp, 1)
+        xg = all_gather(xt, "model", axis=0, tiled=True)
+        # The partial products over the hidden shards are summed in
+        # float32 and rounded once, as the one product of the global
+        # dispatch is (the reference sums them in the compute dtype).
+        part = (silu(xg @ sg.T) * (xg @ su.T)).float() @ sd.T.float()
+        out = out + psum_scatter(part, "model", scatter_dimension=0,
+                                 tiled=True).to(x.dtype)
+    out = all_gather(out.reshape(B, Tl, d), "model", axis=1, tiled=True)
+    return out, aux
 
 
 def dropped(routing: dict) -> torch.Tensor:

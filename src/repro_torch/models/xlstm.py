@@ -19,9 +19,20 @@ states are the inclusive scan shifted by one chunk, zeros first.
 Decode is one step whose state has a fixed size, whatever the length of
 the text: the mLSTM writes ``C``, ``n`` and the conv history into the
 cache's buffers in place (``C`` by ``mul_`` and ``baddbmm_``, with no
-``[B, H, dh, dh]`` temporary), the sLSTM its ``c, n, h, m``. The
-sequence-parallel mLSTM (``_mlstm_sp``) needs a mesh and waits for the
-cross-device slice (ROADMAP queue A, item 4).
+``[B, H, dh, dh]`` temporary), the sLSTM its ``c, n, h, m``.
+
+Sequence parallelism (`_mlstm_sp`): a prefill under ``with mesh:`` on a
+rank of a mesh whose "model" axis has ``tp > 1`` ranks, with ``T`` a
+multiple of ``tp`` chunks, runs each mLSTM layer sequence-parallel, as
+the reference's ``shard_map`` does. The activations stay ``[B_local, T,
+d]`` on every rank of "model" (replicated, as the reference's attention
+and projections); each rank takes its ``T / tp`` slice, the ranks
+exchange their slices' state contributions ``(F, C, n)``
+(`_mlstm_chunk_aggregate`, composed by `_mlstm_state_combine`) with
+`repro_torch.core.scan.device_exclusive_scan`, each runs the chunked form
+from the state ``(C_in, n_in)`` that reaches its slice (its chunk carry
+on ``ssm_scan``), and an ``all_gather`` along T gives every rank the whole
+``h``: what ``shard_map``'s ``out_specs`` does.
 """
 from __future__ import annotations
 
@@ -32,9 +43,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.scan import device_exclusive_scan
+from repro_torch.launch.mesh import all_gather, axis_index
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (init_linear, init_rms_norm,
-                                       normal_init, rms_norm, silu)
+from repro_torch.models.layers import (_active_mesh, init_linear,
+                                       init_rms_norm, normal_init, rms_norm,
+                                       silu)
 
 
 # ---------------------------------------------------------------------------
@@ -80,21 +94,28 @@ def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
 
 
 def _chunk_states(Ftot: torch.Tensor, S: torch.Tensor, zn: torch.Tensor,
-                  kernel: bool):
-    """The chunk-to-chunk recurrence from a zero state, as one scan:
-    ``Ftot [B, H, nc]``, ``S [B, H, nc, dh, dh]``, ``zn [B, H, nc, dh]``
-    laid out as ``a, b [B, nc, H (dh^2 + dh)]``. Returns the pre-chunk
-    states ``Cs [B, H, nc, dh, dh]``, ``ns [B, H, nc, dh]`` and the final
-    ``(C, n)``."""
+                  kernel: bool, state=None):
+    """The chunk-to-chunk recurrence from ``state`` (``(C [B, H, dh, dh],
+    n [B, H, dh])`` float32, default zero), as one scan: ``Ftot [B, H,
+    nc]``, ``S [B, H, nc, dh, dh]``, ``zn [B, H, nc, dh]`` laid out as
+    ``a, b [B, nc, H (dh^2 + dh)]``, the state folded into ``b[:, 0]``.
+    Returns the pre-chunk states ``Cs [B, H, nc, dh, dh]``, ``ns [B, H,
+    nc, dh]`` and the final ``(C, n)``."""
     B, H, nc, dh = zn.shape
     w = dh * dh + dh
     b = torch.cat([S.transpose(1, 2).flatten(-2), zn.transpose(1, 2)],
                   dim=-1).view(B, nc, H * w)
     a = Ftot.transpose(1, 2)[..., None].expand(B, nc, H, w).contiguous() \
         .view(B, nc, H * w)
+    if state is None:
+        h0 = b.new_zeros((B, 1, H, w))
+    else:
+        h0 = torch.cat([state[0].flatten(-2), state[1]], dim=-1) \
+            .float()[:, None]
+        b[:, 0] += a[:, 0] * h0.reshape(B, H * w)
     hs = ssm_lib._scan(a, b, kernel).view(B, nc, H, w)
     del a, b
-    prev = torch.cat([hs.new_zeros((B, 1, H, w)), hs[:, :-1]], dim=1)
+    prev = torch.cat([h0, hs[:, :-1]], dim=1)
     Cs = prev[..., :dh * dh].unflatten(-1, (dh, dh)).transpose(1, 2)
     ns = prev[..., dh * dh:].transpose(1, 2)
     last = hs[:, -1]
@@ -103,9 +124,10 @@ def _chunk_states(Ftot: torch.Tensor, S: torch.Tensor, zn: torch.Tensor,
 
 
 def _mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   lf: torch.Tensor, li: torch.Tensor, CT: int, *,
-                   impl: str = "auto"):
-    """Chunkwise-parallel mLSTM attention from a zero state.
+                   lf: torch.Tensor, li: torch.Tensor, CT: int, state=None,
+                   *, impl: str = "auto"):
+    """Chunkwise-parallel mLSTM attention from ``state`` (``(C, n)``,
+    default zero).
 
     ``q``/``k``/``v [B, H, T, dh]`` (q pre-scaled); ``lf``/``li [B, H,
     T]`` the log-forget and log-input gates (both <= 0). Returns (``h
@@ -133,7 +155,7 @@ def _mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S = kw.transpose(-1, -2) @ vc                       # [B, H, nc, dh, dh]
     zn = kw.sum(dim=-2)                                 # [B, H, nc, dh]
     Cs, ns, final = _chunk_states(torch.exp(Lf[..., -1]), S, zn,
-                                  impl == "auto" and q.is_cuda)
+                                  impl == "auto" and q.is_cuda, state)
     del kw, S, zn
     DS = Dm * (qc @ kc.transpose(-1, -2))               # [B, H, nc, CT, CT]
     eL = torch.exp(Lf)
@@ -142,6 +164,69 @@ def _mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         .abs().clamp_min(1.0)
     h = (DS @ vc + inter) / denom[..., None]
     return h.reshape(B, H, nc * CT, dh)[:, :, :T], final
+
+
+def _mlstm_chunk_aggregate(k: torch.Tensor, v: torch.Tensor,
+                           lf: torch.Tensor, li: torch.Tensor, CT: int):
+    """A slice's contribution to the running state from a zero state:
+    ``(Ftot [B, H], C_end [B, H, dh, dh], n_end [B, H, dh])`` float32, the
+    element of the cross-rank state scan. No ``[CT, CT]`` intra-chunk
+    terms: each chunk's writes decayed to the slice's end and summed."""
+    B, H, T, dh = k.shape
+    k, v, lf, li = (t.float() for t in (k, v, lf, li))
+    pad = (-T) % CT
+    if pad:
+        k, v = (F.pad(t, (0, 0, 0, pad)) for t in (k, v))
+        lf = F.pad(lf, (0, pad))
+        li = F.pad(li, (0, pad), value=-1e30)
+    nc = (T + pad) // CT
+    kc, vc = (t.reshape(B, H, nc, CT, dh) for t in (k, v))
+    Lf = torch.cumsum(lf.reshape(B, H, nc, CT), dim=-1)
+    kw = torch.exp(Lf[..., -1:] - Lf + li.reshape(B, H, nc, CT))[..., None] \
+        * kc
+    S = kw.transpose(-1, -2) @ vc                       # [B, H, nc, dh, dh]
+    zn = kw.sum(dim=-2)                                 # [B, H, nc, dh]
+    Lc = Lf[..., -1]                                    # [B, H, nc]
+    total = Lc.sum(dim=-1)
+    suffix = torch.exp(total[..., None] - torch.cumsum(Lc, dim=-1))
+    C_end = torch.einsum("bhn,bhnkv->bhkv", suffix, S)
+    n_end = torch.einsum("bhn,bhnk->bhk", suffix, zn)
+    return torch.exp(total), C_end, n_end
+
+
+def _mlstm_state_combine(ei, ej):
+    """Cross-rank composition of mLSTM state contributions, ``i`` earlier:
+    the paper's smoothing combine (Eq. 19) with a per-head scalar ``E``
+    and a matrix "mean", ``(F_i F_j, F_j C_i + C_j, F_j n_i + n_j)``."""
+    Fi, Ci, ni = ei
+    Fj, Cj, nj = ej
+    return (Fi * Fj, Fj[..., None, None] * Ci + Cj,
+            Fj[..., None] * ni + nj)
+
+
+def _mlstm_sp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              lf: torch.Tensor, li: torch.Tensor, CT: int, mesh, *,
+              impl: str = "auto") -> torch.Tensor:
+    """Sequence-parallel mLSTM on this rank of ``mesh``'s "model" axis:
+    the inputs ``[B, H, T, ...]`` are the whole sequence (replicated over
+    "model"); the rank runs the chunked form on its ``T / tp`` slice from
+    the state its predecessors leave (`device_exclusive_scan` of the
+    slices' `_mlstm_chunk_aggregate`), and every rank gets the whole ``h
+    [B, H, T, dh]`` back by an ``all_gather`` along T, in q's dtype (the
+    layer casts h to it next)."""
+    tp = mesh.shape["model"]
+    Tl = q.shape[2] // tp
+    sl = slice(axis_index("model") * Tl, (axis_index("model") + 1) * Tl)
+    q, k, v = (t[:, :, sl] for t in (q, k, v))
+    lf, li = lf[..., sl], li[..., sl]
+    agg = _mlstm_chunk_aggregate(k, v, lf, li, CT)
+    ident = (torch.ones_like(agg[0]), torch.zeros_like(agg[1]),
+             torch.zeros_like(agg[2]))
+    _, C_in, n_in = device_exclusive_scan(
+        _mlstm_state_combine, agg, axis_name="model", identity=ident)
+    h, _ = _mlstm_chunked(q, k, v, lf, li, CT, state=(C_in, n_in),
+                          impl=impl)
+    return all_gather(h.to(q.dtype), "model", axis=2, tiled=True)
 
 
 def _memory_step(C: torch.Tensor, n: torch.Tensor, f: torch.Tensor,
@@ -165,8 +250,9 @@ def mlstm_layer(params: MLSTM, x: torch.Tensor, cfg: ModelConfig, *,
                 cache: Optional[MLSTMCache] = None, impl: str = "auto"
                 ) -> Tuple[torch.Tensor, Optional[MLSTMCache]]:
     """x ``[B, T, d]`` -> (y ``[B, T, d]``, the cache after the step).
-    Prefill when ``cache`` is None (returns no cache, as the reference);
-    else one decode step (T == 1) that writes ``cache`` in place."""
+    Prefill when ``cache`` is None (returns no cache, as the reference;
+    sequence-parallel under a mesh with "model" ranks, `_mlstm_sp`); else
+    one decode step (T == 1) that writes ``cache`` in place."""
     if impl not in ssm_lib.IMPLS:
         raise ValueError(f"mlstm impl {impl!r}; one of {ssm_lib.IMPLS}")
     B, T, _ = x.shape
@@ -192,8 +278,15 @@ def mlstm_layer(params: MLSTM, x: torch.Tensor, cfg: ModelConfig, *,
         new_conv = torch.cat([cache.conv, u.to(cache.conv.dtype)], dim=1)
         cache.conv.copy_(new_conv[:, 1:])
     else:
-        h, _ = _mlstm_chunked(q, k, v, lf, li, min(cfg.scan_chunk, T),
-                              impl=impl)
+        mesh = _active_mesh()
+        CT = min(cfg.scan_chunk, T)
+        use_sp = (mesh is not None and "model" in mesh.axis_names
+                  and mesh.shape["model"] > 1
+                  and T % (mesh.shape["model"] * CT) == 0)
+        if use_sp:
+            h = _mlstm_sp(q, k, v, lf, li, CT, mesh, impl=impl)
+        else:
+            h, _ = _mlstm_chunked(q, k, v, lf, li, CT, impl=impl)
 
     h = h.transpose(1, 2).reshape(B, -1, din).to(x.dtype)
     h = rms_norm(h, params.norm_w, cfg.rmsnorm_eps)

@@ -13,7 +13,7 @@ Weight decay skips what the reference's ``_decay_mask`` skips, decided
 on the reference's path of each parameter (`convert.jax_path`), not on
 the port's name: ``attn.wq.bias`` is the reference's ``attn/bq``, which
 it decays. ``zero_specs`` (ZeRO-1 moment sharding) needs a mesh and
-waits for the cross-device slice (ROADMAP A, item 4).
+waits for training across a mesh (ROADMAP A, item 4b).
 """
 from __future__ import annotations
 

@@ -248,7 +248,9 @@ def test_jax_pallas_path_scans_wrong_axis_for_3d():
 
 def test_linear_recurrence_scan_rejects():
     a = torch.ones(4, 2, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # No mesh around the call: the axis is unbound (the sharded scan on a
+    # mesh is held in test_torch_mesh_scan.py).
+    with pytest.raises(NameError, match="unbound axis name: 'seq'"):
         linear_recurrence_scan(a, a, axis_name="seq")
     with pytest.raises(ValueError):
         linear_recurrence_scan(a, a, combine_impl="bogus")

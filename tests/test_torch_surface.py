@@ -6,8 +6,9 @@ filters and smoothers, the square-root forms (compared through their
 covariances, as QR sign conventions differ), the elements, the public
 `associative_scan`, the trajectory linearizations, `initial_trajectory`
 and `iterated_smoother`. Then the exported log-likelihood and GN cost on
-one trajectory (they raised before), the ``axis_name`` guard, the
-surface itself (`__all__` and every shared signature against
+one trajectory (they raised before), ``axis_name`` outside a mesh (an
+unbound axis raises ``NameError``, as in JAX; inside a mesh the drivers
+are held in `test_torch_mesh_scan.py`), the surface itself (`__all__` and every shared signature against
 `repro.core`), and `repro_torch.data`.
 
 Tolerances: the suite's f64 TOL for one pass; rtol=1e-7, atol=1e-8 for
@@ -347,7 +348,7 @@ def test_loglik_and_cost_accept_one_trajectory():
 
 
 # ---------------------------------------------------------------------------
-# The cross-device scans wait for ROADMAP A, item 4
+# axis_name outside a mesh: an unbound axis
 # ---------------------------------------------------------------------------
 
 AXIS_CALLS = ("associative_scan", "linear_recurrence_scan",
@@ -361,7 +362,9 @@ def _axis_call(name):
     if name == "associative_scan":
         return tcore.associative_scan(
             tcore.filtering_combine,
-            tcore.filtering_elements(lin, ys, m0, P0), axis_name="x")
+            tcore.filtering_elements(lin, ys, m0, P0), axis_name="x",
+            identity=lambda: tcore.filtering_identity(
+                m0.shape[-1], m0.dtype))
     if name == "linear_recurrence_scan":
         return tcore.linear_recurrence_scan(ys, ys, axis_name="x")
     if name == "parallel_smoother_batched":
@@ -375,9 +378,11 @@ def _axis_call(name):
 
 @pytest.mark.parametrize("name", AXIS_CALLS)
 def test_axis_name_raises_naming_item_4(name):
+    """With no mesh around the call, the axis is unbound and the sharded
+    path raises ``NameError`` (JAX's unbound axis), naming the axis."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        with pytest.raises(NotImplementedError, match="item 4"):
+        with pytest.raises(NameError, match="unbound axis name: 'x'"):
             _axis_call(name)
 
 
@@ -385,9 +390,7 @@ def test_axis_name_raises_naming_item_4(name):
 # The surface itself
 # ---------------------------------------------------------------------------
 
-#: The names of `repro.core` that need a mesh (ROADMAP A, item 4), and the
-#: port's one addition.
-MESH_ONLY = {"sharded_associative_scan", "device_exclusive_scan"}
+#: The port's one addition to `repro.core`'s names.
 PORT_ONLY = {"resolve_device"}
 #: Every allowed signature difference, by name: "device" — the port adds a
 #: ``device`` parameter (entry points run on the card unless told);
@@ -443,12 +446,12 @@ def _signatures(name, obj):
 
 
 def test_surface_matches_jax():
-    """`__all__` is JAX's minus the mesh scans plus `resolve_device`, and
-    every shared name agrees on parameter names, kinds and defaults (on
-    fields, for dataclasses and NamedTuples), up to `ALLOWED`."""
+    """`__all__` is JAX's plus `resolve_device`, and every shared name
+    agrees on parameter names, kinds and defaults (on fields, for
+    dataclasses and NamedTuples), up to `ALLOWED`."""
     _, _, jcore = jax_env()
-    assert len(tcore.__all__) == len(set(tcore.__all__)) == 72
-    assert set(tcore.__all__) == (set(jcore.__all__) - MESH_ONLY) | PORT_ONLY
+    assert len(tcore.__all__) == len(set(tcore.__all__)) == 74
+    assert set(tcore.__all__) == set(jcore.__all__) | PORT_ONLY
     seen = set()
     for name in sorted(set(tcore.__all__) & set(jcore.__all__)):
         got = _signatures(name, getattr(tcore, name))
@@ -465,7 +468,7 @@ def test_dump_surface_runs():
         [sys.executable, "-m", "repro_torch.core.api", "--dump-surface"],
         capture_output=True, text=True, env=env, timeout=120, check=True)
     lines = out.stdout.splitlines()
-    assert lines[0] == "# repro_torch.core public API surface (72 names)"
+    assert lines[0] == "# repro_torch.core public API surface (74 names)"
     assert any(line.startswith("ieks(model, ys, n_iter: 'int' = 10")
                for line in lines)
 
