@@ -281,29 +281,32 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      card's checkpoint restores onto the CPU. No training path launches
      a kernel;
   23. ``[mesh]``: the cross-device paths as four ranks sharing the card,
-     a 1 x 4 ("data", "model") mesh over gloo (`repro_torch.launch.mesh`;
+     a 1 x 4 ("data", "model") mesh over gloo (`repro_torch.launch.mesh`,
+     `repro_torch.distributed`;
      the parent has built the kernels, the ranks load them), each rank's
      counters zeroed just before each sharded call and read just after.
      coordinated_turn in f64, one trajectory at n = 16,384 and 64 lanes
      at n = 2,048: the filtering and smoothing
      ``sharded_associative_scan`` of each rank's time shard through the
      combine kernels (``combine_impl="pallas"``) against the one-rank
-     kernel scan at rtol 1e-8, atol 1e-9, with two planted faults (the
-     exchange replaced by the identity, the fix-up skipped) caught on
-     every rank they reach, and exactly the local scan's launches plus
-     one fix-up launch per rank; ``parallel_filter_smoother`` (and the
-     batched filter and smoother) with ``axis_name`` against the one-rank
-     drivers at PATH_TOL; ``linear_recurrence_scan(axis_name=)`` at
-     Hymba-1.5B's SSM width ([4 x 1,024, 51,200] f32; two ``ssm_scan``
-     launches per rank) against the one-rank scan, the exchange-free fault
+     plain version (``"fused"``) at rtol 1e-8, atol 1e-9, with two planted
+     faults (the exchange replaced by the identity, the fix-up's operands
+     swapped) caught on every rank they reach, and exactly the local
+     scan's launches plus one fix-up launch per rank;
+     ``parallel_filter_smoother`` (and the batched filter and smoother)
+     with ``axis_name`` against the one-rank plain drivers at PATH_TOL;
+     ``linear_recurrence_scan(axis_name=)`` at Hymba-1.5B's SSM width ([4
+     x 1,024, 51,200] f32; two ``ssm_scan`` launches per rank) against
+     ``ssm_scan_plain`` on the whole input, the exchange-free fault
      caught. xlstm-350m at full width and depth, ``prefill`` at B = 8, T =
      1,024 under the mesh (every mLSTM layer sequence-parallel, one
      ``ssm_scan`` launch per layer per rank) against the one-rank float32
      prefill by the bf16 noise (the one-rank bf16 prefill's distance to
      it, `LM_NOISE_FACTOR`), the same in float32 against the one-rank
      float32 prefill at 2e-4 of the largest logit, and in it each layer's
-     real q, k, v on the synthetic gates ``log_sigmoid(6 + z)`` sequence-parallel against the
-     one-rank chunked form in float32 (2e-4), which the first layer with
+     real q, k, v on the synthetic gates ``log_sigmoid(6 + z)``
+     sequence-parallel against the one-rank chunked form on the plain
+     chunk carry in float32 (2e-4), which the first layer with
      the state exchange planted away misses. deepseek-moe-16b at full width and depth 2 of
      28, each rank holding 16 of the 64 experts (`moe.shard_model`),
      ``prefill`` at B = 8, T = 256 (one ``wgmma`` launch per layer per
@@ -5271,8 +5274,11 @@ MESH_DS_DEPTH, MESH_DS_B, MESH_DS_T = 2, 8, 256
 
 def _mesh_scans(torch, mesh, data, dev) -> dict:
     """Rank side: the sharded filtering and smoothing scans and drivers on
-    this rank's time shard, through the combine kernels, each beside the
-    one-rank call on the whole input (after the counters are read)."""
+    this rank's time shard, through the combine kernels, each held against
+    the one-rank plain version ("fused") on the whole input and timed
+    beside the one-rank kernel call (both after the counters are read).
+    Planted faults: the exchange dropped, and the fix-up's operands
+    swapped (``loc (x) excl``: a fault only the fix-up launch can have)."""
     import repro_torch.core as C
     from repro_torch.core import scan as scan_lib
     from repro_torch.kernels.kalman_combine import kalman_combine as kc
@@ -5321,12 +5327,18 @@ def _mesh_scans(torch, mesh, data, dev) -> dict:
                     no_exchange = run()
                 finally:
                     scan_lib.device_exclusive_scan = real
-            no_fixup = C.associative_scan(combine, loc, reverse=rev,
-                                          combine_impl="pallas",
-                                          batch_dims=bd)
-            want, one_wall, _, _ = timed(lambda: C.associative_scan(
+                real = scan_lib._fix_up
+                scan_lib._fix_up = lambda *a, reverse, **k: real(
+                    *a, reverse=not reverse, **k)
+                try:
+                    swapped_fixup = run()
+                finally:
+                    scan_lib._fix_up = real
+            _, one_wall, _, _ = timed(lambda: C.associative_scan(
                 combine, elems, reverse=rev, combine_impl="pallas",
                 batch_dims=bd))
+            want = C.associative_scan(combine, elems, reverse=rev,
+                                      combine_impl="fused", batch_dims=bd)
             want = type(want)(*(shard(x) for x in want))
             out[(tag, kind)] = {
                 "wall_s": wall, "one_rank_wall_s": one_wall,
@@ -5335,23 +5347,29 @@ def _mesh_scans(torch, mesh, data, dev) -> dict:
                 "err_over_tol": _err_over_tol(got, want, MESH_SCAN_TOL),
                 "no_exchange": _err_over_tol(no_exchange, want,
                                              MESH_SCAN_TOL),
-                "no_fixup": _err_over_tol(no_fixup, want, MESH_SCAN_TOL)}
+                "swapped_fixup": _err_over_tol(swapped_fixup, want,
+                                               MESH_SCAN_TOL),
+                # The swapped fix-up is not the local scan in disguise.
+                "swapped_vs_local": _err_over_tol(swapped_fixup,
+                                                  no_exchange,
+                                                  MESH_SCAN_TOL)}
 
         llin, lys = type(lin)(*(shard(x) for x in lin)), shard(ys)
         if bd == 0:
-            def drivers(lin_, ys_, **kw):
+            def drivers(lin_, ys_, impl="pallas", **kw):
                 return C.parallel_filter_smoother(
-                    lin_, ys_, m0, P0, combine_impl="pallas", **kw)
+                    lin_, ys_, m0, P0, combine_impl=impl, **kw)
         else:
-            def drivers(lin_, ys_, **kw):
+            def drivers(lin_, ys_, impl="pallas", **kw):
                 f = C.parallel_filter_batched(lin_, ys_, m0, P0,
-                                              combine_impl="pallas", **kw)
+                                              combine_impl=impl, **kw)
                 return f, C.parallel_smoother_batched(
-                    lin_, f, m0, P0, combine_impl="pallas", **kw)
+                    lin_, f, m0, P0, combine_impl=impl, **kw)
         with mesh:
             (f, s), wall, counts, plain = timed(
                 lambda: drivers(llin, lys, axis_name="model"))
-        (f1, s1), one_wall, _, _ = timed(lambda: drivers(lin, ys))
+        _, one_wall, _, _ = timed(lambda: drivers(lin, ys))
+        f1, s1 = drivers(lin, ys, "fused")
         out[(tag, "drivers")] = {
             "wall_s": wall, "one_rank_wall_s": one_wall, "launches": counts,
             "plain": plain, "cuda": f.mean.is_cuda and s.mean.is_cuda,
@@ -5374,9 +5392,11 @@ def _mesh_lrs_slice(torch, j, dev):
 
 def _mesh_lrs(torch, mesh, dev) -> dict:
     """Rank side: ``linear_recurrence_scan(axis_name=)`` at Hymba-1.5B's
-    SSM width on ``ssm_scan``, against the one-rank kernel scan."""
+    SSM width on ``ssm_scan``, against ``ssm_scan_plain`` on the whole
+    input, timed beside the one-rank kernel scan."""
     import repro_torch.core as C
     from repro_torch.core import scan as scan_lib
+    from repro_torch.kernels.ssm_scan import ssm_scan as ss
 
     r = mesh.coords["model"]
     a, b = _mesh_lrs_slice(torch, r, dev)
@@ -5400,9 +5420,10 @@ def _mesh_lrs(torch, mesh, dev) -> dict:
     del parts
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = C.linear_recurrence_scan(A, B_, combine_impl="pallas")
+    C.linear_recurrence_scan(A, B_, combine_impl="pallas")
     torch.cuda.synchronize()
     one_wall = time.perf_counter() - t0
+    want = ss.ssm_scan_plain(A[None], B_[None])[0]
     want = want[r * a.shape[0]:(r + 1) * a.shape[0]]
     tol = SSM_TOL["float32"]
     return {"wall_s": wall, "one_rank_wall_s": one_wall, "launches": counts,
@@ -5416,8 +5437,9 @@ class _SPTap:
     layer's call through, and holds the layer's real q, k, v (in float32)
     on the synthetic gates ``lf = log_sigmoid(6 + z)``, ``li =
     log_sigmoid(z')`` (the same on every rank: seeded per layer)
-    sequence-parallel against the one-rank chunked form; in the first
-    layer also with the state exchange planted away (``C_in = 0``)."""
+    sequence-parallel against the one-rank chunked form with its chunk
+    carry on the plain version (``impl="plain"``); in the first layer also
+    with the state exchange planted away (``C_in = 0``)."""
 
     def __init__(self, torch, xl):
         self.torch, self.xl, self.sp = torch, xl, xl._mlstm_sp
@@ -5439,7 +5461,7 @@ class _SPTap:
         lf_s = torch.nn.functional.logsigmoid(XL_LONG_FORGET + z[0])
         li_s = torch.nn.functional.logsigmoid(z[1])
         q, k, v = q.float(), k.float(), v.float()
-        one, _ = xl._mlstm_chunked(q, k, v, lf_s, li_s, CT, impl=impl)
+        one, _ = xl._mlstm_chunked(q, k, v, lf_s, li_s, CT, impl="plain")
         self.rel.append(_rel(self.sp(q, k, v, lf_s, li_s, CT, mesh,
                                      impl=impl), one))
         if not self.rel_fault:
@@ -5771,7 +5793,8 @@ def phase_mesh(torch) -> dict:
                      f"{x['cuda']}")
             if not x["err_over_tol"] < 1.0:
                 fail(f"{tag} {what} {kind} rank {i}: err/tol "
-                     f"{x['err_over_tol']:.3f} against one rank")
+                     f"{x['err_over_tol']:.3f} against one rank's plain "
+                     "version")
             add(x["launches"])
         size = (f"n = {MESH_N1}" if what == "single"
                 else f"B x n = {MESH_B} x {MESH_NB}")
@@ -5784,7 +5807,7 @@ def phase_mesh(torch) -> dict:
             # The rank the fault cannot reach: the first (prefix scan) or
             # the last (suffix scan) holds what it would hold alone.
             spared = MESH_RANKS - 1 if kind == "smoothing_combine" else 0
-            for fault in ("no_exchange", "no_fixup"):
+            for fault in ("no_exchange", "swapped_fixup"):
                 reached = [x[fault] for i, x in enumerate(res)
                            if i != spared]
                 caught = [e > 1.0 for e in reached]
@@ -5793,6 +5816,12 @@ def phase_mesh(torch) -> dict:
                 if not all(caught):
                     fail(f"{tag} {what} {kind}: the planted fault {fault} "
                          "passes the gate")
+            apart = min(x["swapped_vs_local"] for i, x in enumerate(res)
+                        if i != spared)
+            line += f", its err/tol against the local scan {apart:.3e}"
+            if not apart > 1.0:
+                fail(f"{tag} {what} {kind}: the swapped fix-up gives the "
+                     "local scan")
         say(line)
 
     lrs = [r["lrs"] for r in ranks]
@@ -5807,7 +5836,8 @@ def phase_mesh(torch) -> dict:
     caught = [x["no_exchange"] > 1.0 for x in lrs[1:]]
     say(f"[{tag}] linear_recurrence_scan(axis_name='model') [{MESH_LRS_T}, "
         f"{MESH_LRS_D}] f32: ssm_scan launches 2 per rank, err/tol "
-        f"{max(x['err_over_tol'] for x in lrs):.3e} (SSM_TOL); no exchange "
+        f"{max(x['err_over_tol'] for x in lrs):.3e} (SSM_TOL, against "
+        f"ssm_scan_plain); no exchange "
         f"caught {sum(caught)} of {len(caught)}; wall per rank "
         f"{[round(x['wall_s'] * 1e3, 2) for x in lrs]} ms, one rank "
         f"{[round(x['one_rank_wall_s'] * 1e3, 2) for x in lrs]} ms")

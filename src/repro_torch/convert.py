@@ -107,7 +107,7 @@ def lm_params(params, cfg, *, device: Device = None,
     dtype). It first builds a random model of ``cfg`` (`init_model`), so
     it is for the reduced configs only.
 
-    With ``mesh`` (a `repro_torch.launch.mesh.Mesh`, on one of its
+    With ``mesh`` (a `repro_torch.distributed.Mesh`, on one of its
     ranks), every MoE layer keeps only what the rank's coordinate on
     "model" holds for the expert-parallel dispatch (`moe.shard_model`):
     its ``E / tp`` experts and its shards of the shared experts. Every

@@ -17,7 +17,7 @@
   * scan engine: associative_scan (``batch_dims``-aware; the combine
     kernels on CUDA tensors under ``combine_impl="pallas"``),
     sharded_associative_scan and device_exclusive_scan (the cross-device
-    scan over the ranks of a mesh axis, `repro_torch.launch.mesh`: every
+    scan over the ranks of a mesh axis, `repro_torch.distributed`: every
     ``axis_name`` above), linear_recurrence_scan
   * deprecated shims (warn once, delegate to build_smoother on
     ``ys.device``): ieks, ipls, and the ``*_filter_smoother_batched`` /

@@ -18,7 +18,7 @@ corrects (Eq. 13 ``b_k`` uses ``d_k``; Eq. 14 ``eta_k`` has no extra
 ``H``) are corrected here the same way.
 
 ``axis_name`` shards the time axis over that axis of the ambient mesh
-(`repro_torch.launch.mesh`): each rank passes its shard of ``lin`` and
+(`repro_torch.distributed`): each rank passes its shard of ``lin`` and
 ``ys`` and the scans run as `sharded_associative_scan`. Unlike the
 reference (ROADMAP C7), every shard's rows are the unsharded driver's:
 the first filtering element is built from the prior only at axis index
@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.launch.mesh import axis_index, axis_size, ppermute
+from repro_torch.distributed import axis_index, axis_size, ppermute
 
 from . import scan as scan_lib
 from .types import (FilteringElement, Gaussian, LinearizedSSM,

@@ -28,7 +28,7 @@ its "pallas" path runs the ssm_scan kernel instead of the recursion.
 
 Cross-device scans (``axis_name``; `sharded_associative_scan`,
 `device_exclusive_scan`): the time axis is sharded over a mesh axis of
-ranks (`repro_torch.launch.mesh`); each rank scans its shard, the ranks
+ranks (`repro_torch.distributed`); each rank scans its shard, the ranks
 exchange their shards' aggregates by a Hillis-Steele exclusive scan of
 ``ceil(log2 D)`` `ppermute` rounds and one shift, and each rank combines
 what comes before it into its shard. That is the cluster-level form of
@@ -42,7 +42,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.launch.mesh import axis_index, axis_size, ppermute
+from repro_torch.distributed import axis_index, axis_size, ppermute
 
 
 #: Copies `_pair_grid_op` made because a level's leading batch axes did
@@ -246,8 +246,18 @@ def sharded_associative_scan(combine: Callable, elems, *, axis_name: str,
                   for i, a in zip(identity, agg)))
     excl = device_exclusive_scan(combine, agg, axis_name=axis_name,
                                  identity=ident, reverse=reverse)
-    excl = cls(*(e.unsqueeze(batch_dims).expand(x.shape)
-                 for e, x in zip(excl, local)))
+    return _fix_up(combine, excl, local, reverse=reverse,
+                   combine_impl=combine_impl, batch_dims=batch_dims)
+
+
+def _fix_up(combine: Callable, excl, local, *, reverse: bool,
+            combine_impl: str, batch_dims: int):
+    """``excl (x) loc`` at every step of the local scan ``local``
+    (``loc (x) excl`` reversed): one call of the local scan's operator,
+    ``excl`` (one element per batch lane) read through a stride of 0 along
+    time."""
+    excl = type(local)(*(e.unsqueeze(batch_dims).expand(x.shape)
+                         for e, x in zip(excl, local)))
     batched, on_pair_grid = _batched_combine(combine, combine_impl)
     if on_pair_grid:
         batched = _pair_grid_op(batched, batch_dims + 1)

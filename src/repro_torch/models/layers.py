@@ -4,7 +4,7 @@ The JAX package's ``repro.models.layers`` as functions on tensors, with
 explicit ``torch.Generator``s in place of JAX keys, and the training
 loss, `cross_entropy_loss`. Its ``maybe_shard`` has
 no counterpart: a rank of a mesh holds its shard and computes on it
-directly (`repro_torch.launch.mesh`); `_active_mesh` is how the mixers
+directly (`repro_torch.distributed`); `_active_mesh` is how the mixers
 see that mesh.
 """
 from __future__ import annotations
@@ -13,6 +13,8 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
+
+from repro_torch.distributed import active_mesh
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -24,8 +26,6 @@ def dtype_of(name: str) -> torch.dtype:
 
 def _active_mesh():
     """The ambient mesh (``with mesh:``), or None."""
-    from repro_torch.launch.mesh import active_mesh
-
     return active_mesh()
 
 

@@ -27,12 +27,13 @@ rank, one ``all_to_all``), runs its experts on what every rank sent, and
 sends the outputs back (a second ``all_to_all``); each token then reads
 its ``k`` outputs by inverting the sort (a gather, no ``index_add_``). The
 shared experts run on the rank's column shard of ``w_gate``/``w_up`` and
-row shard of ``w_down`` over the whole T (``all_gather``), summed back to
-the slice in float32 by ``psum_scatter``, and an ``all_gather`` along T returns
+row shard of ``w_down`` over the whole T (every rank holds it: the
+activations are replicated over "model"), summed back to the slice in
+float32 by ``psum_scatter``, and an ``all_gather`` along T returns
 ``[B_local, T, d]`` on every rank, as the reference's ``shard_map``
-``out_specs`` do. A rank may hold all the experts or only its own
-(`shard_experts`, `convert.lm_params(mesh=)`); the global dispatch needs
-all of them. Decode (``T = 1``) and an expert count that ``tp`` does not
+``out_specs`` do. The expert-parallel dispatch needs the rank's shards
+(`shard_model`, `convert.lm_params(mesh=)`), the global dispatch every
+expert. Decode (``T = 1``) and an expert count that ``tp`` does not
 divide (grok) take the global dispatch.
 """
 from __future__ import annotations
@@ -43,7 +44,7 @@ import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import (all_gather, all_to_all, axis_index,
+from repro_torch.distributed import (all_gather, all_to_all, axis_index,
                                      pmean, psum_scatter)
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.layers import _active_mesh, normal_init, silu
@@ -241,25 +242,25 @@ def moe_layer(params: MoE, x: torch.Tensor, cfg: ModelConfig
     return out.reshape(B, T, d), r["aux"]
 
 
-def _rank_slice(w: torch.Tensor, whole: int, rank: int, tp: int, dim: int
-                ) -> torch.Tensor:
-    """Rank ``rank``'s block of ``w`` along ``dim`` when ``w`` is whole
-    (``whole`` long there), else ``w`` itself (already the rank's)."""
-    if w.shape[dim] != whole:
-        return w
-    part = whole // tp
-    return w.narrow(dim, rank * part, part)
-
-
 def _moe_layer_ep(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel dispatch on this rank of ``mesh`` (module
     docstring): ``x [B_local, T, d]``, replicated over "model", ->
     (``[B_local, T, d]`` on every rank of "model", the aux loss averaged
-    over every axis of the mesh)."""
+    over every axis of the mesh). ``params`` holds the rank's shards
+    (`shard_model`)."""
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     tp, rank = mesh.shape["model"], axis_index("model")
     El = E // tp
+    dsh = cfg.d_ff_per_expert * cfg.num_shared_experts
+    if params.w_gate.shape[0] != El or (
+            params.shared is not None
+            and params.shared.w_gate.weight.shape[0] != dsh // tp):
+        raise ValueError(
+            f"moe_layer: the expert-parallel dispatch over {tp} ranks needs "
+            f"this rank's {El} of {E} experts and its 1/{tp} of the shared "
+            f"experts; it holds {params.w_gate.shape[0]} experts (shard the "
+            "model first: moe.shard_model or convert.lm_params(mesh=))")
     B, T, d = x.shape
     Tl = T // tp
     xt = x[:, rank * Tl:(rank + 1) * Tl].reshape(B * Tl, d)
@@ -273,21 +274,19 @@ def _moe_layer_ep(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh
     # rank p, and block p received holds rank p's slots for my El experts.
     recv = all_to_all(buf.reshape(tp, El, C, d), "model", 0, 0, tiled=True)
     toks = recv.transpose(0, 1).reshape(El, tp * C, d)
-    y = _experts(toks, *(_rank_slice(w, E, rank, tp, 0) for w in (
-        params.w_gate, params.w_up, params.w_down)))        # [El, tp C, d]
+    y = _experts(toks, params.w_gate, params.w_up,
+                 params.w_down)                             # [El, tp C, d]
     back = y.reshape(El, tp, C, d).transpose(0, 1)
     mine = all_to_all(back, "model", 0, 0, tiled=True)      # [tp, El, C, d]
     out = _combine_gather(mine.reshape(E, C, d), r, n, k, x.dtype)
 
     if params.shared is not None:
         # The whole T's tokens through the rank's shard of the shared
-        # experts' hidden width, summed back to the rank's slice.
-        sh = params.shared
-        dsh = cfg.d_ff_per_expert * cfg.num_shared_experts
-        sg, su = (_rank_slice(lin.weight, dsh, rank, tp, 0)
-                  for lin in (sh.w_gate, sh.w_up))
-        sd = _rank_slice(sh.w_down.weight, dsh, rank, tp, 1)
-        xg = all_gather(xt, "model", axis=0, tiled=True)
+        # experts' hidden width, summed back to the rank's slice. xg holds
+        # every rank's slice in the layout of xt, rank after rank.
+        sg, su, sd = (lin.weight for lin in (
+            params.shared.w_gate, params.shared.w_up, params.shared.w_down))
+        xg = x.reshape(B, tp, Tl, d).transpose(0, 1).reshape(-1, d)
         # The partial products over the hidden shards are summed in
         # float32 and rounded once, as the one product of the global
         # dispatch is (the reference sums them in the compute dtype).

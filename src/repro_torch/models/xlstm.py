@@ -44,7 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scan import device_exclusive_scan
-from repro_torch.launch.mesh import all_gather, axis_index
+from repro_torch.distributed import all_gather, axis_index
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (_active_mesh, init_linear,
                                        init_rms_norm, normal_init, rms_norm,

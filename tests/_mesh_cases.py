@@ -7,6 +7,7 @@ never JAX or the JAX package: the ranks are spawned processes that import
 it by name, and the JAX oracles are computed in the test process."""
 from __future__ import annotations
 
+import copy
 import dataclasses
 import warnings
 from typing import NamedTuple
@@ -16,6 +17,7 @@ import torch
 
 import repro_torch.core as C
 from repro_torch import convert
+from repro_torch import distributed as X
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.types import LinearizedSSM
 from repro_torch.launch import mesh as M
@@ -69,10 +71,10 @@ def rank_input(rank: int) -> torch.Tensor:
         + 100.0 * rank
 
 
-def _raises(fn):
+def _raises(fn, error=NameError):
     try:
         fn()
-    except NameError as e:
+    except error as e:
         return str(e)
     return None
 
@@ -87,31 +89,33 @@ def _collectives(ctx) -> dict:
     for shape in SHAPES:
         mesh = M.make_debug_mesh(*shape)
         with mesh:
-            D = M.axis_size("model")
+            D = X.axis_size("model")
             res = {
-                "index": (M.axis_index("data"), M.axis_index("model")),
-                "size": (M.axis_size("data"), D,
-                         M.axis_size(("data", "model"))),
-                "shift": M.ppermute(x, "model",
+                "index": (X.axis_index("data"), X.axis_index("model")),
+                "size": (X.axis_size("data"), D,
+                         X.axis_size(("data", "model"))),
+                "shift": X.ppermute(x, "model",
                                     [(j, (j + 1) % D) for j in range(D)]),
-                "partial": M.ppermute(x, "model",
+                "partial": X.ppermute(x, "model",
                                       [(j, j + 1) for j in range(D - 1)]),
-                "pair": M.ppermute(Pair(x, 2 * x), "model",
+                "pair": X.ppermute(Pair(x, 2 * x), "model",
                                    [(j, (j - 1) % D) for j in range(D)]),
-                "psum": M.psum(x, "model"),
-                "psum_all": M.psum(x, ("data", "model")),
-                "pmean": M.pmean(x, "model"),
-                "pmax": M.pmax(-x, "model"),
-                "gather": M.all_gather(x, "model"),
-                "gather_tiled": M.all_gather(x, "model", axis=1, tiled=True),
-                "scatter_tiled": M.psum_scatter(x, "model", tiled=True),
-                "scatter": M.psum_scatter(x[:D], "model"),
-                "a2a_tiled": M.all_to_all(x, "model", 0, 1, tiled=True),
-                "a2a": M.all_to_all(x[:D], "model", 0, 1),
-                "unbound_axis": _raises(lambda: M.axis_index("pod")),
+                "psum": X.psum(x, "model"),
+                "psum_all": X.psum(x, ("data", "model")),
+                "pmean": X.pmean(x, "model"),
+                "pmax": X.pmax(-x, "model"),
+                "gather": X.all_gather(x, "model"),
+                "gather_tiled": X.all_gather(x, "model", axis=1, tiled=True),
+                "scatter_tiled": X.psum_scatter(x, "model", tiled=True),
+                "scatter": X.psum_scatter(x[:D], "model"),
+                "scatter_tiled_dim1": X.psum_scatter(
+                    x[:, :4], "model", scatter_dimension=1, tiled=True),
+                "a2a_tiled": X.all_to_all(x, "model", 0, 1, tiled=True),
+                "a2a": X.all_to_all(x[:D], "model", 0, 1),
+                "unbound_axis": _raises(lambda: X.axis_index("pod")),
                 "input_kept": bool(torch.equal(x, rank_input(ctx.rank))),
             }
-        res["outside_mesh"] = _raises(lambda: M.psum(x, "model"))
+        res["outside_mesh"] = _raises(lambda: X.psum(x, "model"))
         out[shape] = _np(res)
     return out
 
@@ -290,8 +294,13 @@ def _moe_cases(ctx, inp) -> dict:
             for cf in (2.0, 0.5):
                 c = dataclasses.replace(cfg, capacity_factor=cf)
                 out[("layer", shape, cf)] = tmoe.moe_layer(layer, x, c)
-            # A rank that holds every expert takes its own block of them.
-            out[("layer_whole", shape)] = tmoe.moe_layer(whole, x, cfg)
+            # A rank that holds every expert must shard them first.
+            out[("layer_whole", shape)] = _raises(
+                lambda: tmoe.moe_layer(whole, x, cfg), ValueError)
+            mine = copy.deepcopy(whole)
+            tmoe.shard_experts(mine, cfg, mesh.coords["model"],
+                               mesh.shape["model"])
+            out[("layer_sharded_here", shape)] = tmoe.moe_layer(mine, x, cfg)
             toks = _batch_shard(torch.as_tensor(inp["moe_tokens"]), mesh)
             out[("prefill", shape)] = prefill(model, cfg, toks)
             try:

@@ -340,12 +340,15 @@ def test_moe_ep_drop_free_matches_global_dispatch(sessions, shape):
 
 @pytest.mark.parametrize("shape", cases.SHAPES, **SHAPE_IDS)
 def test_moe_ep_with_every_expert_on_each_rank(sessions, shape):
-    """Unsharded weights under a mesh: each rank runs its own block of
-    the experts, with the same result as the sharded weights."""
+    """Unsharded weights under a mesh: the expert-parallel dispatch
+    refuses them and names the sharding; the rank's own `shard_experts`
+    of them gives the same result as `convert.lm_params(mesh=)`'s."""
     ranks, _ = sessions
     for r in range(RANKS):
+        assert "shard the model first" in ranks[r]["moe"][
+            ("layer_whole", shape)]
         got, want = (ranks[r]["moe"][key] for key in (
-            ("layer_whole", shape), ("layer", shape, 2.0)))
+            ("layer_sharded_here", shape), ("layer", shape, 2.0)))
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
 

@@ -1,4 +1,4 @@
-"""Port parity on a mesh: the collectives of `repro_torch.launch.mesh`,
+"""Port parity on a mesh: the collectives of `repro_torch.distributed`,
 `device_exclusive_scan`, `sharded_associative_scan` and every
 ``axis_name`` driver of `repro_torch.core`, on four gloo ranks on the CPU.
 
@@ -136,6 +136,7 @@ def _expected(shape, r):
         "gather": np.stack(line), "gather_tiled": np.concatenate(line, 1),
         "scatter_tiled": chunks(sum(line))[mr],
         "scatter": sum(a[:D] for a in line)[mr],
+        "scatter_tiled_dim1": np.split(sum(line)[:, :4], D, axis=1)[mr],
         "a2a_tiled": np.concatenate([chunks(a)[mr] for a in line], axis=1),
         "a2a": np.stack([a[:D][mr] for a in line], axis=1),
         "input_kept": True,
@@ -144,7 +145,8 @@ def _expected(shape, r):
 
 COLLECTIVES = ["index", "size", "shift", "partial", "pair", "psum",
                "psum_all", "pmean", "pmax", "gather", "gather_tiled",
-               "scatter_tiled", "scatter", "a2a_tiled", "a2a", "input_kept"]
+               "scatter_tiled", "scatter", "scatter_tiled_dim1", "a2a_tiled",
+               "a2a", "input_kept"]
 
 
 @pytest.mark.parametrize("shape", cases.SHAPES, ids=lambda s: "x".join(
