@@ -116,7 +116,7 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      qwen2-1.5b at full width (28 layers, d_model 1536, 12 query heads
      padded to 16, 2 kv heads, head_dim 128, vocabulary 151,936 padded to
      153,600, tied embeddings), bf16, random weights from seed 0: batch 64,
-     a 256-token prompt teacher-forced, 256 greedy steps, caches of 512.
+     a 128-token prompt teacher-forced, 128 greedy steps, caches of 512.
      Gates first, on the same weights and prompts, each held against the
      same model computed in float32 (plain attention), whose distance to
      the plain bf16 path is the bf16 noise: the first 64 teacher-forced
@@ -125,9 +125,9 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      `LM_TOP1` of the positions no noise can flip, and every top-1
      mismatch with the plain bf16 steps a near tie), and ``prefill`` (the
      ``wgmma`` kernel, once per layer) and the teacher-forced decode at
-     position 255, each against float32's prefill by the same rules.
+     position 127, each against float32's prefill by the same rules.
      Then the timed service run with the counters zeroed before and read
-     after: the decode kernel launches exactly 28 x 512 times, nothing
+     after: the decode kernel launches exactly 28 x 256 times, nothing
      else and no plain attention; tok/s and wall per step; a profile of
      32 decode steps (device busy, idle share); the decode kernel's time
      at L = 512 against its byte bound, the plain version and SDPA on the
@@ -161,9 +161,9 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      width (28 layers, d_model 2048, 16 query and 16 kv heads, head_dim
      128, 64 routed experts top-6 plus 2 shared, expert d_ff 1,408,
      vocabulary 102,400; 33.8 GB in bf16), random weights from seed 0:
-     batch 64, a 256-token prompt teacher-forced, 64 greedy steps, caches
-     of 320. The service with the counters zeroed before and read after:
-     exactly 28 x 320 decode-kernel launches and nothing else, no plain
+     batch 64, a 64-token prompt teacher-forced, 64 greedy steps, caches
+     of 128. The service with the counters zeroed before and read after:
+     exactly 28 x 128 decode-kernel launches and nothing else, no plain
      attention. Then, on the same weights, teacher-forced over the
      service's positions: every decode-kernel call of the first 32 steps
      against plain at the tight bf16 bound (a planted fault, one key too
@@ -173,7 +173,7 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      width on a layer's real decode input, under
      ``set_sync_debug_mode("error")`` (no host sync), and in float32 on
      the card and on the CPU from the same weights (routing equal, drops
-     > 0, outputs at the float32 TOL); ``prefill`` at B = 8, T = 256 (28
+     > 0, outputs at the float32 TOL); ``prefill`` at B = 8, T = 64 (28
      ``wgmma`` launches, each against plain). No model-level float32
      logit gate: the float32 model (67.5 GB) does not fit beside the bf16
      one, and the per-call gates carry the weight. Then grok-1-314b at
@@ -187,14 +187,14 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      kv heads, Dh 128) scaled so that many scores pass +-60: the prefill
      and decode kernels within the tight bound of plain with the cap,
      which plain without it misses. Device times of the decode kernel at
-     deepseek's (1 row per kv head, L = 320) and grok's (6 rows, L = 128,
+     deepseek's (1 row per kv head, L = 128) and grok's (6 rows, L = 128,
      cap 30) shapes and of both prefills, beside their bounds and SDPA
      (which has no softcap);
   19. ``[lm_xlstm]``: the LM decode service for xlstm-350m at full width
      (24 blocks, sLSTM at 7, 15 and 23, mLSTM elsewhere; d_model 1,024, 4
      heads, mLSTM inner width 2,048 so dh 512; vocabulary 50,304, untied),
-     bf16, random weights from seed 0, nothing cut: batch 64, 256 prompt
-     and 256 greedy steps. The service with the counters zeroed before
+     bf16, random weights from seed 0, nothing cut: batch 64, 128 prompt
+     and 128 greedy steps. The service with the counters zeroed before
      and read after: no kernel launch and no plain call (a decode step is
      plain PyTorch on a state of fixed size, written in place); peak
      device memory and the state's bytes; a profile of 32 steps; the
@@ -218,29 +218,29 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      full width (12 encoder and 12 decoder layers, d_model 1,024, 16 query
      and 16 kv heads, head_dim 64, d_ff 4,096, vocabulary 256,206 padded
      to 258,048, untied, an encoder memory of 1,024 frames), bf16, random
-     weights from seed 0, nothing cut: batch 64, 256 prompt and 256 greedy
-     steps, caches of 512. The service encodes a zero frontend once, as
+     weights from seed 0, nothing cut: batch 64, 128 prompt and 128 greedy
+     steps, caches of 256. The service encodes a zero frontend once, as
      the reference does: that memory, and every cross-attention output
      against it, is exactly 0 (printed). With the counters zeroed before
      and read after it must launch exactly 12 ``wgmma`` kernels (the
-     encode) and 12 x 512 x 2 split-K decode kernels (self- and
+     encode) and 12 x 256 x 2 split-K decode kernels (self- and
      cross-attention), nothing else, no plain call; tok/s, wall per step,
      peak memory. Then, on the same weights, the first 8 sequences and a
      random frontend (std 1): ``encode`` (the ``wgmma`` kernel
      non-causal) against the float32 model by the bf16 noise; every
      encoder kernel call against plain at the tight bf16 bound, which the
-     same call made causal misses; ``prefill(enc_emb=)`` at T = 256 (36
+     same call made causal misses; ``prefill(enc_emb=)`` at T = 128 (36
      ``wgmma`` launches: encoder, self, cross), each call held to plain,
      each cross call's fault (the memory one key short) caught; 64
      teacher-forced ``decode_step(memory=)`` steps, every self-attention
      call (fault: ``length - 1``) and cross-attention call (fault: one key
      short) held to plain, the logits against float32 by the noise rule;
-     the decode at position 255 against ``prefill``; a profile of 32
+     the decode at position 127 against ``prefill``; a profile of 32
      steps at B = 64 with the memory K/V projection named; that
      projection by CUDA graph beside its bound; device times of the
      encoder's non-causal ``wgmma`` (B = 64, S = 1,024), the cross
-     ``wgmma`` (B = 8, Tq = 256, Tk = 1,024), the cross split-K decode (B
-     = 64, 1 row per kv head, Tk = 1,024) and the self decode at L = 512,
+     ``wgmma`` (B = 8, Tq = 128, Tk = 1,024), the cross split-K decode (B
+     = 64, 1 row per kv head, Tk = 1,024) and the self decode at L = 256,
      each beside its bound and SDPA;
   21. ``[lm_mrope]``: qwen2-vl-72b at full width (d_model 8,192, 64 query
      and 8 kv heads, head_dim 128, QKV bias, M-RoPE sections (16, 24,
@@ -318,16 +318,39 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      rank with all 64 experts. Prints the backend, each rank's device,
      the bytes staged through the host, and each sharded call's wall
      beside the one-rank call's (four ranks share one card: data only);
-  24. the ``kernels`` JSON line (each combine kernel's launches per path,
-     ``surface``, ``train`` and ``mesh`` among them, and its B = 1
-     top-level time; ``ssm_scan``'s: ``ssm_scan``, ``lm_hybrid_prefill``,
-     ``lm_xlstm_prefill``, ``train``, ``mesh``; the flash
-     kernels': ``flash``, ``lm_decode``, ``lm_prefill``, ``lm_hybrid``,
-     ``lm_hybrid_prefill``, ``lm_moe``, ``lm_moe_prefill``, ``lm_grok``,
-     ``lm_grok_prefill``, ``lm_encdec``, ``lm_encdec_prefill``,
-     ``lm_mrope``, ``lm_mrope_prefill``, ``train``, ``mesh``; the
-     ``mesh`` counts summed over the ranks), then the device JSON line,
-     last.
+  24. ``[train_mesh]``: training across a 2 x 2 ("data", "model") mesh of
+     four ranks sharing the card over gloo, TF32 off, each rank's counters
+     zeroed before and read after every part (no kernel launch anywhere).
+     (a) The main path: ``train()`` of qwen2-1.5b at full width on the
+     mesh (B 8, T 128, 2 steps, bf16): the losses finite and equal on
+     every rank, step 0 against ``[train]``'s one-device step-0 loss on
+     the same batch within the bf16 noise ``[train]`` measures (its bf16
+     vs float32 step-0 loss); each rank's resident parameter and moment
+     blocks against the plan's count and the reference's
+     ``per_chip_argument_bytes``, its peak memory, the bytes it staged
+     through the host and the wall of each step. (b) The five families'
+     reduced configs (tp 2, float32, the MoE at its drop-free capacity
+     factor E / k): 2 steps on the mesh against 2 one-device steps on the
+     card from the same weights and batches, every parameter and loss at
+     the float32 TOL, and each step's grad norm; two planted faults must
+     miss: the gradients left unsummed over "data", and every gradient
+     multiplied by the "model" size (caught by the grad norm: the global
+     clip hides a uniform factor from the parameters). (c) Elastic:
+     reduced qwen2 checkpointed at step 2 on 2 x 2 and resumed on 1 x 4
+     for step 3 equals the uninterrupted run at TOL, leaf for leaf. (d)
+     ``compressed_psum`` over "data" of one step's gradients against
+     ``psum`` within 2 % of each tensor's largest magnitude (the
+     reference's bound), with the bytes each staged through the host;
+  25. the ``kernels`` JSON line (each combine kernel's launches per path,
+     ``surface``, ``train``, ``mesh`` and ``train_mesh`` among them, and
+     its B = 1 top-level time; ``ssm_scan``'s: ``ssm_scan``,
+     ``lm_hybrid_prefill``, ``lm_xlstm_prefill``, ``train``, ``mesh``,
+     ``train_mesh``; the flash kernels': ``flash``, ``lm_decode``,
+     ``lm_prefill``, ``lm_hybrid``, ``lm_hybrid_prefill``, ``lm_moe``,
+     ``lm_moe_prefill``, ``lm_grok``, ``lm_grok_prefill``, ``lm_encdec``,
+     ``lm_encdec_prefill``, ``lm_mrope``, ``lm_mrope_prefill``, ``train``,
+     ``mesh``, ``train_mesh``; the ``mesh`` and ``train_mesh`` counts
+     summed over the ranks), then the device JSON line, last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
 """
@@ -2394,9 +2417,11 @@ def phase_flash(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 #: qwen2-1.5b (src/repro_torch/configs/qwen2_1p5b.py) at full width: the
-#: architecture the reference CLI's docstring serves.
+#: architecture the reference CLI's docstring serves. A 128-token prompt
+#: and 128 greedy steps in caches of 512 (256 and 256 before, cut to
+#: keep the script in its time on a slow host).
 LM_ARCH, LM_SEED = "qwen2-1.5b", 0
-LM_B, LM_PROMPT, LM_GEN, LM_MAX = 64, 256, 256, 512
+LM_B, LM_PROMPT, LM_GEN, LM_MAX = 64, 128, 128, 512
 LM_GATE_STEPS = 64
 LM_PROFILE_STEPS = 32
 #: The yardstick of the bf16 gates is the same model computed in float32
@@ -3326,12 +3351,14 @@ def phase_lm_hybrid(torch) -> dict:
 #: width, nothing cut: 28 layers, d_model 2048, 16 query and 16 kv heads,
 #: head_dim 128, 64 routed experts top-6 plus 2 shared, per-expert d_ff
 #: 1,408, vocabulary 102,400 (16.9 B parameters, 33.8 GB in bf16). A
-#: 256-token prompt teacher-forced and 64 greedy steps, caches of 320. A
+#: 64-token prompt teacher-forced and 64 greedy steps, caches of 128
+#: (prompts of 256 and 128 before, cut to keep the script in its time;
+#: the model is not narrowed). A
 #: decode step's 64 tokens make 384 assignments for 64 experts of 8 slots
 #: each (capacity factor 1.25), so an expert that draws more than 8 drops
 #: the rest: the full width drops in decode, the reduced config never.
 MOE_ARCH, MOE_SEED = "deepseek-moe-16b", 0
-MOE_B, MOE_PROMPT, MOE_GEN = 64, 256, 64
+MOE_B, MOE_PROMPT, MOE_GEN = 64, 64, 64
 MOE_MAX = MOE_PROMPT + MOE_GEN
 #: Every decode-kernel call of the first prompt steps is held to plain.
 MOE_GATE_STEPS = 32
@@ -3849,7 +3876,9 @@ def phase_lm_grok(torch) -> dict:
 #: length: 21 x C [64, 4, 512, 512] float32 is 5.64 GB at B = 64, five
 #: times the weights.
 XL_ARCH, XL_SEED = "xlstm-350m", 0
-XL_B, XL_PROMPT, XL_GEN = 64, 256, 256
+#: The service: a 128-token prompt and 128 greedy steps (256 and 256
+#: before, cut to keep the script in its time).
+XL_B, XL_PROMPT, XL_GEN = 64, 128, 128
 XL_MAX = XL_PROMPT + XL_GEN
 #: The prefill gates: 4 chunks of 256, so one scan over [8, 4, 1,050,624].
 XL_PREFILL_B, XL_PREFILL_T = 8, 1024
@@ -4205,9 +4234,10 @@ def phase_lm_xlstm(torch) -> dict:
 #: full width, nothing cut: 12 encoder and 12 decoder layers, d_model
 #: 1,024, 16 query and 16 kv heads, head_dim 64, d_ff 4,096, vocabulary
 #: 256,206 padded to 258,048, untied, an encoder memory of 1,024 frames. A
-#: 256-token prompt teacher-forced and 256 greedy steps, caches of 512.
+#: 128-token prompt teacher-forced and 128 greedy steps, caches of 256
+#: (256, 256 and 512 before, cut to keep the script in its time).
 ED_ARCH, ED_SEED = "seamless-m4t-medium", 0
-ED_B, ED_PROMPT, ED_GEN = 64, 256, 256
+ED_B, ED_PROMPT, ED_GEN = 64, 128, 128
 ED_MAX = ED_PROMPT + ED_GEN
 #: The gates run on the first sequences and a random frontend: the
 #: service's memory is exactly zero, so it shows nothing of `encode` or
@@ -5031,7 +5061,7 @@ def _train_full_width(torch) -> dict:
                peak_gb=peak)
 
     # The same step, timed and profiled, on the trained weights.
-    step = make_train_step(cfg, AdamWConfig(lr=loop.lr),
+    step = make_train_step(cfg, opt_cfg=AdamWConfig(lr=loop.lr),
                            total_steps=TRAIN_STEPS,
                            warmup_steps=loop.warmup_steps)
     state = init_train_state(model)
@@ -5123,7 +5153,7 @@ def _train_families(torch) -> dict:
         runs = {}
         for dev in ("cuda", "cpu"):
             state = init_train_state(copy.deepcopy(cpu_model).to(dev))
-            step = make_train_step(cfg, AdamWConfig(lr=2e-2),
+            step = make_train_step(cfg, opt_cfg=AdamWConfig(lr=2e-2),
                                    total_steps=TRAIN_FAMILY_STEPS,
                                    warmup_steps=1)
             t0 = time.perf_counter()
@@ -5909,6 +5939,453 @@ def phase_mesh(torch) -> dict:
             "launches": launches, "seconds": seconds, "ranks_s": t_ranks}
 
 
+# ---------------------------------------------------------------------------
+# Training across a mesh: four ranks on the card
+# ---------------------------------------------------------------------------
+
+#: [train_mesh]: four ranks sharing the card over gloo as a 2 x 2 ("data",
+#: "model") mesh. (a) qwen2-1.5b at full width through `train()` (the
+#: trainer's B and T, 2 steps); (b) the five families' reduced configs,
+#: float32, 2 mesh steps against the one-device step (the MoE at its
+#: reduced capacity factor E / k, drop-free); (c) the elastic resume; (d)
+#: the int8 compressed all-reduce against psum at the reference's bound.
+TRAIN_MESH_SHAPE = (2, 2)
+TRAIN_MESH_RANKS = TRAIN_MESH_SHAPE[0] * TRAIN_MESH_SHAPE[1]
+TRAIN_MESH_STEPS = 2
+TRAIN_MESH_FAMILY_B, TRAIN_MESH_FAMILY_T = 4, 64
+#: The reduced steps' AdamW lr (the reference's): AdamW's m / sqrt(v) of
+#: an element whose gradient is near zero turns float32 rounding into up
+#: to ~lr / 100, inside TOL at this lr.
+TRAIN_MESH_LR = 3e-4
+#: The reference's compressed_psum bound: 2 % of the largest magnitude.
+COMPRESS_BOUND = 0.02
+
+
+def _whole_params(plan, state) -> dict:
+    sh = plan.shardings(plan.param_specs)
+    return {n: sh[n].gather(t) for n, t in state.params.items()}
+
+
+def _err_over_tol_trees(torch, got: dict, want: dict) -> float:
+    tol = TOL["float32"]
+    worst = 0.0
+    for n, w in want.items():
+        g = got[n].float().to(w.device)
+        w = w.float()
+        worst = max(worst, float(((g - w).abs() / (
+            tol["atol"] + tol["rtol"] * w.abs())).max()))
+    return worst
+
+
+def _err_over_tol_lists(got, want) -> float:
+    tol = TOL["float32"]
+    return max(abs(g - w) / (tol["atol"] + tol["rtol"] * abs(w))
+               for g, w in zip(got, want))
+
+
+def _train_mesh_full(torch, ctx) -> dict:
+    """(a): the main path, `train()` at full width on the 2 x 2 mesh; each
+    step timed, the bytes it staged through the host and the rank's
+    resident blocks read at the step (the plan's `__call__` wrapped)."""
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train as tr
+
+    captured, times, staged, resident = {}, [], [], {}
+    build, call = tr.build_mesh, st.TrainPlan.__call__
+
+    def built(loop_cfg):
+        captured["mesh"] = build(loop_cfg)
+        return captured["mesh"]
+
+    def timed(plan, state, batch):
+        mesh = captured["mesh"]
+        torch.cuda.synchronize()
+        before, t0 = mesh.staged_bytes, time.perf_counter()
+        out = call(plan, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        staged.append(mesh.staged_bytes - before)
+        if not resident:
+            nb = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                                for t in ts)
+            resident.update(
+                params=nb(state.params.values()),
+                moments=nb(state.opt.m.values()) + nb(state.opt.v.values()),
+                batch=nb(batch.values()),
+                per_chip_argument_bytes=plan.per_chip_argument_bytes(),
+                plan_resident=plan.resident_bytes())
+        return out
+
+    loop = tr.TrainLoopConfig(arch=TRAIN_ARCH, reduced=False, seq_len=128,
+                              global_batch=8, steps=TRAIN_MESH_STEPS,
+                              lr=3e-4, warmup_steps=2, log_every=1,
+                              mesh_shape=TRAIN_MESH_SHAPE)
+    tr.build_mesh, st.TrainPlan.__call__ = built, timed
+    lines = []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = tr.train(loop, emit=lines.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        tr.build_mesh, st.TrainPlan.__call__ = build, call
+    return {"losses": out["losses"], "launches": counts, "wall_s": wall,
+            "step_s": times, "staged_bytes": staged, "resident": resident,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "log": lines,
+            "backend": captured["mesh"].backend}
+
+
+def _train_mesh_families(torch, ctx) -> dict:
+    """(b): each family's reduced config (tp = 2), float32, 2 steps on the
+    mesh against 2 one-device steps on the card from the same weights and
+    batches (rank 0 holds both), on the losses, the grad norms and every
+    parameter; then two planted faults, which must miss: the gradients
+    not summed over "data" (the parameters catch it), and the gradients
+    multiplied by the "model" size (a uniform factor, which the global
+    clip and AdamW's m / sqrt(v) hide from the parameters: the grad norm
+    catches it)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import (SyntheticTokenPipeline,
+                                         TokenPipelineConfig)
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_model
+    from repro_torch.optim import AdamWConfig
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_debug_mesh(*TRAIN_MESH_SHAPE)
+    B, T = TRAIN_MESH_FAMILY_B, TRAIN_MESH_FAMILY_T
+
+    def run(cfg, model, batches, on_mesh, steps):
+        plan = st.make_train_step(
+            cfg, mesh if on_mesh else None, ShapeConfig("t", T, B, "train"),
+            opt_cfg=AdamWConfig(lr=TRAIN_MESH_LR), total_steps=10,
+            warmup_steps=0)
+        state = plan.init_state(copy.deepcopy(model))
+        losses, norms = [], []
+        for batch in batches[:steps]:
+            if on_mesh:
+                batch = st.batch_rows(batch, mesh)
+            state, met = plan(state, batch)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+        whole = (_whole_params(plan, state) if on_mesh else
+                 {n: p.detach() for n, p in
+                  state.params.named_parameters()})
+        return losses, norms, whole
+
+    def planted(fault, cfg, model, batches):
+        reduce = st._reduce_grad
+        st._reduce_grad = fault(reduce)
+        try:
+            return run(cfg, model, batches, True, 1)
+        finally:
+            st._reduce_grad = reduce
+
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                                  tp_size=TRAIN_MESH_SHAPE[1])
+        pipe = SyntheticTokenPipeline(TokenPipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=T, global_batch=B, seed=0))
+        rng = np.random.default_rng(0)
+        batches = []
+        for s in range(TRAIN_MESH_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in pipe.batch_at(s).items()}
+            if cfg.encoder_layers:
+                batch["enc_emb"] = torch.from_numpy(rng.standard_normal(
+                    (B, cfg.encoder_seq_len, cfg.d_model)).astype(
+                    np.float32)).to(dev)
+            batches.append(batch)
+        model = init_model(cfg, 0, device=dev)
+        t0 = time.perf_counter()
+        losses, norms, whole = run(cfg, model, batches, True,
+                                   TRAIN_MESH_STEPS)
+        res = {"mesh": losses, "grad_norm": norms,
+               "mesh_s": time.perf_counter() - t0}
+        if ctx.rank == 0:
+            one, one_norms, want = run(cfg, model, batches, False,
+                                       TRAIN_MESH_STEPS)
+            res.update(one_device=one, one_device_grad_norm=one_norms,
+                       err_over_tol=max(
+                           _err_over_tol_trees(torch, whole, want),
+                           _err_over_tol_lists(losses, one),
+                           _err_over_tol_lists(norms, one_norms)))
+        if arch == TRAIN_ARCH:
+            # The planted faults: each data rank's gradient left unsummed;
+            # every gradient tp times too large.
+            tp = mesh.shape["model"]
+            unsummed = lambda reduce: lambda g, c, m, b: reduce(  # noqa
+                g, c, m, ())
+            scaled = lambda reduce: lambda g, c, m, b: reduce(  # noqa
+                g, c, m, b) * tp
+            _, _, faulty = planted(unsummed, cfg, model, batches)
+            f_loss, f_norm, f_whole = planted(scaled, cfg, model, batches)
+            if ctx.rank == 0:
+                _, _, want1 = run(cfg, model, batches, False, 1)
+                res["fault_err_over_tol"] = _err_over_tol_trees(
+                    torch, faulty, want1)
+                res["scaled_fault"] = {
+                    "grad_norm": f_norm[0], "want": one_norms[0],
+                    "norm_err_over_tol": _err_over_tol_lists(
+                        f_norm, one_norms[:1]),
+                    "loss_err_over_tol": _err_over_tol_lists(f_loss,
+                                                             one[:1]),
+                    "params_err_over_tol": _err_over_tol_trees(
+                        torch, f_whole, want1)}
+        out[arch] = res
+    return out
+
+
+def _train_mesh_elastic(torch, ctx, tmp) -> dict:
+    """(c): reduced qwen2, float32: `train()` on 2 x 2 for 3 steps with a
+    checkpoint at step 2; that checkpoint resumed on 1 x 4 for the third
+    step; the two step-3 checkpoints compared."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as tr
+
+    base = dict(arch=TRAIN_ARCH, steps=3, seq_len=32, global_batch=4,
+                ckpt_every=2, log_every=100, lr=TRAIN_MESH_LR, warmup_steps=1)
+    straight, resumed = (os.path.join(tmp, n) for n in ("straight",
+                                                         "resumed"))
+    log = []
+    a = tr.train(tr.TrainLoopConfig(mesh_shape=(2, 2), ckpt_dir=straight,
+                                    **base), emit=log.append)
+    if ctx.rank == 0:
+        shutil.copytree(CheckpointManager(straight).path_for(2),
+                        CheckpointManager(resumed).path_for(2))
+    dist.barrier()
+    b = tr.train(tr.TrainLoopConfig(mesh_shape=(1, 4), ckpt_dir=resumed,
+                                    **base), emit=log.append)
+    res = {"straight": a["losses"], "resumed": b["losses"],
+           "resumed_log": any("resumed from step 2" in x for x in log)}
+    if ctx.rank == 0:
+        tol = TOL["float32"]
+        worst = abs(b["losses"][0] - a["losses"][2]) / (
+            tol["atol"] + tol["rtol"] * abs(a["losses"][2]))
+        pa, pb = (CheckpointManager(d).path_for(3) for d in (straight,
+                                                             resumed))
+        files = sorted(f for f in os.listdir(pa) if f.endswith(".npy"))
+        for f in files:
+            x, y = (np.load(os.path.join(p, f)).astype(np.float64)
+                    for p in (pa, pb))
+            worst = max(worst, float(np.max(np.abs(x - y) / (
+                tol["atol"] + tol["rtol"] * np.abs(x)))))
+        res.update(err_over_tol=worst, leaves=len(files))
+    return res
+
+
+def _train_mesh_compression(torch, ctx) -> dict:
+    """(d): one step's gradients of reduced qwen2 (float32, the rank's rows
+    on 2 x 2) summed over "data" by `compressed_psum` and by `psum`."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.tokens import (SyntheticTokenPipeline,
+                                         TokenPipelineConfig)
+    from repro_torch.distributed import psum
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_model
+    from repro_torch.optim import compressed_psum, init_compression
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_debug_mesh(*TRAIN_MESH_SHAPE)
+    cfg = dataclasses.replace(reduced_config(get_config(TRAIN_ARCH)),
+                              tp_size=TRAIN_MESH_SHAPE[1])
+    pipe = SyntheticTokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_MESH_FAMILY_T,
+        global_batch=TRAIN_MESH_FAMILY_B, seed=0))
+    batch = st.batch_rows({k: torch.from_numpy(v).to(dev) for k, v in
+                           pipe.batch_at(0).items()}, mesh)
+    model = init_model(cfg, 0, device=dev)
+    with mesh:
+        _, _, grads = st.loss_and_grads(model, cfg, batch)
+        before = mesh.staged_bytes
+        got, _ = compressed_psum(grads, init_compression(grads), "data")
+        compressed = mesh.staged_bytes - before
+        before = mesh.staged_bytes
+        want = {n: psum(g, "data") for n, g in grads.items()}
+        plain = mesh.staged_bytes - before
+    rel = max(float((got[n] - w).abs().max() / w.abs().max().clamp_min(
+        1e-30)) for n, w in want.items())
+    return {"rel_to_largest": rel, "staged_compressed": compressed,
+            "staged_psum": plain, "tensors": len(grads)}
+
+
+def _train_mesh_rank(ctx, tmp) -> dict:
+    """What each rank of the ``[train_mesh]`` phase runs (`run_ranks`)."""
+    import torch
+
+    if ctx.device.type != "cuda":
+        raise RuntimeError(f"rank {ctx.rank} has no card ({ctx.device})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"device": str(ctx.device), "backend": ctx.backend,
+           "card": torch.cuda.get_device_name(ctx.device)}
+    t0 = time.perf_counter()
+    res["full"] = _train_mesh_full(torch, ctx)
+    torch.cuda.empty_cache()
+    reset_counts()
+    t1 = time.perf_counter()
+    res["families"] = _train_mesh_families(torch, ctx)
+    res["elastic"] = _train_mesh_elastic(torch, ctx, tmp)
+    res["compression"] = _train_mesh_compression(torch, ctx)
+    res["reduced_launches"] = read_counts()
+    res["full_s"], res["reduced_s"] = t1 - t0, time.perf_counter() - t1
+    return res
+
+
+def phase_train_mesh(torch, train) -> dict:
+    """``[train_mesh]``: training across a 2 x 2 mesh of four ranks sharing
+    the card (see the module docstring)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+
+    tag = "train_mesh"
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    OUT.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        ranks = run_ranks(_train_mesh_rank, TRAIN_MESH_RANKS, tmp, emit=say)
+    t_ranks = time.perf_counter() - t0
+    r0 = ranks[0]
+    launches = {}
+    for r in ranks:
+        for counts in (r["full"]["launches"], r["reduced_launches"]):
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    if any(launches.values()):
+        fail(f"[{tag}] the training paths launched kernels: {launches}")
+
+    # (a) The main path at full width.
+    full = [r["full"] for r in ranks]
+    losses = full[0]["losses"]
+    if any(f["losses"] != losses for f in full):
+        fail(f"[{tag}] the ranks' losses differ: "
+             f"{[f['losses'] for f in full]}")
+    if len(losses) != TRAIN_MESH_STEPS or not all(
+            math.isfinite(x) for x in losses):
+        fail(f"[{tag}] losses not finite over {TRAIN_MESH_STEPS} steps: "
+             f"{losses}")
+    grads = train["full_width"]["grads"]
+    one = train["full_width"]["losses"][0]
+    noise = abs(grads["loss_bf16"] - grads["loss_f32"])
+    off = abs(losses[0] - one)
+    say(f"[{tag}] path: train({TRAIN_ARCH}, reduced=False, mesh_shape "
+        f"{TRAIN_MESH_SHAPE}, steps {TRAIN_MESH_STEPS}, seq_len 128, "
+        f"global_batch 8) on {TRAIN_MESH_RANKS} ranks "
+        f"({r0['card']}, backend {full[0]['backend']}): losses "
+        + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; step 0 vs the one-device step 0 ({one:.6f}): "
+        f"{off:.3g} (bf16 noise from [train]: |bf16 - float32| = "
+        f"{noise:.3g}); kernel launches {launches}")
+    if not off <= noise:
+        fail(f"[{tag}] step-0 loss {losses[0]} is {off:.3g} from the "
+             f"one-device {one}, past the bf16 noise {noise:.3g}")
+    for i, f in enumerate(full):
+        res = f["resident"]
+        say(f"[{tag}] rank {i}: parameters {res['params'] / 1e9:.3f} GB + "
+            f"moments {res['moments'] / 1e9:.3f} GB + batch "
+            f"{res['batch']} B resident ({res['plan_resident']} bytes with "
+            f"the step, as the plan counts; the reference's "
+            f"per_chip_argument_bytes {res['per_chip_argument_bytes']}); "
+            f"peak {f['peak_bytes'] / 1e9:.2f} GB; staged through "
+            f"the host per step "
+            f"{[round(b / 1e9, 3) for b in f['staged_bytes']]} GB; wall per "
+            f"step {[round(t, 2) for t in f['step_s']]} s; train() "
+            f"{f['wall_s']:.1f} s")
+        # The port holds what its plan counts; at least the reference's
+        # count (a layer cannot be cut along the stacked layer dimension
+        # that zero_specs may pick: ROADMAP C, differences by design).
+        held = res["params"] + res["moments"] + res["batch"] + 4
+        if held != res["plan_resident"] or \
+                res["plan_resident"] < res["per_chip_argument_bytes"]:
+            fail(f"[{tag}] rank {i} holds {held} bytes of state and batch; "
+                 f"its plan says {res['plan_resident']}, the reference's "
+                 f"count {res['per_chip_argument_bytes']}")
+
+    # (b) Five families against the one-device step.
+    fam = r0["families"]
+    for arch, res in fam.items():
+        say(f"[{tag}] {arch} (reduced, tp 2, float32): "
+            f"{TRAIN_MESH_STEPS} steps on {TRAIN_MESH_SHAPE} vs one device "
+            f"(B {TRAIN_MESH_FAMILY_B}, T {TRAIN_MESH_FAMILY_T}): losses "
+            + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(
+                res["mesh"], res["one_device"]))
+            + "; grad norms " + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(
+                res["grad_norm"], res["one_device_grad_norm"]))
+            + f"; every parameter, loss and grad norm err/tol "
+            f"{res['err_over_tol']:.3g}; {res['mesh_s']:.1f} s"
+            + (f"; gradients not summed over 'data' (planted): err/tol "
+               f"{res['fault_err_over_tol']:.3g}"
+               if "fault_err_over_tol" in res else ""))
+        if not res["err_over_tol"] <= 1.0:
+            fail(f"[{tag}] {arch}: the mesh step differs from the "
+                 f"one-device step (err/tol {res['err_over_tol']:.3g})")
+        for r in ranks:
+            if r["families"][arch]["mesh"] != res["mesh"]:
+                fail(f"[{tag}] {arch}: the ranks' losses differ")
+    if not fam[TRAIN_ARCH]["fault_err_over_tol"] > 1.0:
+        fail(f"[{tag}] the unsummed gradients pass the gate")
+    sf = fam[TRAIN_ARCH]["scaled_fault"]
+    say(f"[{tag}] {TRAIN_ARCH}: gradients times the 'model' size "
+        f"(planted): step-0 grad norm {sf['grad_norm']:.6f} vs "
+        f"{sf['want']:.6f}, err/tol {sf['norm_err_over_tol']:.3g} (blind "
+        f"to it: the step-0 loss {sf['loss_err_over_tol']:.3g} and the "
+        f"parameters after the clipped step {sf['params_err_over_tol']:.3g})"
+        )
+    if not sf["norm_err_over_tol"] > 1.0:
+        fail(f"[{tag}] the gradients scaled by the 'model' size pass the "
+             "gate")
+
+    # (c) Elastic resume.
+    el = r0["elastic"]
+    say(f"[{tag}] elastic: reduced {TRAIN_ARCH} float32, 2 steps on 2 x 2 "
+        f"checkpointed, resumed on 1 x 4 for step 3: loss "
+        f"{el['resumed'][0]:.6f} vs uninterrupted {el['straight'][2]:.6f};"
+        f" {el['leaves']} checkpoint leaves and the loss err/tol "
+        f"{el['err_over_tol']:.3g}")
+    if not (el["resumed_log"] and el["err_over_tol"] <= 1.0):
+        fail(f"[{tag}] the elastic resume differs (err/tol "
+             f"{el['err_over_tol']:.3g}, resumed {el['resumed_log']})")
+
+    # (d) Compression.
+    comp = [r["compression"] for r in ranks]
+    worst = max(c["rel_to_largest"] for c in comp)
+    say(f"[{tag}] compressed_psum over 'data' of one step's gradients "
+        f"(reduced {TRAIN_ARCH}, {comp[0]['tensors']} tensors): max error "
+        f"{worst:.3g} of each tensor's largest magnitude (bound "
+        f"{COMPRESS_BOUND}); staged through the host per rank: "
+        f"compressed_psum {comp[0]['staged_compressed']} bytes (int32 "
+        f"payload and a pmax per tensor, there and back), float32 psum "
+        f"{comp[0]['staged_psum']} bytes")
+    if not worst <= COMPRESS_BOUND:
+        fail(f"[{tag}] compressed_psum is {worst:.3g} of the largest "
+             "magnitude from psum")
+    seconds = time.perf_counter() - t0
+    say(f"[{tag}] phase done in {seconds:.1f} s (ranks "
+        f"{t_ranks:.1f} s: full width {max(r['full_s'] for r in ranks):.1f}"
+        f" s, reduced parts {max(r['reduced_s'] for r in ranks):.1f} s); "
+        f"kernel launches summed over the ranks {launches}")
+    for r in ranks:
+        r["full"].pop("log")
+    return {"ranks": ranks, "launches": launches, "seconds": seconds,
+            "step0_vs_one_device": off, "bf16_noise": noise}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -5918,38 +6395,48 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
-    env = phase_environment(torch)
-    build = phase_build()
-    kernels = phase_kernels(torch)
-    pack = phase_pack(torch)
-    main_path, oneshot = phase_main_path(torch)
-    prof = phase_profile(torch)
-    slr, _ = phase_main_path(torch, "slr", "slr")
-    slr_prof = phase_profile(torch, "slr", "slr")
-    matrix = phase_matrix(torch)
-    sqrt = phase_sqrt(torch)
-    adaptive = phase_adaptive(torch)
-    autotune = phase_autotune(torch)
-    stream, stream_stats = phase_stream(torch, oneshot)
-    chaos = phase_chaos(torch, stream_stats)
-    tenants = phase_tenants(torch)
-    surface = phase_surface(torch)
-    ssm = phase_ssm_scan(torch)
-    flash = phase_flash(torch)
+    phase_s = {}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        phase_s[name] = time.perf_counter() - t0
+        say(f"[time] phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    env = timed("environment", phase_environment, torch)
+    build = timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels, torch)
+    pack = timed("pack", phase_pack, torch)
+    main_path, oneshot = timed("main_path", phase_main_path, torch)
+    prof = timed("profile", phase_profile, torch)
+    slr, _ = timed("main_path_slr", phase_main_path, torch, "slr", "slr")
+    slr_prof = timed("profile_slr", phase_profile, torch, "slr", "slr")
+    matrix = timed("matrix", phase_matrix, torch)
+    sqrt = timed("sqrt", phase_sqrt, torch)
+    adaptive = timed("adaptive", phase_adaptive, torch)
+    autotune = timed("autotune", phase_autotune, torch)
+    stream, stream_stats = timed("stream", phase_stream, torch, oneshot)
+    chaos = timed("chaos", phase_chaos, torch, stream_stats)
+    tenants = timed("tenants", phase_tenants, torch)
+    surface = timed("surface", phase_surface, torch)
+    ssm = timed("ssm_scan", phase_ssm_scan, torch)
+    flash = timed("flash", phase_flash, torch)
     # The LM phases infer: no gradient (the kernels refuse inputs that
     # need one, and a layer called directly on the model's parameters
     # would pass them one).
     with torch.no_grad():
-        lm = phase_lm_decode(torch)
-        hybrid = phase_lm_hybrid(torch)
-        moe = phase_lm_moe(torch)
-        grok = phase_lm_grok(torch)
-        xlstm = phase_lm_xlstm(torch)
-        encdec = phase_lm_encdec(torch)
-        mrope = phase_lm_mrope(torch)
-    train = phase_train(torch)
+        lm = timed("lm_decode", phase_lm_decode, torch)
+        hybrid = timed("lm_hybrid", phase_lm_hybrid, torch)
+        moe = timed("lm_moe", phase_lm_moe, torch)
+        grok = timed("lm_grok", phase_lm_grok, torch)
+        xlstm = timed("lm_xlstm", phase_lm_xlstm, torch)
+        encdec = timed("lm_encdec", phase_lm_encdec, torch)
+        mrope = timed("lm_mrope", phase_lm_mrope, torch)
+    train = timed("train", phase_train, torch)
     with torch.no_grad():
-        mesh = phase_mesh(torch)
+        mesh = timed("mesh", phase_mesh, torch)
+    train_mesh = timed("train_mesh", phase_train_mesh, torch, train)
 
     rows = []
     for kind in ("filtering_combine", "smoothing_combine"):
@@ -5966,7 +6453,8 @@ def main() -> int:
                        ("tenants", tenants))},
                    "surface": surface["launches"][kind],
                    "train": train["launches"][kind],
-                   "mesh": mesh["launches"].get(kind, 0)}
+                   "mesh": mesh["launches"].get(kind, 0),
+                   "train_mesh": train_mesh["launches"].get(kind, 0)}
         rows.append({"launches": sum(by_path.values()),
                      "launches_by_path": by_path, "max_abs_err": err,
                      "ms": t["in_place_graph_ms"],
@@ -5985,7 +6473,8 @@ def main() -> int:
                  "lm_hybrid_prefill": hybrid["ssm_launches"],
                  "lm_xlstm_prefill": xlstm["ssm_launches"],
                  "train": train["launches"]["ssm_scan"],
-                 "mesh": mesh["launches"].get("ssm_scan", 0)}
+                 "mesh": mesh["launches"].get("ssm_scan", 0),
+                 "train_mesh": train_mesh["launches"].get("ssm_scan", 0)}
     rows[-2].update(launches=sum(ssm_paths.values()),
                     launches_by_path=ssm_paths,
                     **{path: {k: res["ssm_scan"][k] for k in lm_times}
@@ -5998,7 +6487,10 @@ def main() -> int:
                    "train": sum(n for k, n in train["launches"].items()
                                 if k.startswith("flash_attention")),
                    "mesh": sum(n for k, n in mesh["launches"].items()
-                               if k.startswith("flash_attention"))}
+                               if k.startswith("flash_attention")),
+                   "train_mesh": sum(
+                       n for k, n in train_mesh["launches"].items()
+                       if k.startswith("flash_attention"))}
     rows[-1].update(launches=sum(flash_paths.values()),
                     launches_by_path=flash_paths,
                     launches_by_kernel=flash["launches_by_kernel"],
@@ -6033,7 +6525,9 @@ def main() -> int:
          "flash_attention": flash, "lm_decode": lm, "lm_hybrid": hybrid,
          "lm_moe": moe, "lm_grok": grok, "lm_xlstm": xlstm,
          "lm_encdec": encdec, "lm_mrope": mrope, "train": train,
-         "mesh": mesh, "seconds": time.perf_counter() - t_start}, indent=1,
+         "mesh": mesh, "train_mesh": train_mesh,
+         "phase_s": phase_s, "seconds": time.perf_counter() - t_start},
+        indent=1,
         default=str))
     say(f"[chip_smoke] all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")

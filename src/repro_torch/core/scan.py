@@ -199,13 +199,11 @@ def device_exclusive_scan(combine: Callable, agg, *, axis_name: str,
             # Bring the aggregate of the rank `shift` to the left.
             recv = ppermute(p, axis_name,
                             [(i, (i + shift) % D) for i in range(D)])
-            if idx >= shift:
-                p = combine(recv, p)
+            p = combine(recv, p) if idx >= shift else _tie(p, recv)
         else:
             recv = ppermute(p, axis_name,
                             [(i, (i - shift) % D) for i in range(D)])
-            if idx < D - shift:
-                p = combine(p, recv)
+            p = combine(p, recv) if idx < D - shift else _tie(p, recv)
         shift *= 2
     if not reverse:
         excl = ppermute(p, axis_name, [(i, (i + 1) % D) for i in range(D)])
@@ -213,7 +211,39 @@ def device_exclusive_scan(combine: Callable, agg, *, axis_name: str,
     else:
         excl = ppermute(p, axis_name, [(i, (i - 1) % D) for i in range(D)])
         first = idx == D - 1
-    return identity if first else excl
+    return _tie(identity, excl) if first else excl
+
+
+class _Tie(torch.autograd.Function):
+    """``kept`` as it is, with a zero gradient for ``dropped``: keeps a
+    received value that a rank does not combine in its autograd graph,
+    so that the backward pass of the exchange that brought it runs on
+    every rank (a collective's backward must run everywhere)."""
+
+    @staticmethod
+    def forward(ctx, n_kept, *tensors):
+        ctx.n_kept = n_kept
+        ctx.dropped = [(t.shape, t.dtype, t.device)
+                       for t in tensors[n_kept:]]
+        return tuple(t.view_as(t) for t in tensors[:n_kept])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        zeros = [torch.zeros(s, dtype=d, device=v)
+                 for s, d, v in ctx.dropped]
+        return (None,) + tuple(grads) + tuple(zeros)
+
+
+def _tie(kept, dropped):
+    """`_Tie` on tuples (NamedTuples) of tensors; ``kept`` itself when no
+    gradient is recorded."""
+    ks, ds = list(kept), list(dropped)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in ks + ds)):
+        return kept
+    out = _Tie.apply(len(ks), *ks, *ds)
+    return (type(kept)(*out) if hasattr(kept, "_fields")
+            else type(kept)(out))
 
 
 def sharded_associative_scan(combine: Callable, elems, *, axis_name: str,

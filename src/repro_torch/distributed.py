@@ -29,12 +29,34 @@ on one device). gloo moves host memory, so a collective on CUDA tensors
 under gloo copies them to the host and back in `_host_staged`, the one
 place that does, and adds the bytes to ``mesh.staged_bytes``: a transport
 for bytes, never a CPU path for compute.
+
+Under autograd (training), `ppermute`, `psum`, `pmean`, `all_gather`,
+`psum_scatter` and `all_to_all` have backward passes, and `pvary` marks
+a replicated value as one that each rank uses in its own way. The
+convention is JAX's for typed shard_map: a value replicated over an axis
+carries the whole cotangent on every rank of it. So the transpose of
+`psum` is the identity, `all_gather` keeps the rank's own block of the
+cotangent, `psum_scatter` all_gathers it, `all_to_all` and `ppermute`
+run backwards, and `pvary` (identity forward) sums the ranks' cotangents
+with `psum`. Every rank then seeds the same loss, a parameter used in the
+same way on every rank of an axis gets the same gradient there, and one
+that a rank uses on its own slice (a router on the rank's tokens) goes
+through `pvary`. Gradients of data-parallel replicas still need their sum
+over the batch axes: that is the train step's, as JAX leaves it to GSPMD.
+The mesh is kept with each operation, so a backward pass (or a block's
+recomputation in it) that runs on autograd's own thread still reaches it.
+
+`PartitionSpec` (``P``) is a tensor's layout on a mesh: per dimension an
+axis name, a tuple of names (split row-major over them) or None (whole).
+`NamedSharding` pairs a mesh (a `Mesh`, or an `AbstractMesh` that has
+only the axis sizes) with a spec: `NamedSharding.block` takes the rank's
+block of a full tensor and `NamedSharding.gather` the full tensor from
+every rank's block.
 """
 from __future__ import annotations
 
 import math
-import threading
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -47,7 +69,10 @@ _reduce_scatter = (getattr(dist, "reduce_scatter_single", None)
 # The mesh
 # ---------------------------------------------------------------------------
 
-_AMBIENT = threading.local()
+#: The stack of ambient meshes (``with mesh:``), process-wide: autograd
+#: runs a CUDA backward pass, and the recomputation of a checkpointed
+#: block, on a thread of its own, which must see the mesh too.
+_AMBIENT: List["Mesh"] = []
 
 
 class Mesh:
@@ -116,14 +141,11 @@ class Mesh:
         return self._groups[name]
 
     def __enter__(self) -> "Mesh":
-        stack = getattr(_AMBIENT, "stack", None)
-        if stack is None:
-            stack = _AMBIENT.stack = []
-        stack.append(self)
+        _AMBIENT.append(self)
         return self
 
     def __exit__(self, *exc) -> None:
-        _AMBIENT.stack.pop()
+        _AMBIENT.pop()
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank {self.rank} at {self.coords}, "
@@ -132,8 +154,7 @@ class Mesh:
 
 def active_mesh() -> Optional[Mesh]:
     """The ambient mesh (``with mesh:``), or None."""
-    stack = getattr(_AMBIENT, "stack", None)
-    return stack[-1] if stack else None
+    return _AMBIENT[-1] if _AMBIENT else None
 
 
 # ---------------------------------------------------------------------------
@@ -195,21 +216,15 @@ def _host_staged(mesh: Mesh, tensors: Sequence[torch.Tensor]):
     return [t.detach().cpu().contiguous() for t in tensors], back
 
 
-def ppermute(x, axis_name: str, perm: Sequence[tuple]):
-    """``lax.ppermute``: send this rank's ``x`` to axis index ``dst`` for
-    each ``(src, dst)`` in ``perm`` with ``src`` this rank's index;
-    receive from the ``src`` that names this rank as its ``dst``, or zeros
-    where none does. Every leaf goes in one ``batch_isend_irecv``."""
-    mesh = _bound(axis_name)
+def _ppermute(mesh: Mesh, leaves: List[torch.Tensor], axis_name: str,
+              perm: Sequence[tuple]) -> List[torch.Tensor]:
     me, line = mesh.coords[axis_name], mesh.line(axis_name)
     dst = [d for s, d in perm if s == me]
     src = [s for s, d in perm if d == me]
     if len(dst) > 1 or len(src) > 1:
         raise ValueError(f"ppermute: {perm} is not a permutation")
-    leaves = _leaves(x)
     if src == [me] or (not src and not dst):
-        out = [t.clone() if src else torch.zeros_like(t) for t in leaves]
-        return _rebuild(x, out)
+        return [t.clone() if src else torch.zeros_like(t) for t in leaves]
     sent, back = _host_staged(mesh, leaves)
     recv = [torch.empty_like(t) for t in sent]
     ops = []
@@ -219,38 +234,22 @@ def ppermute(x, axis_name: str, perm: Sequence[tuple]):
         ops += [dist.P2POp(dist.irecv, t, line[src[0]]) for t in recv]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    out = ([back(t, like) for t, like in zip(recv, leaves)] if src
-           else [torch.zeros_like(t) for t in leaves])
-    return _rebuild(x, out)
+    return ([back(t, like) for t, like in zip(recv, leaves)] if src
+            else [torch.zeros_like(t) for t in leaves])
 
 
-def _all_reduce(x, axis_name, op):
+def _all_reduce(mesh: Mesh, leaves: List[torch.Tensor], axes: tuple,
+                op) -> List[torch.Tensor]:
     # The reduction runs in place on copies: the inputs stay as they are.
-    out = [t.clone() for t in _leaves(x)]
-    for name in _axes(axis_name):
-        mesh = _bound(name)
+    out = [t.detach().clone() for t in leaves]
+    for name in axes:
         if mesh.shape[name] == 1:
             continue
         sent, back = _host_staged(mesh, out)
         for t in sent:
             dist.all_reduce(t, op=op, group=mesh.group(name))
         out = [back(t, like) for t, like in zip(sent, out)]
-    return _rebuild(x, out)
-
-
-def psum(x, axis_name):
-    """Sum over the ranks of ``axis_name`` (a name or a tuple of names)."""
-    return _all_reduce(x, axis_name, dist.ReduceOp.SUM)
-
-
-def pmax(x, axis_name):
-    return _all_reduce(x, axis_name, dist.ReduceOp.MAX)
-
-
-def pmean(x, axis_name):
-    n = axis_size(axis_name)
-    total = psum(x, axis_name)
-    return _rebuild(total, [t / n for t in _leaves(total)])
+    return out
 
 
 def _all_gather_leaf(mesh: Mesh, name: str, t: torch.Tensor
@@ -263,59 +262,59 @@ def _all_gather_leaf(mesh: Mesh, name: str, t: torch.Tensor
     return [back(p, t) for p in parts]
 
 
-def all_gather(x, axis_name: str, *, axis: int = 0, tiled: bool = False):
-    """``lax.all_gather``: every rank's ``x`` by axis index, stacked on a
-    new dimension ``axis`` or, ``tiled``, concatenated along ``axis``."""
-    mesh = _bound(axis_name)
+def _all_gather(mesh: Mesh, leaves: List[torch.Tensor], axis_name: str,
+                axis: int, tiled: bool) -> List[torch.Tensor]:
     out = []
-    for t in _leaves(x):
-        parts = _all_gather_leaf(mesh, axis_name, t)
+    for t in leaves:
+        parts = _all_gather_leaf(mesh, axis_name, t.detach())
         out.append(torch.cat(parts, dim=axis) if tiled
                    else torch.stack(parts, dim=axis))
-    return _rebuild(x, out)
+    return out
 
 
-def psum_scatter(x, axis_name: str, *, scatter_dimension: int = 0,
-                 tiled: bool = False):
-    """``lax.psum_scatter``: the sum over the axis, of which this rank
-    keeps block ``axis_index`` along ``scatter_dimension`` (``tiled``; else
-    that dimension has the axis's size and is dropped). One
-    reduce-scatter per leaf."""
-    mesh = _bound(axis_name)
-    D, sd = mesh.shape[axis_name], scatter_dimension
+def _own_block(mesh: Mesh, leaves: List[torch.Tensor], axis_name: str,
+               axis: int, tiled: bool) -> List[torch.Tensor]:
+    """The rank's block of each of ``leaves`` along ``axis``, as
+    `all_gather` lays the blocks out: the transpose of an all_gather to a
+    replicated value."""
+    me, D = mesh.coords[axis_name], mesh.shape[axis_name]
+    if not tiled:
+        return [t.select(axis, me) for t in leaves]
+    return [t.narrow(axis, me * (t.shape[axis] // D), t.shape[axis] // D)
+            for t in leaves]
+
+
+def _psum_scatter(mesh: Mesh, leaves: List[torch.Tensor], axis_name: str,
+                  sd: int, tiled: bool) -> List[torch.Tensor]:
+    D = mesh.shape[axis_name]
     out = []
-    for t in _leaves(x):
+    for t in leaves:
         if t.shape[sd] % D if tiled else t.shape[sd] != D:
             raise ValueError(f"psum_scatter: dimension {sd} of "
                              f"{tuple(t.shape)} does not split over {D} "
                              "ranks")
         if D == 1:
-            part = t.clone()
+            part = t.detach().clone()
         else:
-            (sent,), back = _host_staged(mesh, [t.movedim(sd, 0)])
+            (sent,), back = _host_staged(mesh, [t.detach().movedim(sd, 0)])
             recv = sent.new_empty((sent.shape[0] // D,) + sent.shape[1:])
             _reduce_scatter(recv, sent, group=mesh.group(axis_name))
             part = back(recv, t).movedim(0, sd)
         out.append(part if tiled else part.squeeze(sd))
-    return _rebuild(x, out)
+    return out
 
 
-def all_to_all(x, axis_name: str, split_axis: int, concat_axis: int, *,
-               tiled: bool = False):
-    """``lax.all_to_all``: split ``x`` along ``split_axis`` into one block
-    per rank of the axis, send block ``j`` to axis index ``j``, and join
-    the blocks received, by source index, along ``concat_axis``
-    (concatenated when ``tiled``, else stacked with the split axis
-    dropped)."""
-    mesh = _bound(axis_name)
+def _all_to_all(mesh: Mesh, leaves: List[torch.Tensor], axis_name: str,
+                split_axis: int, concat_axis: int, tiled: bool
+                ) -> List[torch.Tensor]:
     D = mesh.shape[axis_name]
     out = []
-    for t in _leaves(x):
+    for t in leaves:
         if t.shape[split_axis] % D:
             raise ValueError(f"all_to_all: dimension {split_axis} of "
                              f"{tuple(t.shape)} does not split over {D} "
                              "ranks")
-        blocks = list(t.chunk(D, dim=split_axis))
+        blocks = list(t.detach().chunk(D, dim=split_axis))
         if D > 1:
             # Point to point (gloo has no all-to-all in every version):
             # block j to axis index j, one block from every other.
@@ -336,4 +335,328 @@ def all_to_all(x, axis_name: str, split_axis: int, concat_axis: int, *,
         else:
             blocks = [b.squeeze(split_axis) for b in blocks]
             out.append(torch.stack(blocks, dim=concat_axis))
-    return _rebuild(x, out)
+    return out
+
+
+class _Collective(torch.autograd.Function):
+    """A collective with its transpose (module docstring): ``forward``
+    and ``backward`` are ``(mesh, leaves) -> leaves`` functions, the
+    mesh kept from the forward call."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, mesh, *leaves):
+        ctx.bwd, ctx.mesh = bwd, mesh
+        return tuple(fwd(mesh, list(leaves)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None) + tuple(ctx.bwd(ctx.mesh, list(grads)))
+
+
+def _run(x, mesh: Mesh, fwd: Callable, bwd: Optional[Callable]):
+    """``fwd`` on the leaves of ``x``; under autograd, with ``bwd`` as
+    its backward (None: no gradient flows back)."""
+    leaves = _leaves(x)
+    if bwd is None or not (torch.is_grad_enabled()
+                           and any(t.requires_grad for t in leaves)):
+        return _rebuild(x, fwd(mesh, leaves))
+    return _rebuild(x, list(_Collective.apply(fwd, bwd, mesh, *leaves)))
+
+
+def ppermute(x, axis_name: str, perm: Sequence[tuple]):
+    """``lax.ppermute``: send this rank's ``x`` to axis index ``dst`` for
+    each ``(src, dst)`` in ``perm`` with ``src`` this rank's index;
+    receive from the ``src`` that names this rank as its ``dst``, or zeros
+    where none does. Every leaf goes in one ``batch_isend_irecv``. The
+    backward pass sends the cotangents by the inverse permutation."""
+    mesh = _bound(axis_name)
+    perm = [tuple(p) for p in perm]
+    inverse = [(d, s) for s, d in perm]
+    return _run(x, mesh,
+                lambda m, ls: _ppermute(m, ls, axis_name, perm),
+                lambda m, gs: _ppermute(m, gs, axis_name, inverse))
+
+
+def _identity(mesh, grads):
+    return grads
+
+
+def psum(x, axis_name):
+    """Sum over the ranks of ``axis_name`` (a name or a tuple of names).
+    The result is replicated over them, so its backward pass is the
+    identity (module docstring)."""
+    axes = _axes(axis_name)
+    mesh = _bound(axes[0]) if axes else active_mesh()
+    for a in axes:
+        _bound(a)
+    return _run(x, mesh,
+                lambda m, ls: _all_reduce(m, ls, axes, dist.ReduceOp.SUM),
+                _identity)
+
+
+def pmax(x, axis_name):
+    """The largest value over the ranks of ``axis_name``; no gradient."""
+    axes = _axes(axis_name)
+    for a in axes:
+        _bound(a)
+    return _rebuild(x, _all_reduce(active_mesh(), _leaves(x), axes,
+                                   dist.ReduceOp.MAX))
+
+
+def pmean(x, axis_name):
+    n = axis_size(axis_name)
+    total = psum(x, axis_name)
+    return _rebuild(total, [t / n for t in _leaves(total)])
+
+
+def pvary(x, axis_name: str):
+    """``x``, replicated over ``axis_name``, as a value each rank goes on
+    to use in its own way (its slice, its shard of a weight): the
+    identity, whose backward pass sums the ranks' cotangents over the
+    axis (`psum`), as the transpose of JAX's ``pvary`` does."""
+    mesh = _bound(axis_name)
+    return _run(x, mesh, lambda m, ls: [t.view_as(t) for t in ls],
+                lambda m, gs: _all_reduce(m, gs, (axis_name,),
+                                          dist.ReduceOp.SUM))
+
+
+def all_gather(x, axis_name: str, *, axis: int = 0, tiled: bool = False):
+    """``lax.all_gather``: every rank's ``x`` by axis index, stacked on a
+    new dimension ``axis`` or, ``tiled``, concatenated along ``axis``. The
+    result is replicated over the axis: the backward pass keeps the
+    rank's own block of the cotangent."""
+    mesh = _bound(axis_name)
+    return _run(x, mesh,
+                lambda m, ls: _all_gather(m, ls, axis_name, axis, tiled),
+                lambda m, gs: _own_block(m, gs, axis_name, axis, tiled))
+
+
+def psum_scatter(x, axis_name: str, *, scatter_dimension: int = 0,
+                 tiled: bool = False):
+    """``lax.psum_scatter``: the sum over the axis, of which this rank
+    keeps block ``axis_index`` along ``scatter_dimension`` (``tiled``; else
+    that dimension has the axis's size and is dropped). One
+    reduce-scatter per leaf; the backward pass all_gathers the
+    cotangents."""
+    mesh = _bound(axis_name)
+    sd = scatter_dimension
+    return _run(x, mesh,
+                lambda m, ls: _psum_scatter(m, ls, axis_name, sd, tiled),
+                lambda m, gs: _all_gather(m, gs, axis_name, sd, tiled))
+
+
+def all_to_all(x, axis_name: str, split_axis: int, concat_axis: int, *,
+               tiled: bool = False):
+    """``lax.all_to_all``: split ``x`` along ``split_axis`` into one block
+    per rank of the axis, send block ``j`` to axis index ``j``, and join
+    the blocks received, by source index, along ``concat_axis``
+    (concatenated when ``tiled``, else stacked with the split axis
+    dropped). The backward pass is the all_to_all with the two axes
+    swapped."""
+    mesh = _bound(axis_name)
+    return _run(x, mesh,
+                lambda m, ls: _all_to_all(m, ls, axis_name, split_axis,
+                                          concat_axis, tiled),
+                lambda m, gs: _all_to_all(m, gs, axis_name, concat_axis,
+                                          split_axis, tiled))
+
+
+# ---------------------------------------------------------------------------
+# Partition specs and shardings
+# ---------------------------------------------------------------------------
+
+class PartitionSpec(tuple):
+    """``P(*entries)``: per dimension of a tensor an axis name, a tuple of
+    axis names or None; dimensions past the entries are whole. A tuple,
+    so it compares equal to JAX's ``PartitionSpec`` with the same
+    entries (a tuple of one name is that name, as in JAX)."""
+
+    def __new__(cls, *entries):
+        # A one-name tuple is that name, as JAX normalises it.
+        entries = tuple(e[0] if isinstance(e, tuple) and len(e) == 1
+                        else e for e in entries)
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+    def __reduce__(self):
+        return (PartitionSpec, tuple(self))
+
+
+P = PartitionSpec
+
+
+def entry_axes(entry) -> tuple:
+    """The axis names of one spec entry, outermost first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec) -> tuple:
+    """Every axis name a spec uses, in order."""
+    return tuple(a for e in spec for a in entry_axes(e))
+
+
+def tree_map(fn: Callable, tree, *others, is_leaf: Callable):
+    """``fn(leaf, *matching)`` for every leaf (``is_leaf(x)``) of ``tree``,
+    a nesting of dicts, lists and tuples (NamedTuples too), and the
+    matching leaves of ``others`` (nested alike), in the same nesting."""
+    if is_leaf(tree):
+        return fn(tree, *others)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(o[k] for o in others), is_leaf=is_leaf)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, *(o[i] for o in others), is_leaf=is_leaf)
+               for i, v in enumerate(tree)]
+        return (type(tree)(*out) if hasattr(tree, "_fields")
+                else type(tree)(out))
+    raise TypeError(f"not a leaf or a container: {tree!r}")
+
+
+def map_specs(fn: Callable, specs, *others):
+    """`tree_map` over the `PartitionSpec` leaves of ``specs``."""
+    return tree_map(fn, specs, *others,
+                    is_leaf=lambda x: isinstance(x, PartitionSpec))
+
+
+def shape_of(like) -> tuple:
+    """A shape, from a shape or from anything with a ``.shape``."""
+    return tuple(like.shape) if hasattr(like, "shape") else tuple(like)
+
+
+def widen_spec(spec, shape, size: int, *, least: int = 0):
+    """``spec`` with "data" on the largest unsharded dimension of
+    ``shape`` that ``size`` divides and that is longer than ``least``
+    (the first of equal ones), unless it uses "data" already: the rule of
+    the reference's ``fsdp_widen`` (``least`` 0) and ``zero_specs``
+    (``least`` -1)."""
+    if "data" in spec_axes(spec):
+        return spec
+    shape = shape_of(shape)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    best, best_dim = least, -1
+    for i, (e, dim) in enumerate(zip(entries, shape)):
+        if e is None and dim % size == 0 and dim > best:
+            best, best_dim = dim, i
+    if best_dim >= 0:
+        entries[best_dim] = "data"
+    return P(*entries)
+
+
+class AbstractMesh:
+    """The axis sizes of a mesh without its ranks: what a spec's block
+    shapes need (`NamedSharding.shard_shape`), e.g. the 16 x 16
+    production mesh on a machine with one process."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        self.axis_names = tuple(axis_names)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names,
+                                              map(int, shape)))
+        self.size = math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+class NamedSharding:
+    """A spec on a mesh (a `Mesh`, or an `AbstractMesh` for shapes only).
+    A dimension whose entry names axes ``(a1, ..., ak)`` is cut into
+    ``prod(sizes)`` equal blocks, and the rank holds block ``c1 * s2 ...
+    sk + ... + ck`` of its coordinates (row-major, as JAX lays them out).
+    """
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, PartitionSpec) else P(*spec)
+        missing = [a for a in spec_axes(self.spec)
+                   if a not in mesh.shape]
+        if missing:
+            raise ValueError(f"spec {self.spec} names axes {missing} that "
+                             f"the mesh {dict(mesh.shape)} lacks")
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({dict(self.mesh.shape)}, {self.spec})"
+
+    def _entries(self, ndim: int) -> list:
+        if len(self.spec) > ndim:
+            raise ValueError(f"spec {self.spec} has more entries than the "
+                             f"{ndim} dimensions of its tensor")
+        return list(self.spec) + [None] * (ndim - len(self.spec))
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple:
+        """The shape of one rank's block of a ``shape`` tensor (a
+        dimension that does not divide is rounded up, as GSPMD pads)."""
+        out = []
+        for e, dim in zip(self._entries(len(shape)), shape):
+            n = math.prod(self.mesh.shape[a] for a in entry_axes(e))
+            out.append(-(-int(dim) // n))
+        return tuple(out)
+
+    def _index(self, axes: tuple) -> int:
+        idx = 0
+        for a in axes:
+            idx = idx * self.mesh.shape[a] + self.mesh.coords[a]
+        return idx
+
+    def block(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full`` (a view)."""
+        t = full
+        for dim, e in enumerate(self._entries(full.dim())):
+            axes = entry_axes(e)
+            n = math.prod(self.mesh.shape[a] for a in axes)
+            if n == 1:
+                continue
+            if t.shape[dim] % n:
+                raise ValueError(f"dimension {dim} of {tuple(full.shape)} "
+                                 f"does not split over {n} ranks "
+                                 f"({self.spec})")
+            size = t.shape[dim] // n
+            t = t.narrow(dim, self._index(axes) * size, size)
+        return t
+
+    def gather(self, block: torch.Tensor) -> torch.Tensor:
+        """The full tensor from every rank's ``block`` (collective over
+        the spec's axes; no gradient)."""
+        return coarsen_block(block.detach(), self,
+                             NamedSharding(self.mesh, P()))
+
+
+def _extra_axes(outer, inner) -> tuple:
+    """The axes of spec entry ``inner`` past those of ``outer``, which
+    must be a prefix of them."""
+    o, i = entry_axes(outer), entry_axes(inner)
+    if i[:len(o)] != o:
+        raise ValueError(f"spec entry {inner!r} does not refine {outer!r}")
+    return i[len(o):]
+
+
+def _entry_pairs(outer: NamedSharding, inner: NamedSharding, ndim: int):
+    return enumerate(zip(outer._entries(ndim), inner._entries(ndim)))
+
+
+def refine_block(t: torch.Tensor, outer: NamedSharding,
+                 inner: NamedSharding) -> torch.Tensor:
+    """A block under ``outer`` cut to this rank's block under ``inner``,
+    whose entries extend ``outer``'s by more axes (a view)."""
+    mesh = inner.mesh
+    for dim, (oe, ie) in _entry_pairs(outer, inner, t.dim()):
+        for a in _extra_axes(oe, ie):
+            size = t.shape[dim] // mesh.shape[a]
+            t = t.narrow(dim, mesh.coords[a] * size, size)
+    return t
+
+
+def coarsen_block(t: torch.Tensor, inner: NamedSharding,
+                  outer: NamedSharding) -> torch.Tensor:
+    """The inverse of `refine_block`: the block under ``outer`` from the
+    ranks' blocks under ``inner`` (all_gathers over the extra axes; no
+    gradient). ``t`` itself where there are none."""
+    mesh = inner.mesh
+    for dim, (oe, ie) in _entry_pairs(outer, inner, t.dim()):
+        for a in reversed(_extra_axes(oe, ie)):
+            if mesh.shape[a] > 1:
+                t = _all_gather(mesh, [t], a, dim, True)[0]
+    return t

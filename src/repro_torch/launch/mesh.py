@@ -14,7 +14,8 @@ mesh":
 
     results = run_ranks(body, 4)                # [rank 0's, ..., rank 3's]
 
-`run_ranks` starts the ranks with ``torch.multiprocessing`` (spawn) and a
+`run_ranks` starts the ranks with ``torch.multiprocessing`` (spawned for
+the card, forked from a server that has imported torch on the CPU) and a
 ``FileStore`` rendezvous in a private temporary directory; each rank's
 device is ``cuda:{rank % device_count}`` unless the caller passes
 ``device="cpu"``. Backends: NCCL where every rank has a card of its own;
@@ -31,6 +32,7 @@ from __future__ import annotations
 import datetime
 import os
 import shutil
+import sys
 import tempfile
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
@@ -65,6 +67,17 @@ def batch_axes(mesh: Mesh) -> tuple:
     return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
 
 
+def batch_shard(mesh: Mesh) -> tuple:
+    """(the number of batch shards, this rank's shard): the row-major
+    index of its coordinates on the batch axes the mesh has."""
+    count, index = 1, 0
+    for a in batch_axes(mesh):
+        if a in mesh.shape:
+            count *= mesh.shape[a]
+            index = index * mesh.shape[a] + mesh.coords[a]
+    return count, index
+
+
 # ---------------------------------------------------------------------------
 # Launcher
 # ---------------------------------------------------------------------------
@@ -90,9 +103,45 @@ def _choose_backend(nprocs: int, device: Optional[str]) -> str:
     return "nccl" if nprocs <= torch.cuda.device_count() else "gloo"
 
 
-def _rank_main(rank: int, fn: Callable, nprocs: int, store_path: str,
+class _Caller:
+    """What a rank forked from the server takes over from the caller of
+    `run_ranks`, as a spawned rank would have it: the working directory,
+    the environment, ``sys.path``, and stdout and stderr (file descriptors
+    passed to the rank as it starts)."""
+
+    def __reduce__(self):
+        from multiprocessing import reduction
+
+        return _Caller._received, (os.getcwd(), dict(os.environ),
+                                   list(sys.path), reduction.DupFd(1),
+                                   reduction.DupFd(2))
+
+    @staticmethod
+    def _received(cwd, environ, path, out, err) -> "_Caller":
+        caller = _Caller()
+        caller.state = cwd, environ, path, out, err
+        return caller
+
+    def adopt(self) -> None:
+        cwd, environ, path, out, err = self.state
+        os.chdir(cwd)
+        os.environ.clear()
+        os.environ.update(environ)
+        sys.path[:] = path
+        sys.stdout.flush()
+        sys.stderr.flush()
+        for fd, dup in ((1, out.detach()), (2, err.detach())):
+            os.dup2(dup, fd)
+            os.close(dup)
+
+
+def _rank_main(rank: int, nprocs: int, store_path: str,
                device: Optional[str], backend: str, out_dir: str,
-               args: tuple) -> None:
+               caller: Optional[_Caller]) -> None:
+    if caller is not None:
+        caller.adopt()
+    fn, args = torch.load(os.path.join(out_dir, "call.pt"),
+                          weights_only=False)
     if device == "cpu":
         dev = torch.device("cpu")
         torch.set_num_threads(1)
@@ -118,9 +167,12 @@ def run_ranks(fn: Callable, nprocs: int, *args, device: Optional[str] = None,
     """Run ``fn(ctx, *args)`` on ``nprocs`` ranks (`RankContext`) and
     return each rank's result, by rank.
 
-    ``fn`` and ``args`` are pickled to the ranks (spawned processes), so
-    ``fn`` is a module-level function; each result comes back through
-    ``torch.save``, so tensors in it are best moved to the CPU first.
+    ``fn`` and ``args`` go to the ranks (new processes) through a file
+    that each reads once it has started, so ``fn`` is a module-level
+    function (handed over through the start pipe instead, large arguments
+    would hold each rank's start until the one before it had imported
+    ``fn``'s module); each result comes back through ``torch.save``, so
+    tensors in it are best moved to the CPU first.
     ``device``: ``"cpu"`` (gloo, one torch thread per rank) or None, the
     card (``cuda:{rank % device_count}``; NCCL where the ranks have a card
     each, else gloo). `COLLECTIVE_TIMEOUT` bounds every collective.
@@ -138,12 +190,21 @@ def run_ranks(fn: Callable, nprocs: int, *args, device: Optional[str] = None,
                         "tensors are staged through the host")}[backend]
         emit(f"[mesh] {nprocs} ranks on {where}, backend {backend} "
              f"({why})")
+    if device == "cpu":
+        # Ranks forked from one server that has imported torch and
+        # torch._dynamo (which the blocks' remat, torch.utils.checkpoint,
+        # imports on its first call): seconds of imports once, not per
+        # rank. On the card they are spawned: a process forked after
+        # CUDA's initialisation cannot use it.
+        mp.set_forkserver_preload(["__main__", "torch", "torch._dynamo"])
     tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
     try:
+        torch.save((fn, args), os.path.join(tmp, "call.pt"))
         mp.start_processes(
-            _rank_main, nprocs=nprocs, start_method="spawn", join=True,
-            args=(fn, nprocs, os.path.join(tmp, "store"), device, backend,
-                  tmp, args))
+            _rank_main, nprocs=nprocs, join=True,
+            start_method="forkserver" if device == "cpu" else "spawn",
+            args=(nprocs, os.path.join(tmp, "store"), device, backend,
+                  tmp, _Caller() if device == "cpu" else None))
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            weights_only=False) for r in range(nprocs)]
     finally:

@@ -1,0 +1,296 @@
+"""Sharding tables: the JAX package's ``repro.launch.sharding`` for the
+port's model — every parameter's `PartitionSpec`, their adaptation to a
+multi-pod mesh, FSDP widening for the largest archs, and the batch
+specs of the train step.
+
+The specs are the reference's, taken leaf by leaf from the layout its
+``init_model`` returns (`jax_spec_tree`, its rules kept here as a copy:
+the port imports nothing of the JAX package). The reference stacks the
+layers of a run on a leading dimension; the port holds one tensor per
+layer, so a layer's spec drops that entry, and an
+``nn.Linear`` weight (the reference's ``[in, out]`` matrix transposed)
+takes its spec reversed (`convert.jax_leaf`). Rules that depend on the
+shapes (`fsdp_widen`, ``optim.zero_specs``) run on the reference's
+stacked shapes (`jax_layout`), so they pick the dimensions it picks,
+and their results are then carried to the port's layout (`to_port`).
+
+Shapes come from the model built on the ``meta`` device, which
+allocates nothing (the reference's ``eval_shape``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import convert
+from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import (P, PartitionSpec, map_specs, shape_of,
+                                     widen_spec)
+
+# ---------------------------------------------------------------------------
+# The reference's specs, in its layout
+# ---------------------------------------------------------------------------
+
+
+def _attention_specs(cfg: ModelConfig) -> dict:
+    kv = "model" if cfg.shard_kv_heads else None
+    specs = {"wq": P(None, "model"), "wk": P(None, kv), "wv": P(None, kv),
+             "wo": P("model", None)}
+    if cfg.qkv_bias:
+        specs.update(bq=P("model"), bk=P(kv), bv=P(kv))
+    return specs
+
+
+def _mlp_specs() -> dict:
+    return {"w_gate": P(None, "model"), "w_up": P(None, "model"),
+            "w_down": P("model", None)}
+
+
+def _moe_specs(cfg: ModelConfig) -> dict:
+    if cfg.num_experts % cfg.tp_size == 0:
+        e, f, d2 = "model", None, None
+    else:
+        e, f, d2 = None, "model", "data"
+    specs = {"router": P(None, None), "w_gate": P(e, d2, f),
+             "w_up": P(e, d2, f), "w_down": P(e, f, d2)}
+    if cfg.num_shared_experts:
+        specs["shared"] = _mlp_specs()
+    return specs
+
+
+def _ssm_specs() -> dict:
+    return {"in_proj": P(None, "model"), "conv_w": P(None, "model"),
+            "x_proj": P("model", None), "dt_w": P(None, "model"),
+            "dt_bias": P("model"), "A_log": P("model", None),
+            "D": P("model"), "out_proj": P("model", None)}
+
+
+def _mlstm_specs() -> dict:
+    return {"in_proj": P(None, "model"), "conv_w": P(None, "model"),
+            "wq": P(None, "model"), "wk": P(None, "model"),
+            "wv": P(None, "model"), "w_gates": P(None, None),
+            "norm_w": P("model"), "out_proj": P("model", None)}
+
+
+def _slstm_specs() -> dict:
+    return {"w_in": P(None, "model"), "r": P(None, None, "model"),
+            "b": P("model"), "up": P(None, "model"),
+            "down": P("model", None), "norm_w": P(None)}
+
+
+def _block_specs(cfg: ModelConfig, kind: str) -> dict:
+    if kind in ("dense", "moe", "hybrid"):
+        specs = {"ln1": P(None), "attn": _attention_specs(cfg),
+                 "ln2": P(None)}
+        if kind == "moe":
+            specs["moe"] = _moe_specs(cfg)
+        else:
+            specs["mlp"] = _mlp_specs()
+        if kind == "hybrid":
+            specs.update(ssm=_ssm_specs(), ln_ssm=P(None))
+        return specs
+    if kind == "mlstm":
+        return {"ln1": P(None), "mlstm": _mlstm_specs()}
+    if kind == "slstm":
+        return {"ln1": P(None), "slstm": _slstm_specs()}
+    raise ValueError(kind)
+
+
+def _stacked(tree):
+    """A run's specs: every leaf with the leading (layer) entry None."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    return P(None, *tree)
+
+
+def jax_spec_tree(cfg: ModelConfig) -> dict:
+    """The specs tree the reference's ``init_model(cfg, key)`` returns:
+    ``embed``, ``runs`` (a list, one stacked tree per run of the layer
+    schedule), ``final_norm``, ``lm_head`` unless tied, and the
+    encoder-decoder's ``encoder``, ``enc_norm``, ``cross_attn`` and
+    ``ln_cross``."""
+    from repro_torch.models.blocks import layer_schedule
+
+    specs: Dict[str, Any] = {
+        "embed": P("model", None),
+        "runs": [_stacked(_block_specs(cfg, run.kind))
+                 for run in layer_schedule(cfg)],
+        "final_norm": P(None)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, "model")
+    if cfg.encoder_layers:
+        specs["encoder"] = _stacked(_block_specs(cfg, "dense"))
+        specs["enc_norm"] = P(None)
+        specs["cross_attn"] = _stacked(_attention_specs(cfg))
+        specs["ln_cross"] = P(None, None)
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# Shapes, and the two layouts
+# ---------------------------------------------------------------------------
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the ``meta`` device: the model's
+    init then allocates nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def meta_model(cfg: ModelConfig):
+    """The port's model of ``cfg`` on the ``meta`` device: names, shapes
+    and dtypes, no storage."""
+    from repro_torch.models.transformer import CausalLM
+
+    with torch.no_grad():
+        return CausalLM(cfg, _MetaGenerator())
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[torch.Size,
+                                                      torch.dtype]]:
+    """``{name: (shape, dtype)}`` of every parameter of the port's model,
+    in ``named_parameters`` order, without allocating."""
+    return {n: (p.shape, p.dtype)
+            for n, p in meta_model(cfg).named_parameters()}
+
+
+class JaxLeaf:
+    """One leaf of the reference's parameter pytree: its keys, its
+    stacked shape, dtype and spec, and the port parameters it holds
+    (one per layer of a run, in layer order)."""
+
+    def __init__(self, keys, shape, dtype, spec, stacked, transposed):
+        self.keys, self.shape, self.dtype = keys, tuple(shape), dtype
+        self.spec, self.stacked, self.transposed = spec, stacked, transposed
+        self.names = []
+
+    def __repr__(self) -> str:
+        return f"JaxLeaf({'/'.join(map(str, self.keys))}, {self.shape}, " \
+               f"{self.spec})"
+
+
+def _lookup(tree, keys):
+    for k in keys:
+        tree = tree[k]
+    return tree
+
+
+def jax_layout(cfg: ModelConfig, specs: Optional[dict] = None
+               ) -> Dict[tuple, JaxLeaf]:
+    """The reference's leaves, keyed by their keys: stacked shapes (from
+    the port's meta model, put back in the reference's layout) and specs
+    from ``specs`` (default `jax_spec_tree`)."""
+    specs = jax_spec_tree(cfg) if specs is None else specs
+    leaves: Dict[tuple, JaxLeaf] = {}
+    for name, (shape, dtype) in param_shapes(cfg).items():
+        keys, layer, transposed = convert.jax_leaf(name)
+        shape = tuple(shape)[::-1] if transposed else tuple(shape)
+        leaf = leaves.get(keys)
+        if leaf is None:
+            leaf = leaves[keys] = JaxLeaf(keys, shape, dtype,
+                                          _lookup(specs, keys),
+                                          layer is not None, transposed)
+        leaf.names.append(name)
+    for leaf in leaves.values():
+        if leaf.stacked:
+            leaf.shape = (len(leaf.names),) + leaf.shape
+    return leaves
+
+
+def to_port(spec: PartitionSpec, stacked: bool, transposed: bool,
+            ndim: int) -> PartitionSpec:
+    """A spec of the reference's leaf as the spec of one port parameter
+    of ``ndim`` dimensions: the stacked entry dropped, reversed for a
+    transposed weight. Where the reference shards the stacked layer
+    dimension itself (`fsdp_widen` picks it for a stacked bias), a single
+    layer cannot be cut that way: the port holds each layer whole over
+    those axes (more bytes per rank than the reference's; see
+    ``TrainPlan.resident_bytes``)."""
+    entries = list(spec) + [None] * (ndim + stacked - len(spec))
+    if stacked:
+        entries = entries[1:]
+    if transposed:
+        entries = entries[::-1]
+    return P(*entries)
+
+
+def port_specs(leaves: Dict[tuple, JaxLeaf],
+               specs_of=lambda leaf: leaf.spec) -> Dict[str, PartitionSpec]:
+    """``{port name: spec}`` from per-leaf specs of the reference's
+    layout (``specs_of(leaf)``, default the leaf's own)."""
+    out = {}
+    for leaf in leaves.values():
+        ndim = len(leaf.shape) - leaf.stacked
+        spec = to_port(specs_of(leaf), leaf.stacked, leaf.transposed, ndim)
+        for name in leaf.names:
+            out[name] = spec
+    return out
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, PartitionSpec]:
+    """The spec of every parameter of the port's model (``{name:
+    spec}``, in ``named_parameters`` order): the reference's spec of the
+    leaf it comes from (`jax_spec_tree`, `to_port`)."""
+    order = list(param_shapes(cfg))
+    specs = port_specs(jax_layout(cfg))
+    return {n: specs[n] for n in order}
+
+
+# ---------------------------------------------------------------------------
+# The reference's rules on specs
+# ---------------------------------------------------------------------------
+
+def _map_entry(e, mapping):
+    if e is None:
+        return None
+    if isinstance(e, str):
+        return mapping.get(e, e)
+    if "pod" in e:
+        return e  # already multi-pod aware; don't re-map 'data'
+    return tuple(x for part in e for x in (
+        mapping.get(part, part) if isinstance(mapping.get(part, part),
+                                              tuple)
+        else (mapping.get(part, part),)))
+
+
+def adapt_specs_for_mesh(specs: Any, mesh) -> Any:
+    """Make single-pod specs portable: on a multi-pod mesh, 'data' means
+    the combined ('pod', 'data') axes (pure DP over pods). ``specs``: a
+    spec or any nesting of dicts, lists and tuples of them."""
+    if "pod" not in mesh.axis_names:
+        return specs
+    mapping = {"data": ("pod", "data")}
+    return map_specs(lambda s: P(*[_map_entry(e, mapping) for e in s]),
+                     specs)
+
+
+def fsdp_widen(specs: Any, shapes: Any, data_size: int = 16) -> Any:
+    """FSDP: additionally shard the largest divisible unsharded dim of
+    every >= 2-D weight over 'data' (the ~70B+ archs in train, where 1-D
+    TP-sharded params + grads exceed HBM). ``specs`` and ``shapes`` (of
+    sizes, or of anything with a ``.shape``) nest alike."""
+
+    def one(spec, like):
+        shape = shape_of(like)
+        return spec if len(shape) < 2 else widen_spec(spec, shape, data_size)
+
+    return map_specs(one, specs, shapes)
+
+
+def train_batch_specs(cfg: ModelConfig, batch_axis=("data",)) -> dict:
+    specs = {"tokens": P(batch_axis, None), "labels": P(batch_axis, None)}
+    if cfg.encoder_layers:
+        specs["enc_emb"] = P(batch_axis, None, None)
+    return specs
+
+
+def residual_spec(batch_axis=("data",), seq_axis="model") -> PartitionSpec:
+    """Megatron-style sequence-parallel residual stream (train path). A
+    layout hint to GSPMD in the reference; in the port the residual
+    stream is replicated over "model" (dense layers run whole on every
+    rank of a line), so the spec is documentation only and no code
+    constrains to it."""
+    return P(batch_axis, seq_axis, None)

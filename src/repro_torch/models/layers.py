@@ -93,6 +93,18 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     (``Vp > vocab_size``) masked to -1e30, ``labels [...]`` int. With
     ``z_loss > 0`` each token adds ``z_loss * logsumexp^2``. The mean
     divides by ``max(count, 1)``."""
+    total, count = cross_entropy_terms(logits, labels, vocab_size,
+                                       z_loss=z_loss, ignore_id=ignore_id)
+    return total / count.clamp_min(1)
+
+
+def cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor,
+                        vocab_size: int, *, z_loss: float = 0.0,
+                        ignore_id: int = -1
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`cross_entropy_loss` before its mean: (the sum over the valid
+    tokens, float32; their count, an integer tensor). On a mesh the
+    global mean is the ratio of the two summed over the batch axes."""
     logits = logits.float()
     Vp = logits.shape[-1]
     if Vp > vocab_size:
@@ -104,5 +116,4 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     nll = lse - torch.gather(logits, -1, safe[..., None])[..., 0]
     if z_loss > 0.0:
         nll = nll + z_loss * lse ** 2
-    denom = valid.sum().clamp_min(1)
-    return torch.where(valid, nll, nll.new_zeros(())).sum() / denom
+    return torch.where(valid, nll, nll.new_zeros(())).sum(), valid.sum()

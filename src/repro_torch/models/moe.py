@@ -35,6 +35,14 @@ float32 by ``psum_scatter``, and an ``all_gather`` along T returns
 (`shard_model`, `convert.lm_params(mesh=)`), the global dispatch every
 expert. Decode (``T = 1``) and an expert count that ``tp`` does not
 divide (grok) take the global dispatch.
+
+Under autograd the expert-parallel dispatch trains: the rank's expert
+shards are parameters, the collectives have their transposes
+(`repro_torch.distributed`), and ``x`` and the router, replicated over
+"model" but used by each rank on its own slice, enter through `pvary`,
+so their cotangents are summed over "model". The aux loss is the
+reference's: the ``pmean`` over every axis of the mesh of each slice's
+two halves.
 """
 from __future__ import annotations
 
@@ -45,7 +53,7 @@ import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import (all_gather, all_to_all, axis_index,
-                                     pmean, psum_scatter)
+                                     pmean, psum_scatter, pvary)
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.layers import _active_mesh, normal_init, silu
 
@@ -90,7 +98,7 @@ def shard_experts(params: MoE, cfg: ModelConfig, rank: int, tp: int
     holds: experts ``rank * E / tp ...`` of the stacked weights, and the
     shared experts' column shard of ``w_gate``/``w_up`` and row shard of
     ``w_down`` (the reference's ``P(None, "model")`` / ``P("model",
-    None)``). The router stays whole."""
+    None)``), as parameters that train. The router stays whole."""
     E = cfg.num_experts
     if E % tp:
         raise ValueError(f"{E} experts do not shard over {tp} ranks")
@@ -98,14 +106,13 @@ def shard_experts(params: MoE, cfg: ModelConfig, rank: int, tp: int
     for name in ("w_gate", "w_up", "w_down"):
         w = getattr(params, name)
         setattr(params, name, torch.nn.Parameter(
-            w[rank * El:(rank + 1) * El].clone(), requires_grad=False))
+            w[rank * El:(rank + 1) * El].detach().clone()))
     if params.shared is not None:
         for name, dim in (("w_gate", 0), ("w_up", 0), ("w_down", 1)):
             lin = getattr(params.shared, name)
             part = lin.weight.shape[dim] // tp
             lin.weight = torch.nn.Parameter(
-                lin.weight.narrow(dim, rank * part, part).clone(),
-                requires_grad=False)
+                lin.weight.narrow(dim, rank * part, part).detach().clone())
             lin.in_features, lin.out_features = (lin.weight.shape[1],
                                                  lin.weight.shape[0])
 
@@ -263,9 +270,13 @@ def _moe_layer_ep(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh
             "model first: moe.shard_model or convert.lm_params(mesh=))")
     B, T, d = x.shape
     Tl = T // tp
+    # Replicated over "model", used by each rank in its own way: their
+    # cotangents are summed over "model" (pvary's backward).
+    x = pvary(x, "model")
+    router = pvary(params.router, "model")
     xt = x[:, rank * Tl:(rank + 1) * Tl].reshape(B * Tl, d)
     n = xt.shape[0]
-    buf, r, (me, ce) = _route_local(xt, params.router, cfg)
+    buf, r, (me, ce) = _route_local(xt, router, cfg)
     axes = mesh.axis_names
     aux = E * torch.sum(pmean(me, axes) * pmean(ce, axes))
     C = r["C"]

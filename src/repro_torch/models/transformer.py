@@ -38,7 +38,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import Device, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blocks_lib
-from repro_torch.models.layers import (cross_entropy_loss, dtype_of,
+from repro_torch.distributed import active_mesh, psum
+from repro_torch.models.layers import (cross_entropy_loss,
+                                       cross_entropy_terms, dtype_of,
                                        embedding_lookup, init_embedding,
                                        init_linear, init_rms_norm, rms_norm)
 
@@ -238,7 +240,13 @@ def train_loss(model: CausalLM, cfg: ModelConfig,
     device, as the reference's training path reaches no Pallas kernel;
     the CUDA kernels have no backward and refuse inputs that need one.
     ``cfg.remat`` recomputes each layer in the backward pass
-    (`_layer_fn`)."""
+    (`_layer_fn`).
+
+    Under ``with mesh:`` on a rank of a mesh, ``batch`` holds the rank's
+    rows of the global batch (split over the batch axes, "pod" and
+    "data"), the mixers take their expert- and sequence-parallel paths,
+    and ``ce`` is the mean over the global batch: the sums of the ranks'
+    token losses and counts, each summed over the batch axes."""
     tokens, labels = batch["tokens"], batch["labels"]
     B, T = tokens.shape
     memory = None
@@ -250,8 +258,19 @@ def train_loss(model: CausalLM, cfg: ModelConfig,
     x, _, aux = _apply_stack(model, x, cfg, blocks_lib.layer_schedule(cfg),
                              positions=positions, memory=memory,
                              impl="plain", remat=cfg.remat)
-    ce = cross_entropy_loss(_logits(model, cfg, x), labels, cfg.vocab_size,
-                            z_loss=cfg.z_loss)
+    logits = _logits(model, cfg, x)
+    mesh = active_mesh()
+    batch_axes = tuple(a for a in ("pod", "data") if mesh is not None
+                       and mesh.shape.get(a, 1) > 1)
+    if batch_axes:
+        # The rank's rows: the mean over the global batch is the ratio of
+        # the sums over the batch axes (psum's transpose: the identity).
+        total, count = cross_entropy_terms(logits, labels, cfg.vocab_size,
+                                           z_loss=cfg.z_loss)
+        ce = psum(total, batch_axes) / psum(count, batch_axes).clamp_min(1)
+    else:
+        ce = cross_entropy_loss(logits, labels, cfg.vocab_size,
+                                z_loss=cfg.z_loss)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
     return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 

@@ -32,7 +32,9 @@ exchange their slices' state contributions ``(F, C, n)``
 `repro_torch.core.scan.device_exclusive_scan`, each runs the chunked form
 from the state ``(C_in, n_in)`` that reaches its slice (its chunk carry
 on ``ssm_scan``), and an ``all_gather`` along T gives every rank the whole
-``h``: what ``shard_map``'s ``out_specs`` does.
+``h``: what ``shard_map``'s ``out_specs`` does. It trains under autograd
+(the plain chunked form; the slices enter through `pvary`, the exchange's
+`ppermute` and the ``all_gather`` have their transposes).
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scan import device_exclusive_scan
-from repro_torch.distributed import all_gather, axis_index
+from repro_torch.distributed import all_gather, axis_index, pvary
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (_active_mesh, init_linear,
                                        init_rms_norm, normal_init, rms_norm,
@@ -217,6 +219,9 @@ def _mlstm_sp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tp = mesh.shape["model"]
     Tl = q.shape[2] // tp
     sl = slice(axis_index("model") * Tl, (axis_index("model") + 1) * Tl)
+    # Replicated over "model", each rank takes its slice: under autograd
+    # the slices' cotangents are summed back over "model" (pvary).
+    q, k, v, lf, li = pvary((q, k, v, lf, li), "model")
     q, k, v = (t[:, :, sl] for t in (q, k, v))
     lf, li = lf[..., sl], li[..., sl]
     agg = _mlstm_chunk_aggregate(k, v, lf, li, CT)

@@ -3,8 +3,8 @@
 Each session runs on every rank of `repro_torch.launch.mesh.run_ranks`
 (four gloo ranks on the CPU) and returns numpy arrays for the parent to
 hold against its oracles. This module imports torch and the port only,
-never JAX or the JAX package: the ranks are spawned processes that import
-it by name, and the JAX oracles are computed in the test process."""
+never JAX or the JAX package: the ranks are processes of their own that
+import it by name, and the JAX oracles are computed in the test process."""
 from __future__ import annotations
 
 import copy

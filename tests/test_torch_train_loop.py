@@ -92,7 +92,7 @@ def test_train_step_and_loop_match_the_jax_step(arch):
     loop_cfg = ttrain.TrainLoopConfig(arch=arch, mesh_shape=(1, 1), **LOOP)
     cfg = ttrain.loop_model_config(loop_cfg)
     state = init_train_state(convert.lm_params(init, cfg, device="cpu"))
-    step = make_train_step(cfg, AdamWConfig(lr=LOOP["lr"]),
+    step = make_train_step(cfg, opt_cfg=AdamWConfig(lr=LOOP["lr"]),
                            total_steps=STEPS,
                            warmup_steps=LOOP["warmup_steps"])
     pipe = _pipeline(cfg.vocab_size)
@@ -159,13 +159,20 @@ def test_sigterm_checkpoints_and_resumes(tmp_path):
                                base["losses"], rtol=1e-6)
 
 
-def test_mesh_other_than_one_device_raises():
-    with pytest.raises(ValueError, match="item 4"):
-        ttrain.main(["--arch", "qwen2-1.5b", "--mesh", "2x2",
-                     "--device", "cpu"])
-    with pytest.raises(ValueError, match="item 4"):
+def test_mesh_other_than_one_device_raises(capfd):
+    # A mesh trains on every rank of a process group of its size: without
+    # one (a group of one), a 4 x 1 mesh raises; the CLI's --mesh starts
+    # its own four gloo ranks on the CPU and trains, rank 0 alone logging.
+    with pytest.raises(ValueError, match="needs 4 ranks"):
         ttrain.train(ttrain.TrainLoopConfig(arch="qwen2-1.5b",
                                             mesh_shape=(4, 1), **LOOP))
+    ttrain.main(["--arch", "qwen2-1.5b", "--steps", "3", "--seq-len", "32",
+                 "--global-batch", "4", "--lr", "2e-2", "--mesh", "2x2",
+                 "--device", "cpu"])
+    out = capfd.readouterr().out
+    assert "[mesh] 4 ranks on the CPU, backend gloo" in out, out
+    assert out.count("[train] step 0 loss") == 1, out
+    assert "[train] done: 3 steps" in out, out
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="has a card")

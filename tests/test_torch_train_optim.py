@@ -16,6 +16,7 @@ checkpoint tests, a bit-exact bfloat16 round trip, and a restore of a
 model and its AdamW state.
 """
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,7 @@ from repro_torch import convert
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data import tokens as ttokens
+from repro_torch.distributed import NamedSharding, P
 from repro_torch.launch.steps import init_train_state
 from repro_torch.models import init_model
 from repro_torch.optim import (AdamWConfig, adamw_update, constant,
@@ -293,8 +295,23 @@ def test_checkpoint_shape_mismatch_raises(tmp_path):
     assert torch.equal(bad["params"]["b"], torch.ones(4))  # nothing written
     with pytest.raises(KeyError):
         mgr.restore({"other": torch.zeros(1)})
-    with pytest.raises(NotImplementedError):
-        mgr.restore(_state(), shardings={})
+    # With shardings, a leaf is the rank's block of the saved array: rank
+    # 1 of a two-rank "data" axis (a stand-in mesh: a block needs only the
+    # axis sizes and the rank's coordinates) restores the lower half.
+    saved = _state()
+    saved["params"]["w"] = torch.arange(16.0).reshape(4, 4)
+    mgr.save(2, saved)
+    mesh = types.SimpleNamespace(shape={"data": 2}, axis_names=("data",),
+                                 coords={"data": 1})
+    shardings = {"params": {"w": NamedSharding(mesh, P("data", None)),
+                            "b": None}, "step": None}
+    block = {"params": {"w": torch.zeros((2, 4)), "b": torch.ones(4)},
+             "step": torch.tensor(0, dtype=torch.int32)}
+    mgr.restore(block, shardings=shardings)
+    assert torch.equal(block["params"]["w"], saved["params"]["w"][2:])
+    assert torch.equal(block["params"]["b"], torch.zeros(4))
+    with pytest.raises(ValueError, match="the block under"):
+        mgr.restore(_state(), shardings=shardings)
 
 
 def test_checkpoint_bfloat16_round_trip_is_bit_exact(tmp_path):
