@@ -209,8 +209,9 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      show it); the chunk carry where it matters (forget gates
      ``log_sigmoid(6 + z)``, full width): ``_mlstm_chunked`` on the
      kernel against the recurrent step, which the carry dropped misses;
-     float32 ``prefill`` (kernel) against the float32 model teacher-forced
-     through ``decode_step`` to the same position, and the bf16
+     float32 ``prefill`` (kernel) of the first 320 tokens against the
+     float32 model teacher-forced through ``decode_step`` to position 319
+     (one chunk boundary crossed), and the bf16
      ``prefill`` on the kernel against plain, each relative to the
      largest logit; device time of ``ssm_scan`` at the prefill's shape
      beside its bound;
@@ -340,8 +341,30 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      for step 3 equals the uninterrupted run at TOL, leaf for leaf. (d)
      ``compressed_psum`` over "data" of one step's gradients against
      ``psum`` within 2 % of each tensor's largest magnitude (the
-     reference's bound), with the bytes each staged through the host;
-  25. the ``kernels`` JSON line (each combine kernel's launches per path,
+     reference's bound), with the bytes each staged through the host.
+     (e) The MoE's global dispatch on the mesh: reduced deepseek-moe-16b
+     (tp 2) at its production capacity factor 1.25 and an odd T (the
+     experts split over "model" but T does not), on tokens of few ids so
+     that routing drops: 2 steps against 2 one-device steps (losses,
+     aux, grad norms and every parameter at the float32 TOL), and the
+     drops of one "model" line's data ranks summed against the one
+     device's (nonzero);
+  25. ``[dryrun]``: the dry-run's layer on the card (`launch.steps`,
+     `launch.cost`, `launch.roofline`). (a) The one-device train plan's
+     ``per_chip_argument_bytes`` for ``[train]``'s qwen2-1.5b state (B 8,
+     T 128) against the bytes that state and batch hold on the card and
+     against the growth of the caching allocator's requested bytes as
+     they are built, both exactly (``torch.cuda.memory_allocated()``'s
+     growth, larger by the allocator's rounding, printed beside). (b)
+     The step count of ``[train]``'s step and of ``[lm_decode]``'s
+     qwen2-1.5b decode step (B 64, caches of 512) on the card, kernels
+     running, against the same steps traced on ``meta`` tensors (plain
+     versions): FLOPs, bytes and kernel calls equal. (c) Each step's
+     compute and memory terms at the card's peaks, the dominant one, and
+     its roofline share (the least time over the wall ``[train]`` and
+     ``[lm_decode]`` measured) and model-FLOPs share, with the card's
+     name and power limit;
+  26. the ``kernels`` JSON line (each combine kernel's launches per path,
      ``surface``, ``train``, ``mesh`` and ``train_mesh`` among them, and
      its B = 1 top-level time; ``ssm_scan``'s: ``ssm_scan``,
      ``lm_hybrid_prefill``, ``lm_xlstm_prefill``, ``train``, ``mesh``,
@@ -349,8 +372,9 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      ``lm_prefill``, ``lm_hybrid``, ``lm_hybrid_prefill``, ``lm_moe``,
      ``lm_moe_prefill``, ``lm_grok``, ``lm_grok_prefill``, ``lm_encdec``,
      ``lm_encdec_prefill``, ``lm_mrope``, ``lm_mrope_prefill``, ``train``,
-     ``mesh``, ``train_mesh``; the ``mesh`` and ``train_mesh`` counts
-     summed over the ranks), then the device JSON line, last.
+     ``mesh``, ``train_mesh``, ``dryrun``; the ``mesh`` and
+     ``train_mesh`` counts summed over the ranks), then the device JSON
+     line, last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
 """
@@ -381,10 +405,10 @@ PATH_TOL = dict(rtol=1e-7, atol=1e-8)
 #: f64 tolerance for that comparison).
 SEQ_TOL = dict(rtol=1e-6, atol=1e-8)
 
-#: NVIDIA H100 SXM data sheet: HBM3 bandwidth, the non-tensor-core f32/f64
-#: peaks and the dense bf16 tensor-core peak.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
+#: The card's peaks (NVIDIA's H100 SXM data sheet) are named once, in
+#: `repro_torch.launch.roofline`; each call's work in `repro_torch.kernels
+#: .work`. Both are imported where used: the package is on the path only
+#: once `main` has found it.
 ITEMSIZE = {"float32": 4, "float64": 8, "bfloat16": 2}
 
 MAIN_ROWS, MAIN_T, MAIN_NX = 64, 512, 5
@@ -430,27 +454,14 @@ def say(msg: str) -> None:
 # Work and bound of one combine launch
 # ---------------------------------------------------------------------------
 
-def values_per_element(kind: str, nx: int) -> int:
-    return 3 * nx * nx + 2 * nx if kind == "filtering_combine" \
-        else 2 * nx * nx + nx
-
-
-def flops_per_pair(kind: str, nx: int) -> int:
-    """Floating-point operations of one pair, counted from the kernel's
-    loops (multiply-adds count 2)."""
-    if kind == "filtering_combine":
-        return 20 * nx ** 3 + 15 * nx ** 2 + 4 * nx
-    return 6 * nx ** 3 + 5 * nx ** 2 + nx
-
-
 def bound(kind: str, B: int, nx: int, dtype: str):
     """Least time for one launch: the larger of bytes (2 elements read +
-    1 written per pair) over HBM bandwidth and flops over peak."""
-    itemsize = 8 if dtype == "float64" else 4
-    t_bytes = 3 * values_per_element(kind, nx) * itemsize * B / HBM_BYTES_PER_S
-    t_ops = flops_per_pair(kind, nx) * B / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    1 written per pair) over HBM bandwidth and flops over peak
+    (`kernels.work.combine_work`)."""
+    from repro_torch.kernels.work import combine_work
+
+    flops, n_bytes = combine_work(kind, B, nx, ITEMSIZE[dtype])
+    return _bound(n_bytes, flops, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -2086,11 +2097,20 @@ def _excess(got, want, tol):
 
 def _bound(n_bytes: float, n_ops: float, op_dtype: str):
     """Least time in ms (bytes over HBM bandwidth or operations over the
-    peak of their type, the larger) and which of the two it is."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / PEAK_FLOPS[op_dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    peak of their type, the larger) and which of the two it is
+    (`launch.roofline.bound_ms`)."""
+    from repro_torch.launch.roofline import bound_ms
+
+    return bound_ms(n_bytes, n_ops, op_dtype)
+
+
+def ssm_bound(n: int, dname: str, op_dtype: str):
+    """Least time of one scan over ``n`` values (`kernels.work
+    .ssm_scan_work`)."""
+    from repro_torch.kernels.work import ssm_scan_work
+
+    flops, n_bytes = ssm_scan_work(n, ITEMSIZE[dname])
+    return _bound(n_bytes, flops, op_dtype)
 
 
 def _ssm_inputs(torch, shape, dtype, gen):
@@ -2183,7 +2203,7 @@ def phase_ssm_scan(torch) -> dict:
         plain_ms = (_time_ms(torch, ss.ssm_scan_plain, [(x, y)], iters=3,
                              warmup=1) if dname == "float32" else None)
         op_dtype = "float32" if dname == "bfloat16" else dname
-        b_ms, b_by = _bound(3 * n * ITEMSIZE[dname], 2 * n, op_dtype)
+        b_ms, b_by = ssm_bound(n, dname, op_dtype)
         timing[dname] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                          "bound_by": b_by}
         say(f"[time] ssm_scan {dname} {main_shape}: kernel {ms:.3f} ms, "
@@ -2208,17 +2228,24 @@ def _qkv(torch, B, Hq, Hkv, Tq, Tk, Dh, dt, gen):
 
 
 def flash_bound(B, Hq, Hkv, Tq, Tk, Dh, causal, dname, window=0):
-    """Least time of one attention call: q, k, v read and o written once
-    against 4 Dh operations per (query, key) pair the mask (a causal
-    ``window`` too) lets through (a row that sees no key averages all Tk
-    keys)."""
-    if causal:
-        pairs = sum(min(Tk, max(Tk - Tq + i + 1, 0), window or Tk) or Tk
-                    for i in range(Tq))
-    else:
-        pairs = Tq * Tk
-    n_bytes = ITEMSIZE[dname] * (2 * B * Hq * Tq * Dh + 2 * B * Hkv * Tk * Dh)
-    return _bound(n_bytes, 4 * B * Hq * Dh * pairs, dname)
+    """Least time of one attention call (`kernels.work.flash_work`): q,
+    k, v read and o written once against 4 Dh operations per (query, key)
+    pair the mask (a causal ``window`` too) lets through (a row that sees
+    no key averages all Tk keys)."""
+    from repro_torch.kernels.work import flash_work
+
+    flops, n_bytes = flash_work(B, Hq, Hkv, Tq, Tk, Dh, causal,
+                                ITEMSIZE[dname], window)
+    return _bound(n_bytes, flops, dname)
+
+
+def decode_bound(B, Hq, Hkv, L, Dh):
+    """Least time of one bf16 decode call against ``L`` cached keys
+    (`kernels.work.decode_work`)."""
+    from repro_torch.kernels.work import decode_work
+
+    flops, n_bytes = decode_work(B, Hq, Hkv, L, Dh, ITEMSIZE["bfloat16"])
+    return _bound(n_bytes, flops, "bfloat16")
 
 
 def _device_ms(torch, fn, args, iters):
@@ -2733,12 +2760,11 @@ def _decode_time(torch, fa, B, Hq, Hkv, L, Dh, gen, softcap=0.0) -> dict:
     if not tight <= 1.0:
         fail(f"decode kernel B={B} Hq={Hq} Hkv={Hkv} L={L}: err/tol "
              f"{tight:.3f} over the tight bf16 bound")
-    n_bytes = 2 * (2 * B * Hkv * L * Dh + 2 * B * Hq * Dh)
     sdpa = lambda q, k, v, n: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, enable_gqa=True)
     t = _lm_kernel_time(
         torch, kernel, plain, sdpa, sets,
-        _bound(n_bytes, 4 * B * Hq * Dh * L, "bfloat16"), 20)
+        decode_bound(B, Hq, Hkv, L, Dh), 20)
     t.update(max_abs_err=err, max_err_over_tol=tight)
     del q, k, v, got, sets
     torch.cuda.empty_cache()
@@ -3295,12 +3321,11 @@ def phase_lm_hybrid(torch) -> dict:
     if not tight <= 1.0:
         fail(f"hymba decode on a full ring: err/tol {tight:.3f} over the "
              "tight bf16 bound")
-    n_bytes = 2 * (2 * HY_B * Hkv * W * Dh + 2 * HY_B * Hq * Dh)
     decode_time = _lm_kernel_time(
         torch, fa.decode_attention_cuda, fa.decode_attention_plain,
         lambda q, k, v, n: F.scaled_dot_product_attention(
             q, k, v, enable_gqa=True), sets,
-        _bound(n_bytes, 4 * HY_B * Hq * Dh * W, "bfloat16"), 20)
+        decode_bound(HY_B, Hq, Hkv, W, Dh), 20)
     decode_time.update(max_abs_err=err, max_err_over_tol=tight)
     _say_lm_time(f"hymba decode attention on a full ring B={HY_B} Hq={Hq} "
                  f"Hkv={Hkv} rows={W} Dh={Dh} bf16: split-K kernel",
@@ -3321,7 +3346,7 @@ def phase_lm_hybrid(torch) -> dict:
     n = a.numel()
     scan_time = _lm_kernel_time(
         torch, ss.ssm_scan_cuda, ss.ssm_scan_plain, None, sets,
-        _bound(3 * n * ITEMSIZE["float32"], 2 * n, "float32"), 3)
+        ssm_bound(n, "float32", "float32"), 3)
     scan_time.update(max_abs_err=err, max_err_over_tol=excess)
     _say_lm_time(f"hymba ssm_scan prefill chunk {shape} f32 (err/tol at "
                  "the float32 TOL):", scan_time)
@@ -3882,6 +3907,11 @@ XL_B, XL_PROMPT, XL_GEN = 64, 128, 128
 XL_MAX = XL_PROMPT + XL_GEN
 #: The prefill gates: 4 chunks of 256, so one scan over [8, 4, 1,050,624].
 XL_PREFILL_B, XL_PREFILL_T = 8, 1024
+#: The float32 whole-model gate: prefill against teacher-forced decode at
+#: position XL_F32_T - 1, past one chunk boundary (a whole chunk of 256
+#: and a short one); 1,024 positions before, cut to keep the script in
+#: its time.
+XL_F32_T = 320
 XL_PROFILE_STEPS = 32
 #: Whole-model logit gates, relative to the largest logit: float32
 #: chunkwise against float32 recurrent (the suite's float32 rtol), and
@@ -4156,8 +4186,9 @@ def phase_lm_xlstm(torch) -> dict:
     if read_counts()["ssm_scan"] != n_mlstm:
         fail(f"{tag}: the float32 prefill did not run the kernel")
     t0 = time.perf_counter()
-    caches = init_caches(cfg32, XL_PREFILL_B, XL_PREFILL_T, device="cuda")
-    for i in range(XL_PREFILL_T):
+    lshort32 = prefill(model32, cfg32, toks[:, :XL_F32_T])
+    caches = init_caches(cfg32, XL_PREFILL_B, XL_F32_T, device="cuda")
+    for i in range(XL_F32_T):
         ldec32, caches = decode_step(model32, cfg32, caches,
                                      toks[:, i:i + 1], i)
     torch.cuda.synchronize()
@@ -4166,19 +4197,19 @@ def phase_lm_xlstm(torch) -> dict:
     torch.cuda.empty_cache()
     V = slice(0, vocab)
     logit_res = {
-        "f32_prefill_vs_decode": _rel(lpre32[..., V], ldec32[..., V]),
+        "f32_prefill_vs_decode": _rel(lshort32[..., V], ldec32[..., V]),
         "bf16_kernel_vs_plain": _rel(lpre[..., V], lpre_plain[..., V]),
         "bf16_noise": _rel(lpre_plain[..., V], lpre32[..., V]),
         "bf16_kernel_vs_f32": _rel(lpre[..., V], lpre32[..., V]),
         "max_abs_logit_f32": lpre32[..., V].abs().amax().item(),
-        "top1_f32_equal": (lpre32[..., V].argmax(-1)
+        "top1_f32_equal": (lshort32[..., V].argmax(-1)
                            == ldec32[..., V].argmax(-1)).float().mean().item(),
         "finite": bool(torch.isfinite(lpre).all()
                        and torch.isfinite(lpre32).all()),
         "forced_s": forced_s}
-    say(f"[{tag}] position {XL_PREFILL_T - 1} (B={XL_PREFILL_B}), relative "
-        f"to the largest logit: float32 prefill (ssm_scan) vs float32 "
-        f"teacher-forced decode ({forced_s:.1f}s) "
+    say(f"[{tag}] relative to the largest logit: float32 prefill "
+        f"(ssm_scan) vs float32 teacher-forced decode at position "
+        f"{XL_F32_T - 1} (B={XL_PREFILL_B}, {forced_s:.1f}s) "
         f"{logit_res['f32_prefill_vs_decode']:.3e} (bound {XL_F32_REL:g}, "
         f"top-1 equal {logit_res['top1_f32_equal']:.3f}); bf16 prefill "
         f"kernel vs plain {logit_res['bf16_kernel_vs_plain']:.3e} (bound "
@@ -4193,7 +4224,7 @@ def phase_lm_xlstm(torch) -> dict:
              "float32 recurrent decode")
     if not logit_res["bf16_kernel_vs_plain"] <= XL_BF16_REL:
         fail(f"{tag}: the bf16 prefill on the kernel differs from plain")
-    del lpre, lpre_plain, lpre32, ldec32
+    del lpre, lpre_plain, lpre32, lshort32, ldec32
     torch.cuda.empty_cache()
 
     # ssm_scan at the prefill's shape.
@@ -4209,7 +4240,7 @@ def phase_lm_xlstm(torch) -> dict:
     n = a.numel()
     scan_time = _lm_kernel_time(
         torch, ss.ssm_scan_cuda, ss.ssm_scan_plain, None, sets,
-        _bound(3 * n * ITEMSIZE["float32"], 2 * n, "float32"), 3)
+        ssm_bound(n, "float32", "float32"), 3)
     scan_time.update(max_abs_err=err, max_err_over_tol=excess)
     _say_lm_time(f"xlstm ssm_scan mLSTM chunk states {shape} f32 (err/tol "
                  "at the float32 TOL):", scan_time)
@@ -5101,10 +5132,10 @@ def _train_full_width(torch) -> dict:
     flops = 8 * n_params * tokens
     res.update(ms_per_step=ms, step_ms=step_ms,
                tokens_per_s=tokens / ms * 1e3,
-               adamw_ms=adamw_ms, adamw_bound_ms=adamw_bytes
-               / HBM_BYTES_PER_S * 1e3, adamw_tensors=len(params),
-               flops_per_step=flops, flops_bound_ms=flops
-               / PEAK_FLOPS["bfloat16"] * 1e3, profile=prof,
+               adamw_ms=adamw_ms,
+               adamw_bound_ms=_bound(adamw_bytes, 0, "bfloat16")[0],
+               adamw_tensors=len(params), flops_per_step=flops,
+               flops_bound_ms=_bound(0, flops, "bfloat16")[0], profile=prof,
                seconds=time.perf_counter() - t0)
     say(f"[train] step at full width: {ms:.2f} ms per step (median of "
         f"{TRAIN_TIMED_STEPS}: " + ", ".join(f"{t:.1f}" for t in step_ms)
@@ -5959,6 +5990,10 @@ TRAIN_MESH_FAMILY_B, TRAIN_MESH_FAMILY_T = 4, 64
 TRAIN_MESH_LR = 3e-4
 #: The reference's compressed_psum bound: 2 % of the largest magnitude.
 COMPRESS_BOUND = 0.02
+#: (e) The MoE's global dispatch on the mesh: reduced deepseek at the
+#: production capacity factor, an odd T (E splits over "model", T does
+#: not), tokens drawn from this few ids (routing crowds a few experts).
+TRAIN_MESH_MOE_T, TRAIN_MESH_MOE_CF, TRAIN_MESH_MOE_IDS = 63, 1.25, 6
 
 
 def _whole_params(plan, state) -> dict:
@@ -6144,6 +6179,77 @@ def _train_mesh_families(torch, ctx) -> dict:
     return out
 
 
+def _train_mesh_moe_global(torch, ctx) -> dict:
+    """(e): reduced deepseek-moe-16b (tp 2) at capacity factor 1.25 and
+    T = 63, whose MoE layers take the global dispatch on the mesh (E
+    splits over "model", T does not): 2 steps on the mesh against 2
+    one-device steps on the card from the same weights and batches (rank
+    0 holds both), each run's drops counted in `moe.route`."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.optim import AdamWConfig
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_debug_mesh(*TRAIN_MESH_SHAPE)
+    B, T = TRAIN_MESH_FAMILY_B, TRAIN_MESH_MOE_T
+    cfg = dataclasses.replace(
+        reduced_config(get_config("deepseek-moe-16b")),
+        tp_size=TRAIN_MESH_SHAPE[1], capacity_factor=TRAIN_MESH_MOE_CF)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = []
+    for _ in range(TRAIN_MESH_STEPS):
+        t = torch.randint(0, TRAIN_MESH_MOE_IDS, (B, T), generator=gen,
+                          device=dev, dtype=torch.int32)
+        batches.append({"tokens": t, "labels": t})
+    model = init_model(cfg, 0, device=dev)
+
+    def run(on_mesh):
+        route, drops = moe_lib.route, [0]
+
+        def tapped(params, xt, c):
+            r = route(params, xt, c)
+            drops[0] += int(moe_lib.dropped(r))
+            return r
+
+        plan = st.make_train_step(
+            cfg, mesh if on_mesh else None, ShapeConfig("t", T, B, "train"),
+            opt_cfg=AdamWConfig(lr=TRAIN_MESH_LR), total_steps=10,
+            warmup_steps=0)
+        state = plan.init_state(copy.deepcopy(model))
+        out = {"loss": [], "aux": [], "grad_norm": []}
+        moe_lib.route = tapped
+        try:
+            for batch in batches:
+                if on_mesh:
+                    batch = st.batch_rows(batch, mesh)
+                state, met = plan(state, batch)
+                for k in out:
+                    out[k].append(float(met[k]))
+        finally:
+            moe_lib.route = route
+        out["drops"] = drops[0]
+        whole = (_whole_params(plan, state) if on_mesh else
+                 {n: p.detach() for n, p in
+                  state.params.named_parameters()})
+        return out, whole
+
+    t0 = time.perf_counter()
+    got, whole = run(True)
+    res = {"mesh": got, "coords": dict(mesh.coords),
+           "mesh_s": time.perf_counter() - t0}
+    if ctx.rank == 0:
+        one, want = run(False)
+        res.update(one_device=one, err_over_tol=max(
+            _err_over_tol_trees(torch, whole, want),
+            *(_err_over_tol_lists(got[k], one[k])
+              for k in ("loss", "aux", "grad_norm"))))
+    return res
+
+
 def _train_mesh_elastic(torch, ctx, tmp) -> dict:
     """(c): reduced qwen2, float32: `train()` on 2 x 2 for 3 steps with a
     checkpoint at step 2; that checkpoint resumed on 1 x 4 for the third
@@ -6240,6 +6346,7 @@ def _train_mesh_rank(ctx, tmp) -> dict:
     reset_counts()
     t1 = time.perf_counter()
     res["families"] = _train_mesh_families(torch, ctx)
+    res["moe_global"] = _train_mesh_moe_global(torch, ctx)
     res["elastic"] = _train_mesh_elastic(torch, ctx, tmp)
     res["compression"] = _train_mesh_compression(torch, ctx)
     res["reduced_launches"] = read_counts()
@@ -6375,6 +6482,30 @@ def phase_train_mesh(torch, train) -> dict:
     if not worst <= COMPRESS_BOUND:
         fail(f"[{tag}] compressed_psum is {worst:.3g} of the largest "
              "magnitude from psum")
+    # (e) The MoE's global dispatch.
+    mg = r0["moe_global"]
+    line = [r["moe_global"]["mesh"]["drops"] for r in ranks
+            if r["moe_global"]["coords"]["model"] == 0]
+    one = mg["one_device"]
+    say(f"[{tag}] deepseek-moe-16b (reduced, tp 2, float32, capacity "
+        f"factor {TRAIN_MESH_MOE_CF}, T {TRAIN_MESH_MOE_T}: the global "
+        f"dispatch) {TRAIN_MESH_STEPS} steps on {TRAIN_MESH_SHAPE} vs one "
+        f"device: losses " + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(
+            mg["mesh"]["loss"], one["loss"]))
+        + "; aux " + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(
+            mg["mesh"]["aux"], one["aux"]))
+        + f"; drops by data rank {line} (sum {sum(line)}) vs "
+        f"{one['drops']}; every parameter, loss, aux and grad norm err/tol "
+        f"{mg['err_over_tol']:.3g}; {mg['mesh_s']:.1f} s")
+    if not (mg["err_over_tol"] <= 1.0 and one["drops"] > 0
+            and sum(line) == one["drops"]):
+        fail(f"[{tag}] the global dispatch's mesh step differs from the "
+             f"one-device step (err/tol {mg['err_over_tol']:.3g}, drops "
+             f"{line} vs {one['drops']})")
+    if any(r["moe_global"]["mesh"]["loss"] != mg["mesh"]["loss"]
+           for r in ranks):
+        fail(f"[{tag}] the global dispatch's losses differ across ranks")
+
     seconds = time.perf_counter() - t0
     say(f"[{tag}] phase done in {seconds:.1f} s (ranks "
         f"{t_ranks:.1f} s: full width {max(r['full_s'] for r in ranks):.1f}"
@@ -6384,6 +6515,166 @@ def phase_train_mesh(torch, train) -> dict:
         r["full"].pop("log")
     return {"ranks": ranks, "launches": launches, "seconds": seconds,
             "step0_vs_one_device": off, "bf16_noise": noise}
+
+
+# ---------------------------------------------------------------------------
+# The dry-run's layer on the card
+# ---------------------------------------------------------------------------
+
+def _count_line(c: dict) -> str:
+    return (f"{c['flops']:.6e} FLOPs, {c['hbm_bytes']:.6e} bytes, kernels "
+            f"{dict(c['kernels'])}")
+
+
+def phase_dryrun(torch, train, lm, env) -> dict:
+    """``[dryrun]``: the cell plans' byte count against the card's
+    allocations, the step count with the kernels running against the
+    ``meta`` trace, and the roofline shares of ``[train]``'s and
+    ``[lm_decode]``'s steps (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import (SyntheticTokenPipeline,
+                                         TokenPipelineConfig)
+    from repro_torch.launch import train as tr
+    from repro_torch.launch.cost import count, count_cell
+    from repro_torch.launch.roofline import (H100_HBM_BYTES_PER_S,
+                                             PEAK_FLOPS, model_flops)
+    from repro_torch.launch.steps import make_decode_step, make_train_step
+    from repro_torch.models import init_caches, init_model
+    from repro_torch.optim import AdamWConfig
+
+    tag = "dryrun"
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    out = {}
+
+    # (a) [train]'s state: the plan's count against the allocations.
+    loop = tr.TrainLoopConfig(arch=TRAIN_ARCH, reduced=False, seq_len=128,
+                              global_batch=8, steps=TRAIN_STEPS, lr=3e-4,
+                              warmup_steps=2, device="cuda")
+    cfg = tr.loop_model_config(loop)
+    shape = ShapeConfig("train", loop.seq_len, loop.global_batch, "train")
+    make = lambda: make_train_step(  # noqa: E731
+        cfg, None, shape, opt_cfg=AdamWConfig(lr=loop.lr),
+        total_steps=TRAIN_STEPS, warmup_steps=loop.warmup_steps)
+    plan = make()
+    want = plan.per_chip_argument_bytes()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    requested = "requested_bytes.all.current"
+    before = torch.cuda.memory_allocated()
+    asked = torch.cuda.memory_stats().get(requested)
+    state = plan.init_state(init_model(cfg, loop.seed, device=dev))
+    pipe = SyntheticTokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=loop.seq_len,
+        global_batch=loop.global_batch, seed=loop.seed))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(0).items()}
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    stats = torch.cuda.memory_stats()
+    if asked is None or requested not in stats:
+        fail(f"[{tag}] the caching allocator reports no {requested}")
+    asked = stats[requested] - asked
+    tensors = (list(state.params.parameters()) + list(state.opt.m.values())
+               + list(state.opt.v.values()) + [state.opt.step]
+               + list(batch.values()))
+    held = sum(t.untyped_storage().nbytes() for t in tensors)
+    # The allocator's record of the bytes its callers asked for grows by
+    # exactly what the tensors hold; what it allocated is larger by its
+    # rounding (each block up to 512 bytes, and the remainder of a
+    # segment left unsplit).
+    say(f"[{tag}] (a) {TRAIN_ARCH} train state (B {loop.global_batch}, T "
+        f"{loop.seq_len}; bf16 parameters, float32 moments, the step, the "
+        f"int32 batch): per_chip_argument_bytes {want}; the {len(tensors)} "
+        f"tensors built on the card hold {held} bytes; the allocator's "
+        f"{requested} grew {asked} as they were built, and "
+        f"torch.cuda.memory_allocated() {grown} ({grown - asked} more: "
+        "its rounding)")
+    if not held == want == asked or grown < asked:
+        fail(f"[{tag}] the plan counts {want} bytes; the state holds {held},"
+             f" the card was asked for {asked} and allocated {grown}")
+    n_tensors = len(tensors)
+    out["state_bytes"] = {"per_chip_argument_bytes": want, "held": held,
+                          "requested": asked, "grown": grown,
+                          "tensors": n_tensors}
+
+    # (b) Each step counted on the card (kernels running) and on meta.
+    reset_counts()
+    t1 = time.perf_counter()
+    _, card = count(plan, state, batch)
+    torch.cuda.synchronize()
+    train_card = card.summary()
+    train_card_s = time.perf_counter() - t1
+    del state, batch, plan, card
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    train_meta, _ = count_cell(make())
+    train_meta_s = time.perf_counter() - t1
+
+    lcfg = get_config(LM_ARCH)
+    dshape = ShapeConfig("decode", LM_MAX, LM_B, "decode")
+    dplan = make_decode_step(lcfg, None, dshape)
+    params = dplan.bind(init_model(lcfg, LM_SEED, device=dev))
+    caches = init_caches(lcfg, LM_B, LM_MAX, device=dev)
+    tokens = torch.zeros((LM_B, 1), dtype=torch.int32, device=dev)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    _, card = count(dplan, params, caches, tokens, pos)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    decode_card = card.summary()
+    del params, caches, dplan, card
+    torch.cuda.empty_cache()
+    decode_meta, _ = count_cell(make_decode_step(lcfg, None, dshape))
+    for what, c, m in (("train", train_card, train_meta),
+                       ("decode", decode_card, decode_meta)):
+        say(f"[{tag}] (b) {what} step counted on the card: "
+            f"{_count_line(c)}; traced on meta: {_count_line(m)}")
+        if (c["flops"], c["hbm_bytes"], c["kernels"]) != (
+                m["flops"], m["hbm_bytes"], m["kernels"]):
+            fail(f"[{tag}] the {what} step counts differently on the card "
+                 "and on meta")
+    if not decode_card["kernels"].get("decode_attention"):
+        fail(f"[{tag}] the decode step ran no decode kernel")
+    say(f"[{tag}] (b) the train step counted in {train_card_s:.1f} s on "
+        f"the card, {train_meta_s:.1f} s on meta; kernel launches "
+        f"{launches}")
+
+    # (c) The roofline of each step against the wall its phase measured.
+    card_name = env["nvidia_smi"]
+    rows = {}
+    for what, c, c_cfg, c_shape, wall_ms in (
+            ("train", train_card, cfg, shape,
+             train["full_width"]["ms_per_step"]),
+            ("lm_decode", decode_card, lcfg, dshape, lm["ms_per_step"])):
+        peak = PEAK_FLOPS[c_cfg.compute_dtype]
+        compute_ms = c["flops"] / peak * 1e3
+        memory_ms = c["hbm_bytes"] / H100_HBM_BYTES_PER_S * 1e3
+        bound_ms = max(compute_ms, memory_ms)
+        mf = model_flops(c_cfg, c_shape)
+        rows[what] = {
+            "compute_ms": compute_ms, "memory_ms": memory_ms,
+            "dominant": "compute" if compute_ms >= memory_ms else "memory",
+            "wall_ms": wall_ms, "roofline_share": bound_ms / wall_ms,
+            "model_flops": mf, "mfu": mf / peak / (wall_ms / 1e3),
+            "flops": c["flops"], "hbm_bytes": c["hbm_bytes"]}
+        r = rows[what]
+        say(f"[{tag}] (c) [{what}] {c_cfg.name} step (B "
+            f"{c_shape.global_batch}, {'T' if what == 'train' else 'S'} "
+            f"{c_shape.seq_len}): compute {compute_ms:.3f} ms "
+            f"({c['flops']:.4e} FLOPs at {peak / 1e12:.0f} TFLOP/s), "
+            f"memory {memory_ms:.3f} ms ({c['hbm_bytes']:.4e} bytes at "
+            f"{H100_HBM_BYTES_PER_S / 1e12:.2f} TB/s): {r['dominant']}-"
+            f"bound; measured {wall_ms:.2f} ms per step, roofline share "
+            f"{r['roofline_share']:.2%}; model FLOPs {mf:.4e}, MFU "
+            f"{r['mfu']:.2%}; on {card_name}")
+    seconds = time.perf_counter() - t0
+    say(f"[{tag}] phase done in {seconds:.1f} s")
+    out.update(train_card=train_card, train_meta=train_meta,
+               decode_card=decode_card, decode_meta=decode_meta,
+               roofline=rows, launches=launches, card=card_name,
+               seconds=seconds)
+    return out
 
 
 def main() -> int:
@@ -6437,6 +6728,7 @@ def main() -> int:
     with torch.no_grad():
         mesh = timed("mesh", phase_mesh, torch)
     train_mesh = timed("train_mesh", phase_train_mesh, torch, train)
+    dryrun = timed("dryrun", phase_dryrun, torch, train, lm, env)
 
     rows = []
     for kind in ("filtering_combine", "smoothing_combine"):
@@ -6490,7 +6782,9 @@ def main() -> int:
                                if k.startswith("flash_attention")),
                    "train_mesh": sum(
                        n for k, n in train_mesh["launches"].items()
-                       if k.startswith("flash_attention"))}
+                       if k.startswith("flash_attention")),
+                   "dryrun": sum(n for k, n in dryrun["launches"].items()
+                                 if k.startswith("flash_attention"))}
     rows[-1].update(launches=sum(flash_paths.values()),
                     launches_by_path=flash_paths,
                     launches_by_kernel=flash["launches_by_kernel"],
@@ -6525,7 +6819,7 @@ def main() -> int:
          "flash_attention": flash, "lm_decode": lm, "lm_hybrid": hybrid,
          "lm_moe": moe, "lm_grok": grok, "lm_xlstm": xlstm,
          "lm_encdec": encdec, "lm_mrope": mrope, "train": train,
-         "mesh": mesh, "train_mesh": train_mesh,
+         "mesh": mesh, "train_mesh": train_mesh, "dryrun": dryrun,
          "phase_s": phase_s, "seconds": time.perf_counter() - t_start},
         indent=1,
         default=str))

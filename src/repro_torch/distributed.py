@@ -61,6 +61,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch import counting
+
 #: ``reduce_scatter_single`` is ``reduce_scatter_tensor``'s newer name.
 _reduce_scatter = (getattr(dist, "reduce_scatter_single", None)
                    or dist.reduce_scatter_tensor)
@@ -85,6 +87,9 @@ class Mesh:
     identity. ``shape`` is a dict ``{axis name: size}`` in axis order,
     ``coords`` the rank's coordinate on each axis, ``staged_bytes`` the
     bytes its collectives copied through the host (`_host_staged`)."""
+
+    #: A mesh of ranks (`AbstractMesh`: of axis sizes alone).
+    abstract = False
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
         if len(shape) != len(axis_names) or len(set(axis_names)) != len(
@@ -218,13 +223,17 @@ def _host_staged(mesh: Mesh, tensors: Sequence[torch.Tensor]):
 
 def _ppermute(mesh: Mesh, leaves: List[torch.Tensor], axis_name: str,
               perm: Sequence[tuple]) -> List[torch.Tensor]:
-    me, line = mesh.coords[axis_name], mesh.line(axis_name)
+    me = mesh.coords[axis_name]
     dst = [d for s, d in perm if s == me]
     src = [s for s, d in perm if d == me]
     if len(dst) > 1 or len(src) > 1:
         raise ValueError(f"ppermute: {perm} is not a permutation")
     if src == [me] or (not src and not dst):
         return [t.clone() if src else torch.zeros_like(t) for t in leaves]
+    counting.collective("collective-permute", leaves, leaves)
+    if mesh.abstract:
+        return [t.clone() if src else torch.zeros_like(t) for t in leaves]
+    line = mesh.line(axis_name)
     sent, back = _host_staged(mesh, leaves)
     recv = [torch.empty_like(t) for t in sent]
     ops = []
@@ -245,6 +254,9 @@ def _all_reduce(mesh: Mesh, leaves: List[torch.Tensor], axes: tuple,
     for name in axes:
         if mesh.shape[name] == 1:
             continue
+        counting.collective("all-reduce", out, out)
+        if mesh.abstract:
+            continue
         sent, back = _host_staged(mesh, out)
         for t in sent:
             dist.all_reduce(t, op=op, group=mesh.group(name))
@@ -254,8 +266,12 @@ def _all_reduce(mesh: Mesh, leaves: List[torch.Tensor], axes: tuple,
 
 def _all_gather_leaf(mesh: Mesh, name: str, t: torch.Tensor
                      ) -> List[torch.Tensor]:
-    if mesh.shape[name] == 1:
+    D = mesh.shape[name]
+    if D == 1:
         return [t]
+    counting.collective("all-gather", [t] * D, [t])
+    if mesh.abstract:
+        return [t] * D
     (sent,), back = _host_staged(mesh, [t])
     parts = [torch.empty_like(sent) for _ in range(mesh.shape[name])]
     dist.all_gather(parts, sent, group=mesh.group(name))
@@ -295,7 +311,12 @@ def _psum_scatter(mesh: Mesh, leaves: List[torch.Tensor], axis_name: str,
                              "ranks")
         if D == 1:
             part = t.detach().clone()
+        elif mesh.abstract:
+            part = t.detach().narrow(sd, 0, t.shape[sd] // D).clone()
+            counting.collective("reduce-scatter", [part], [t])
         else:
+            counting.collective("reduce-scatter", [t.narrow(
+                sd, 0, t.shape[sd] // D)], [t])
             (sent,), back = _host_staged(mesh, [t.detach().movedim(sd, 0)])
             recv = sent.new_empty((sent.shape[0] // D,) + sent.shape[1:])
             _reduce_scatter(recv, sent, group=mesh.group(axis_name))
@@ -316,6 +337,8 @@ def _all_to_all(mesh: Mesh, leaves: List[torch.Tensor], axis_name: str,
                              "ranks")
         blocks = list(t.detach().chunk(D, dim=split_axis))
         if D > 1:
+            counting.collective("all-to-all", [t], [t])
+        if D > 1 and not mesh.abstract:
             # Point to point (gloo has no all-to-all in every version):
             # block j to axis index j, one block from every other.
             me, line = mesh.coords[axis_name], mesh.line(axis_name)
@@ -549,13 +572,33 @@ def widen_spec(spec, shape, size: int, *, least: int = 0):
 class AbstractMesh:
     """The axis sizes of a mesh without its ranks: what a spec's block
     shapes need (`NamedSharding.shard_shape`), e.g. the 16 x 16
-    production mesh on a machine with one process."""
+    production mesh on a machine with one process.
+
+    It also stands in for the mesh's first rank, so that a step can be
+    traced for one rank on ``meta`` tensors (`launch.cost`): under
+    ``with mesh:`` every collective returns a result of the right shape
+    (its own input where data would come from other ranks, zeros where
+    `ppermute` sends none) and reports its bytes
+    (`repro_torch.counting`), with no process group."""
+
+    abstract = True
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               map(int, shape)))
         self.size = math.prod(self.shape.values())
+        self.coords = {a: 0 for a in self.axis_names}
+        self.rank = 0
+        self.backend = None
+        self.staged_bytes = 0
+
+    def __enter__(self) -> "AbstractMesh":
+        _AMBIENT.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _AMBIENT.pop()
 
     def __repr__(self) -> str:
         return f"AbstractMesh({self.shape})"

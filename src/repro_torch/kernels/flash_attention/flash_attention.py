@@ -61,7 +61,9 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import counting
 from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels.work import decode_work, flash_work
 
 #: Kernel launches since the last `reset_launch_counts`, per kernel.
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_wgmma": 0,
@@ -187,8 +189,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / (Dh ** 0.5)
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    if out.numel() == 0 or counting.shapes_only(q):
+        return out   # meta: shapes only, counted by the kernel's formula
     qf = q.float().reshape(B, Hkv, group, Tq, Dh)
     kf = k.float()[:, :, None]    # [B, Hkv, 1, Tk, Dh]
     vf = v.float()[:, :, None]
@@ -315,9 +317,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take `flash_attention_plain`; CUDA tensors launch the
     kernel `select_kernel` picks (nothing for an empty output) or raise.
     ``kernel`` ("decode", "wgmma" or "fma") names one instead, for timing
-    and tests, and raises if that kernel does not take these inputs."""
+    and tests, and raises if that kernel does not take these inputs.
+    Either counts as `kernels.work.flash_work` in a step count."""
     check_shapes(q, k, v)
     check_window(window, causal)
+    with counted_flash(q, k, causal, window):
+        return _flash_attention(q, k, v, causal, scale, kernel, window,
+                                softcap)
+
+
+def counted_flash(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                  window: int = 0) -> counting.kernel_call:
+    """The count region of one attention call on ``q [B, Hq, Tq, Dh]``
+    and ``k [B, Hkv, Tk, Dh]`` (`kernels.work.flash_work`), which the
+    wrapper and the model code that calls it or its plain version
+    enter."""
+    return counting.kernel_call("flash_attention", lambda: flash_work(
+        *q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+        causal, q.element_size(), window))
+
+
+def _flash_attention(q, k, v, causal, scale, kernel, window, softcap):
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      window=window, softcap=softcap)
@@ -380,6 +400,8 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     check_shapes(q, k_cache, v_cache)
     B, Hq, Tq, Dh = q.shape
     Hkv, S = k_cache.shape[1:3]
+    if counting.shapes_only(q):
+        return torch.empty_like(q)   # counted by the kernel's formula
     if scale is None:
         scale = 1.0 / (Dh ** 0.5)
     qh = q.float().reshape(B, Hkv, (Hq // Hkv) * Tq, Dh)
@@ -407,11 +429,31 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     model always writes before it reads.
 
     CPU tensors take `decode_attention_plain`; CUDA tensors launch the
-    kernel (one ``flash_attention_decode`` launch) or raise."""
+    kernel (one ``flash_attention_decode`` launch) or raise. Either
+    counts as `kernels.work.decode_work` over the whole cache in a step
+    count (the keys it reads depend on ``length``, data that a count from
+    shapes does not read)."""
     check_shapes(q, k_cache, v_cache)
     if length.numel() != 1 or length.dtype != torch.int32:
         raise TypeError(f"decode_attention: length must be one int32, not "
                         f"{length.dtype} of shape {tuple(length.shape)}")
+    with counted_decode(q, k_cache):
+        return _decode_attention(q, k_cache, v_cache, length, scale,
+                                 softcap)
+
+
+def counted_decode(q: torch.Tensor, k_cache: torch.Tensor
+                   ) -> counting.kernel_call:
+    """The count region of one decode call of ``q [B, Hq, Tq, Dh]``
+    against the cache ``k [B, Hkv, S, Dh]`` (`kernels.work.decode_work`),
+    which the wrapper and the model code that calls it or its plain
+    version enter."""
+    return counting.kernel_call("decode_attention", lambda: decode_work(
+        q.shape[0], q.shape[1] * q.shape[2], k_cache.shape[1],
+        k_cache.shape[2], q.shape[3], q.element_size()))
+
+
+def _decode_attention(q, k_cache, v_cache, length, scale, softcap):
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, length,
                                       scale=scale, softcap=softcap)

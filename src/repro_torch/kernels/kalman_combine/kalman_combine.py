@@ -34,7 +34,9 @@ import torch
 from repro_torch.core.types import (FilteringElement, SmoothingElement,
                                     bmm as _bmm, bmv as _bmv,
                                     gauss_jordan_inverse as _gauss_jordan_inverse)
+from repro_torch import counting
 from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels.work import combine_work
 
 #: Kernel launches per kernel since the last `reset_launch_counts`.
 LAUNCHES: Dict[str, int] = {"filtering_combine": 0, "smoothing_combine": 0}
@@ -208,6 +210,14 @@ def _combine_cuda(fn_name: str, name: str, blocks, ei, ej):
     return type(ei)(*outs)
 
 
+def _counted(kind: str, vec: torch.Tensor) -> counting.kernel_call:
+    """The count region of one combine over the pairs of ``vec``'s
+    leading dimensions (an element's ``[..., nx]`` vector field)."""
+    nx = vec.shape[-1]
+    return counting.kernel_call(kind, lambda: combine_work(
+        kind, vec.numel() // max(nx, 1), nx, vec.element_size()))
+
+
 def filtering_combine_cuda(ei: FilteringElement, ej: FilteringElement
                            ) -> FilteringElement:
     """Eq. 15 over a grid of element pairs: fields ``[L, P, nx(, nx)]``
@@ -216,11 +226,13 @@ def filtering_combine_cuda(ei: FilteringElement, ej: FilteringElement
 
     CPU tensors take `filtering_combine_math`; CUDA tensors launch the
     hand-written kernel once (nothing for an empty grid) or raise.
-    Outputs are fresh contiguous tensors of the same shapes."""
-    if not ei.b.is_cuda:
-        return filtering_combine_plain(ei, ej)
-    return _combine_cuda("kc_filtering_combine", "filtering_combine",
-                         _FILTERING_BLOCKS, ei, ej)
+    Outputs are fresh contiguous tensors of the same shapes. Either
+    counts as `kernels.work.combine_work` in a step count."""
+    with _counted("filtering_combine", ei.b):
+        if not ei.b.is_cuda:
+            return filtering_combine_plain(ei, ej)
+        return _combine_cuda("kc_filtering_combine", "filtering_combine",
+                             _FILTERING_BLOCKS, ei, ej)
 
 
 def smoothing_combine_cuda(ei: SmoothingElement, ej: SmoothingElement
@@ -230,7 +242,8 @@ def smoothing_combine_cuda(ei: SmoothingElement, ej: SmoothingElement
 
     CPU tensors take `smoothing_combine_math`; CUDA tensors launch the
     hand-written kernel once (nothing for an empty grid) or raise."""
-    if not ei.g.is_cuda:
-        return smoothing_combine_plain(ei, ej)
-    return _combine_cuda("kc_smoothing_combine", "smoothing_combine",
-                         _SMOOTHING_BLOCKS, ei, ej)
+    with _counted("smoothing_combine", ei.g):
+        if not ei.g.is_cuda:
+            return smoothing_combine_plain(ei, ej)
+        return _combine_cuda("kc_smoothing_combine", "smoothing_combine",
+                             _SMOOTHING_BLOCKS, ei, ej)

@@ -26,7 +26,9 @@ from typing import Dict
 
 import torch
 
+from repro_torch import counting
 from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels.work import ssm_scan_work
 
 #: Kernel launches since the last `reset_launch_counts`.
 LAUNCHES: Dict[str, int] = {"ssm_scan": 0}
@@ -57,6 +59,8 @@ def ssm_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     steps, then the carry ``h = A_pref h_in + B_pref`` across chunks."""
     B, T, D = a.shape
     out_dtype = a.dtype
+    if counting.shapes_only(a):
+        return torch.empty_like(a)   # counted by the kernel's formula
     if B * T * D == 0:
         return a.new_empty((B, T, D))
     work = _compute_dtype(out_dtype)
@@ -120,8 +124,22 @@ def ssm_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """All states for ``a, b [B, T, D]`` (initial state 0).
 
     CPU tensors take `ssm_scan_plain`; CUDA tensors launch the
-    hand-written kernel (nothing when ``B T D = 0``) or raise."""
+    hand-written kernel (nothing when ``B T D = 0``) or raise. Either
+    counts as `kernels.work.ssm_scan_work` in a step count."""
     _check(a, b)
+    with counted_scan(a):
+        return _ssm_scan(a, b)
+
+
+def counted_scan(a: torch.Tensor) -> counting.kernel_call:
+    """The count region of one scan of ``a, b [B, T, D]``
+    (`kernels.work.ssm_scan_work`), which the wrapper and the model code
+    that calls it or its plain version enter."""
+    return counting.kernel_call("ssm_scan", lambda: ssm_scan_work(
+        a.numel(), a.element_size()))
+
+
+def _ssm_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not a.is_cuda:
         return ssm_scan_plain(a, b)
     refuse_autograd("ssm_scan", a, b)

@@ -19,14 +19,15 @@ allocates nothing (the reference's ``eval_shape``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import convert
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import (P, PartitionSpec, map_specs, shape_of,
-                                     widen_spec)
+from repro_torch.distributed import (NamedSharding, P, PartitionSpec,
+                                     map_specs, shape_of, widen_spec)
 
 # ---------------------------------------------------------------------------
 # The reference's specs, in its layout
@@ -153,6 +154,13 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[torch.Size,
                                                       torch.dtype]]:
     """``{name: (shape, dtype)}`` of every parameter of the port's model,
     in ``named_parameters`` order, without allocating."""
+    return dict(_param_shapes(cfg))
+
+
+@functools.lru_cache(maxsize=16)
+def _param_shapes(cfg: ModelConfig):
+    # A meta build of the largest archs takes about a second; plans ask
+    # for the same configs' shapes again and again.
     return {n: (p.shape, p.dtype)
             for n, p in meta_model(cfg).named_parameters()}
 
@@ -278,6 +286,20 @@ def fsdp_widen(specs: Any, shapes: Any, data_size: int = 16) -> Any:
         return spec if len(shape) < 2 else widen_spec(spec, shape, data_size)
 
     return map_specs(one, specs, shapes)
+
+
+def named(mesh, specs: Any) -> Any:
+    """A spec pytree as a `NamedSharding` pytree on ``mesh``, the specs
+    adapted to it first (`adapt_specs_for_mesh`)."""
+    return map_specs(lambda s: NamedSharding(mesh, s),
+                     adapt_specs_for_mesh(specs, mesh))
+
+
+def eval_shapes_init(cfg: ModelConfig):
+    """The parameters' abstract shapes and specs, nothing allocated: ``(
+    {name: (shape, dtype)}, {name: spec})`` of the port's model, from
+    its ``meta`` build (the reference's ``eval_shape`` of ``init_model``)."""
+    return param_shapes(cfg), param_specs(cfg)
 
 
 def train_batch_specs(cfg: ModelConfig, batch_axis=("data",)) -> dict:

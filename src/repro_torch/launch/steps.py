@@ -1,6 +1,10 @@
-"""The train step and its sharding tables: the JAX package's
-``repro.launch.steps`` for training (its prefill/decode cell plans are
-the dry-run's, ROADMAP A, item 4c).
+"""The cell plans and their sharding tables: the JAX package's
+``repro.launch.steps``. `make_cell_plan(cfg, mesh, shape)` gives the plan
+of one (arch x shape x mesh) cell by the shape's kind: `make_train_step`,
+`make_prefill_step` or `make_decode_step`. Each is a `CellPlan`, whose
+`per_chip_argument_bytes` is the reference's resident bytes per chip of
+the step's inputs, from the axis sizes alone (an `AbstractMesh` will
+do), and which `launch.cost` traces for one rank on ``meta`` tensors.
 
 `make_train_step(cfg)` on one device is the body of the reference's
 step in eager PyTorch on the model's device: ``value_and_grad`` of
@@ -27,10 +31,13 @@ inside ``with mesh:``:
 
 The dense layers therefore run replicated over "model": the reference's
 GSPMD would split their matmuls over it too (ROADMAP C records the
-difference, and queue B the tensor-parallel compute that would remove
-it). `TrainPlan.per_chip_argument_bytes` is computed from the axis sizes
-alone (an `AbstractMesh` will do), as the reference's
-``CellPlan.per_chip_argument_bytes``.
+difference). An MoE that takes the global dispatch routes the global
+batch (`models.moe.route`).
+
+The prefill and decode plans (`ServePlan`) run in the same replicated
+layout on every rank of a mesh: the parameters gathered whole, the
+rank's rows of the batch, and a decode cache block gathered over the
+axes besides the batch's, used, and written back.
 """
 from __future__ import annotations
 
@@ -41,8 +48,10 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.distributed import (NamedSharding, P, _extra_axes,
-                                     coarsen_block, psum, psum_scatter)
+from repro_torch.distributed import (AbstractMesh, NamedSharding, P,
+                                     _extra_axes, coarsen_block, map_specs,
+                                     psum, psum_scatter, refine_block,
+                                     tree_map)
 from repro_torch.launch import sharding as shard_lib
 from repro_torch.launch.mesh import batch_axes, batch_shard
 from repro_torch.models import train_loss
@@ -142,6 +151,13 @@ def init_adamw_abstract(param_shapes) -> AdamWState:
                                   for n, t in zeros.items()})
 
 
+def _compute_specs(pspecs: Dict[str, Any], ep: set) -> Dict[str, Any]:
+    """What the compute model holds of each parameter: whole, but for the
+    expert-parallel experts ``ep``, cut over "model" as at rest."""
+    return {n: P(*[e if (n in ep and e == "model") else None for e in s])
+            for n, s in pspecs.items()}
+
+
 def _ep_names(cfg: ModelConfig, mesh, seq_len: int, names) -> set:
     """Parameters the compute model keeps as the rank's shard over
     "model": an expert-parallel MoE's experts (`moe._moe_layer_ep`)."""
@@ -153,35 +169,91 @@ def _ep_names(cfg: ModelConfig, mesh, seq_len: int, names) -> set:
 
 
 # ---------------------------------------------------------------------------
-# The train plan
+# Cell plans
 # ---------------------------------------------------------------------------
 
+def _one_rank(mesh):
+    """``mesh``, or for one device (None) a mesh of one rank."""
+    return AbstractMesh((1, 1), ("data", "model")) if mesh is None else mesh
+
+
+def _block_bytes(mesh, leaves) -> int:
+    """Bytes of one rank's blocks of ``(shape, spec, itemsize)`` leaves
+    (a dimension that does not divide rounds up, as GSPMD pads); one
+    device (``mesh`` None) holds them whole."""
+    mesh = _one_rank(mesh)
+    return sum(math.prod(NamedSharding(mesh, spec).shard_shape(shape))
+               * itemsize for shape, spec, itemsize in leaves)
+
+
 @dataclasses.dataclass
-class TrainPlan:
-    """A train step and its tables. Call it (``plan(state, batch)``) for
-    one step. On a mesh: ``param_specs``, ``moment_specs``,
+class CellPlan:
+    """One (arch x shape x mesh) cell: its step and its tables. Call it
+    for one step (``plan(*args)``); `per_chip_argument_bytes` is the
+    reference's count of the step's inputs per chip, from the axis sizes
+    alone (an `AbstractMesh` will do). ``kind`` is the shape's ("train",
+    "prefill" or "decode"); ``model`` the compute model once one is bound
+    (`bind`, `TrainPlan.init_state`); ``param_specs`` and
     ``compute_specs`` (what the compute model holds: whole, or an
-    expert's shard over "model") and ``batch_specs`` by name; ``model``
-    is the compute model once a state is bound (`init_state`)."""
+    expert-parallel MoE's expert shard over "model") by name, on a
+    mesh."""
 
     cfg: ModelConfig
     shape: Optional[ShapeConfig]
     mesh: Any
     step_fn: Callable
     description: str
+    kind: str = "train"
     param_shapes: Dict[str, Tuple[torch.Size, torch.dtype]] = None
     param_specs: Dict[str, Any] = None
-    moment_specs: Dict[str, Any] = None
     compute_specs: Dict[str, Any] = None
-    batch_specs: Dict[str, Any] = None
     model: Optional[CausalLM] = None
 
-    def __call__(self, state: TrainState, batch) -> Tuple[TrainState, dict]:
-        return self.step_fn(state, batch)
+    def __call__(self, *args, **kwargs):
+        return self.step_fn(*args, **kwargs)
 
-    # -- on a mesh -----------------------------------------------------
     def shardings(self, specs: Dict[str, Any]) -> Dict[str, NamedSharding]:
         return {n: NamedSharding(self.mesh, s) for n, s in specs.items()}
+
+    def argument_leaves(self):
+        """The step's inputs as the reference lays them out: ``(global
+        shape, spec, itemsize)`` per leaf."""
+        raise NotImplementedError
+
+    def per_chip_argument_bytes(self) -> int:
+        """Exact resident bytes per chip of the step's inputs (weights,
+        optimizer state, caches, batch), as the reference's
+        ``CellPlan.per_chip_argument_bytes`` counts them."""
+        return _block_bytes(self.mesh, self.argument_leaves())
+
+    def _use_model(self, model: CausalLM) -> None:
+        """Make ``model`` (whole, on the rank's device) the compute model,
+        an expert-parallel MoE's experts cut to the rank's shard."""
+        if any(e == "model" for s in self.compute_specs.values() for e in s):
+            from repro_torch.models import moe as moe_lib
+
+            moe_lib.shard_model(model, self.cfg, self.mesh)
+        self.model = model
+
+    def _load_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """The compute model's parameters from the rank's blocks
+        (all_gathers over the axes its specs cut)."""
+        ps, cs = self.shardings(self.param_specs), self.shardings(
+            self.compute_specs)
+        with torch.no_grad():
+            for n, p in self.model.named_parameters():
+                p.copy_(coarsen_block(params[n], ps[n], cs[n]))
+
+
+@dataclasses.dataclass
+class TrainPlan(CellPlan):
+    """A train step and its tables. Call it (``plan(state, batch)``) for
+    one step. On a mesh: ``moment_specs`` and ``batch_specs`` by name too;
+    ``model`` is the compute model once a state is bound
+    (`init_state`)."""
+
+    moment_specs: Dict[str, Any] = None
+    batch_specs: Dict[str, Any] = None
 
     def state_shardings(self) -> TrainState:
         """The state's `NamedSharding` pytree (for checkpoints)."""
@@ -208,23 +280,20 @@ class TrainPlan:
             ms[n].shard_shape(p.shape), dtype=torch.float32,
             device=p.device) for n, p in full.items()}
         moments = (zeros(), zeros())
-        if any(e == "model" for s in self.compute_specs.values() for e in s):
-            from repro_torch.models import moe as moe_lib
-
-            moe_lib.shard_model(model, self.cfg, self.mesh)
-        self.model = model
+        self._use_model(model)
         dev = next(iter(params.values())).device
         return TrainState(params=params, opt=AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
             m=moments[0], v=moments[1]))
 
-    def per_chip_argument_bytes(self) -> int:
-        """Resident bytes per rank of the step's inputs (parameters,
-        AdamW state, batch), from the axis sizes alone, counted on the
-        reference's stacked leaves exactly as its
-        ``CellPlan.per_chip_argument_bytes`` counts them."""
-        leaves, pspec, mspec = _leaf_specs(self.cfg, self.mesh, True)
-        return self._state_bytes(
+    def argument_leaves(self):
+        """The parameters and both float32 moments on the reference's
+        stacked leaves, the int32 step and the batch."""
+        if self.shape is None:
+            raise ValueError("the plan has no shape: its batch is unknown")
+        leaves, pspec, mspec = _leaf_specs(self.cfg, _one_rank(self.mesh),
+                                           True)
+        return self._state_leaves(
             (leaf.shape, pspec[k], mspec[k], leaf.dtype)
             for k, leaf in leaves.items())
 
@@ -233,29 +302,27 @@ class TrainPlan:
         the moments, the step and the batch rows): equal to
         `per_chip_argument_bytes` where no spec shards a stacked layer
         dimension, more where one does (ROADMAP C)."""
-        return self._state_bytes(
+        return _block_bytes(self.mesh, self._state_leaves(
             (shape, self.param_specs[n], self.moment_specs[n], dtype)
-            for n, (shape, dtype) in self.param_shapes.items())
+            for n, (shape, dtype) in self.param_shapes.items()))
 
-    def _state_bytes(self, leaves) -> int:
-        """Block bytes of ``(shape, param spec, moment spec, dtype)``
-        leaves (the parameter and two float32 moments each), the int32
-        step and the batch."""
-        cfg = self.cfg
-        size = lambda shape, spec, itemsize: math.prod(  # noqa: E731
-            NamedSharding(self.mesh, spec).shard_shape(shape)) * itemsize
-        total = 4
+    def _state_leaves(self, leaves):
+        """``(shape, spec, itemsize)`` of ``(shape, param spec, moment
+        spec, dtype)`` leaves (the parameter and two float32 moments
+        each), the int32 step and the batch."""
+        out = [((), P(), 4)]
         for shape, pspec, mspec, dtype in leaves:
-            total += size(shape, pspec, dtype.itemsize)
-            total += 2 * size(shape, mspec, 4)
+            out += [(shape, pspec, dtype.itemsize), (shape, mspec, 4),
+                    (shape, mspec, 4)]
+        cfg = self.cfg
         B, T = self.shape.global_batch, self.shape.seq_len
         for name, spec in self.batch_specs.items():
             if name == "enc_emb":
-                total += size((B, cfg.encoder_seq_len, cfg.d_model), spec,
-                              dtype_of(cfg.compute_dtype).itemsize)
+                out.append(((B, cfg.encoder_seq_len, cfg.d_model), spec,
+                            dtype_of(cfg.compute_dtype).itemsize))
             else:
-                total += size((B, T), spec, 4)
-        return total
+                out.append(((B, T), spec, 4))
+        return out
 
 
 def _reduce_grad(g: torch.Tensor, compute: NamedSharding,
@@ -321,21 +388,12 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     shapes, pspecs, _, opt_specs = param_and_state_specs(cfg, mesh,
                                                          for_train=True)
     ep = _ep_names(cfg, mesh, shape.seq_len, shapes)
-    if (cfg.num_experts and not ep and dsize > 1
-            and mesh.shape.get("model", 1) > 1):
-        raise NotImplementedError(
-            f"{cfg.name}: its MoE layers take the global dispatch at T = "
-            f"{shape.seq_len} on this mesh, whose capacity and aux loss "
-            "span the global batch; split over 'data' they would not. "
-            "Train it where the experts shard over 'model' (E and T "
-            "multiples of the 'model' size) or on one data rank")
-    cspecs = {n: P(*[e if (n in ep and e == "model") else None
-                     for e in pspecs[n]]) for n in shapes}
+    cspecs = _compute_specs(pspecs, ep)
     batch = tuple(a for a in b_axis if a in mesh.shape)
     plan = TrainPlan(cfg=cfg, shape=shape, mesh=mesh, step_fn=None,
                      description=f"train_step {cfg.name} x {shape.name}",
                      param_shapes=shapes, param_specs=pspecs,
-                     moment_specs=opt_specs.m, compute_specs=cspecs,
+                     compute_specs=cspecs, moment_specs=opt_specs.m,
                      batch_specs=shard_lib.train_batch_specs(cfg, b_axis))
 
     def step(state: TrainState, batch_rows) -> Tuple[TrainState, dict]:
@@ -347,9 +405,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         ps, ms = plan.shardings(pspecs), plan.shardings(opt_specs.m)
         cs = plan.shardings(cspecs)
         with mesh:
-            with torch.no_grad():
-                for n, p in model.named_parameters():
-                    p.copy_(coarsen_block(state.params[n], ps[n], cs[n]))
+            plan._load_params(state.params)
             loss, metrics, grads = loss_and_grads(model, cfg, batch_rows)
             blocks = {}
             for n in list(grads):
@@ -382,7 +438,237 @@ def _one_device_plan(cfg, shape, opt_cfg, total_steps, warmup_steps
 
     name = shape.name if shape is not None else "one device"
     return TrainPlan(cfg=cfg, shape=shape, mesh=None, step_fn=step,
-                     description=f"train_step {cfg.name} x {name}")
+                     description=f"train_step {cfg.name} x {name}",
+                     batch_specs=shard_lib.train_batch_specs(cfg))
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+def _cache_shapes_and_specs(cfg: ModelConfig, B: int, S: int, mesh):
+    """The decode caches of a batch of ``B`` at capacity ``S`` as ``meta``
+    tensors (`models.init_caches`: nothing allocated) and their specs,
+    by the reference's decode rules: the batch over "data" where it
+    divides, the KV heads over "model" where they divide it and
+    otherwise, for a cache of at least 16 positions, the cache's sequence
+    over "model" (which keeps the largest caches resident); adapted to a
+    multi-pod mesh."""
+    from repro_torch.models import cache_specs, init_caches
+
+    shapes = init_caches(cfg, B, S, device="meta")
+    dsize = mesh.shape["data"]
+    b_axis = ("data",) if B % dsize == 0 and B >= dsize else None
+    specs = cache_specs(cfg, batch_spec=b_axis)
+    if not cfg.shard_kv_heads:
+        def fix_kv(spec, like):
+            # KV caches are rank-5 here ([layers, B, Hkv, S, Dh]).
+            if like.dim() == 5 and like.shape[3] == S and S >= 16:
+                entries = list(spec) + [None] * (5 - len(spec))
+                if entries[2] == "model":
+                    entries[2] = None
+                entries[3] = "model"
+                return P(*entries)
+            return spec
+        specs = map_specs(fix_kv, specs, shapes)
+    return shapes, shard_lib.adapt_specs_for_mesh(specs, mesh)
+
+
+def _row_spec(spec) -> Any:
+    """``spec`` with only its batch axes ("pod", "data") kept: a block's
+    rows, every other dimension whole."""
+    return P(*[e if e is not None and set(
+        (e,) if isinstance(e, str) else e) <= {"pod", "data"} else None
+        for e in spec])
+
+
+def _is_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+@dataclasses.dataclass
+class ServePlan(CellPlan):
+    """A prefill or decode step and its tables.
+
+    ``plan.bind(model)`` gives the rank's parameter blocks (on one
+    device, the model's own parameters) and makes ``model`` the compute
+    model; ``plan.cache_blocks(caches)`` the rank's blocks of whole
+    caches; ``plan.rows(t)`` the rank's rows of a whole batch tensor.
+    Then ``plan(params, tokens[, enc_emb])`` is one prefill (the last
+    position's logits of the rank's rows) and ``plan(params, caches,
+    tokens, pos[, memory])`` one decode step (the rank's rows' logits and
+    its cache blocks, written in place).
+
+    On a mesh the step runs on every rank at once, in the replicated
+    layout of the train step: the parameters are all_gathered whole (an
+    expert-parallel MoE's experts into the rank's shard), the rank runs
+    the model on its rows, and a decode step all_gathers each cache block
+    over the axes besides the batch's (the KV heads, or the sequence
+    where they do not divide "model"; an SSM's or xLSTM's width), runs
+    on the rows' whole caches, and writes the rank's block back. A decode
+    batch that does not divide "data" is whole on every rank, and an
+    MoE's global dispatch is told so (`moe.rows_split_over`)."""
+
+    arg_leaves: list = None
+    cache_specs: Any = None
+    row_spec: Any = None
+
+    def argument_leaves(self):
+        return self.arg_leaves
+
+    def bind(self, model: CausalLM) -> Dict[str, torch.Tensor]:
+        if self.mesh is None:
+            self.model = model
+            return dict(model.named_parameters())
+        ps = self.shardings(self.param_specs)
+        with torch.no_grad():
+            params = {n: ps[n].block(p).clone()
+                      for n, p in model.named_parameters()}
+        self._use_model(model)
+        return params
+
+    def cache_blocks(self, caches):
+        if self.mesh is None:
+            return caches
+        return tree_map(lambda t, spec: NamedSharding(self.mesh, spec)
+                        .block(t).clone(), caches, self.cache_specs,
+                        is_leaf=_is_tensor)
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return t
+        return NamedSharding(self.mesh, P(self.row_spec)).block(t)
+
+
+def _serve_tables(cfg: ModelConfig, mesh, shape: ShapeConfig, kind: str):
+    """(the parameter leaves as the reference lays them out, the port's
+    parameter specs and compute specs) of a serve step on ``mesh``."""
+    shapes, pspecs, _, _ = param_and_state_specs(cfg, _one_rank(mesh),
+                                                 for_train=False)
+    leaves, lspec, _ = _leaf_specs(cfg, _one_rank(mesh), False)
+    arg_leaves = [(leaf.shape, lspec[k], leaf.dtype.itemsize)
+                  for k, leaf in leaves.items()]
+    T = shape.seq_len if kind == "prefill" else 1
+    ep = set() if mesh is None else _ep_names(cfg, mesh, T, shapes)
+    return arg_leaves, pspecs, _compute_specs(pspecs, ep), shapes
+
+
+def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig
+                      ) -> ServePlan:
+    """The prefill plan of the cell (`ServePlan`): the prompt ``tokens
+    [B, T]`` split over the batch axes."""
+    from repro_torch.models import prefill
+
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    arg_leaves, pspecs, cspecs, shapes = _serve_tables(cfg, mesh, shape,
+                                                       "prefill")
+    b_axis = batch_axes(_one_rank(mesh))
+    B, T = shape.global_batch, shape.seq_len
+    arg_leaves.append(((B, T), P(b_axis, None), 4))
+    if cfg.encoder_layers:
+        arg_leaves.append(((B, cfg.encoder_seq_len, cfg.d_model),
+                           P(b_axis, None, None),
+                           dtype_of(cfg.compute_dtype).itemsize))
+    plan = ServePlan(cfg=cfg, shape=shape, mesh=mesh, step_fn=None,
+                     description=f"prefill {cfg.name} x {shape.name}",
+                     kind="prefill", param_shapes=shapes,
+                     param_specs=pspecs, compute_specs=cspecs,
+                     arg_leaves=arg_leaves, row_spec=b_axis)
+
+    def step(params, tokens, enc_emb=None):
+        if mesh is None:
+            return prefill(plan.model, cfg, tokens, enc_emb)
+        with mesh:
+            plan._load_params(params)
+            return prefill(plan.model, cfg, tokens, enc_emb)
+
+    plan.step_fn = step
+    return plan
+
+
+def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeConfig
+                     ) -> ServePlan:
+    """The decode plan of the cell (`ServePlan`): one token per sequence
+    of ``B`` against caches of capacity ``S`` (the shape's global batch
+    and sequence length). The batch splits over "data" where it divides
+    (and the caches' over "pod" too on a multi-pod mesh, where the
+    reference's tokens split over "data" alone: the port's step takes
+    the tokens of its caches' rows)."""
+    from repro_torch.models import decode_step
+    from repro_torch.models import moe as moe_lib
+
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    arg_leaves, pspecs, cspecs, shapes = _serve_tables(cfg, mesh, shape,
+                                                       "decode")
+    m = _one_rank(mesh)
+    B, S = shape.global_batch, shape.seq_len
+    cache_shapes, cache_specs = _cache_shapes_and_specs(cfg, B, S, m)
+    tree_map(lambda t, spec: arg_leaves.append(
+        (tuple(t.shape), spec, t.element_size())), cache_shapes,
+        cache_specs, is_leaf=_is_tensor)
+    dsize = m.shape["data"]
+    tok_b = ("data",) if B % dsize == 0 and B >= dsize else None
+    arg_leaves += [((B, 1), P(tok_b, None), 4), ((), P(), 4)]
+    if cfg.encoder_layers:
+        arg_leaves.append(((B, cfg.encoder_seq_len, cfg.d_model),
+                           P(tok_b, None, None),
+                           dtype_of(cfg.compute_dtype).itemsize))
+    row = None if tok_b is None else shard_lib.adapt_specs_for_mesh(
+        P(tok_b), m)[0]
+    # The axes the rows split over, for an MoE's global dispatch: none
+    # where the batch does not divide "data" and every rank holds it.
+    split = () if row is None else (row,) if isinstance(row, str) else row
+    plan = ServePlan(cfg=cfg, shape=shape, mesh=mesh, step_fn=None,
+                     description=f"decode {cfg.name} x {shape.name}",
+                     kind="decode", param_shapes=shapes,
+                     param_specs=pspecs, compute_specs=cspecs,
+                     arg_leaves=arg_leaves, cache_specs=cache_specs,
+                     row_spec=row)
+
+    def step(params, caches, tokens, pos, memory=None):
+        if mesh is None:
+            return decode_step(plan.model, cfg, caches, tokens, pos,
+                               memory=memory)
+        blocks = {id(t): NamedSharding(mesh, spec) for t, spec in zip(
+            _leaves(caches), _leaves(cache_specs))}
+        with mesh, moe_lib.rows_split_over(split):
+            plan._load_params(params)
+            whole = tree_map(lambda t: coarsen_block(
+                t, blocks[id(t)], NamedSharding(mesh, _row_spec(
+                    blocks[id(t)].spec))), caches, is_leaf=_is_tensor)
+            logits, new = decode_step(plan.model, cfg, whole, tokens, pos,
+                                      memory=memory)
+            with torch.no_grad():
+                for t, n in zip(_leaves(caches), _leaves(new)):
+                    sh = blocks[id(t)]
+                    t.copy_(refine_block(n, NamedSharding(
+                        mesh, _row_spec(sh.spec)), sh))
+        return logits, caches
+
+    plan.step_fn = step
+    return plan
+
+
+def _leaves(tree) -> list:
+    """The leaves (tensors or specs) of a cache tree, in order."""
+    out = []
+    tree_map(out.append, tree,
+             is_leaf=lambda x: _is_tensor(x) or isinstance(x, P))
+    return out
+
+
+def make_cell_plan(cfg: ModelConfig, mesh, shape: ShapeConfig) -> CellPlan:
+    """The cell's plan by the shape's kind: `make_train_step`,
+    `make_prefill_step` or `make_decode_step`."""
+    if shape.kind == "train":
+        return make_train_step(cfg, mesh, shape)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, mesh, shape)
+    if shape.kind == "decode":
+        return make_decode_step(cfg, mesh, shape)
+    raise ValueError(shape.kind)
 
 
 def batch_rows(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
@@ -393,6 +679,8 @@ def batch_rows(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
             for k, v in batch.items()}
 
 
-__all__ = ["TrainState", "TrainPlan", "init_train_state", "loss_and_grads",
-           "param_and_state_specs", "init_adamw_abstract", "make_train_step",
-           "batch_rows", "AdamWConfig"]
+__all__ = ["TrainState", "CellPlan", "TrainPlan", "ServePlan",
+           "init_train_state", "loss_and_grads", "param_and_state_specs",
+           "init_adamw_abstract", "make_train_step", "make_prefill_step",
+           "make_decode_step", "make_cell_plan", "batch_rows",
+           "AdamWConfig"]

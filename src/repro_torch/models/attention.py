@@ -35,6 +35,7 @@ ring at ``length % S``, with the index computed on the device.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -42,7 +43,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch import counting
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import P
 from repro_torch.kernels.flash_attention import flash_attention as kfa
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.layers import init_linear
@@ -139,6 +142,8 @@ def blockwise_causal_attention(q, k, v, *, chunk: int, window: int = 0,
     softmax weights rounded to it before the second), as the reference's
     ``preferred_element_type=float32`` products do."""
     PLAIN_CALLS["blockwise_causal_attention"] += 1
+    if counting.shapes_only(q):
+        return torch.empty_like(q)   # counted by the kernel's formula
     B, T, H, Dh = q.shape
     scale = 1.0 / math.sqrt(Dh)
     nq = -(-T // chunk)
@@ -205,6 +210,15 @@ def init_kv_cache(cfg: ModelConfig, B: int, S: int, dtype: torch.dtype,
                    length=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def kv_cache_spec(cfg: ModelConfig, batch_spec=("data",)) -> KVCache:
+    """A KV cache's layout on a mesh: the batch over ``batch_spec`` and the
+    kv heads over "model" where they divide it (`ModelConfig
+    .shard_kv_heads`); ``length`` replicated."""
+    kv = "model" if cfg.shard_kv_heads else None
+    return KVCache(k=P(batch_spec, kv, None, None),
+                   v=P(batch_spec, kv, None, None), length=P())
+
+
 def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
                  *, window: int = 0) -> KVCache:
     """Write one step (k/v ``[B, 1, Hkv, Dh]``) into the buffers in place —
@@ -225,6 +239,14 @@ def _pad_heads(ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return F.pad(ctx, (0, 0, 0, extra)) if extra else ctx
 
 
+def _region(impl: str, region):
+    """Under ``impl="auto"`` (where the card runs the kernel), the kernel
+    wrapper's count region (``kfa.counted_*``) of one call: the kernel
+    and the plain version count alike, as the kernel's formula.
+    ``"plain"`` (training) counts the plain version's operations."""
+    return region if impl == "auto" else contextlib.nullcontext()
+
+
 def attention_layer(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, *,
                     cache: Optional[KVCache] = None, window: int = 0,
@@ -238,34 +260,43 @@ def attention_layer(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     kernel = impl == "auto" and x.is_cuda
     q, k, v = _project_qkv(params, x, cfg, positions)
     H = cfg.num_heads
+    B, T, _, dh = q.shape
     if cache is None:
         new_cache = None
-        if kernel:
-            o = kfa.flash_attention_cuda(
-                q[:, :, :H].transpose(1, 2).contiguous(),
-                k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous(), causal=causal, window=window,
-                softcap=cfg.attn_logit_softcap)
-            ctx = _pad_heads(o.transpose(1, 2), cfg)
-        else:
-            ke, ve = expand_kv_heads(k, v, cfg.padded_heads, H)
-            ctx = blockwise_causal_attention(
-                q, ke, ve, chunk=min(cfg.attn_chunk, x.shape[1]),
-                window=window, softcap=cfg.attn_logit_softcap, causal=causal)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q[:, :, :H], k, v))
+        with _region(impl, kfa.counted_flash(qh, kh, causal, window)):
+            if kernel:
+                o = kfa.flash_attention_cuda(
+                    qh.contiguous(), kh.contiguous(), vh.contiguous(),
+                    causal=causal, window=window,
+                    softcap=cfg.attn_logit_softcap)
+                ctx = _pad_heads(o.transpose(1, 2), cfg)
+            else:
+                ke, ve = expand_kv_heads(k, v, cfg.padded_heads, H)
+                ctx = blockwise_causal_attention(
+                    q, ke, ve, chunk=min(cfg.attn_chunk, x.shape[1]),
+                    window=window, softcap=cfg.attn_logit_softcap,
+                    causal=causal)
+            # One layout out of every path, so that what follows counts
+            # alike (`repro_torch.counting`).
+            ctx = ctx.contiguous()
     else:
         new_cache = update_cache(cache, k, v, window=window)
         # Decode runs on the real heads only: the padded q heads have zero
         # wq/wo rows, and slicing keeps the grouped [Hkv, g] shape.
         q_att = q[:, :, :H]
-        if kernel:
-            o = kfa.decode_attention_cuda(
-                q_att.transpose(1, 2).contiguous(), new_cache.k, new_cache.v,
-                new_cache.length, softcap=cfg.attn_logit_softcap)
-            ctx = o.transpose(1, 2)
-        else:
-            ctx = decode_attention(q_att, new_cache, window=window,
-                                   softcap=cfg.attn_logit_softcap)
-        ctx = _pad_heads(ctx, cfg)
+        qh = q_att.transpose(1, 2)
+        with _region(impl, kfa.counted_decode(qh, new_cache.k)):
+            if kernel:
+                o = kfa.decode_attention_cuda(
+                    qh.contiguous(), new_cache.k,
+                    new_cache.v, new_cache.length,
+                    softcap=cfg.attn_logit_softcap)
+                ctx = o.transpose(1, 2)
+            else:
+                ctx = decode_attention(q_att, new_cache, window=window,
+                                       softcap=cfg.attn_logit_softcap)
+            ctx = _pad_heads(ctx, cfg).contiguous()
     B, T = x.shape[:2]
     return params.wo(ctx.reshape(B, T, -1)), new_cache
 
@@ -278,6 +309,8 @@ def chunked_cross(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     O(chunk * S). Both products in float32 (q, k, p and v widened), as
     the reference's ``_chunked_cross``; the output in q's dtype."""
     PLAIN_CALLS["chunked_cross"] += 1
+    if counting.shapes_only(q):
+        return torch.empty_like(q)   # counted by the kernel's formula
     T, Dh = q.shape[1], q.shape[3]
     scale = 1.0 / math.sqrt(Dh)
     kf, vf = k.float(), v.float()
@@ -308,13 +341,15 @@ def cross_attention_layer(params: Attention, x: torch.Tensor,
     q = F.linear(x, params.wq.weight).reshape(B, T, cfg.padded_heads, dh)
     k = F.linear(memory, params.wk.weight).reshape(B, S, cfg.num_kv_heads, dh)
     v = F.linear(memory, params.wv.weight).reshape(B, S, cfg.num_kv_heads, dh)
-    if impl == "auto" and x.is_cuda:
-        o = kfa.flash_attention_cuda(
-            q[:, :, :H].transpose(1, 2).contiguous(),
-            k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
-            causal=False)
-        ctx = _pad_heads(o.transpose(1, 2), cfg)
-    else:
-        ke, ve = expand_kv_heads(k, v, cfg.padded_heads, H)
-        ctx = chunked_cross(q, ke, ve, chunk=min(cfg.attn_chunk, T))
+    qh, kh, vh = (t.transpose(1, 2) for t in (q[:, :, :H], k, v))
+    with _region(impl, kfa.counted_flash(qh, kh, False)):
+        if impl == "auto" and x.is_cuda:
+            o = kfa.flash_attention_cuda(
+                qh.contiguous(), kh.contiguous(), vh.contiguous(),
+                causal=False)
+            ctx = _pad_heads(o.transpose(1, 2), cfg)
+        else:
+            ke, ve = expand_kv_heads(k, v, cfg.padded_heads, H)
+            ctx = chunked_cross(q, ke, ve, chunk=min(cfg.attn_chunk, T))
+        ctx = ctx.contiguous()
     return params.wo(ctx.reshape(B, T, -1))

@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import P, map_specs
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
@@ -171,6 +172,23 @@ def init_run_cache(cfg: ModelConfig, run: Run, B: int, S: int,
     if run.kind == "hybrid":
         cache["ssm"] = stack(ssm_lib.init_ssm_cache(cfg, B, dtype, device))
     return cache
+
+
+def run_cache_spec(cfg: ModelConfig, run: Run, batch_spec=("data",)):
+    """A run's cache layout on a mesh (`init_run_cache`'s nesting): each
+    layer's (`attention.kv_cache_spec`, `ssm.ssm_cache_spec`,
+    `xlstm.mlstm_cache_spec`, `xlstm.slstm_cache_spec`) with the stacked
+    layer dimension whole."""
+    _check_kind(run.kind)
+    if run.kind == "mlstm":
+        base = xlstm_lib.mlstm_cache_spec(cfg, batch_spec)
+    elif run.kind == "slstm":
+        base = xlstm_lib.slstm_cache_spec(cfg, batch_spec)
+    else:
+        base = dict(attn=attn_lib.kv_cache_spec(cfg, batch_spec))
+        if run.kind == "hybrid":
+            base["ssm"] = ssm_lib.ssm_cache_spec(cfg, batch_spec)
+    return map_specs(lambda spec: P(None, *spec), base)
 
 
 def layer_cache(run_cache, li: int):

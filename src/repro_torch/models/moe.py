@@ -1,8 +1,9 @@
 """Mixture-of-Experts layer (PyTorch): top-k routing with the reference's
 sort-based capacity dispatch, shared experts (DeepSeek-MoE) and the
 auxiliary load-balancing loss. The JAX package's ``repro.models.moe``:
-its global dispatch (``_moe_layer_global``, `moe_layer` on one device)
-and its expert-parallel dispatch (`_moe_layer_ep`, under a mesh).
+its global dispatch (``_moe_layer_global``: `moe_layer` on one device,
+and on a mesh where the experts do not shard over "model") and its
+expert-parallel dispatch (`_moe_layer_ep`, under a mesh).
 
 The dispatch has static shapes: each of the ``n * k`` assignments (token
 ``t``, its ``j``-th expert ``e``) is laid out token-major, sorted by
@@ -33,8 +34,18 @@ float32 by ``psum_scatter``, and an ``all_gather`` along T returns
 ``[B_local, T, d]`` on every rank, as the reference's ``shard_map``
 ``out_specs`` do. The expert-parallel dispatch needs the rank's shards
 (`shard_model`, `convert.lm_params(mesh=)`), the global dispatch every
-expert. Decode (``T = 1``) and an expert count that ``tp`` does not
-divide (grok) take the global dispatch.
+expert. Decode (``T = 1``), a "model" axis of one rank and an expert
+count or a T that ``tp`` does not divide (grok) take the global dispatch.
+
+The global dispatch on a mesh whose batch axes ("pod", "data") have
+several ranks routes the global batch, as the reference's GSPMD does:
+each rank holds its rows, and `route` makes the capacity that of the
+global token count, ranks each assignment among its expert's
+assignments of the global batch (one all_gather of the ``[E]`` counts
+per batch axis) and takes the aux loss's means over the global batch
+(psums of the ranks' sums, whose transpose sends each rank the gradient
+of its own rows only). A rank then dispatches and combines its own rows:
+every expert runs on every rank, on the rows the rank keeps.
 
 Under autograd the expert-parallel dispatch trains: the rank's expert
 shards are parameters, the collectives have their transposes
@@ -46,14 +57,16 @@ two halves.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import (all_gather, all_to_all, axis_index,
-                                     pmean, psum_scatter, pvary)
+                                     axis_size, pmean, psum, psum_scatter,
+                                     pvary)
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.layers import _active_mesh, normal_init, silu
 
@@ -129,10 +142,58 @@ def shard_model(model: nn.Module, cfg: ModelConfig, mesh) -> None:
             shard_experts(m, cfg, mesh.coords["model"], tp)
 
 
-def _route_parts(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig):
+#: The axes over which a step says its rows are split (`rows_split_over`),
+#: innermost last.
+_ROW_AXES: List[tuple] = []
+
+
+@contextlib.contextmanager
+def rows_split_over(axes: tuple):
+    """Within the block, the global dispatch takes a rank's rows to be its
+    block of a global batch split over ``axes`` (of the ambient mesh):
+    ``()`` where every rank holds the whole batch, as a decode step's
+    rows where the batch does not divide "data". Outside any such block
+    the rows are split over every batch axis ("pod", "data")."""
+    _ROW_AXES.append(tuple(axes))
+    try:
+        yield
+    finally:
+        _ROW_AXES.pop()
+
+
+def _batch_axes(mesh) -> tuple:
+    """The batch axes that a rank's rows are split over (`rows_split_over`;
+    by default "pod" and "data") and that have more than one rank of
+    ``mesh`` (none without a mesh)."""
+    if mesh is None:
+        return ()
+    axes = _ROW_AXES[-1] if _ROW_AXES else ("pod", "data")
+    return tuple(a for a in axes if mesh.shape.get(a, 1) > 1)
+
+
+def _rows_before(counts: torch.Tensor, batch: tuple) -> torch.Tensor:
+    """Per expert, the assignments of the ranks whose rows come before
+    this rank's in the global batch (rows split row-major over the
+    ``batch`` axes): the sum of their ``counts`` (an all_gather over
+    each axis)."""
+    mesh = _active_mesh()
+    every = counts
+    for a in reversed(batch):
+        every = all_gather(every, a)
+    every = every.reshape(-1, counts.shape[-1])
+    index = 0
+    for a in batch:
+        index = index * mesh.shape[a] + mesh.coords[a]
+    return every[:index].sum(dim=0)
+
+
+def _route_parts(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig,
+                 batch: tuple = ()):
     """`route` from the router matrix, with the aux loss's two halves
     ``me`` (mean probability per expert) and ``ce`` (share of tokens
-    whose first choice it is) in place of ``aux``."""
+    whose first choice it is) in place of ``aux``. ``batch``: the mesh's
+    batch axes over which ``xt`` is the rank's rows of a global batch,
+    whose routing this is (`route`)."""
     n = xt.shape[0]
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     dev = xt.device
@@ -145,30 +206,63 @@ def _route_parts(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig):
 
     # Aux loss (Switch-style): mean prob mass vs. token fraction per expert.
     first = (experts[:, :1] == torch.arange(E, device=dev)).float()
+    n_all = n
+    if batch:
+        # The global batch's means: the ranks' sums summed (psum's
+        # transpose is the identity, so a rank's gradient flows through
+        # its own rows only, and the batch axes' sum of the ranks'
+        # gradients is the global one).
+        n_all = n * axis_size(batch)
+        me = psum(probs.sum(dim=0), batch) / n_all
+        ce = psum(first.sum(dim=0), batch) / n_all
+    else:
+        me, ce = probs.mean(dim=0), first.mean(dim=0)
 
-    C = _capacity(n, cfg)
+    C = _capacity(n_all, cfg)
     flat_e = experts.reshape(-1)                                  # [n k]
     e_sorted, order = torch.sort(flat_e, stable=True)
     counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
         0, flat_e, torch.ones_like(flat_e))
     starts = counts.cumsum(0) - counts                            # exclusive
     rank = torch.arange(n * k, device=dev) - starts[e_sorted]
-    keep = rank < C
+    if batch:
+        # Kept by its rank among the expert's assignments of the global
+        # batch, laid out token-major (the earlier ranks' rows first);
+        # placed by its rank among the rank's own, in a buffer of
+        # min(C, n) slots per expert (a token takes an expert once, so no
+        # expert gets more than n of the rank's assignments).
+        keep = rank + _rows_before(counts, batch)[e_sorted] < C
+        C = min(C, n)
+    else:
+        keep = rank < C
     slot = torch.where(keep, e_sorted * C + rank, E * C)
     # Token-major layout: assignment i belongs to token i // k.
-    return {"experts": experts, "me": probs.mean(dim=0),
-            "ce": first.mean(dim=0), "C": C, "tok": order // k,
-            "gate_sorted": gate.reshape(-1)[order], "keep": keep,
-            "slot": slot}
+    return {"experts": experts, "me": me, "ce": ce, "C": C,
+            "tok": order // k, "gate_sorted": gate.reshape(-1)[order],
+            "keep": keep, "slot": slot}
 
 
 def route(params: MoE, xt: torch.Tensor, cfg: ModelConfig):
     """The routing and dispatch of ``xt [n, d]``, as the reference's.
     Returns a dict: ``experts [n, k]`` (top-k, highest first), ``aux``
-    (float32 scalar), ``C``, and per assignment in expert order ``tok``,
+    (float32 scalar), ``C`` (the slots per expert of the dispatch
+    buffer: the capacity), and per assignment in expert order ``tok``,
     ``gate_sorted`` (the renormalised float32 gate), ``keep`` and ``slot``
-    (``E * C`` for a dropped one)."""
-    r = _route_parts(params.router, xt, cfg)
+    (``E * C`` for a dropped one).
+
+    Under a mesh whose batch axes ("pod", "data", or those that
+    `rows_split_over` names) have more than one rank, ``xt`` is the
+    rank's rows of the global batch (rows split over those axes,
+    row-major) and the routing is the global batch's, as the
+    reference's GSPMD computes it: the capacity ``C`` of the global token
+    count, an assignment kept by its rank among its expert's assignments
+    of the global batch (the counts of the ranks before this one, one
+    all_gather of ``[E]`` integers), and ``aux`` of the global means (a
+    psum of the ranks' sums). The rank dispatches only its own kept
+    assignments, into ``C = min(capacity, n)`` slots per expert; an
+    expert's output per row is the same in any slot, so the rank's rows
+    get the global dispatch's outputs."""
+    r = _route_parts(params.router, xt, cfg, _batch_axes(_active_mesh()))
     r["aux"] = cfg.num_experts * torch.sum(r.pop("me") * r.pop("ce"))
     return r
 

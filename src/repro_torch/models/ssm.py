@@ -21,6 +21,7 @@ Each plain scan adds one to ``PLAIN_CALLS["ssm_scan"]``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -28,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import P
 from repro_torch.kernels.ssm_scan import ssm_scan as kss
 from repro_torch.models.layers import init_linear, normal_init, silu
 
@@ -111,11 +113,17 @@ def _elements(params: SSM, x_conv: torch.Tensor, dt_bc: torch.Tensor,
     return a, b, Cc
 
 
-def _scan(a: torch.Tensor, b: torch.Tensor, kernel: bool) -> torch.Tensor:
-    if kernel:
-        return kss.ssm_scan_cuda(a, b)
-    PLAIN_CALLS["ssm_scan"] += 1
-    return kss.ssm_scan_plain(a, b)
+def _scan(a: torch.Tensor, b: torch.Tensor, impl: str) -> torch.Tensor:
+    """The recurrence over ``a, b [B, T, D]``: the kernel on the card
+    under ``impl="auto"``, else the plain version; under ``"auto"`` both
+    count as the kernel (`repro_torch.counting`)."""
+    region = kss.counted_scan(a) if impl == "auto" \
+        else contextlib.nullcontext()
+    with region:
+        if impl == "auto" and a.is_cuda:
+            return kss.ssm_scan_cuda(a, b)
+        PLAIN_CALLS["ssm_scan"] += 1
+        return kss.ssm_scan_plain(a, b)
 
 
 def _out(params: SSM, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
@@ -148,7 +156,6 @@ def ssm_layer(params: SSM, x: torch.Tensor, cfg: ModelConfig, *,
         cache.conv.copy_(new_conv[:, 1:])
         return _out(params, y, xc, z, x.dtype), cache
 
-    kernel = impl == "auto" and x.is_cuda
     xc = silu(_causal_conv(xs, params.conv_w))
     dt_bc = params.x_proj(xc)
     CT = min(cfg.scan_chunk, T)
@@ -161,7 +168,7 @@ def ssm_layer(params: SSM, x: torch.Tensor, cfg: ModelConfig, *,
         a = a.reshape(B, ct, din * n)
         b = b.reshape(B, ct, din * n)
         b[:, 0] += a[:, 0] * h0
-        hs = _scan(a, b, kernel)
+        hs = _scan(a, b, impl)
         del a, b
         ys.append(torch.einsum("btdn,btn->btd", hs.view(B, ct, din, n), Cc))
         h0 = hs[:, -1]
@@ -176,3 +183,10 @@ def init_ssm_cache(cfg: ModelConfig, B: int, dtype: torch.dtype,
                       device=device),
         conv=torch.zeros((B, cfg.ssm_conv - 1, din), dtype=dtype,
                          device=device))
+
+
+def ssm_cache_spec(cfg: ModelConfig, batch_spec=("data",)) -> SSMCache:
+    """An SSM cache's layout on a mesh: the batch over ``batch_spec``, the
+    inner width over "model"."""
+    return SSMCache(h=P(batch_spec, "model", None),
+                    conv=P(batch_spec, None, "model"))

@@ -202,6 +202,13 @@ def init_caches(cfg: ModelConfig, B: int, S: int, *,
             for run in blocks_lib.layer_schedule(cfg)]
 
 
+def cache_specs(cfg: ModelConfig, batch_spec=("data",)) -> list:
+    """The decode caches' layout on a mesh, aligned with `init_caches`:
+    one `blocks.run_cache_spec` per run."""
+    return [blocks_lib.run_cache_spec(cfg, run, batch_spec)
+            for run in blocks_lib.layer_schedule(cfg)]
+
+
 def _encode(model: CausalLM, cfg: ModelConfig, enc_emb: torch.Tensor, *,
             impl: str = "auto", remat: str = "none") -> torch.Tensor:
     B, S, _ = enc_emb.shape

@@ -44,9 +44,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch import counting
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scan import device_exclusive_scan
-from repro_torch.distributed import all_gather, axis_index, pvary
+from repro_torch.distributed import P, all_gather, axis_index, pvary
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (_active_mesh, init_linear,
                                        init_rms_norm, normal_init, rms_norm,
@@ -96,7 +97,7 @@ def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
 
 
 def _chunk_states(Ftot: torch.Tensor, S: torch.Tensor, zn: torch.Tensor,
-                  kernel: bool, state=None):
+                  impl: str, state=None):
     """The chunk-to-chunk recurrence from ``state`` (``(C [B, H, dh, dh],
     n [B, H, dh])`` float32, default zero), as one scan: ``Ftot [B, H,
     nc]``, ``S [B, H, nc, dh, dh]``, ``zn [B, H, nc, dh]`` laid out as
@@ -115,7 +116,7 @@ def _chunk_states(Ftot: torch.Tensor, S: torch.Tensor, zn: torch.Tensor,
         h0 = torch.cat([state[0].flatten(-2), state[1]], dim=-1) \
             .float()[:, None]
         b[:, 0] += a[:, 0] * h0.reshape(B, H * w)
-    hs = ssm_lib._scan(a, b, kernel).view(B, nc, H, w)
+    hs = ssm_lib._scan(a, b, impl).view(B, nc, H, w)
     del a, b
     prev = torch.cat([h0, hs[:, :-1]], dim=1)
     Cs = prev[..., :dh * dh].unflatten(-1, (dh, dh)).transpose(1, 2)
@@ -156,8 +157,8 @@ def _mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kw = torch.exp(Lf[..., -1:] - Lf + lic)[..., None] * kc
     S = kw.transpose(-1, -2) @ vc                       # [B, H, nc, dh, dh]
     zn = kw.sum(dim=-2)                                 # [B, H, nc, dh]
-    Cs, ns, final = _chunk_states(torch.exp(Lf[..., -1]), S, zn,
-                                  impl == "auto" and q.is_cuda, state)
+    Cs, ns, final = _chunk_states(torch.exp(Lf[..., -1]), S, zn, impl,
+                                  state)
     del kw, S, zn
     DS = Dm * (qc @ kc.transpose(-1, -2))               # [B, H, nc, CT, CT]
     eL = torch.exp(Lf)
@@ -315,6 +316,14 @@ def init_mlstm_cache(cfg: ModelConfig, B: int, dtype: torch.dtype,
 # sLSTM
 # ---------------------------------------------------------------------------
 
+def mlstm_cache_spec(cfg: ModelConfig, batch_spec=("data",)) -> MLSTMCache:
+    """An mLSTM state's layout on a mesh: the batch over ``batch_spec``,
+    the head width over "model"."""
+    return MLSTMCache(C=P(batch_spec, None, "model", None),
+                      n=P(batch_spec, None, "model"),
+                      conv=P(batch_spec, None, "model"))
+
+
 class SLSTMCache(NamedTuple):
     c: torch.Tensor  # [B, d] float32
     n: torch.Tensor  # [B, d]
@@ -347,7 +356,8 @@ def init_slstm(cfg: ModelConfig, gen: torch.Generator,
     return SLSTM(cfg, gen, dtype)
 
 
-def _slstm_step(params: SLSTM, carry, pre_x: torch.Tensor, H: int):
+def _slstm_step(r: torch.Tensor, b: torch.Tensor, carry,
+                pre_x: torch.Tensor, H: int):
     """One sLSTM step, float32. ``pre_x [B, 4d]`` is the input part; the
     recurrent part is added here. Gate layout: ``[i | f | z | o]``, each
     ``[B, d]`` after the recurrent part's ``[B, H, 4, dh]`` is
@@ -356,9 +366,9 @@ def _slstm_step(params: SLSTM, carry, pre_x: torch.Tensor, H: int):
     B, d = h.shape
     dh = d // H
     rec = torch.einsum("bhk,hkj->bhj", h.reshape(B, H, dh),
-                       params.r.float())                 # [B, H, 4 dh]
+                       r.float())                        # [B, H, 4 dh]
     rec = rec.reshape(B, H, 4, dh).transpose(1, 2).reshape(B, 4 * d)
-    pre = pre_x + rec + params.b.float()
+    pre = pre_x + rec + b.float()
     ig, fg, zg, og = pre.chunk(4, dim=-1)
     # Stabilised exponential gating (xLSTM Eq. sLSTM).
     log_f = F.logsigmoid(fg)
@@ -381,14 +391,26 @@ def slstm_layer(params: SLSTM, x: torch.Tensor, cfg: ModelConfig, *,
     H = cfg.num_heads
     pre = params.w_in(x).float()                         # [B, T, 4d]
     if cache is None:
-        carry = init_slstm_cache(cfg, B, x.device)
-        hs = []
-        for t in range(T):
-            carry = _slstm_step(params, carry, pre[:, t], H)
-            hs.append(carry[2])
-        h = torch.stack(hs, dim=1).to(x.dtype)           # [B, T, d]
+        carry0 = init_slstm_cache(cfg, B, x.device)
+
+        def loop(pre, r, b):
+            carry, hs = carry0, []
+            # unbind, not pre[:, t]: its backward is one stack, where T
+            # selects' would write T zero-filled [B, T, 4d] gradients.
+            for pre_t in pre.unbind(1):
+                carry = _slstm_step(r, b, carry, pre_t, H)
+                hs.append(carry[2])
+            return torch.stack(hs, dim=1)
+        n = counting.LOOP_STEPS
+        if counting.active() and x.is_meta and T > n and T % n == 0:
+            # A count's trip-count shortcut: runs of n and 2 n steps.
+            h = counting.repeated(loop, n, pre, params.r, params.b)
+        else:
+            h = loop(pre, params.r, params.b)
+        h = h.to(x.dtype)                                # [B, T, d]
     else:
-        for buf, new in zip(cache, _slstm_step(params, cache, pre[:, 0], H)):
+        for buf, new in zip(cache, _slstm_step(params.r, params.b, cache,
+                                               pre[:, 0], H)):
             buf.copy_(new)
         h = cache.h[:, None, :].to(x.dtype)
     h = rms_norm(h, params.norm_w, cfg.rmsnorm_eps)
@@ -403,3 +425,10 @@ def init_slstm_cache(cfg: ModelConfig, B: int, device) -> SLSTMCache:
     z = torch.zeros((B, cfg.d_model), dtype=torch.float32, device=device)
     return SLSTMCache(c=z, n=z.clone(), h=z.clone(),
                       m=torch.full_like(z, -1e30))
+
+
+def slstm_cache_spec(cfg: ModelConfig, batch_spec=("data",)) -> SLSTMCache:
+    """An sLSTM state's layout on a mesh: the batch over ``batch_spec``,
+    the width over "model"."""
+    spec = P(batch_spec, "model")
+    return SLSTMCache(c=spec, n=spec, h=spec, m=spec)
