@@ -107,7 +107,12 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      peaked bf16 inputs at a tolerance derived from bf16 rounding, and on
      edge cases (MQA, T=100/130 at Dh 64/128, non-causal, Dh 16/32/256,
      ragged decode splits, Tk=1, Tq > Tk against the oracle), each edge
-     asserting which kernel served it; CUDA-event times of the new
+     asserting which kernel served it; the split-K decode under a head map
+     (a tensor-parallel rank's q heads against its own cache, in place:
+     qwen2-1.5b's uneven 6 + 2 map on "model" 2, and a map into a
+     replicated cache), each one launch, held against the plain version
+     with its log-sum-exps, a planted map (one q head on the other kv
+     head) missing the tight bound; CUDA-event times of the new
      kernels, of the FMA kernel on the same inputs, of the plain version
      and of ``scaled_dot_product_attention`` (timed only, never on the
      port's path), profiler device times, and the decode/``wgmma``
@@ -142,11 +147,12 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      so the 5 windowed layers' rings wrap at step 1,024. The loop with
      the counters zeroed before and read after: exactly 8 x 1,088
      decode-kernel launches, nothing else, no plain attention and no plain
-     scan (the SSM step is elementwise). Then, on the same weights
-     and tokens: every decode-kernel call of the 64 steps past the window
-     against plain on its own q and ring at the tight bf16 bound, which a
-     ring read one row short misses at every step; a profile of 32 steps
-     past them; ``prefill`` of the first 8 sequences' 1,088 tokens, which
+     scan (the SSM step is elementwise). Then, continuing from the
+     service's own caches: every decode-kernel call of the 32 steps after
+     its last (the rings wrapped, the global layers' caches full) against
+     plain on its own q and ring or cache at the tight bf16 bound, which a
+     read one row short misses at every step; a profile of 32 steps past
+     them; ``prefill`` of the first 8 sequences' 1,088 tokens, which
      launches ``wgmma`` 8 times (with the window in the windowed layers)
      and ``ssm_scan`` 8 x 5 times (chunks of 256), each call held against
      its plain version on its own inputs (the attention at the tight bf16
@@ -348,7 +354,24 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      that routing drops: 2 steps against 2 one-device steps (losses,
      aux, grad norms and every parameter at the float32 TOL), and the
      drops of one "model" line's data ranks summed against the one
-     device's (nonzero);
+     device's (nonzero). (a) trains tensor-parallel: each rank's compute
+     model is its "model" block (its bytes against the plan's count and
+     the whole model's). (f) The slice's serve path at full width:
+     qwen2-1.5b's ``make_prefill_step`` and ``make_decode_step`` on the
+     mesh, tensor-parallel (global batch 16, a prompt of 64 prefilled and
+     teacher-forced, 32 greedy steps, caches of 128 split along their
+     sequence over "model"): exactly 28 ``wgmma`` launches per rank per
+     prefill and 28 split-K decode launches per rank per decode step,
+     every rank of a "model" line returning the same logits, the logits
+     of the ranks at "model" 0 (gathered over the vocabulary) against the
+     one-device steps on the same weights and tokens by ``[lm_decode]``'s
+     rules (the one-device bf16 path's distance to float32 as the noise;
+     the mesh's greedy tokens against the one-device argmax, a mismatch
+     only at a near tie), each kernel call of 8 steps past the prompt
+     against its plain version on the rank's cache block (and its
+     log-sum-exps), the same steps with rank 1 reading kv head 0 for one
+     of its q heads (planted) missing that bound, and the bytes each rank
+     stages per decode step beside the replicated layout's gathers;
   25. ``[dryrun]``: the dry-run's layer on the card (`launch.steps`,
      `launch.cost`, `launch.roofline`). (a) The one-device train plan's
      ``per_chip_argument_bytes`` for ``[train]``'s qwen2-1.5b state (B 8,
@@ -372,14 +395,15 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      ``lm_prefill``, ``lm_hybrid``, ``lm_hybrid_prefill``, ``lm_moe``,
      ``lm_moe_prefill``, ``lm_grok``, ``lm_grok_prefill``, ``lm_encdec``,
      ``lm_encdec_prefill``, ``lm_mrope``, ``lm_mrope_prefill``, ``train``,
-     ``mesh``, ``train_mesh``, ``dryrun``; the ``mesh`` and
-     ``train_mesh`` counts summed over the ranks), then the device JSON
-     line, last.
+     ``mesh``, ``train_mesh``, ``train_mesh_serve``, ``dryrun``; the
+     ``mesh``, ``train_mesh`` and ``train_mesh_serve`` counts summed over
+     the ranks), then the device JSON line, last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -2052,6 +2076,19 @@ FA_EDGES = [(1, 8, 1, 512, 512, 128, True, "MQA Hkv=1"),
 #: The tight bf16 check: q scaled by this, so that each row's weights
 #: peak on a few keys and the outputs are O(1) (rows of v).
 FA_PEAK = 8.0
+#: The mapped decode edges (tensor parallelism: a rank's q heads against
+#: its own cache block, in place): qwen2-1.5b at full width (12 q heads
+#: padded to 16, 2 replicated kv heads, Dh 128) on "model" 2. Rank 0's 8
+#: q heads read kv heads 0 (six) and 1 (two); rank 1's 4 real heads read
+#: kv head 1 of the whole (replicated) cache. (what, head map, planted
+#: map: one q head reading the other kv head.) B 8 rows, a cache of 128
+#: rows with 96 keys, as ``[train_mesh]`` (f) decodes.
+FA_MAP_B, FA_MAP_S, FA_MAP_LEN = 8, 128, 96
+FA_MAP_EDGES = [
+    ("uneven map (rank 0: 6 + 2)", (0,) * 6 + (1,) * 2,
+     (0,) * 6 + (1, 0)),
+    ("map into a replicated cache (rank 1: kv 1)", (1,) * 4,
+     (0,) + (1,) * 3)]
 #: P rounded to bf16 (wgmma kernel) moves each weight by at most 2^-8 of
 #: itself, so the output by at most 2^-8 sum_j p_j |v_j| / l; the output's
 #: own rounding to bf16 adds 2^-8 |o|. f32 sums add ~1e-6.
@@ -2265,6 +2302,58 @@ def _device_ms(torch, fn, args, iters):
     return us / iters / 1e3 if us > 0 else None
 
 
+def _flash_mapped_edges(torch, fa, gen, check) -> list:
+    """The split-K decode kernel under a head map (`FA_MAP_EDGES`): one
+    launch each (asserted), the cache read in place, against the plain
+    version (FA_TOL and the tight bf16 bound, the log-sum-exps at
+    float32 TOL); the planted map must miss the tight bound."""
+    out = []
+    for what, hmap, planted in FA_MAP_EDGES:
+        q = torch.randn((FA_MAP_B, len(hmap), 1, FA_DH), device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        k, v = (torch.randn((FA_MAP_B, 2, FA_MAP_S, FA_DH), device="cuda",
+                            generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        length = torch.tensor([FA_MAP_LEN], dtype=torch.int32,
+                              device="cuda")
+        ptrs = (k.data_ptr(), v.data_ptr())
+        before = dict(fa.LAUNCHES)
+        got, lse = fa.decode_attention_cuda(q, k, v, length, head_map=hmap,
+                                            return_lse=True)
+        moved = {n: fa.LAUNCHES[n] - before[n] for n in before}
+        if moved != {n: int(n == "flash_attention_decode") for n in before}:
+            fail(f"flash mapped decode {what}: launches {moved}, expected "
+                 "one split-K decode launch")
+        plain = functools.partial(fa.decode_attention_plain, head_map=hmap)
+        check(f"mapped decode, {what} [decode] vs plain", got,
+              plain(q, k, v, length), "bfloat16")
+        want, tol = _tight_tol(plain, q, k, v, length)
+        excess = _excess(got, want, tol).item()
+        _, want_lse = fa.decode_attention_plain(
+            q.float(), k.float(), v.float(), length, head_map=hmap,
+            return_lse=True)
+        lse_err = (lse - want_lse).abs().max().item()
+        bad = fa.decode_attention_cuda(q, k, v, length, head_map=planted)
+        fault = _excess(bad, want, tol).item()
+        in_place = (k.data_ptr(), v.data_ptr()) == ptrs
+        say(f"[flash] mapped decode, {what}: map {hmap}, B={FA_MAP_B} "
+            f"S={FA_MAP_S} length {FA_MAP_LEN}, bf16: tight max err/tol "
+            f"{excess:.3f}, log-sum-exp max abs err {lse_err:.3e}; planted "
+            f"map {planted}: err/tol {fault:.3f}")
+        if not (excess <= 1.0 and lse_err <= 2e-4 * (
+                1 + want_lse.abs().max().item()) and in_place):
+            fail(f"flash mapped decode {what}: err/tol {excess:.3f}, "
+                 f"log-sum-exp err {lse_err:.3e}")
+        if not fault > 1.0:
+            fail(f"flash mapped decode {what}: the planted map {planted} "
+                 f"passes (err/tol {fault:.3f})")
+        out.append({"what": what, "map": hmap, "max_err_over_tol": excess,
+                    "lse_max_abs_err": lse_err,
+                    "fault_err_over_tol": fault})
+        del q, k, v, got, bad, want, tol
+    return out
+
+
 def phase_flash(torch) -> dict:
     import torch.nn.functional as F
 
@@ -2343,6 +2432,7 @@ def phase_flash(torch) -> dict:
                       typical, "max_err_over_tol": excess})
         del qs, got, want, tol
     torch.cuda.empty_cache()
+    mapped = _flash_mapped_edges(torch, fa, gen, check)
 
     edge_kernels = {}
     for B, Hq, Hkv, Tq, Tk, Dh, causal, what in FA_EDGES:
@@ -2429,7 +2519,7 @@ def phase_flash(torch) -> dict:
     t = timing["prefill/bfloat16"]
     return {"launches": launches, "launches_by_kernel": by_kernel,
             "path_s": path_s, "checks": checks, "tight_bf16": tight,
-            "edge_kernels": edge_kernels,
+            "edge_kernels": edge_kernels, "mapped_edges": mapped,
             "sdpa_prefill_bf16_max_abs_diff": sdpa_diff.item(),
             "timing": timing, "crossover": crossover, "smem_bytes": smem,
             "max_abs_err": max(
@@ -3014,6 +3104,9 @@ HY_MAX = HY_PROMPT + HY_GEN
 #: The prefill gate: the first sequences' prompt and generated tokens.
 HY_PREFILL_B = 8
 HY_PROFILE_STEPS = 32
+#: The decode-kernel taps: the steps after the service's last, on the
+#: service's own caches (rings wrapped, the global layers' caches full).
+HY_TAP_STEPS = 32
 
 
 class _PrefillTaps:
@@ -3093,9 +3186,9 @@ def phase_lm_hybrid(torch) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.ssm_scan import ssm_scan as ss
+    import repro_torch.models as models_lib
     from repro_torch.launch.serve import generate
-    from repro_torch.models import (decode_step, init_caches, init_model,
-                                    prefill)
+    from repro_torch.models import decode_step, init_model, prefill
     from repro_torch.models import ssm as ssm_lib
     from repro_torch.models.blocks import layer_schedule
 
@@ -3129,7 +3222,19 @@ def phase_lm_hybrid(torch) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     reset_all()
-    out = generate(model, cfg, prompts, HY_GEN, HY_MAX)
+    # The service's caches, kept for the gates after it: `generate`'s
+    # steps go through `models.decode_step`, recorded here (no copy).
+    kept, step_fn = {}, models_lib.decode_step
+
+    def recorded(*args, **kwargs):
+        logits, kept["caches"] = step_fn(*args, **kwargs)
+        return logits, kept["caches"]
+
+    models_lib.decode_step = recorded
+    try:
+        out = generate(model, cfg, prompts, HY_GEN, HY_MAX)
+    finally:
+        models_lib.decode_step = step_fn
     torch.cuda.synchronize()
     counts, plain = read_counts(), plain_calls()
     decode_launches = counts.pop("flash_attention_decode")
@@ -3151,6 +3256,7 @@ def phase_lm_hybrid(torch) -> dict:
         fail(f"{tag} tokens {tuple(tokens.shape)} {tokens.dtype} are not "
              f"[{HY_B}, {HY_GEN}] int32 ids below {vocab}")
     serve_logits = out["logits"][:HY_PREFILL_B]
+    last_tok = out["logits"][:, :, :vocab].argmax(-1)
     tok_per_s, seconds = out["tok_per_s"], out["seconds"]
     del out
     torch.cuda.empty_cache()
@@ -3167,39 +3273,36 @@ def phase_lm_hybrid(torch) -> dict:
         f"{cfg.padded_vocab}), {n_params:,} parameters in bf16, init "
         f"{init_s:.2f}s")
 
-    # Every decode-kernel call of the steps past the window, held against
-    # plain on its own q and ring (or, in the global layers, linear
-    # cache); the caches are 32 steps longer than the service's, so the
-    # profile below runs past them on real positions (the rings are the
-    # service's: min(capacity, window) rows).
+    # Every decode-kernel call of the steps after the service's last, on
+    # the service's own caches (the windowed layers' rings wrapped since
+    # step 1,024; the global layers' linear caches full, each step written
+    # at their last row), held against plain on its own q and ring or
+    # cache. Then the device's busy time over the steps after those.
     tap = _DecodeTap(fa)
-    caches = init_caches(cfg, HY_B, HY_MAX + HY_PROFILE_STEPS, device="cuda")
-    rings = sorted({c["attn"].k.shape[3] for c in caches})
-    for i in range(HY_MAX):
-        if i < HY_PROMPT:
-            lk, caches = decode_step(model, cfg, caches, seq[:, i:i + 1], i)
-            continue
-        tap.length = i + 1
-        with tap:
-            lk, caches = decode_step(model, cfg, caches, seq[:, i:i + 1], i)
-    layer_check = tap.result(torch)
-    _say_layer_taps(tag, f"the {HY_GEN} steps past the window (cache rows "
-                    f"{rings}; the fault reads a ring one row short)",
-                    layer_check, layers)
-    _check_layer_taps(tag, HY_ARCH, layer_check)
-
-    # Device busy over 32 decode steps past the service's last.
-    state = {"caches": caches, "tok": lk[:, :, :vocab].argmax(-1)}
+    state = {"caches": kept.pop("caches"), "tok": last_tok}
+    rings = sorted({c["attn"].k.shape[3] for c in state["caches"]})
 
     def step(j):
         logits, state["caches"] = decode_step(model, cfg, state["caches"],
                                               state["tok"], HY_MAX + j)
         state["tok"] = logits[:, :, :vocab].argmax(-1)
 
-    profile_res = _lm_profile(torch, step, HY_PROFILE_STEPS, tag)
-    _say_profile(tag, f"positions {HY_MAX}.."
-                 f"{HY_MAX + HY_PROFILE_STEPS - 1}", profile_res)
-    del caches, state, lk
+    for j in range(HY_TAP_STEPS):
+        tap.length = HY_MAX + j + 1
+        with tap:
+            step(j)
+    layer_check = tap.result(torch)
+    _say_layer_taps(tag, f"the {HY_TAP_STEPS} steps after the service's "
+                    f"last (cache rows {rings}; the fault reads a ring or "
+                    f"cache one row short)", layer_check, layers)
+    _check_layer_taps(tag, HY_ARCH, layer_check)
+
+    first = HY_MAX + HY_TAP_STEPS
+    profile_res = _lm_profile(torch, lambda j: step(HY_TAP_STEPS + j),
+                              HY_PROFILE_STEPS, tag)
+    _say_profile(tag, f"positions {first}.."
+                 f"{first + HY_PROFILE_STEPS - 1}", profile_res)
+    del state
     torch.cuda.empty_cache()
 
     # Prefill over the first sequences' prompt and generated tokens, with
@@ -5994,6 +6097,15 @@ COMPRESS_BOUND = 0.02
 #: production capacity factor, an odd T (E splits over "model", T does
 #: not), tokens drawn from this few ids (routing crowds a few experts).
 TRAIN_MESH_MOE_T, TRAIN_MESH_MOE_CF, TRAIN_MESH_MOE_IDS = 63, 1.25, 6
+#: (f) The serve plans of qwen2-1.5b at full width on the mesh,
+#: tensor-parallel: a global batch of 16, a prompt of 64 (prefill, then
+#: teacher-forced through the decode plan), 32 greedy steps, caches of
+#: 128 rows (split along the sequence over "model": the 2 kv heads are
+#: replicated); the kernel taps and the planted fault on the first
+#: `TRAIN_MESH_SERVE_TAP` steps.
+TRAIN_MESH_SERVE_B, TRAIN_MESH_SERVE_PROMPT = 16, 64
+TRAIN_MESH_SERVE_GEN, TRAIN_MESH_SERVE_MAX = 32, 128
+TRAIN_MESH_SERVE_TAP = 8
 
 
 def _whole_params(plan, state) -> dict:
@@ -6048,7 +6160,12 @@ def _train_mesh_full(torch, ctx) -> dict:
                 moments=nb(state.opt.m.values()) + nb(state.opt.v.values()),
                 batch=nb(batch.values()),
                 per_chip_argument_bytes=plan.per_chip_argument_bytes(),
-                plan_resident=plan.resident_bytes())
+                plan_resident=plan.resident_bytes(),
+                compute=nb(plan.model.parameters()),
+                plan_compute=plan.compute_param_bytes(),
+                whole=sum(math.prod(sh) * dt.itemsize for sh, dt in
+                          plan.param_shapes.values()),
+                tensor_parallel=plan.tensor_parallel)
         return out
 
     loop = tr.TrainLoopConfig(arch=TRAIN_ARCH, reduced=False, seq_len=128,
@@ -6330,6 +6447,235 @@ def _train_mesh_compression(torch, ctx) -> dict:
             "staged_psum": plain, "tensors": len(grads)}
 
 
+class _MappedDecodeTap:
+    """Stands in for `decode_attention_cuda` on a rank while the mesh's
+    decode plan runs: each call launches the kernel as the model's would
+    (``plant``: with q head ``plant[0]`` reading kv head ``plant[1]``, the
+    rest of the reference's map kept) and holds its output against the
+    plain version with the model's own map on the same q and cache block
+    in place, in float32, at the tight bf16 bound; the log-sum-exps the
+    merge across the ranks takes at float32 TOL."""
+
+    def __init__(self, fa, plant=None):
+        self.fa, self.kernel, self.plant = fa, fa.decode_attention_cuda, plant
+        self.excess, self.lse_err, self.calls = [], [], 0
+
+    def __enter__(self):
+        self.fa.decode_attention_cuda = self
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.decode_attention_cuda = self.kernel
+
+    def __call__(self, q, k_cache, v_cache, length, **kw):
+        # No map: the kernel's own, q head j on kv head j // group.
+        group = q.shape[1] // k_cache.shape[1]
+        hmap = kw.get("head_map") or tuple(j // group
+                                           for j in range(q.shape[1]))
+        run = dict(kw)
+        if self.plant is not None:
+            bad = list(hmap)
+            bad[self.plant[0]] = self.plant[1]
+            run["head_map"] = tuple(bad)
+        out = self.kernel(q, k_cache, v_cache, length, **run)
+        o, lse = out if kw.get("return_lse") else (out, None)
+        plain = functools.partial(
+            self.fa.decode_attention_plain, head_map=hmap,
+            softcap=kw.get("softcap", 0.0))
+        if int(length) > 0:
+            # (A rank whose block holds no key yet returns zeros and a
+            # log-sum-exp of -inf, which weighs 0 in the merge.)
+            want, tol = _tight_tol(plain, q, k_cache, v_cache, length)
+            self.excess.append(_excess(o, want, tol))
+        if lse is not None:
+            _, wl = plain(q.float(), k_cache.float(), v_cache.float(),
+                          length, return_lse=True)
+            finite = wl.isfinite()
+            self.lse_err.append(((lse - wl).abs() / (
+                2e-4 * wl.abs() + 2e-4)).where(finite, 0).amax())
+        self.calls += 1
+        return out
+
+    def result(self) -> dict:
+        import torch
+
+        return {"calls": self.calls, "checked": len(self.excess),
+                "max_err_over_tol": torch.stack(self.excess).amax().item()
+                if self.excess else 0.0,
+                "lse_err_over_tol": (torch.stack(self.lse_err).amax().item()
+                                     if self.lse_err else 0.0)}
+
+
+def _parent_serve_bytes(plan, cfg, B, S) -> int:
+    """The bytes per rank per decode step the replicated layout of the
+    mesh's decode plan staged through the host before this slice: every
+    parameter gathered whole from its block, and every cache block
+    gathered over "model" and its block copied back (each all_gather
+    moving its block out and the whole back)."""
+    from repro_torch.distributed import NamedSharding, P
+    from repro_torch.models import init_caches
+
+    total = 0
+    for n, (shape, dt) in plan.param_shapes.items():
+        block = math.prod(NamedSharding(plan.mesh, plan.param_specs[n])
+                          .shard_shape(shape)) * dt.itemsize
+        whole = math.prod(shape) * dt.itemsize
+        total += block + whole if block != whole else 0
+    caches = init_caches(cfg, B, S, device="meta")
+    for c, spec in zip(caches, plan.cache_specs):
+        for t, sp in ((c["attn"].k, spec["attn"].k),
+                      (c["attn"].v, spec["attn"].v)):
+            sh = NamedSharding(plan.mesh, sp)
+            block = math.prod(sh.shard_shape(t.shape)) * t.element_size()
+            rows = math.prod(NamedSharding(plan.mesh, P(*[
+                e if e in ("data", "pod") else None for e in sp]))
+                .shard_shape(t.shape)) * t.element_size()
+            total += block + rows if rows != block else 0
+    return total
+
+
+def _train_mesh_serve(torch, ctx) -> dict:
+    """(f): the tensor-parallel serve plans of qwen2-1.5b at full width on
+    the 2 x 2 mesh. Every rank builds the same bf16 model (one seed) and
+    binds it to the prefill and decode plans, which cut it to the rank's
+    "model" blocks; the prefill runs on the rank's rows (sequence-parallel,
+    the ``wgmma`` kernel on the rank's heads), then the decode plan
+    teacher-forces the prompt and takes 32 greedy steps, each rank's
+    split-K kernel reading its block of the caches' sequence in place.
+    The ranks at "model" 0 keep a whole copy of the model and run the
+    one-device steps on their rows (the kernels in bf16, and the plain
+    version in float32) on the tokens the mesh fed. The first
+    `TRAIN_MESH_SERVE_TAP` steps past the prompt (where both ranks'
+    blocks of the caches hold keys) run under `_MappedDecodeTap`; then
+    the same steps again, from a copy of the caches taken before them,
+    with the fault planted on the rank at ("data" 0, "model" 1): the
+    first of its q heads reads kv head 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import (decode_step, init_caches, init_model,
+                                    prefill)
+
+    cfg = get_config(TRAIN_ARCH)
+    vocab = cfg.vocab_size
+    B, Pn = TRAIN_MESH_SERVE_B, TRAIN_MESH_SERVE_PROMPT
+    G, S, tap_steps = (TRAIN_MESH_SERVE_GEN, TRAIN_MESH_SERVE_MAX,
+                       TRAIN_MESH_SERVE_TAP)
+    dev = ctx.device
+    mesh = make_debug_mesh(*TRAIN_MESH_SHAPE)
+    ref = mesh.coords["model"] == 0
+    t0 = time.perf_counter()
+    model = init_model(cfg, LM_SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompts = torch.randint(0, vocab, (B, Pn), generator=gen, device=dev)
+    whole = copy.deepcopy(model) if ref else None
+    pp = st.make_prefill_step(cfg, mesh, ShapeConfig("p", Pn, B, "prefill"))
+    dp = st.make_decode_step(cfg, mesh, ShapeConfig("d", S, B, "decode"))
+    params_p, params_d = pp.bind(model), dp.bind(model)
+    nb = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
+    res = {"coords": dict(mesh.coords),
+           "tensor_parallel": (pp.tensor_parallel, dp.tensor_parallel),
+           "compute_bytes": nb(model.parameters()),
+           "plan_compute_bytes": dp.compute_param_bytes(),
+           "parent_decode_step_bytes": _parent_serve_bytes(dp, cfg, B, S)}
+    rows = pp.rows(prompts)
+    torch.cuda.synchronize()
+    res["setup_s"] = time.perf_counter() - t0
+
+    reset_counts()
+    t0 = time.perf_counter()
+    lpre = pp(params_p, rows)
+    torch.cuda.synchronize()
+    res["prefill_s"] = time.perf_counter() - t0
+    res["prefill_launches"] = {k: v for k, v in read_counts().items() if v}
+
+    tapped = range(Pn, Pn + tap_steps)
+    clone = lambda c: [{"attn": type(r["attn"])(  # noqa: E731
+        *(t.clone() for t in r["attn"]))} for r in c]
+
+    def decode(steps, caches, feed, tap, first=0):
+        logits, fed, counts, staged, walls, snap = [], [], [], [], [], None
+        tok = feed[:, :1]
+        for i in range(first, first + steps):
+            if i < feed.shape[1]:
+                tok = feed[:, i:i + 1]
+            if i == tapped[0]:
+                snap = clone(caches)
+            fed.append(tok)
+            before = mesh.staged_bytes
+            reset_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with tap if i in tapped else contextlib.nullcontext():
+                lg, caches = dp(params_d, caches, tok, i)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            staged.append(mesh.staged_bytes - before)
+            counts.append({k: v for k, v in read_counts().items() if v})
+            logits.append(lg)
+            tok = lg[:, :, :vocab].argmax(-1)
+        return logits, torch.cat(fed, dim=1), counts, staged, walls, snap
+
+    tap = _MappedDecodeTap(fa)
+    caches = dp.cache_blocks(init_caches(cfg, B, S, device=dev))
+    logits, fed, counts, staged, walls, snap = decode(Pn + G, caches, rows,
+                                                      tap)
+    res.update(decode_counts=counts, staged_per_step=staged,
+               step_s=walls, tap=tap.result(),
+               cache_rows=int(caches[0]["attn"].k.shape[3]),
+               sums=[float(lg.float().sum()) for lg in logits],
+               tokens=fed[:, Pn:].tolist(), prefill_sum=float(
+                   lpre.float().sum()),
+               finite=bool(all(torch.isfinite(lg).all() for lg in logits)
+                           and torch.isfinite(lpre).all()))
+    del caches
+    # The planted fault: the rank at ("data" 0, "model" 1) maps its first
+    # q head (padded head 8 of 16) to kv head 0.
+    planted = mesh.coords == {"data": 0, "model": 1}
+    ftap = _MappedDecodeTap(fa, plant=(cfg.padded_heads // 2, 0)
+                            if planted else None)
+    flog = decode(tap_steps, snap, fed, ftap, first=tapped[0])[0]
+    res["fault_tap"] = ftap.result()
+    del snap
+    if ref:
+        # The one-device steps on the rank's rows, on the same tokens.
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype="float32")
+        w32 = copy.deepcopy(whole).float()
+        c1 = init_caches(cfg, B // 2, S, device=dev)
+        c32 = init_caches(cfg32, B // 2, S, device=dev)
+        m_vs_ref, one_vs_ref, m_vs_one, f_vs_ref = (
+            _Logits(torch, vocab) for _ in range(4))
+        for i in range(Pn + G):
+            tok = fed[:, i:i + 1]
+            l1, c1 = decode_step(whole, cfg, c1, tok, i)
+            l32, c32 = decode_step(w32, cfg32, c32, tok, i, impl="plain")
+            m_vs_ref.add(logits[i], l32)
+            one_vs_ref.add(l1, l32)
+            m_vs_one.add(logits[i], l1)
+            if i in tapped:
+                f_vs_ref.add(flog[i - tapped[0]], l32)
+        noise = one_vs_ref.result()["max_abs_err"]
+        pre_one = prefill(whole, cfg, rows)
+        pre32 = prefill(w32, cfg32, rows, impl="plain")
+        acc = _Logits(torch, vocab)
+        acc.add(pre_one, pre32)
+        pre_noise = acc.result()["max_abs_err"]
+        acc = _Logits(torch, vocab)
+        acc.add(lpre, pre32)
+        res.update(noise=noise, prefill_noise=pre_noise,
+                   mesh_vs_ref=m_vs_ref.result(noise),
+                   mesh_vs_one=m_vs_one.result(),
+                   fault_vs_ref=f_vs_ref.result(noise),
+                   prefill_vs_ref=acc.result(pre_noise))
+        del w32, c1, c32, whole
+    del model, logits, flog
+    torch.cuda.empty_cache()
+    return res
+
+
 def _train_mesh_rank(ctx, tmp) -> dict:
     """What each rank of the ``[train_mesh]`` phase runs (`run_ranks`)."""
     import torch
@@ -6342,6 +6688,12 @@ def _train_mesh_rank(ctx, tmp) -> dict:
            "card": torch.cuda.get_device_name(ctx.device)}
     t0 = time.perf_counter()
     res["full"] = _train_mesh_full(torch, ctx)
+    res["full_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        res["serve"] = _train_mesh_serve(torch, ctx)
+    res["serve_s"] = time.perf_counter() - t1
     torch.cuda.empty_cache()
     reset_counts()
     t1 = time.perf_counter()
@@ -6350,7 +6702,7 @@ def _train_mesh_rank(ctx, tmp) -> dict:
     res["elastic"] = _train_mesh_elastic(torch, ctx, tmp)
     res["compression"] = _train_mesh_compression(torch, ctx)
     res["reduced_launches"] = read_counts()
-    res["full_s"], res["reduced_s"] = t1 - t0, time.perf_counter() - t1
+    res["reduced_s"] = time.perf_counter() - t1
     return res
 
 
@@ -6414,6 +6766,15 @@ def phase_train_mesh(torch, train) -> dict:
             f"{[round(b / 1e9, 3) for b in f['staged_bytes']]} GB; wall per "
             f"step {[round(t, 2) for t in f['step_s']]} s; train() "
             f"{f['wall_s']:.1f} s")
+        say(f"[{tag}] rank {i}: compute model (tensor-parallel "
+            f"{res['tensor_parallel']}) {res['compute'] / 1e9:.3f} GB of "
+            f"the whole model's {res['whole'] / 1e9:.3f} GB (the plan's "
+            f"count {res['plan_compute'] / 1e9:.3f} GB)")
+        if not (res["tensor_parallel"] and res["compute"] ==
+                res["plan_compute"] and res["compute"] < res["whole"]):
+            fail(f"[{tag}] rank {i}: the compute model holds "
+                 f"{res['compute']} bytes; its plan's 'model' block is "
+                 f"{res['plan_compute']} of {res['whole']}")
         # The port holds what its plan counts; at least the reference's
         # count (a layer cannot be cut along the stacked layer dimension
         # that zero_specs may pick: ROADMAP C, differences by design).
@@ -6506,15 +6867,100 @@ def phase_train_mesh(torch, train) -> dict:
            for r in ranks):
         fail(f"[{tag}] the global dispatch's losses differ across ranks")
 
+    serve_launches = _check_train_mesh_serve(tag, ranks)
+
     seconds = time.perf_counter() - t0
     say(f"[{tag}] phase done in {seconds:.1f} s (ranks "
         f"{t_ranks:.1f} s: full width {max(r['full_s'] for r in ranks):.1f}"
-        f" s, reduced parts {max(r['reduced_s'] for r in ranks):.1f} s); "
-        f"kernel launches summed over the ranks {launches}")
+        f" s, serve {max(r['serve_s'] for r in ranks):.1f} s, reduced "
+        f"parts {max(r['reduced_s'] for r in ranks):.1f} s); training "
+        f"kernel launches summed over the ranks {launches}, serve "
+        f"{serve_launches}")
     for r in ranks:
         r["full"].pop("log")
-    return {"ranks": ranks, "launches": launches, "seconds": seconds,
+        for k in ("sums", "tokens", "decode_counts"):
+            r["serve"].pop(k)
+    return {"ranks": ranks, "launches": launches,
+            "serve_launches": serve_launches, "seconds": seconds,
             "step0_vs_one_device": off, "bf16_noise": noise}
+
+
+def _check_train_mesh_serve(tag, ranks) -> dict:
+    """(f): the gates of `_train_mesh_serve` over the ranks' results;
+    returns the kernel launches summed over the ranks."""
+    from repro_torch.configs import get_config
+
+    layers = get_config(TRAIN_ARCH).num_layers
+    sv = [r["serve"] for r in ranks]
+    steps = TRAIN_MESH_SERVE_PROMPT + TRAIN_MESH_SERVE_GEN
+    launches = {}
+    for i, f in enumerate(sv):
+        for k, v in f["prefill_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for c in f["decode_counts"]:
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+        bad = [c for c in f["decode_counts"]
+               if c != {"flash_attention_decode": layers}]
+        if (f["prefill_launches"] != {"flash_attention_wgmma": layers}
+                or bad or len(f["decode_counts"]) != steps):
+            fail(f"[{tag}] (f) rank {i}: prefill launched "
+                 f"{f['prefill_launches']}, decode steps {bad[:2]}; "
+                 f"expected {layers} wgmma launches per prefill and "
+                 f"{layers} split-K decode launches per step")
+        if not (all(f["tensor_parallel"]) and f["finite"]
+                and f["compute_bytes"] == f["plan_compute_bytes"]
+                and f["cache_rows"] == TRAIN_MESH_SERVE_MAX // 2):
+            fail(f"[{tag}] (f) rank {i}: tensor-parallel "
+                 f"{f['tensor_parallel']}, finite {f['finite']}, compute "
+                 f"model {f['compute_bytes']} bytes vs the plan's "
+                 f"{f['plan_compute_bytes']}, cache block rows "
+                 f"{f['cache_rows']}")
+        line = [g for g in sv if g["coords"]["data"] == f["coords"]["data"]]
+        if any(g["sums"] != f["sums"] or g["tokens"] != f["tokens"]
+               or g["prefill_sum"] != f["prefill_sum"] for g in line):
+            fail(f"[{tag}] (f) the ranks of a 'model' line return "
+                 "different logits")
+        t, ft = f["tap"], f["fault_tap"]
+        if not (t["max_err_over_tol"] <= 1.0 and t["lse_err_over_tol"]
+                <= 1.0 and t["checked"] > 0):
+            fail(f"[{tag}] (f) rank {i}: the split-K kernel on the rank's "
+                 f"cache block misses its plain version: {t}")
+        planted = f["coords"] == {"data": 0, "model": 1}
+        if planted and not ft["max_err_over_tol"] > 1.0:
+            fail(f"[{tag}] (f) the planted map (rank 1 reading kv head 0 "
+                 f"for one of its q heads) passes: {ft}")
+        stage = sum(f["staged_per_step"]) / steps
+        say(f"[{tag}] (f) rank {i} {f['coords']}: compute model "
+            f"{f['compute_bytes'] / 1e9:.3f} GB (the plan's count); cache "
+            f"block {f['cache_rows']} of {TRAIN_MESH_SERVE_MAX} rows; "
+            f"prefill {f['prefill_s'] * 1e3:.1f} ms, decode step mean "
+            f"{1e3 * sum(f['step_s']) / steps:.1f} ms; staged through the "
+            f"host per decode step {stage / 1e6:.3f} MB (the replicated "
+            f"layout's gathers: {f['parent_decode_step_bytes'] / 1e6:.1f} "
+            f"MB); kernel tap over {t['checked']} calls: max err/tol "
+            f"{t['max_err_over_tol']:.3f}, log-sum-exp err/tol "
+            f"{t['lse_err_over_tol']:.3f}"
+            + (f"; planted map: err/tol {ft['max_err_over_tol']:.3f}"
+               if planted else ""))
+        if f["coords"]["model"] == 0:
+            what = (f"(f) {TRAIN_ARCH} full width on {TRAIN_MESH_SHAPE}, "
+                    f"rows of data {f['coords']['data']}")
+            say(f"[{tag}] {what}: one-device bf16 vs float32 (the noise) "
+                f"{f['noise']:.4e}; prefill {f['prefill_noise']:.4e}")
+            _check_noise(f"{what}, prefill (wgmma, sequence-parallel) "
+                         "bf16", f["prefill_vs_ref"], f["prefill_noise"],
+                         tag)
+            _check_noise(f"{what}, decode (split-K on the rank's block) "
+                         "bf16", f["mesh_vs_ref"], f["noise"], tag)
+            _check_ties(f"{what}, mesh vs one-device bf16 (greedy tokens)",
+                        f["mesh_vs_one"], f["noise"], tag)
+            fv = f["fault_vs_ref"]
+            times = fv["max_abs_err"] / max(f["noise"], 1e-30)
+            say(f"[{tag}] {what}: the planted map's logits vs float32: max "
+                f"|dlogit| {fv['max_abs_err']:.4e} ({times:.2f} x the "
+                "noise; information)")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6782,6 +7228,9 @@ def main() -> int:
                                if k.startswith("flash_attention")),
                    "train_mesh": sum(
                        n for k, n in train_mesh["launches"].items()
+                       if k.startswith("flash_attention")),
+                   "train_mesh_serve": sum(
+                       n for k, n in train_mesh["serve_launches"].items()
                        if k.startswith("flash_attention")),
                    "dryrun": sum(n for k, n in dryrun["launches"].items()
                                  if k.startswith("flash_attention"))}

@@ -31,21 +31,22 @@ def load(paths):
 
 
 def dryrun_table(cells):
-    rows = ["| arch | shape | mesh | status | GB/chip (args) | fits 80 GB "
-            "| trace (s) | collective kinds |",
-            "|---|---|---|---|---|---|---|---|"]
+    rows = ["| arch | shape | mesh | status | GB/chip (args) | GB/chip "
+            "(compute model) | fits 80 GB | trace (s) | collective kinds |",
+            "|---|---|---|---|---|---|---|---|---|"]
     for r in cells:
         head = f"| {r['arch']} | {r['shape']} | {r['mesh']} "
         if r["status"] == "skipped":
-            rows.append(head + "| skipped¹ | — | — | — | — |")
+            rows.append(head + "| skipped¹ | — | — | — | — | — |")
             continue
         if r["status"] != "ok":
-            rows.append(head + "| FAILED | — | — | — | — |")
+            rows.append(head + "| FAILED | — | — | — | — | — |")
             continue
         gb = r["memory"]["per_chip_argument_bytes"] / 1e9
+        cgb = r["memory"]["compute_param_bytes"] / 1e9
         kinds = ",".join(KINDS[k] for k, v in r["collective_bytes"].items()
                          if k != "total" and v > 0) or "none"
-        rows.append(head + f"| ok | {gb:.2f} | "
+        rows.append(head + f"| ok | {gb:.2f} | {cgb:.2f} | "
                     f"{'yes' if r.get('fits_h100_80gb') else 'NO'} | "
                     f"{r['trace_s']:.1f} | {kinds} |")
     return "\n".join(rows)

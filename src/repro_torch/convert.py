@@ -108,10 +108,15 @@ def lm_params(params, cfg, *, device: Device = None,
     it is for the reduced configs only.
 
     With ``mesh`` (a `repro_torch.distributed.Mesh`, on one of its
-    ranks), every MoE layer keeps only what the rank's coordinate on
-    "model" holds for the expert-parallel dispatch (`moe.shard_model`):
-    its ``E / tp`` experts and its shards of the shared experts. Every
-    other weight is whole on every rank."""
+    ranks), a dense config that runs tensor-parallel on it (in every plan,
+    decode's too: `launch.sharding.tensor_parallel`) becomes the rank's
+    compute model: the reference's "model" block of every weight
+    (`launch.sharding.shard_tensor_parallel`), which the plans of that
+    mesh bind as it is. Otherwise every MoE layer keeps only what the
+    rank's coordinate on "model" holds for the expert-parallel dispatch
+    (`moe.shard_model`): its ``E / tp`` experts and its shards of the
+    shared experts, and every other weight is whole on every rank."""
+    from repro_torch.launch import sharding as shard_lib
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.layers import dtype_of
     from repro_torch.models.transformer import init_model
@@ -123,6 +128,8 @@ def lm_params(params, cfg, *, device: Device = None,
     model.load_state_dict({
         k: torch.tensor(np.asarray(v, np.float32), device=device).to(dtype)
         for k, v in state.items()})
-    if mesh is not None:
+    if mesh is not None and shard_lib.tensor_parallel(cfg, mesh, "decode"):
+        shard_lib.shard_tensor_parallel(model, cfg, mesh)
+    elif mesh is not None:
         moe_lib.shard_model(model, cfg, mesh)
     return model.to(dtype)

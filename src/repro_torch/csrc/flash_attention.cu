@@ -90,6 +90,17 @@
 //    all, length 0, gives o = 0). This is the reference's decode mask
 //    arange(S) < length (models/attention.py decode_attention), a full
 //    ring buffer included; the rows past the keys are never read.
+//    Under tensor parallelism a rank serves its own q heads against its
+//    own cache block, whose kv heads need not be those of h / group (the
+//    reference pads the q heads and maps a padded or uneven tail to the
+//    last kv head). So fa_decode_cache also takes an explicit map: for
+//    each kv head the q heads it serves (a CTA's rows are then that kv
+//    head's heads, e.g. 6 and 2; the partials keep the map's width as
+//    their stride, and a kv head that serves no head reads nothing), and
+//    the merge can write each row's log-sum-exp, with which rows whose
+//    keys lie in several ranks' blocks of a cache split along its
+//    sequence are merged across the ranks. The cache is still read in
+//    place: no copy, no expansion.
 //
 // 3. wg::wgmma_kernel (bfloat16 prefill, Dh 64 and 128). Warp-specialised:
 //    384 threads in three warpgroups. Warpgroup 0 is the producer: it gives
@@ -122,8 +133,9 @@
 //             softcap, split_keys, q, k, v, o, part_ml, part_acc, stream)
 //                                                             kernel 2
 //   fa_decode_cache(dtype, head_dim, B, Hq, Hkv, Tq, S, scale, softcap,
-//                   split_keys, q, k, v, length, o, part_ml, part_acc,
-//                   stream)              kernel 2 on a cache, not causal
+//                   split_keys, map_width, heads_map, q, k, v, length, o,
+//                   lse, part_ml, part_acc, stream)
+//                                        kernel 2 on a cache, not causal
 //   fa_wgmma(head_dim, B, Hq, Hkv, Tq, Tk, causal, window, scale, softcap,
 //            q, k, v, o, stream)                              kernel 3
 // with head_dim one of 16, 32, 64, 128, 256 (64 and 128 for fa_wgmma).
@@ -450,22 +462,42 @@ __device__ __forceinline__ float2 load_pair(const unsigned char* p,
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// Rows of one CTA: r = g * Tq + i is query i of head kv_head * group + g;
-// rows R..RB-1 are zero padding up to the compiled row count RB. CAP: the
-// softcap cap_raw (> 0) is applied.
+// The q heads a kv head serves: with no map, heads kvh * group + g for g
+// < group = Hq / Hkv; with a map (heads: [Hkv][group] q head indices, -1
+// past the kv head's own, which come first), heads[kvh * group + g]. The
+// kv head's rows are its heads' queries; a kv head with none reads nothing.
+__device__ __forceinline__ int kv_heads_rows(const int* heads, int kvh,
+                                             int group) {
+  if (heads == nullptr) return group;
+  int n = 0;
+  while (n < group && heads[kvh * group + n] >= 0) ++n;
+  return n;
+}
+__device__ __forceinline__ int64_t q_head(const int* heads, int kvh,
+                                          int group, int64_t g) {
+  return heads == nullptr ? kvh * group + g : heads[kvh * group + g];
+}
+
+// Rows of one CTA: r = g * Tq + i is query i of the kv head's g-th q head
+// (kv_heads_rows, q_head); rows R..RB-1 are zero padding up to the
+// compiled row count RB. The partials of a kv head take group * Tq rows,
+// R of them written. CAP: the softcap cap_raw (> 0) is applied.
 template <typename T, int D, int RB, bool CAP>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
-    int Hq, int Hkv, int64_t Tq, int64_t S, const int* __restrict__ len,
-    int causal, int window, float scale_log2, float cap_raw, int split_keys,
-    int n_splits, const T* __restrict__ q, const T* __restrict__ k,
+    int Hq, int Hkv, int group, const int* __restrict__ heads, int64_t Tq,
+    int64_t S, const int* __restrict__ len, int causal, int window,
+    float scale_log2, float cap_raw, int split_keys, int n_splits,
+    const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, float* __restrict__ part_ml,
     float* __restrict__ part_acc) {
   using C = Cfg<T, D>;
   constexpr int KT = C::KT, RS = C::RS, DS = C::DS, CH = C::CH;
   constexpr int VEC = C::VEC, CG = C::CG, KG = C::KG;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int group = Hq / Hkv;
-  const int R = group * static_cast<int>(Tq);
+  const int kvh = blockIdx.y;
+  const int R = kv_heads_rows(heads, kvh, group) * static_cast<int>(Tq);
+  const int RP = group * static_cast<int>(Tq);  // partial rows per kv head
+  if (R == 0) return;  // a kv head no q head reads: nothing to merge
   const int SKP = padded_split(split_keys);
   float* q_s = reinterpret_cast<float*>(smem + 2 * C::TILE_BYTES);  // [RB][D]
   float* s_s = q_s + RB * D;                      // [RB][SKP]
@@ -473,7 +505,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   float* ml_s = red + (KG > 1 ? KG * RB * D : 0);  // [RB][2]
 
   const int tid = threadIdx.x;
-  const int split = blockIdx.x, kvh = blockIdx.y;
+  const int split = blockIdx.x;
   const int64_t b = blockIdx.z;
   // Rows of the buffers: S apart; the first Tk of them are keys.
   int64_t Tk = S;
@@ -482,14 +514,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     Tk = n < 0 ? 0 : (n < S ? n : S);
   }
   const int64_t s0 = static_cast<int64_t>(split) * split_keys;
-  const int64_t part = (b * Hkv + kvh) * n_splits + split;  // [.., R] rows
+  const int64_t part = (b * Hkv + kvh) * n_splits + split;  // [.., RP] rows
   if (s0 >= Tk) {
     // A split past the keys (a cache not yet full): weight 0 in the merge.
     for (int e = tid; e < R; e += kThreads) {
-      part_ml[(part * R + e) * 2] = -INFINITY;
-      part_ml[(part * R + e) * 2 + 1] = 0.f;
+      part_ml[(part * RP + e) * 2] = -INFINITY;
+      part_ml[(part * RP + e) * 2 + 1] = 0.f;
     }
-    for (int e = tid; e < R * D; e += kThreads) part_acc[part * R * D + e] = 0.f;
+    for (int e = tid; e < R * D; e += kThreads)
+      part_acc[part * RP * D + e] = 0.f;
     return;
   }
   const int nk = static_cast<int>(Tk - s0 < split_keys ? Tk - s0 : split_keys);
@@ -518,7 +551,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   for (int e = tid; e < RB * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int64_t g = r / Tq, i = r % Tq;
-    q_s[e] = r < R ? widen(q[((b * Hq + kvh * group + g) * Tq + i) * D + c])
+    q_s[e] = r < R ? widen(q[((b * Hq + q_head(heads, kvh, group, g)) * Tq +
+                              i) * D + c])
                    : 0.f;
   }
 
@@ -648,60 +682,72 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
       float s = 0.f;
 #pragma unroll
       for (int g = 0; g < KG; ++g) s += red[g * RB * D + e];
-      part_acc[part * R * D + e] = s;
+      part_acc[part * RP * D + e] = s;
     }
   } else {
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
       if (r < R) {
-        part_acc[(part * R + r) * D + 2 * cp] = acc[r][0];
-        part_acc[(part * R + r) * D + 2 * cp + 1] = acc[r][1];
+        part_acc[(part * RP + r) * D + 2 * cp] = acc[r][0];
+        part_acc[(part * RP + r) * D + 2 * cp + 1] = acc[r][1];
       }
     }
   }
-  for (int e = tid; e < 2 * R; e += kThreads) part_ml[part * 2 * R + e] = ml_s[e];
+  for (int e = tid; e < 2 * R; e += kThreads) part_ml[part * 2 * RP + e] = ml_s[e];
 }
 
-// One CTA per (row, kv head, batch): weigh the splits and write o.
+// One CTA per (row, kv head, batch): weigh the splits and write o, and
+// with lse the row's log-sum-exp of its scaled scores (natural log; -inf
+// where it has no key), so that a caller can merge rows whose keys lie
+// on several ranks.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) merge_kernel(
-    int Hq, int Hkv, int64_t Tq, int n_splits, const float* __restrict__ part_ml,
-    const float* __restrict__ part_acc, T* __restrict__ o) {
+    int Hq, int Hkv, int group, const int* __restrict__ heads, int64_t Tq,
+    int n_splits, const float* __restrict__ part_ml,
+    const float* __restrict__ part_acc, T* __restrict__ o,
+    float* __restrict__ lse) {
   const int r = blockIdx.x, kvh = blockIdx.y;
   const int64_t b = blockIdx.z;
-  const int group = Hq / Hkv;
-  const int R = group * static_cast<int>(Tq);
-  const int64_t first = (b * Hkv + kvh) * n_splits * R + r;  // split 0's row
+  const int RP = group * static_cast<int>(Tq);
+  if (r >= kv_heads_rows(heads, kvh, group) * static_cast<int>(Tq)) return;
+  const int64_t first = (b * Hkv + kvh) * n_splits * RP + r;  // split 0's row
   float m = -INFINITY;
-  for (int s = 0; s < n_splits; ++s) m = fmaxf(m, part_ml[2 * (first + s * R)]);
+  for (int s = 0; s < n_splits; ++s)
+    m = fmaxf(m, part_ml[2 * (first + static_cast<int64_t>(s) * RP)]);
   if (m == -INFINITY) m = 0.f;  // no key in any split (length 0): o = 0
   float l = 0.f;
   for (int s = 0; s < n_splits; ++s) {
-    const int64_t i = first + static_cast<int64_t>(s) * R;
+    const int64_t i = first + static_cast<int64_t>(s) * RP;
     l += exp2f(part_ml[2 * i] - m) * part_ml[2 * i + 1];
   }
   const float inv = 1.f / (l > 0.f ? l : 1.f);
   const int64_t g = r / Tq, qi = r % Tq;
-  T* orow = o + ((b * Hq + kvh * group + g) * Tq + qi) * D;
+  const int64_t row = (b * Hq + q_head(heads, kvh, group, g)) * Tq + qi;
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[row] = l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : -INFINITY;
+  T* orow = o + row * D;
   for (int c = threadIdx.x; c < D; c += kThreads) {
     float a = 0.f;
     for (int s = 0; s < n_splits; ++s) {
-      const int64_t i = first + static_cast<int64_t>(s) * R;
+      const int64_t i = first + static_cast<int64_t>(s) * RP;
       a = fmaf(exp2f(part_ml[2 * i] - m), part_acc[i * D + c], a);
     }
     narrow(orow + c, a * inv);
   }
 }
 
+// group: q heads per kv head (Hq / Hkv without a map; with one, the map's
+// width); heads: the map or nullptr; lse: nullptr or [B, Hq, Tq] floats.
 #define DEC_LAUNCH_PARAMS                                                    \
-  int64_t B, int Hq, int Hkv, int64_t Tq, int64_t Tk, const int *len,        \
-      int causal, int window, float scale, float softcap, int split_keys,    \
-      const void *q, const void *k, const void *v, void *o, float *part_ml,  \
-      float *part_acc, cudaStream_t s
+  int64_t B, int Hq, int Hkv, int group, const int *heads, int64_t Tq,       \
+      int64_t Tk, const int *len, int causal, int window, float scale,       \
+      float softcap, int split_keys, const void *q, const void *k,           \
+      const void *v, void *o, float *lse, float *part_ml, float *part_acc,   \
+      cudaStream_t s
 
 template <typename T, int D, int RB>
 int launch_rows(DEC_LAUNCH_PARAMS) {
-  const int64_t rows = (Hq / Hkv) * Tq;
+  const int64_t rows = group * Tq;
   const int64_t n_splits = (Tk + split_keys - 1) / split_keys;
   if (n_splits > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes<T, D, RB>(split_keys);
@@ -713,7 +759,8 @@ int launch_rows(DEC_LAUNCH_PARAMS) {
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(static_cast<unsigned>(n_splits), static_cast<unsigned>(Hkv),
                 static_cast<unsigned>(B)),
-           kThreads, smem, s>>>(Hq, Hkv, Tq, Tk, len, causal, window,
+           kThreads, smem, s>>>(Hq, Hkv, group, heads, Tq, Tk, len, causal,
+                                window,
                                 scale * kLog2e,
                                 softcap > 0.f ? softcap / scale : 0.f,
                                 split_keys,
@@ -726,9 +773,9 @@ int launch_rows(DEC_LAUNCH_PARAMS) {
   merge_kernel<T, D><<<dim3(static_cast<unsigned>(rows),
                             static_cast<unsigned>(Hkv),
                             static_cast<unsigned>(B)),
-                       kThreads, 0, s>>>(Hq, Hkv, Tq,
+                       kThreads, 0, s>>>(Hq, Hkv, group, heads, Tq,
                                          static_cast<int>(n_splits), part_ml,
-                                         part_acc, static_cast<T*>(o));
+                                         part_acc, static_cast<T*>(o), lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -736,12 +783,14 @@ int launch_rows(DEC_LAUNCH_PARAMS) {
 // (1, 2, 3, 4, 8, 16) and padding up to 8 or 16 for the rest.
 template <typename T, int D>
 int launch(DEC_LAUNCH_PARAMS) {
-  const int64_t rows = (Hq / Hkv) * Tq;
-  if (rows > kMaxRows || split_keys < 1 || split_keys > kMaxSplit)
+  const int64_t rows = group * Tq;
+  if (group < 1 || rows > kMaxRows || split_keys < 1 ||
+      split_keys > kMaxSplit)
     return static_cast<int>(cudaErrorInvalidValue);
 #define DEC_ROWS(RB) \
-  launch_rows<T, D, RB>(B, Hq, Hkv, Tq, Tk, len, causal, window, scale,      \
-                        softcap, split_keys, q, k, v, o, part_ml, part_acc, s)
+  launch_rows<T, D, RB>(B, Hq, Hkv, group, heads, Tq, Tk, len, causal,       \
+                        window, scale, softcap, split_keys, q, k, v, o, lse, \
+                        part_ml, part_acc, s)
   if (rows <= 1) return DEC_ROWS(1);
   if (rows == 2) return DEC_ROWS(2);
   if (rows == 3) return DEC_ROWS(3);
@@ -1285,8 +1334,8 @@ namespace {
 #define FA_ARGS \
   B, Hq, Hkv, Tq, Tk, causal, window, scale, softcap, q, k, v, o, s
 #define DEC_ARGS                                                        \
-  B, Hq, Hkv, Tq, Tk, len, causal, window, scale, softcap, split_keys, q, \
-      k, v, o, part_ml, part_acc, s
+  B, Hq, Hkv, group, heads, Tq, Tk, len, causal, window, scale, softcap,  \
+      split_keys, q, k, v, o, lse, part_ml, part_acc, s
 
 template <typename T>
 int fma_dispatch(int head_dim, FA_LAUNCH_PARAMS) {
@@ -1374,6 +1423,9 @@ extern "C" int fa_decode(int dtype, int head_dim, long long B, int Hq, int Hkv,
   if (c) return c < 0 ? static_cast<int>(cudaSuccess) : c;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = nullptr;  // all Tk rows are keys
+  const int group = Hq / Hkv;
+  const int* heads = nullptr;
+  float* lse = nullptr;
   float* part_ml = static_cast<float*>(part_ml_v);
   float* part_acc = static_cast<float*>(part_acc_v);
   if (dtype == 0) return dec_dispatch<float>(head_dim, DEC_ARGS);
@@ -1385,19 +1437,32 @@ extern "C" int fa_decode(int dtype, int head_dim, long long B, int Hq, int Hkv,
 // first min(*length, S) rows valid (length: an int32 on the device, read by
 // the kernel, so the host never waits for it). Not causal: every valid row
 // is a key of every query row. The split grid covers the capacity S.
+// map_width 0 and heads_map null: q head h reads kv head h / (Hq / Hkv);
+// else heads_map [Hkv][map_width] lists each kv head's q heads (-1 past
+// them), any of the Hq heads to any kv head. lse_out: null, or [B, Hq, Tq]
+// floats for each row's log-sum-exp.
 extern "C" int fa_decode_cache(int dtype, int head_dim, long long B, int Hq,
                                int Hkv, long long Tq, long long S, float scale,
-                               float softcap, int split_keys, const void* q,
+                               float softcap, int split_keys, int map_width,
+                               const void* heads_map, const void* q,
                                const void* k, const void* v,
-                               const void* length, void* o, void* part_ml_v,
-                               void* part_acc_v, void* stream) {
+                               const void* length, void* o, void* lse_out,
+                               void* part_ml_v, void* part_acc_v,
+                               void* stream) {
   const long long Tk = S;
   const int causal = 0, window = 0;  // a ring holds only in-window keys
-  const int c = check(B, Hq, Hkv, Tq, Tk, causal, window);
+  const bool mapped = heads_map != nullptr;
+  // A map needs no divisibility: check the shapes as one head per kv head.
+  const int c = check(B, Hq, mapped ? 1 : Hkv, Tq, Tk, causal, window);
   if (c) return c < 0 ? static_cast<int>(cudaSuccess) : c;
-  if (length == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (length == nullptr || Hkv <= 0 || Hkv > 65535 ||
+      (mapped && map_width < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(length);
+  const int group = mapped ? map_width : Hq / Hkv;
+  const int* heads = static_cast<const int*>(heads_map);
+  float* lse = static_cast<float*>(lse_out);
   float* part_ml = static_cast<float*>(part_ml_v);
   float* part_acc = static_cast<float*>(part_acc_v);
   if (dtype == 0) return dec_dispatch<float>(head_dim, DEC_ARGS);

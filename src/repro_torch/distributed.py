@@ -45,6 +45,11 @@ through `pvary`. Gradients of data-parallel replicas still need their sum
 over the batch axes: that is the train step's, as JAX leaves it to GSPMD.
 The mesh is kept with each operation, so a backward pass (or a block's
 recomputation in it) that runs on autograd's own thread still reaches it.
+Megatron's tensor-parallel regions are these collectives by their own
+names: `copy_to_region` (`pvary`: identity forward, sum backward) and
+`reduce_from_region` (`psum`: sum forward, identity backward), and for a
+sequence-parallel residual stream `gather_sequence` (all_gather forward,
+reduce-scatter backward) and `scatter_sequence` (`psum_scatter`).
 
 `PartitionSpec` (``P``) is a tensor's layout on a mesh: per dimension an
 axis name, a tuple of names (split row-major over them) or None (whole).
@@ -466,6 +471,42 @@ def psum_scatter(x, axis_name: str, *, scatter_dimension: int = 0,
     return _run(x, mesh,
                 lambda m, ls: _psum_scatter(m, ls, axis_name, sd, tiled),
                 lambda m, gs: _all_gather(m, gs, axis_name, sd, tiled))
+
+
+def copy_to_region(x, axis_name: str):
+    """Megatron's entry to a tensor-parallel region: the identity, whose
+    backward pass sums the ranks' partial cotangents over ``axis_name``
+    (`pvary`). Each rank of the axis goes on to multiply ``x`` by its own
+    block of a column-parallel weight."""
+    return pvary(x, axis_name)
+
+
+def reduce_from_region(x, axis_name: str):
+    """Megatron's exit from a tensor-parallel region: the sum of the
+    ranks' partial products of a row-parallel weight over ``axis_name``
+    (`psum`); the result is replicated, so its backward pass is the
+    identity."""
+    return psum(x, axis_name)
+
+
+def gather_sequence(x, axis_name: str, dim: int = 1):
+    """The entry to a tensor-parallel region from a sequence-parallel
+    residual stream: the ranks' blocks of ``x`` along ``dim`` concatenated
+    (an all_gather), whose backward pass sums the ranks' partial
+    cotangents and keeps the rank's block (a reduce-scatter): `all_gather`
+    and `pvary` in one exchange each way."""
+    mesh = _bound(axis_name)
+    return _run(x, mesh,
+                lambda m, ls: _all_gather(m, ls, axis_name, dim, True),
+                lambda m, gs: _psum_scatter(m, gs, axis_name, dim, True))
+
+
+def scatter_sequence(x, axis_name: str, dim: int = 1):
+    """The exit from a tensor-parallel region into a sequence-parallel
+    residual stream: the ranks' partial sums of ``x`` summed, of which the
+    rank keeps its block along ``dim`` (`psum_scatter`, tiled; its
+    backward pass all_gathers the cotangent)."""
+    return psum_scatter(x, axis_name, scatter_dimension=dim, tiled=True)
 
 
 def all_to_all(x, axis_name: str, split_axis: int, concat_axis: int, *,

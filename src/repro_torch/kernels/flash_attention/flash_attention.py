@@ -52,6 +52,11 @@ cache read in place: ``[B, Hkv, S, Dh]`` buffers whose first
 that the kernel reads itself (no host sync per step). Its plain version,
 ``decode_attention_plain``, is the reference's masked decode softmax
 (``repro/models/attention.py`` ``decode_attention``) on this layout.
+Both take a ``head_map`` (q head ``i`` reads kv head ``head_map[i]``, any
+map: a tensor-parallel rank's q heads against its own cache block, where
+the reference's padded heads make the groups uneven) and can return each
+row's log-sum-exp (``return_lse``), with which a cache split along its
+sequence over several ranks is merged across them.
 """
 from __future__ import annotations
 
@@ -245,8 +250,8 @@ def _library():
         lib.fa_wgmma.argtypes = [i, ll, i, i, ll, ll, i, i, f, f,
                                  ptr, ptr, ptr, ptr, ptr]
         lib.fa_decode_cache.argtypes = [i, i, ll, i, i, ll, ll, f, f, i,
-                                        ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                        ptr]
+                                        i, ptr, ptr, ptr, ptr, ptr, ptr,
+                                        ptr, ptr, ptr, ptr]
         for fn in (lib.fa_attention, lib.fa_decode, lib.fa_wgmma,
                    lib.fa_decode_cache):
             fn.restype = ctypes.c_int
@@ -388,36 +393,72 @@ def _flash_attention(q, k, v, causal, scale, kernel, window, softcap):
 # Decode against a KV cache read in place
 # ---------------------------------------------------------------------------
 
+def check_head_map(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   head_map) -> None:
+    """Raise unless ``head_map`` (None, or a kv head index per q head)
+    fits ``q [B, Hq, Tq, Dh]`` and ``k, v [B, Hkv, S, Dh]``."""
+    if head_map is None:
+        check_shapes(q, k, v)
+        return
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or \
+            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
+                         "[B, Hq, Tq, Dh] and two equal [B, Hkv, S, Dh]")
+    if len(head_map) != q.shape[1] or not all(
+            0 <= h < k.shape[1] for h in head_map):
+        raise ValueError(f"decode_attention: head map {tuple(head_map)} "
+                         f"for {q.shape[1]} q heads and {k.shape[1]} kv "
+                         "heads")
+
+
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, length: torch.Tensor, *,
                            scale: Optional[float] = None,
-                           softcap: float = 0.0) -> torch.Tensor:
+                           softcap: float = 0.0, head_map=None,
+                           return_lse: bool = False):
     """``q [B, Hq, Tq, Dh]`` against the cache ``k/v [B, Hkv, S, Dh]`` ->
     ``[B, Hq, Tq, Dh]`` in q's dtype: the reference's decode softmax, in
     float32 over all S rows with rows ``>= length`` masked by -1e30 (no
-    causal mask), each GQA group's query rows against their kv head.
-    ``softcap > 0`` caps the scores as ``softcap * tanh(s / softcap)``."""
-    check_shapes(q, k_cache, v_cache)
+    causal mask), each GQA group's query rows against their kv head, or
+    q head ``i`` against kv head ``head_map[i]`` where a map is given.
+    ``softcap > 0`` caps the scores as ``softcap * tanh(s / softcap)``.
+    ``return_lse``: also each row's log-sum-exp of its scaled scores over
+    the keys, float32 ``[B, Hq, Tq]`` (-inf where ``length`` is 0)."""
+    check_head_map(q, k_cache, v_cache, head_map)
     B, Hq, Tq, Dh = q.shape
     Hkv, S = k_cache.shape[1:3]
     if counting.shapes_only(q):
-        return torch.empty_like(q)   # counted by the kernel's formula
+        out = torch.empty_like(q)   # counted by the kernel's formula
+        return (out, q.new_empty((B, Hq, Tq), dtype=torch.float32)) \
+            if return_lse else out
     if scale is None:
         scale = 1.0 / (Dh ** 0.5)
-    qh = q.float().reshape(B, Hkv, (Hq // Hkv) * Tq, Dh)
-    s = (qh @ k_cache.float().mT) * scale
+    if head_map is None:
+        qh = q.float().reshape(B, Hkv, (Hq // Hkv) * Tq, Dh)
+        kh, vh = k_cache.float(), v_cache.float()
+    else:
+        idx = torch.tensor(head_map, device=q.device)
+        qh = q.float()
+        kh, vh = (c.index_select(1, idx).float() for c in (k_cache, v_cache))
+    s = (qh @ kh.mT) * scale
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
-    valid = torch.arange(S, device=q.device) < length.reshape(())
+    n = length.reshape(())
+    valid = torch.arange(S, device=q.device) < n
     s = torch.where(valid, s, s.new_tensor(_NEG_INF))
-    out = torch.softmax(s, dim=-1) @ v_cache.float()
-    return out.reshape(B, Hq, Tq, Dh).to(q.dtype)
+    out = (torch.softmax(s, dim=-1) @ vh).reshape(B, Hq, Tq, Dh).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1).reshape(B, Hq, Tq)
+    return out, torch.where(n > 0, lse, lse.new_tensor(-float("inf")))
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, length: torch.Tensor, *,
                           scale: Optional[float] = None,
-                          softcap: float = 0.0) -> torch.Tensor:
+                          softcap: float = 0.0, head_map=None,
+                          return_lse: bool = False):
     """The split-K decode kernel on a cache read in place: contiguous ``q
     [B, Hq, Tq, Dh]`` (at most `DECODE_MAX_ROWS` rows ``group * Tq`` per
     kv head) against contiguous ``k/v [B, Hkv, S, Dh]``, of which the
@@ -426,60 +467,98 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     ``Dh`` in `HEAD_DIMS`. Not causal: every valid row is a key of every
     query row. ``softcap > 0``: the logit softcap. A ``length`` of 0
     gives zeros (the plain version averages the masked buffer then); the
-    model always writes before it reads.
+    model always writes before it reads. ``head_map`` (a sequence of
+    ``Hq`` kv head indices): q head ``i`` reads kv head ``head_map[i]``,
+    any map, at most `DECODE_MAX_ROWS` rows ``Tq`` times the most q
+    heads of one kv head; a kv head no q head reads is not read.
+    ``return_lse``: also each row's log-sum-exp of its scaled scores,
+    float32 ``[B, Hq, Tq]`` (-inf where there is no key).
 
     CPU tensors take `decode_attention_plain`; CUDA tensors launch the
     kernel (one ``flash_attention_decode`` launch) or raise. Either
-    counts as `kernels.work.decode_work` over the whole cache in a step
-    count (the keys it reads depend on ``length``, data that a count from
-    shapes does not read)."""
-    check_shapes(q, k_cache, v_cache)
+    counts as `kernels.work.decode_work` over the whole cache of the kv
+    heads it reads in a step count (the keys it reads depend on
+    ``length``, data that a count from shapes does not read)."""
+    check_head_map(q, k_cache, v_cache, head_map)
     if length.numel() != 1 or length.dtype != torch.int32:
         raise TypeError(f"decode_attention: length must be one int32, not "
                         f"{length.dtype} of shape {tuple(length.shape)}")
-    with counted_decode(q, k_cache):
+    if head_map is not None:
+        head_map = tuple(int(h) for h in head_map)
+    with counted_decode(q, k_cache, head_map):
         return _decode_attention(q, k_cache, v_cache, length, scale,
-                                 softcap)
+                                 softcap, head_map, return_lse)
 
 
-def counted_decode(q: torch.Tensor, k_cache: torch.Tensor
+def counted_decode(q: torch.Tensor, k_cache: torch.Tensor, head_map=None
                    ) -> counting.kernel_call:
     """The count region of one decode call of ``q [B, Hq, Tq, Dh]``
-    against the cache ``k [B, Hkv, S, Dh]`` (`kernels.work.decode_work`),
-    which the wrapper and the model code that calls it or its plain
-    version enter."""
+    against the cache ``k [B, Hkv, S, Dh]`` (`kernels.work.decode_work`;
+    with a ``head_map``, the kv heads it names), which the wrapper and the
+    model code that calls it or its plain version enter."""
+    Hkv = k_cache.shape[1] if head_map is None else len(set(head_map))
     return counting.kernel_call("decode_attention", lambda: decode_work(
-        q.shape[0], q.shape[1] * q.shape[2], k_cache.shape[1],
-        k_cache.shape[2], q.shape[3], q.element_size()))
+        q.shape[0], q.shape[1] * q.shape[2], Hkv, k_cache.shape[2],
+        q.shape[3], q.element_size()))
 
 
-def _decode_attention(q, k_cache, v_cache, length, scale, softcap):
+#: Device tables of head maps (`_head_table`), by (map, kv heads, device).
+_HEAD_TABLES: Dict[tuple, tuple] = {}
+
+
+def _head_table(head_map: tuple, Hkv: int, device: torch.device):
+    """The kernel's form of a head map: (its width ``group``, the most q
+    heads of one kv head; an int32 ``[Hkv, group]`` table on ``device`` of
+    each kv head's q heads, -1 past them). Built once per map and device,
+    so a decode step copies nothing to the card."""
+    key = (head_map, Hkv, str(device))
+    if key not in _HEAD_TABLES:
+        served = [[i for i, h in enumerate(head_map) if h == kv]
+                  for kv in range(Hkv)]
+        group = max(len(s) for s in served)
+        table = [s + [-1] * (group - len(s)) for s in served]
+        _HEAD_TABLES[key] = (group, torch.tensor(
+            table, dtype=torch.int32).to(device))
+    return _HEAD_TABLES[key]
+
+
+def _decode_attention(q, k_cache, v_cache, length, scale, softcap,
+                      head_map=None, return_lse=False):
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, length,
-                                      scale=scale, softcap=softcap)
+                                      scale=scale, softcap=softcap,
+                                      head_map=head_map,
+                                      return_lse=return_lse)
     _check_card_inputs("decode_attention", q, k_cache, v_cache)
     if length.device != q.device:
         raise TypeError("decode_attention: length is not on q's device")
     B, Hq, Tq, Dh = q.shape
     Hkv, S = k_cache.shape[1:3]
-    rows = (Hq // Hkv) * Tq
+    group, table = (Hq // Hkv, None) if head_map is None else _head_table(
+        head_map, Hkv, q.device)
+    rows = group * Tq
     if rows > DECODE_MAX_ROWS:
         raise ValueError(f"decode_attention: the decode kernel takes at most "
                          f"{DECODE_MAX_ROWS} rows per kv head, not {rows}")
     if scale is None:
         scale = 1.0 / (Dh ** 0.5)
     out = torch.empty_like(q)
+    lse = (torch.full((B, Hq, Tq), -float("inf"), dtype=torch.float32,
+                      device=q.device) if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     split_keys, part, part_acc = _decode_scratch(B, Hkv, S, rows, Dh,
                                                  q.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    null = ctypes.c_void_p(None)
     err = _library().fa_decode_cache(
         _DTYPE_CODE[q.dtype], Dh, B, Hq, Hkv, Tq, S, float(scale),
-        float(softcap), int(split_keys),
-        *map(_ptr, (q, k_cache, v_cache, length, out, part)), part_acc, stream)
+        float(softcap), int(split_keys), group if table is not None else 0,
+        null if table is None else _ptr(table),
+        *map(_ptr, (q, k_cache, v_cache, length, out)),
+        null if lse is None else _ptr(lse), _ptr(part), part_acc, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention decode kernel launch failed "
                            f"(KV cache): CUDA error {err}")
     LAUNCHES[KERNEL_COUNTERS["decode"]] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -7,12 +7,17 @@ For each cell it builds the production mesh as an `AbstractMesh` (16 x
 alone, so it needs no process group, no host devices and no card. It
 makes the cell's plan (`launch.steps.make_cell_plan`), counts its
 resident bytes per chip (`CellPlan.per_chip_argument_bytes`, the
-reference's count), traces one rank's step on ``meta`` tensors
+reference's count) and the parameter bytes of the rank's compute model
+(`CellPlan.compute_param_bytes`: the "model" block of a tensor-parallel
+dense model, the whole model for the families that run replicated over
+"model"), traces one rank's step on ``meta`` tensors
 (`launch.cost.count_cell`: FLOPs, HBM bytes and collective bytes per
 chip; nothing allocated) and writes the roofline at the card's peaks
-(`launch.roofline`). A cell the architecture does not support is
-``skipped`` with the config's reason; a cell that raises is ``failed``,
-and the run exits non-zero.
+(`launch.roofline`). ``fits_h100_80gb`` holds where the step's
+arguments, its compute model and, in training, that model's gradients
+fit the card's 80 GB (activations are not counted). A cell the
+architecture does not support is ``skipped`` with the config's reason;
+a cell that raises is ``failed``, and the run exits non-zero.
 
 Usage (``PYTHONPATH=src``, on the CPU):
   python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k
@@ -54,9 +59,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     t0 = time.perf_counter()
     plan = make_cell_plan(cfg, mesh, shape)
     arg_bytes = plan.per_chip_argument_bytes()
+    compute_bytes = plan.compute_param_bytes()
     cost, _ = count_cell(plan)
     trace_s = time.perf_counter() - t0
     tp = mesh.shape["model"]
+    # The arguments, the compute model and, in training, its gradients.
+    step_bytes = arg_bytes + compute_bytes * (2 if shape.kind == "train"
+                                              else 1)
     result = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "status": "ok", "kind": shape.kind, "chips": mesh.size,
@@ -64,26 +73,38 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         "flops": cost["flops"], "hbm_bytes": cost["hbm_bytes"],
         "collective_bytes": cost["collective_bytes"],
         "kernel_calls": cost["kernels"],
-        "memory": {"per_chip_argument_bytes": arg_bytes},
-        # The port runs dense layers whole on every rank of a "model"
-        # line, where the reference's GSPMD splits their matmuls over it:
-        # its per-chip FLOPs are up to "model" times the reference's.
-        "replicated_over_model": tp,
-        "flops_split_over_model": cost["flops"] / tp,
+        "tensor_parallel": plan.tensor_parallel,
+        "memory": {"per_chip_argument_bytes": arg_bytes,
+                   "compute_param_bytes": compute_bytes,
+                   "step_bytes": step_bytes},
     }
+    if not plan.tensor_parallel:
+        # This family runs its dense layers whole on every rank of a
+        # "model" line, where the reference's GSPMD splits their matmuls
+        # over it: its per-chip FLOPs are up to "model" times the
+        # reference's.
+        result["replicated_over_model"] = tp
+        result["flops_split_over_model"] = cost["flops"] / tp
     result["roofline"] = roofline_report(cfg, shape, result)
-    fits = arg_bytes < H100_MEMORY_BYTES
+    fits = step_bytes < H100_MEMORY_BYTES
     result["fits_h100_80gb"] = bool(fits)
     if verbose:
         rl = result["roofline"]
         print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: OK "
               f"(trace {trace_s:.1f} s)")
         print(f"  per-chip argument bytes: {arg_bytes} "
-              f"({arg_bytes / 1e9:.2f} GB, "
-              f"{'fits' if fits else 'DOES NOT FIT'} the H100's 80 GB)")
+              f"({arg_bytes / 1e9:.2f} GB); compute model's parameters "
+              f"per rank: {compute_bytes} ({compute_bytes / 1e9:.2f} GB, "
+              f"{'tensor-parallel' if plan.tensor_parallel else 'replicated'}"
+              f" over model={tp}); with them"
+              f"{' and their gradients' if shape.kind == 'train' else ''}"
+              f" {step_bytes / 1e9:.2f} GB: "
+              f"{'fits' if fits else 'DOES NOT FIT'} the H100's 80 GB")
+        split = ("" if plan.tensor_parallel else
+                 f" (dense FLOPs replicated over model={tp}: "
+                 f"{cost['flops'] / tp:.4e} if split)")
         print(f"  per chip: flops={cost['flops']:.4e} "
-              f"hbm_bytes={cost['hbm_bytes']:.4e} (dense FLOPs replicated "
-              f"over model={tp}: {cost['flops'] / tp:.4e} if split)")
+              f"hbm_bytes={cost['hbm_bytes']:.4e}{split}")
         print("  collective_bytes:", {k: f"{v:.3e}" for k, v in
                                       cost["collective_bytes"].items()
                                       if v})

@@ -16,6 +16,14 @@ and their results are then carried to the port's layout (`to_port`).
 
 Shapes come from the model built on the ``meta`` device, which
 allocates nothing (the reference's ``eval_shape``).
+
+Tensor parallelism (`tensor_parallel`, `tp_compute_specs`,
+`shard_tensor_parallel`): on a mesh whose "model" axis has more than one
+rank, a dense model's compute blocks are the reference's parameter specs
+with the batch axes taken out and "model" kept, so each rank holds and
+computes the reference's "model" block of every layer, as GSPMD runs it
+(Megatron's layout: attention heads, the MLP's ``d_ff`` and the padded
+vocabulary of the embedding and head split over "model").
 """
 from __future__ import annotations
 
@@ -311,8 +319,88 @@ def train_batch_specs(cfg: ModelConfig, batch_axis=("data",)) -> dict:
 
 def residual_spec(batch_axis=("data",), seq_axis="model") -> PartitionSpec:
     """Megatron-style sequence-parallel residual stream (train path). A
-    layout hint to GSPMD in the reference; in the port the residual
-    stream is replicated over "model" (dense layers run whole on every
-    rank of a line), so the spec is documentation only and no code
-    constrains to it."""
+    layout hint to GSPMD in the reference; in the port a tensor-parallel
+    dense model holds its residual stream so where the train and prefill
+    plans ask for it (``sequence_parallel``, `models.train_loss`), and
+    the other families hold it replicated over "model"."""
     return P(batch_axis, seq_axis, None)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism of the dense family
+# ---------------------------------------------------------------------------
+
+def kv_heads_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether a rank's compute blocks hold its block of the kv heads: the
+    reference splits them where ``cfg.shard_kv_heads`` holds, and the
+    mesh's "model" axis must divide them too; else ``wk``/``wv`` are
+    whole on every rank (replicated, or gathered where they rest split)."""
+    return cfg.shard_kv_heads and \
+        cfg.num_kv_heads % mesh.shape.get("model", 1) == 0
+
+
+def tensor_parallel(cfg: ModelConfig, mesh, kind: str = "train") -> bool:
+    """Whether a plan of ``kind`` on ``mesh`` runs the dense layers
+    tensor-parallel over "model": a dense config (no experts, no encoder:
+    the other families keep the replicated compute model), "model" of
+    more than one rank dividing the padded q heads, ``d_ff`` and the
+    padded vocabulary, and in decode kv heads that split over "model" as
+    its caches do (`kv_heads_split`) or rest replicated."""
+    if mesh is None:
+        return False
+    tp = mesh.shape.get("model", 1)
+    if tp == 1 or cfg.family != "dense" or cfg.num_experts or \
+            cfg.encoder_layers:
+        return False
+    if cfg.padded_heads % tp or cfg.d_ff % tp or cfg.padded_vocab % tp:
+        return False
+    return kind != "decode" or kv_heads_split(cfg, mesh) == \
+        cfg.shard_kv_heads
+
+
+def tp_compute_specs(cfg: ModelConfig, mesh,
+                     pspecs: Dict[str, PartitionSpec]
+                     ) -> Dict[str, PartitionSpec]:
+    """What a tensor-parallel rank's compute model holds of each parameter
+    (port specs ``pspecs`` by name): its spec with every axis but "model"
+    taken out (an FSDP or multi-pod batch axis is gathered), and the k/v
+    projections whole where the kv heads do not split (`kv_heads_split`)."""
+    whole_kv = not kv_heads_split(cfg, mesh)
+    out = {}
+    for n, spec in pspecs.items():
+        kv = n.split(".")[-2:-1] in (["wk"], ["wv"])
+        out[n] = P(*[e if e == "model" and not (whole_kv and kv) else None
+                     for e in spec])
+    return out
+
+
+def shard_tensor_parallel(model, cfg: ModelConfig, mesh,
+                          specs: Optional[Dict[str, PartitionSpec]] = None
+                          ) -> None:
+    """Make ``model`` (whole, on this rank of ``mesh``) the rank's
+    tensor-parallel compute model, in place: each parameter cut to its
+    block under ``specs`` (default `tp_compute_specs` of the reference's
+    specs), and the model, its blocks, attentions and MLPs marked with the
+    axis (``tp_axis``) they split over. A model marked already is left as
+    it is."""
+    from repro_torch.models.attention import Attention
+    from repro_torch.models.blocks import Block
+    from repro_torch.models.mlp import MLP
+
+    if getattr(model, "tp_axis", None) is not None:
+        return
+    if specs is None:
+        specs = tp_compute_specs(cfg, mesh, param_specs(cfg))
+    with torch.no_grad():
+        for name, p in list(model.named_parameters()):
+            block = NamedSharding(mesh, specs[name]).block(p)
+            if block.shape == p.shape:
+                continue
+            owner, _, leaf = name.rpartition(".")
+            module = model.get_submodule(owner) if owner else model
+            setattr(module, leaf, torch.nn.Parameter(
+                block.clone(), requires_grad=p.requires_grad))
+    model.tp_axis = "model"
+    for m in model.modules():
+        if isinstance(m, (Attention, Block, MLP)):
+            m.tp_axis = "model"

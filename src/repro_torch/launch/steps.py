@@ -19,28 +19,38 @@ inside ``with mesh:``:
   reference's specs (`param_and_state_specs`: `sharding.param_specs`,
   FSDP-widened for ``cfg.fsdp_params`` archs) and of the float32
   moments under ``optim.zero_specs`` (ZeRO-1);
-* a step all_gathers each parameter into a model held whole on every
-  rank (the compute model), except the experts of an expert-parallel
-  MoE, which stay the rank's shard; the forward and backward run on the
-  rank's rows of the batch with the mixers' expert- and
-  sequence-parallel paths;
+* a step all_gathers each parameter into the rank's compute model and
+  runs the forward and backward on the rank's rows of the batch;
 * each gradient is cut to the rank's moment block and summed over the
   batch axes (a reduce-scatter where the block splits over "data", an
   all-reduce where it does not), and `optim.adamw_update_sharded`
   updates the blocks.
 
-The dense layers therefore run replicated over "model": the reference's
-GSPMD would split their matmuls over it too (ROADMAP C records the
-difference). An MoE that takes the global dispatch routes the global
-batch (`models.moe.route`).
+The compute model of a dense config is tensor-parallel
+(`sharding.tensor_parallel`): each rank holds the reference's "model"
+block of every parameter (its specs with the batch axes taken out,
+`sharding.tp_compute_specs`), so a step gathers a parameter over the
+batch axes only (an FSDP-widened one over "data"), the layers run
+Megatron's tensor parallelism as the reference's GSPMD does (with the
+residual stream split along T where ``sequence_parallel`` asks), and a
+gradient is already the rank's "model" block. The other families
+(hybrid, MoE, xLSTM, encoder-decoder) hold every parameter whole on
+every rank, except an expert-parallel MoE's experts, which stay the
+rank's shard, and run the mixers' expert- and sequence-parallel paths:
+their dense layers run replicated over "model" (ROADMAP C). An MoE that
+takes the global dispatch routes the global batch (`models.moe.route`).
 
-The prefill and decode plans (`ServePlan`) run in the same replicated
-layout on every rank of a mesh: the parameters gathered whole, the
-rank's rows of the batch, and a decode cache block gathered over the
-axes besides the batch's, used, and written back.
+The prefill and decode plans (`ServePlan`) lay out the compute model in
+the same way on every rank of a mesh, the rank's rows of the batch
+split over the batch axes. A tensor-parallel decode step reads and
+writes the rank's cache blocks in place (its kv heads, its block of the
+caches' sequence, or the whole cache where neither splits: the
+reference's cache specs); the other families gather each cache block
+over the axes besides the batch's, use it, and write it back.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
@@ -74,14 +84,16 @@ def init_train_state(model: CausalLM) -> TrainState:
 
 
 def loss_and_grads(model: CausalLM, cfg: ModelConfig,
-                   batch: Dict[str, torch.Tensor]
+                   batch: Dict[str, torch.Tensor], *,
+                   sequence_parallel: bool = False
                    ) -> Tuple[torch.Tensor, dict, Dict[str, torch.Tensor]]:
     """``value_and_grad(train_loss)``: (loss, ``{"ce", "aux"}``, the
     gradient of every named parameter). A parameter the loss does not
     reach (a cross-attention's QKV bias, which the reference's
     cross-attention ignores too) gets zeros, as under JAX."""
     params = dict(model.named_parameters())
-    loss, metrics = train_loss(model, cfg, batch)
+    loss, metrics = train_loss(model, cfg, batch,
+                               sequence_parallel=sequence_parallel)
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, {
@@ -168,6 +180,16 @@ def _ep_names(cfg: ModelConfig, mesh, seq_len: int, names) -> set:
     return {n for n in names if ".moe." in n and not n.endswith("router")}
 
 
+def _plan_compute_specs(cfg: ModelConfig, mesh, pspecs, ep: set,
+                        kind: str) -> Tuple[Dict[str, Any], bool]:
+    """(the compute specs, whether tensor-parallel) of a plan of ``kind``
+    on ``mesh``: the "model" blocks for the dense family
+    (`sharding.tensor_parallel`), else `_compute_specs`."""
+    if shard_lib.tensor_parallel(cfg, mesh, kind):
+        return shard_lib.tp_compute_specs(cfg, mesh, pspecs), True
+    return _compute_specs(pspecs, ep), False
+
+
 # ---------------------------------------------------------------------------
 # Cell plans
 # ---------------------------------------------------------------------------
@@ -194,9 +216,9 @@ class CellPlan:
     alone (an `AbstractMesh` will do). ``kind`` is the shape's ("train",
     "prefill" or "decode"); ``model`` the compute model once one is bound
     (`bind`, `TrainPlan.init_state`); ``param_specs`` and
-    ``compute_specs`` (what the compute model holds: whole, or an
-    expert-parallel MoE's expert shard over "model") by name, on a
-    mesh."""
+    ``compute_specs`` (what the compute model holds: the "model" blocks
+    where ``tensor_parallel``, else whole or an expert-parallel MoE's
+    expert shard over "model") by name, on a mesh."""
 
     cfg: ModelConfig
     shape: Optional[ShapeConfig]
@@ -208,6 +230,7 @@ class CellPlan:
     param_specs: Dict[str, Any] = None
     compute_specs: Dict[str, Any] = None
     model: Optional[CausalLM] = None
+    tensor_parallel: bool = False
 
     def __call__(self, *args, **kwargs):
         return self.step_fn(*args, **kwargs)
@@ -226,14 +249,39 @@ class CellPlan:
         ``CellPlan.per_chip_argument_bytes`` counts them."""
         return _block_bytes(self.mesh, self.argument_leaves())
 
+    def compute_param_bytes(self) -> int:
+        """Bytes per rank of the compute model's parameters, as the plan's
+        compute specs cut them (the whole model on one device)."""
+        specs = self.compute_specs or {}
+        shapes = self.param_shapes or shard_lib.param_shapes(self.cfg)
+        return _block_bytes(self.mesh, [
+            (shape, specs.get(n, P()), dtype.itemsize)
+            for n, (shape, dtype) in shapes.items()])
+
     def _use_model(self, model: CausalLM) -> None:
-        """Make ``model`` (whole, on the rank's device) the compute model,
-        an expert-parallel MoE's experts cut to the rank's shard."""
-        if any(e == "model" for s in self.compute_specs.values() for e in s):
+        """Make ``model`` (whole, on the rank's device) the compute model:
+        its "model" blocks where the plan is tensor-parallel, else whole
+        with an expert-parallel MoE's experts cut to the rank's shard."""
+        if self.tensor_parallel:
+            shard_lib.shard_tensor_parallel(model, self.cfg, self.mesh,
+                                            self.compute_specs)
+        elif any(e == "model" for s in self.compute_specs.values()
+                 for e in s):
             from repro_torch.models import moe as moe_lib
 
             moe_lib.shard_model(model, self.cfg, self.mesh)
         self.model = model
+
+    def _blocks_of(self, model: CausalLM) -> Dict[str, torch.Tensor]:
+        """The rank's parameter blocks (copies) of ``model``: whole, or a
+        tensor-parallel compute model already cut to its "model" blocks."""
+        ps = self.shardings(self.param_specs)
+        cs = self.shardings(self.compute_specs)
+        cut = getattr(model, "tp_axis", None) is not None
+        with torch.no_grad():
+            return {n: (refine_block(p, cs[n], ps[n]) if cut
+                        else ps[n].block(p)).clone()
+                    for n, p in model.named_parameters()}
 
     def _load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """The compute model's parameters from the rank's blocks
@@ -271,14 +319,11 @@ class TrainPlan(CellPlan):
         the rank's shard, in place)."""
         if self.param_specs is None:
             return init_train_state(model)
-        ps = self.shardings(self.param_specs)
         ms = self.shardings(self.moment_specs)
-        full = dict(model.named_parameters())
-        with torch.no_grad():
-            params = {n: ps[n].block(p).clone() for n, p in full.items()}
+        params = self._blocks_of(model)
         zeros = lambda: {n: torch.zeros(  # noqa: E731
-            ms[n].shard_shape(p.shape), dtype=torch.float32,
-            device=p.device) for n, p in full.items()}
+            ms[n].shard_shape(self.param_shapes[n][0]), dtype=torch.float32,
+            device=p.device) for n, p in params.items()}
         moments = (zeros(), zeros())
         self._use_model(model)
         dev = next(iter(params.values())).device
@@ -370,10 +415,10 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     ``state`` is ``plan.init_state(model)``, ``batch`` the rank's rows
     (``shape.global_batch`` split over the batch axes, row-major), and
     the step runs on every rank at once (module docstring).
-    ``sequence_parallel`` is the reference's residual-stream layout hint
-    (`sharding.residual_spec`), which the port's replicated residual
-    stream has no use for."""
-    del sequence_parallel
+    ``sequence_parallel``: as the reference's ``residual_spec``, a
+    tensor-parallel (dense) model splits its residual stream along T over
+    "model" where T divides (`sharding.residual_spec`); the other
+    families keep it replicated."""
     if mesh is None or mesh.size == 1:
         return _one_device_plan(cfg, shape, opt_cfg, total_steps,
                                 warmup_steps)
@@ -388,13 +433,14 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     shapes, pspecs, _, opt_specs = param_and_state_specs(cfg, mesh,
                                                          for_train=True)
     ep = _ep_names(cfg, mesh, shape.seq_len, shapes)
-    cspecs = _compute_specs(pspecs, ep)
+    cspecs, tp = _plan_compute_specs(cfg, mesh, pspecs, ep, "train")
     batch = tuple(a for a in b_axis if a in mesh.shape)
     plan = TrainPlan(cfg=cfg, shape=shape, mesh=mesh, step_fn=None,
                      description=f"train_step {cfg.name} x {shape.name}",
                      param_shapes=shapes, param_specs=pspecs,
                      compute_specs=cspecs, moment_specs=opt_specs.m,
-                     batch_specs=shard_lib.train_batch_specs(cfg, b_axis))
+                     batch_specs=shard_lib.train_batch_specs(cfg, b_axis),
+                     tensor_parallel=tp)
 
     def step(state: TrainState, batch_rows) -> Tuple[TrainState, dict]:
         model = plan.model
@@ -406,7 +452,8 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         cs = plan.shardings(cspecs)
         with mesh:
             plan._load_params(state.params)
-            loss, metrics, grads = loss_and_grads(model, cfg, batch_rows)
+            loss, metrics, grads = loss_and_grads(
+                model, cfg, batch_rows, sequence_parallel=sequence_parallel)
             blocks = {}
             for n in list(grads):
                 blocks[n] = _reduce_grad(grads.pop(n), cs[n], ms[n], batch)
@@ -499,15 +546,22 @@ class ServePlan(CellPlan):
     tokens, pos[, memory])`` one decode step (the rank's rows' logits and
     its cache blocks, written in place).
 
-    On a mesh the step runs on every rank at once, in the replicated
-    layout of the train step: the parameters are all_gathered whole (an
-    expert-parallel MoE's experts into the rank's shard), the rank runs
-    the model on its rows, and a decode step all_gathers each cache block
-    over the axes besides the batch's (the KV heads, or the sequence
-    where they do not divide "model"; an SSM's or xLSTM's width), runs
-    on the rows' whole caches, and writes the rank's block back. A decode
-    batch that does not divide "data" is whole on every rank, and an
-    MoE's global dispatch is told so (`moe.rows_split_over`)."""
+    On a mesh the step runs on every rank at once, with the compute model
+    of the train step's layout: a dense config's "model" blocks
+    (``tensor_parallel``; prefill sequence-parallel where T divides), a
+    decode step reading and writing the rank's cache blocks in place
+    (`models.attention.caches_split_along_sequence` where the caches'
+    sequence splits over "model") and the logits gathered over the
+    vocabulary; the other families' parameters all_gathered whole (an
+    expert-parallel MoE's experts into the rank's shard), the rank
+    running the model on its rows, and a decode step all_gathering each
+    cache block over the axes besides the batch's (the KV heads, or the
+    sequence where they do not divide "model"; an SSM's or xLSTM's
+    width), running on the rows' whole caches and writing the rank's
+    block back. A decode batch that does not divide "data" is whole on
+    every rank, and an MoE's global dispatch is told so
+    (`moe.rows_split_over`). ``bind`` also takes a model that a
+    tensor-parallel plan on the same mesh has bound already."""
 
     arg_leaves: list = None
     cache_specs: Any = None
@@ -520,10 +574,7 @@ class ServePlan(CellPlan):
         if self.mesh is None:
             self.model = model
             return dict(model.named_parameters())
-        ps = self.shardings(self.param_specs)
-        with torch.no_grad():
-            params = {n: ps[n].block(p).clone()
-                      for n, p in model.named_parameters()}
+        params = self._blocks_of(model)
         self._use_model(model)
         return params
 
@@ -550,7 +601,8 @@ def _serve_tables(cfg: ModelConfig, mesh, shape: ShapeConfig, kind: str):
                   for k, leaf in leaves.items()]
     T = shape.seq_len if kind == "prefill" else 1
     ep = set() if mesh is None else _ep_names(cfg, mesh, T, shapes)
-    return arg_leaves, pspecs, _compute_specs(pspecs, ep), shapes
+    cspecs, tp = _plan_compute_specs(cfg, mesh, pspecs, ep, kind)
+    return arg_leaves, pspecs, cspecs, shapes, tp
 
 
 def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig
@@ -561,8 +613,8 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig
 
     if mesh is not None and mesh.size == 1:
         mesh = None
-    arg_leaves, pspecs, cspecs, shapes = _serve_tables(cfg, mesh, shape,
-                                                       "prefill")
+    arg_leaves, pspecs, cspecs, shapes, tp = _serve_tables(cfg, mesh, shape,
+                                                           "prefill")
     b_axis = batch_axes(_one_rank(mesh))
     B, T = shape.global_batch, shape.seq_len
     arg_leaves.append(((B, T), P(b_axis, None), 4))
@@ -574,14 +626,18 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig
                      description=f"prefill {cfg.name} x {shape.name}",
                      kind="prefill", param_shapes=shapes,
                      param_specs=pspecs, compute_specs=cspecs,
-                     arg_leaves=arg_leaves, row_spec=b_axis)
+                     arg_leaves=arg_leaves, row_spec=b_axis,
+                     tensor_parallel=tp)
 
     def step(params, tokens, enc_emb=None):
         if mesh is None:
             return prefill(plan.model, cfg, tokens, enc_emb)
         with mesh:
             plan._load_params(params)
-            return prefill(plan.model, cfg, tokens, enc_emb)
+            # The reference's prefill residual spec: split along T over
+            # "model" where T divides (a tensor-parallel model only).
+            return prefill(plan.model, cfg, tokens, enc_emb,
+                           sequence_parallel=True)
 
     plan.step_fn = step
     return plan
@@ -595,13 +651,14 @@ def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeConfig
     (and the caches' over "pod" too on a multi-pod mesh, where the
     reference's tokens split over "data" alone: the port's step takes
     the tokens of its caches' rows)."""
+    from repro_torch.models import attention as attn_lib
     from repro_torch.models import decode_step
     from repro_torch.models import moe as moe_lib
 
     if mesh is not None and mesh.size == 1:
         mesh = None
-    arg_leaves, pspecs, cspecs, shapes = _serve_tables(cfg, mesh, shape,
-                                                       "decode")
+    arg_leaves, pspecs, cspecs, shapes, tp = _serve_tables(cfg, mesh, shape,
+                                                           "decode")
     m = _one_rank(mesh)
     B, S = shape.global_batch, shape.seq_len
     cache_shapes, cache_specs = _cache_shapes_and_specs(cfg, B, S, m)
@@ -625,12 +682,29 @@ def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeConfig
                      kind="decode", param_shapes=shapes,
                      param_specs=pspecs, compute_specs=cspecs,
                      arg_leaves=arg_leaves, cache_specs=cache_specs,
-                     row_spec=row)
+                     row_spec=row, tensor_parallel=tp)
+    # Where the reference splits the kv caches' sequence over "model"
+    # (`_cache_shapes_and_specs`), the rank's cache blocks are its rows.
+    seq_split = (tp and not shard_lib.kv_heads_split(cfg, m) and S >= 16)
 
     def step(params, caches, tokens, pos, memory=None):
         if mesh is None:
             return decode_step(plan.model, cfg, caches, tokens, pos,
                                memory=memory)
+        if tp:
+            with mesh, contextlib.ExitStack() as stack:
+                if seq_split:
+                    stack.enter_context(
+                        attn_lib.caches_split_along_sequence("model", S))
+                plan._load_params(params)
+                logits, new = decode_step(plan.model, cfg, caches, tokens,
+                                          pos, memory=memory)
+            # The blocks were written in place; the lengths advance.
+            with torch.no_grad():
+                for t, n in zip(_leaves(caches), _leaves(new)):
+                    if n is not t:
+                        t.copy_(n)
+            return logits, caches
         blocks = {id(t): NamedSharding(mesh, spec) for t, spec in zip(
             _leaves(caches), _leaves(cache_specs))}
         with mesh, moe_lib.rows_split_over(split):

@@ -32,6 +32,25 @@ Where attention runs (``impl``):
 `update_cache` writes the new step in place (the reference returns new
 buffers): a linear cache at ``min(length, S - 1)``, a windowed one as a
 ring at ``length % S``, with the index computed on the device.
+
+Tensor parallelism (a module whose ``tp_axis`` names the mesh axis,
+`launch.sharding.shard_tensor_parallel`): the rank holds the reference's
+"model" block of every weight: its block of the padded q heads (``wq``,
+``bq`` and ``wo``'s rows), and its block of the kv heads where
+``cfg.shard_kv_heads`` holds and they split over the mesh's axis, else
+``wk``/``wv`` whole. Its q heads read kv heads by the reference's map
+(`head_map`: padded heads read the last kv head), restated on the rank:
+at ``tp_size`` 16 and a "model" of 2, qwen2-1.5b's rank 0 holds q heads
+0-7 on kv heads 0 (six) and 1 (two), rank 1 heads 8-15 (four real) on kv
+head 1. The layer enters its region from the residual stream and leaves
+it with the partial products of ``wo`` summed (`layers.tp_enter`,
+`layers.tp_exit`; a sequence-parallel stream is gathered and scattered
+along T). A decode cache is the rank's block as the decode plan lays it
+out, read in place: its kv heads, or the whole cache where the kv heads
+are replicated and the cache is short, or its block of the sequence
+where the plan splits the cache's sequence over the axis
+(`caches_split_along_sequence`): then every rank runs every real q head
+against its rows, and the ranks' rows merge by their log-sum-exps.
 """
 from __future__ import annotations
 
@@ -45,10 +64,11 @@ import torch.nn.functional as F
 
 from repro_torch import counting
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import P
+from repro_torch.distributed import P, all_gather, axis_index, axis_size
 from repro_torch.kernels.flash_attention import flash_attention as kfa
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.layers import init_linear
+from repro_torch.models.layers import (init_linear, tp_axis, tp_enter,
+                                       tp_exit, tp_weight)
 
 _NEG_INF = -1e30
 IMPLS = ("auto", "plain")
@@ -97,14 +117,70 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
     return Attention(cfg, gen, dtype)
 
 
+def head_map(cfg: ModelConfig) -> Tuple[int, ...]:
+    """The reference's static q head -> kv head map (`expand_kv_heads`):
+    q head ``i`` of the padded heads reads ``min(i // g, Hkv - 1)``, ``g =
+    num_heads // Hkv``."""
+    hkv = cfg.num_kv_heads
+    g = max(cfg.num_heads // hkv, 1)
+    return tuple(min(i // g, hkv - 1) for i in range(cfg.padded_heads))
+
+
+class Heads(NamedTuple):
+    """The heads a rank holds: q heads ``[q0, q0 + n_q)`` of the padded
+    heads, of which the first ``real`` are real; ``n_kv`` kv heads, its
+    block of them where ``kv_split``, else all; ``map``: each held q
+    head's kv head among those held. One device (or a module holding its
+    weights whole) holds them all."""
+    q0: int
+    n_q: int
+    real: int
+    n_kv: int
+    kv_split: bool
+    map: Tuple[int, ...]
+
+
+def rank_heads(params: Attention, cfg: ModelConfig) -> Heads:
+    """The heads of this rank's `Attention` (all of them where it is not
+    tensor-parallel), from its weights' shapes and the rank's coordinate
+    on its ``tp_axis``."""
+    dh = cfg.resolved_head_dim
+    n_q, n_kv = (params.wq.weight.shape[0] // dh,
+                 params.wk.weight.shape[0] // dh)
+    axis = tp_axis(params)
+    r = axis_index(axis) if axis is not None else 0
+    q0 = r * n_q
+    split = n_kv < cfg.num_kv_heads
+    kv0 = r * n_kv if split else 0
+    full = head_map(cfg)
+    return Heads(q0=q0, n_q=n_q, real=max(0, min(cfg.num_heads - q0, n_q)),
+                 n_kv=n_kv, kv_split=split,
+                 map=tuple(full[q0 + j] - kv0 for j in range(n_q)))
+
+
+def _grouped(hmap: Tuple[int, ...], n_kv: int) -> bool:
+    """Whether q head ``j`` of ``hmap`` reads kv head ``j // (len / n_kv)``
+    of ``n_kv``: the kernels' own map, which needs no map passed."""
+    n = len(hmap)
+    return n > 0 and n % n_kv == 0 and hmap == tuple(
+        j // (n // n_kv) for j in range(n))
+
+
 def _project_qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
-    """x [B, T, d] -> q [B, T, Hq, Dh], k/v [B, T, Hkv, Dh] (rope applied)."""
+                 positions: torch.Tensor, heads: Heads):
+    """x [B, T, d] -> q [B, T, Hq, Dh], k/v [B, T, Hkv, Dh] (rope applied):
+    the rank's heads (`rank_heads`; all of them on one device), where
+    under tensor parallelism ``wk`` and ``wv`` held whole feed the rank's
+    own heads (`layers.tp_weight`)."""
     B, T, _ = x.shape
     dh = cfg.resolved_head_dim
-    q = params.wq(x).reshape(B, T, cfg.padded_heads, dh)
-    k = params.wk(x).reshape(B, T, cfg.num_kv_heads, dh)
-    v = params.wv(x).reshape(B, T, cfg.num_kv_heads, dh)
+    axis = tp_axis(params)
+    whole_kv = axis is not None and not heads.kv_split
+    q = params.wq(x).reshape(B, T, heads.n_q, dh)
+    k, v = (F.linear(x, tp_weight(lin.weight, axis, whole_kv),
+                     None if lin.bias is None
+                     else tp_weight(lin.bias, axis, whole_kv))
+            .reshape(B, T, heads.n_kv, dh) for lin in (params.wk, params.wv))
     if cfg.rope_mode == "mrope":
         q, k = rope_lib.apply_mrope(q, k, positions, cfg.rope_theta,
                                     cfg.mrope_sections)
@@ -191,13 +267,20 @@ def blockwise_causal_attention(q, k, v, *, chunk: int, window: int = 0,
 
 
 def decode_attention(q: torch.Tensor, cache: KVCache, *, window: int = 0,
-                     softcap: float = 0.0) -> torch.Tensor:
+                     softcap: float = 0.0, head_map=None,
+                     return_lse: bool = False):
     """Single-token decode, plain: q ``[B, Tq, Hq, Dh]`` against the cache,
     valid rows ``pos < length`` (a windowed cache is a ring whose resident
-    rows are all in the window)."""
+    rows are all in the window); q head ``i`` against kv head
+    ``head_map[i]`` where a map is given. ``return_lse``: also the rows'
+    log-sum-exps ``[B, Hq, Tq]`` (`kfa.decode_attention_plain`)."""
     PLAIN_CALLS["decode_attention"] += 1
     out = kfa.decode_attention_plain(q.transpose(1, 2), cache.k, cache.v,
-                                     cache.length, softcap=softcap)
+                                     cache.length, softcap=softcap,
+                                     head_map=head_map,
+                                     return_lse=return_lse)
+    if return_lse:
+        return out[0].transpose(1, 2), out[1]
     return out.transpose(1, 2)
 
 
@@ -232,11 +315,80 @@ def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     return KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
 
 
-def _pad_heads(ctx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """ctx ``[B, T, num_heads, Dh]`` -> ``[B, T, padded_heads, Dh]``, the
-    padded heads zero."""
-    extra = cfg.padded_heads - cfg.num_heads
+def _pad_heads(ctx: torch.Tensor, cfg: ModelConfig,
+               n_q: Optional[int] = None) -> torch.Tensor:
+    """ctx ``[B, T, real heads, Dh]`` -> ``[B, T, n_q, Dh]`` (default all
+    ``padded_heads``), the padded heads zero."""
+    extra = (cfg.padded_heads if n_q is None else n_q) - ctx.shape[2]
     return F.pad(ctx, (0, 0, 0, extra)) if extra else ctx
+
+
+#: The decode plan's word on its KV caches (`caches_split_along_sequence`).
+_SEQ_SPLIT: list = []
+
+
+@contextlib.contextmanager
+def caches_split_along_sequence(axis: str, capacity: int):
+    """Within the block, a tensor-parallel decode step's KV caches of
+    ``capacity`` rows (the decode plan's; not a shorter ring) are split
+    along their sequence over ``axis``: the rank holds rows ``[c S', (c
+    + 1) S')`` of each, ``c`` its coordinate, ``S' = capacity / size``, as
+    the reference lays out the caches of kv heads that do not split over
+    "model"."""
+    _SEQ_SPLIT.append((axis, capacity))
+    try:
+        yield
+    finally:
+        _SEQ_SPLIT.pop()
+
+
+def _sequence_block(cache: KVCache, window: int):
+    """(axis, capacity, first row) where this layer's cache is the rank's
+    block of its sequence (`caches_split_along_sequence`), else None."""
+    if not _SEQ_SPLIT:
+        return None
+    axis, S = _SEQ_SPLIT[-1]
+    if (window and window < S) or S < 16:
+        return None      # a ring shorter than the plan's caches: whole
+    n = axis_size(axis)
+    if cache.k.shape[2] * n != S:
+        raise ValueError(f"a cache block of {cache.k.shape[2]} rows is not "
+                         f"1/{n} of {S}")
+    return axis, S, axis_index(axis) * cache.k.shape[2]
+
+
+def update_cache_block(cache: KVCache, k_new: torch.Tensor,
+                       v_new: torch.Tensor, *, window: int, capacity: int,
+                       first: int) -> KVCache:
+    """`update_cache` on the rank's block of a cache split along its
+    sequence: rows ``[first, first + S')`` of ``capacity``. The step's row
+    (where `update_cache` would write it) is written where this block
+    holds it; elsewhere the block's row there is rewritten unchanged, so
+    no rank waits on the host. Returns the cache with ``length + 1``."""
+    Sb = cache.k.shape[2]
+    length = cache.length.reshape(1).long()
+    idx = length % capacity if window > 0 else torch.clamp(
+        length, max=capacity - 1)
+    local = idx - first
+    mine = (local >= 0) & (local < Sb)
+    local = local.clamp(0, Sb - 1)
+    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+        row = new.transpose(1, 2).to(buf.dtype)
+        buf.index_copy_(2, local, torch.where(
+            mine, row, buf.index_select(2, local)))
+    return KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
+
+
+def _merge_over(o: torch.Tensor, lse: torch.Tensor, axis: str
+                ) -> torch.Tensor:
+    """Decode rows whose keys lie in several ranks' blocks of a cache: each
+    rank's normalised rows ``o [B, H, Tq, Dh]`` and log-sum-exps ``lse
+    [B, H, Tq]`` gathered over ``axis`` and weighed by ``exp(lse_r -
+    logsumexp_r lse_r)`` in float32 (a rank without keys weighs 0)."""
+    os_, ls = all_gather((o.float(), lse), axis)
+    total = torch.logsumexp(ls, dim=0)
+    w = torch.exp(ls - total)
+    return (w[..., None] * os_).sum(dim=0).to(o.dtype)
 
 
 def _region(impl: str, region):
@@ -250,55 +402,141 @@ def _region(impl: str, region):
 def attention_layer(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, *,
                     cache: Optional[KVCache] = None, window: int = 0,
-                    causal: bool = True, impl: str = "auto"
+                    causal: bool = True, impl: str = "auto",
+                    seq_split: bool = False
                     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Full attention sublayer. Returns (output ``[B, T, d]``, updated
     cache): prefill when ``cache`` is None, else one decode step (T == 1)
-    against the cache. ``impl``: see the module docstring."""
+    against the cache. ``impl``: see the module docstring. Under tensor
+    parallelism ``x`` is the residual stream as the rank holds it (its
+    block of the sequence where ``seq_split``) and so is the output."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r}; one of {IMPLS}")
+    axis = tp_axis(params)
+    if axis is not None:
+        x = tp_enter(x, axis, seq_split)
     kernel = impl == "auto" and x.is_cuda
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    H = cfg.num_heads
-    B, T, _, dh = q.shape
+    heads = rank_heads(params, cfg)
+    q, k, v = _project_qkv(params, x, cfg, positions, heads)
+    B, T = x.shape[:2]
     if cache is None:
         new_cache = None
-        qh, kh, vh = (t.transpose(1, 2) for t in (q[:, :, :H], k, v))
-        with _region(impl, kfa.counted_flash(qh, kh, causal, window)):
-            if kernel:
+        ctx = _prefill_attention(q, k, v, heads, cfg, causal=causal,
+                                 window=window, impl=impl, kernel=kernel)
+    else:
+        ctx, new_cache = _decode_attention_step(
+            q, k, v, cache, heads, cfg, axis, window=window, impl=impl,
+            kernel=kernel)
+    out = params.wo(ctx.reshape(B, T, -1))
+    if axis is not None:
+        out = tp_exit(out, axis, seq_split)
+    return out, new_cache
+
+
+def _kv_for_kernel(k: torch.Tensor, v: torch.Tensor,
+                   hmap: Tuple[int, ...]):
+    """The k/v ``[B, T, H', Dh]`` the prefill kernels take for q heads
+    reading kv heads ``hmap``: the kv heads themselves where ``hmap`` is
+    the kernels' own grouped map over them; else k/v built per q head.
+    Those are a tensor-parallel rank's heads whose kv heads are replicated
+    (qwen2-1.5b's rank 0 at "model" 2: six q heads on kv head 0, two on
+    kv head 1): a prefill's k/v are fresh activations, so building them
+    per layer copies no cache."""
+    if _grouped(hmap, k.shape[2]):
+        return k, v
+    idx = torch.tensor(hmap, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _prefill_attention(q, k, v, heads: Heads, cfg: ModelConfig, *,
+                       causal: bool, window: int, impl: str, kernel: bool
+                       ) -> torch.Tensor:
+    """Attention over the sequence of the rank's q heads ``q [B, T, n_q,
+    Dh]`` against k/v ``[B, T, n_kv, Dh]``. The kernel runs the real heads
+    and pads the padded ones with zeros; the plain version runs every
+    head on k/v expanded by the map, as the reference does."""
+    real, hmap = heads.real, heads.map[:heads.real]
+    kk, vk = _kv_for_kernel(k, v, hmap) if real else (k, v)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q[:, :, :real], kk, vk))
+    with _region(impl, kfa.counted_flash(qh, kh, causal, window)):
+        if kernel:
+            if real:
                 o = kfa.flash_attention_cuda(
                     qh.contiguous(), kh.contiguous(), vh.contiguous(),
                     causal=causal, window=window,
                     softcap=cfg.attn_logit_softcap)
-                ctx = _pad_heads(o.transpose(1, 2), cfg)
+                ctx = _pad_heads(o.transpose(1, 2), cfg, heads.n_q)
             else:
-                ke, ve = expand_kv_heads(k, v, cfg.padded_heads, H)
-                ctx = blockwise_causal_attention(
-                    q, ke, ve, chunk=min(cfg.attn_chunk, x.shape[1]),
-                    window=window, softcap=cfg.attn_logit_softcap,
-                    causal=causal)
-            # One layout out of every path, so that what follows counts
-            # alike (`repro_torch.counting`).
-            ctx = ctx.contiguous()
-    else:
+                ctx = torch.zeros_like(q)
+        else:
+            if heads.map == tuple(range(k.shape[2])):
+                ke, ve = k, v
+            else:
+                idx = torch.tensor(heads.map, device=k.device)
+                ke, ve = k.index_select(2, idx), v.index_select(2, idx)
+            ctx = blockwise_causal_attention(
+                q, ke, ve, chunk=min(cfg.attn_chunk, q.shape[1]),
+                window=window, softcap=cfg.attn_logit_softcap,
+                causal=causal)
+        # One layout out of every path, so that what follows counts
+        # alike (`repro_torch.counting`).
+        return ctx.contiguous()
+
+
+def _decode_call(qh: torch.Tensor, cache: KVCache, length: torch.Tensor,
+                 hmap: Tuple[int, ...], cfg: ModelConfig, *, impl: str,
+                 kernel: bool, lse: bool = False):
+    """One decode call of ``qh [B, H, Tq, Dh]`` against ``cache`` read in
+    place with ``length`` keys: the split-K kernel on the card, else the
+    plain version; q head ``i`` reads kv head ``hmap[i]`` (passed as a
+    map unless it is the kernel's own grouped map)."""
+    hm = None if _grouped(hmap, cache.k.shape[1]) else hmap
+    with _region(impl, kfa.counted_decode(qh, cache.k, hm)):
+        if kernel:
+            return kfa.decode_attention_cuda(
+                qh.contiguous(), cache.k, cache.v, length,
+                softcap=cfg.attn_logit_softcap, head_map=hm, return_lse=lse)
+        out = decode_attention(qh.transpose(1, 2), KVCache(
+            cache.k, cache.v, length), softcap=cfg.attn_logit_softcap,
+            head_map=hm, return_lse=lse)
+        return (out[0].transpose(1, 2), out[1]) if lse else \
+            out.transpose(1, 2)
+
+
+def _decode_attention_step(q, k, v, cache: KVCache, heads: Heads,
+                           cfg: ModelConfig, axis: Optional[str], *,
+                           window: int, impl: str, kernel: bool):
+    """One decode step of the rank's q heads against its cache block,
+    written in place: ``(ctx [B, 1, n_q, Dh], the cache)``. Decode runs on
+    the real heads only: the padded q heads have zero wq/wo rows (the
+    reference slices them off too)."""
+    seq = None
+    if axis is not None and not heads.kv_split:
+        seq = _sequence_block(cache, window)
+    if seq is None:
         new_cache = update_cache(cache, k, v, window=window)
-        # Decode runs on the real heads only: the padded q heads have zero
-        # wq/wo rows, and slicing keeps the grouped [Hkv, g] shape.
-        q_att = q[:, :, :H]
-        qh = q_att.transpose(1, 2)
-        with _region(impl, kfa.counted_decode(qh, new_cache.k)):
-            if kernel:
-                o = kfa.decode_attention_cuda(
-                    qh.contiguous(), new_cache.k,
-                    new_cache.v, new_cache.length,
-                    softcap=cfg.attn_logit_softcap)
-                ctx = o.transpose(1, 2)
-            else:
-                ctx = decode_attention(q_att, new_cache, window=window,
-                                       softcap=cfg.attn_logit_softcap)
-            ctx = _pad_heads(ctx, cfg).contiguous()
-    B, T = x.shape[:2]
-    return params.wo(ctx.reshape(B, T, -1)), new_cache
+        qh = q[:, :, :heads.real].transpose(1, 2)
+        o = _decode_call(qh, new_cache, new_cache.length,
+                         heads.map[:heads.real], cfg, impl=impl,
+                         kernel=kernel)
+        ctx = o.transpose(1, 2)
+    else:
+        # The rank holds its block of every kv head's sequence: every
+        # real q head runs against it, and the ranks' rows merge.
+        _, S, first = seq
+        new_cache = update_cache_block(cache, k, v, window=window,
+                                       capacity=S, first=first)
+        Sb = cache.k.shape[2]
+        n = (new_cache.length.clamp(max=S) - first).clamp(0, Sb).to(
+            torch.int32)
+        H = cfg.num_heads
+        q_all = all_gather(q, axis, axis=2, tiled=True)[:, :, :H]
+        o, lse = _decode_call(q_all.transpose(1, 2), new_cache, n,
+                              head_map(cfg)[:H], cfg, impl=impl,
+                              kernel=kernel, lse=True)
+        o = _merge_over(o, lse, axis)
+        ctx = o[:, heads.q0:heads.q0 + heads.real].transpose(1, 2)
+    return _pad_heads(ctx, cfg, heads.n_q).contiguous(), new_cache
 
 
 def chunked_cross(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

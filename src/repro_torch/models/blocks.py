@@ -9,6 +9,17 @@ All five kinds are ported: ``dense``, ``hybrid`` and ``moe`` (attention
 and an MLP, an SSM beside attention, or an MoE layer), and the xLSTM
 kinds ``mlstm`` and ``slstm`` (a norm and the recurrent layer, no
 attention: their run caches are the recurrent state alone).
+
+A tensor-parallel dense block (``tp_axis`` set by
+`launch.sharding.shard_tensor_parallel`) is Megatron's: each of its two
+sublayers enters its region from the residual stream and leaves it with
+the partial products summed (`layers.tp_enter`, `layers.tp_exit`). In
+train and prefill the stream may be sequence-parallel (``seq_split``:
+the rank holds its block of T, the reference's ``residual_spec``): the
+norms run on the block, the sublayers gather T before their column
+products and scatter it after their row products. Decode (T = 1) keeps
+the stream whole on every rank, with an all-reduce after each row
+product, as the reference's decode step has no residual spec.
 """
 from __future__ import annotations
 
@@ -25,7 +36,8 @@ from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.layers import init_rms_norm, rms_norm
+from repro_torch.models.layers import init_rms_norm, rms_norm, tp_axis, \
+    tp_weight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,16 +117,26 @@ def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
 
 def apply_block(params: Block, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 *, positions: torch.Tensor, window: int, cache=None,
-                causal: bool = True, impl: str = "auto"):
+                causal: bool = True, impl: str = "auto",
+                seq_split: bool = False):
     """Pre-norm residual block. Returns (x, new_cache, aux_loss): an MoE
     block's load-balance loss (a float32 scalar tensor), 0.0 for the
     other kinds. A hybrid block (Hymba) runs
     attention and the SSM on the same normed input and averages them,
     the SSM output normed first; ``impl`` says where both run (and the
     mLSTM's chunk scan). An xLSTM block adds its layer's output to the
-    residual; ``positions`` and ``window`` are unused there."""
+    residual; ``positions`` and ``window`` are unused there.
+    ``seq_split``: a tensor-parallel block's residual stream is the rank's
+    block of the sequence (module docstring); ``positions`` are those of
+    the whole sequence."""
     _check_kind(kind)
-    h = rms_norm(x, params.ln1, cfg.rmsnorm_eps)
+    axis = tp_axis(params)
+    if axis is not None and kind != "dense":
+        raise ValueError(f"tensor parallelism covers the dense block, not "
+                         f"{kind!r}")
+    # A norm on the rank's block of T: its gradient sums the ranks' parts.
+    ln = lambda w: tp_weight(w, axis, seq_split)  # noqa: E731
+    h = rms_norm(x, ln(params.ln1), cfg.rmsnorm_eps)
     if kind == "mlstm":
         y, new_cache = xlstm_lib.mlstm_layer(params.mlstm, h, cfg,
                                              cache=cache, impl=impl)
@@ -126,7 +148,7 @@ def apply_block(params: Block, x: torch.Tensor, cfg: ModelConfig, kind: str,
     attn_cache = cache["attn"] if cache is not None else None
     a, new_attn_cache = attn_lib.attention_layer(
         params.attn, h, cfg, positions, cache=attn_cache, window=window,
-        causal=causal, impl=impl)
+        causal=causal, impl=impl, seq_split=seq_split)
     new_cache = None if cache is None else dict(attn=new_attn_cache)
     if kind == "hybrid":
         s, new_ssm_cache = ssm_lib.ssm_layer(
@@ -137,12 +159,12 @@ def apply_block(params: Block, x: torch.Tensor, cfg: ModelConfig, kind: str,
             new_cache["ssm"] = new_ssm_cache
     else:
         x = x + a
-    h2 = rms_norm(x, params.ln2, cfg.rmsnorm_eps)
+    h2 = rms_norm(x, ln(params.ln2), cfg.rmsnorm_eps)
     aux = 0.0
     if kind == "moe":
         m, aux = moe_lib.moe_layer(params.moe, h2, cfg)
     else:
-        m = mlp_lib.mlp(params.mlp, h2)
+        m = mlp_lib.mlp(params.mlp, h2, seq_split=seq_split)
     return x + m, new_cache, aux
 
 

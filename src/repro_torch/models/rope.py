@@ -4,7 +4,10 @@ The JAX package's ``repro.models.rope`` on tensors. Angles are computed in
 float32 whatever the activations' dtype; the rotated values are cast back
 to it. M-RoPE splits the rotary channels into three sections (temporal /
 height / width) driven by 3-row position ids; for pure-text tokens the
-three rows are equal and M-RoPE reduces exactly to RoPE.
+three rows are equal and M-RoPE reduces exactly to RoPE. Both rotate each
+head on its own, so a tensor-parallel rank rotates its heads with the
+positions of the whole sequence (a sequence-parallel stream is gathered
+before q and k are projected) and needs nothing of this module changed.
 """
 from __future__ import annotations
 

@@ -24,6 +24,19 @@ them, as the reference's do). ``impl``
 scans run (`models.attention`, `models.ssm`, `models.xlstm`): ``"auto"``
 runs the CUDA kernels on the card. Decode writes the caches in place and
 returns them with the attention caches' lengths advanced.
+
+Tensor parallelism (a dense model sharded by
+`launch.sharding.shard_tensor_parallel`, its ``tp_axis`` set, run under
+``with mesh:``): the embedding and the head split the padded vocabulary
+(`layers.vocab_parallel_embedding`; `train_loss` takes the
+vocabulary-parallel cross-entropy, `layers.vocab_parallel_ce_terms`),
+the blocks are Megatron's (`blocks.apply_block`), and `prefill` and
+`decode_step` return the logits gathered over the vocabulary, so every
+rank of a "model" line returns the same logits as one device. With
+``sequence_parallel``, `train_loss` and `prefill` keep the residual
+stream split along T over the axis where it divides T (the reference's
+``residual_spec``); the positions are those of the whole sequence, which
+the sublayers gather before they project q and k.
 """
 from __future__ import annotations
 
@@ -38,11 +51,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import Device, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blocks_lib
-from repro_torch.distributed import active_mesh, psum
+from repro_torch.distributed import (active_mesh, all_gather, axis_index,
+                                     axis_size, psum)
 from repro_torch.models.layers import (cross_entropy_loss,
                                        cross_entropy_terms, dtype_of,
                                        embedding_lookup, init_embedding,
-                                       init_linear, init_rms_norm, rms_norm)
+                                       init_linear, init_rms_norm, rms_norm,
+                                       tp_axis, tp_enter, tp_weight,
+                                       vocab_parallel_ce_terms,
+                                       vocab_parallel_embedding)
 
 #: ``cfg.remat`` values (`_layer_fn`).
 REMATS = ("none", "block", "dots")
@@ -107,15 +124,17 @@ def _positions(cfg: ModelConfig, B: int, T: int, offset=0,
 def _apply_stack(model: CausalLM, x: torch.Tensor, cfg: ModelConfig,
                  runs, *, positions: torch.Tensor, caches=None,
                  causal: bool = True, memory: Optional[torch.Tensor] = None,
-                 impl: str = "auto", remat: str = "none"):
+                 impl: str = "auto", remat: str = "none",
+                 seq_split: bool = False):
     """Apply all runs, layer by layer. ``caches``: a list aligned with
     ``runs`` (or None). ``memory`` (encoder-decoder): the encoder output
     ``[B, S, d]``; after decoder layer ``gl``'s block, ``x`` gains
     ``cross_attn[gl]`` of ``rms_norm(x, ln_cross[gl])`` against it.
     ``remat`` (without caches): ``"block"`` or ``"dots"`` recompute each
-    layer in the backward pass (`_layer_fn`). Returns (x, new_caches,
-    aux_total): the MoE layers' aux losses summed (a float32 tensor; 0.0
-    without MoE)."""
+    layer in the backward pass (`_layer_fn`). ``seq_split`` (without
+    caches): a tensor-parallel model's residual stream is the rank's
+    block of T. Returns (x, new_caches, aux_total): the MoE layers' aux
+    losses summed (a float32 tensor; 0.0 without MoE)."""
     aux_total = 0.0
     new_caches: Optional[List] = [] if caches is not None else None
     for ri, run in enumerate(runs):
@@ -126,7 +145,8 @@ def _apply_stack(model: CausalLM, x: torch.Tensor, cfg: ModelConfig,
             if rcache is None:
                 fn = _layer_fn(model, block, cfg, run, run.first_layer + li,
                                positions=positions, causal=causal,
-                               memory=memory, impl=impl, remat=remat)
+                               memory=memory, impl=impl, remat=remat,
+                               seq_split=seq_split)
                 x, a = fn(x)
                 aux_total = aux_total + a
                 continue
@@ -159,7 +179,8 @@ def _cross(model: CausalLM, x: torch.Tensor, memory: torch.Tensor,
 
 def _layer_fn(model: CausalLM, block, cfg: ModelConfig, run, gl: int, *,
               positions: torch.Tensor, causal: bool,
-              memory: Optional[torch.Tensor], impl: str, remat: str):
+              memory: Optional[torch.Tensor], impl: str, remat: str,
+              seq_split: bool = False):
     """One layer without a cache, ``x -> (x, aux)``: the block and, with
     ``memory``, decoder layer ``gl``'s cross-attention sublayer. Under
     ``remat`` ``"block"`` (the reference's ``jax.checkpoint`` of a scan
@@ -173,7 +194,7 @@ def _layer_fn(model: CausalLM, block, cfg: ModelConfig, run, gl: int, *,
     def fn(x):
         x, _, a = blocks_lib.apply_block(
             block, x, cfg, run.kind, positions=positions, window=run.window,
-            causal=causal, impl=impl)
+            causal=causal, impl=impl, seq_split=seq_split)
         if memory is not None:
             x = _cross(model, x, memory, cfg, gl, impl)
         return x, a
@@ -184,12 +205,47 @@ def _layer_fn(model: CausalLM, block, cfg: ModelConfig, run, gl: int, *,
                              use_reentrant=False)
 
 
-def _logits(model: CausalLM, cfg: ModelConfig, x: torch.Tensor
-            ) -> torch.Tensor:
-    x = rms_norm(x, model.final_norm, cfg.rmsnorm_eps)
+def _logits(model: CausalLM, cfg: ModelConfig, x: torch.Tensor,
+            seq_split: bool = False) -> torch.Tensor:
+    """The final norm and the head; under tensor parallelism the rank's
+    block of the padded vocabulary (of the whole sequence)."""
+    axis = tp_axis(model)
+    x = rms_norm(x, tp_weight(model.final_norm, axis, seq_split),
+                 cfg.rmsnorm_eps)
+    if axis is not None:
+        x = tp_enter(x, axis, seq_split)
     if cfg.tie_embeddings:
         return x @ model.embed.T
     return model.lm_head(x)
+
+
+def _embed(model: CausalLM, cfg: ModelConfig, tokens: torch.Tensor,
+           seq_split: bool = False) -> torch.Tensor:
+    """The embedding of ``tokens`` in the compute dtype: under tensor
+    parallelism from the rank's block of the vocabulary, the rank's block
+    of T where ``seq_split``."""
+    axis = tp_axis(model)
+    if axis is None:
+        x = embedding_lookup(model.embed, tokens)
+    else:
+        x = vocab_parallel_embedding(model.embed, tokens, axis, seq_split)
+    return x.to(dtype_of(cfg.compute_dtype))
+
+
+def _seq_split(model: CausalLM, T: int, sequence_parallel: bool) -> bool:
+    """Whether a tensor-parallel model's residual stream splits along T:
+    asked for, and T divides over the axis (the reference's rule)."""
+    axis = tp_axis(model)
+    return bool(sequence_parallel and axis is not None
+                and T % axis_size(axis) == 0)
+
+
+def _gathered(model: CausalLM, logits: torch.Tensor) -> torch.Tensor:
+    """Logits over the whole padded vocabulary: a tensor-parallel model's
+    blocks gathered over its axis."""
+    axis = tp_axis(model)
+    return logits if axis is None else all_gather(logits, axis, axis=-1,
+                                                  tiled=True)
 
 
 def init_caches(cfg: ModelConfig, B: int, S: int, *,
@@ -234,7 +290,8 @@ def encode(model: CausalLM, cfg: ModelConfig, enc_emb: torch.Tensor, *,
 
 
 def train_loss(model: CausalLM, cfg: ModelConfig,
-               batch: Dict[str, torch.Tensor]
+               batch: Dict[str, torch.Tensor], *,
+               sequence_parallel: bool = False
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss of ``batch`` (``tokens``, ``labels [B, T]`` and,
     for an encoder-decoder, ``enc_emb [B, S, d]``) under autograd: the
@@ -253,23 +310,36 @@ def train_loss(model: CausalLM, cfg: ModelConfig,
     rows of the global batch (split over the batch axes, "pod" and
     "data"), the mixers take their expert- and sequence-parallel paths,
     and ``ce`` is the mean over the global batch: the sums of the ranks'
-    token losses and counts, each summed over the batch axes."""
+    token losses and counts, each summed over the batch axes. A
+    tensor-parallel model (module docstring) runs its rank's blocks, with
+    the residual stream split along T where ``sequence_parallel`` asks
+    for it and T divides."""
     tokens, labels = batch["tokens"], batch["labels"]
     B, T = tokens.shape
     memory = None
     if cfg.encoder_layers:
         memory = _encode(model, cfg, batch["enc_emb"], impl="plain",
                          remat=cfg.remat)
-    x = embedding_lookup(model.embed, tokens).to(dtype_of(cfg.compute_dtype))
+    sp = _seq_split(model, T, sequence_parallel)
+    x = _embed(model, cfg, tokens, sp)
     positions = _positions(cfg, B, T, device=tokens.device)
     x, _, aux = _apply_stack(model, x, cfg, blocks_lib.layer_schedule(cfg),
                              positions=positions, memory=memory,
-                             impl="plain", remat=cfg.remat)
-    logits = _logits(model, cfg, x)
+                             impl="plain", remat=cfg.remat, seq_split=sp)
+    logits = _logits(model, cfg, x, sp)
     mesh = active_mesh()
     batch_axes = tuple(a for a in ("pod", "data") if mesh is not None
                        and mesh.shape.get(a, 1) > 1)
-    if batch_axes:
+    axis = tp_axis(model)
+    if axis is not None:
+        # The rank's block of the vocabulary: the loss's terms summed over
+        # the axis, then over the batch axes.
+        total, count = vocab_parallel_ce_terms(
+            logits, labels, cfg.vocab_size, axis, z_loss=cfg.z_loss)
+        if batch_axes:
+            total, count = psum(total, batch_axes), psum(count, batch_axes)
+        ce = total / count.clamp_min(1)
+    elif batch_axes:
         # The rank's rows: the mean over the global batch is the ratio of
         # the sums over the batch axes (psum's transpose: the identity).
         total, count = cross_entropy_terms(logits, labels, cfg.vocab_size,
@@ -285,12 +355,15 @@ def train_loss(model: CausalLM, cfg: ModelConfig,
 @torch.no_grad()
 def prefill(model: CausalLM, cfg: ModelConfig, tokens: torch.Tensor,
             enc_emb: Optional[torch.Tensor] = None, *,
-            impl: str = "auto") -> torch.Tensor:
+            impl: str = "auto", sequence_parallel: bool = False
+            ) -> torch.Tensor:
     """Forward over the prompt ``tokens [B, T]``; returns the last
     position's logits ``[B, 1, padded_vocab]``. An encoder-decoder config
     encodes ``enc_emb [B, S, d]`` first and attends to its memory. As in
     the reference it builds no cache (the service teacher-forces the
-    prompt through `decode_step`)."""
+    prompt through `decode_step`). A tensor-parallel model (module
+    docstring) splits the residual stream along T where
+    ``sequence_parallel`` asks and T divides."""
     B, T = tokens.shape
     memory = None
     if cfg.encoder_layers:
@@ -298,11 +371,21 @@ def prefill(model: CausalLM, cfg: ModelConfig, tokens: torch.Tensor,
             raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs "
                              "the frontend embeddings (enc_emb=)")
         memory = encode(model, cfg, enc_emb, impl=impl)
-    x = embedding_lookup(model.embed, tokens).to(dtype_of(cfg.compute_dtype))
+    sp = _seq_split(model, T, sequence_parallel)
+    x = _embed(model, cfg, tokens, sp)
     positions = _positions(cfg, B, T, device=tokens.device)
     x, _, _ = _apply_stack(model, x, cfg, blocks_lib.layer_schedule(cfg),
-                           positions=positions, memory=memory, impl=impl)
-    return _logits(model, cfg, x[:, -1:, :])
+                           positions=positions, memory=memory, impl=impl,
+                           seq_split=sp)
+    last = x[:, -1:, :]
+    if sp:
+        # The last position is the last rank's: summed with the others'
+        # zeros, every rank holds it.
+        axis = tp_axis(model)
+        if axis_index(axis) != axis_size(axis) - 1:
+            last = torch.zeros_like(last)
+        last = psum(last, axis)
+    return _gathered(model, _logits(model, cfg, last))
 
 
 @torch.no_grad()
@@ -319,11 +402,11 @@ def decode_step(model: CausalLM, cfg: ModelConfig, caches: list,
         raise ValueError(f"{cfg.name}: an encoder-decoder decode step needs "
                          "the encoder memory (memory=encode(...))")
     B = tokens.shape[0]
-    x = embedding_lookup(model.embed, tokens).to(dtype_of(cfg.compute_dtype))
+    x = _embed(model, cfg, tokens)
     positions = _positions(cfg, B, 1, offset=pos, device=tokens.device)
     x, new_caches, _ = _apply_stack(model, x, cfg,
                                     blocks_lib.layer_schedule(cfg),
                                     positions=positions, caches=caches,
                                     memory=memory if cfg.encoder_layers
                                     else None, impl=impl)
-    return _logits(model, cfg, x), new_caches
+    return _gathered(model, _logits(model, cfg, x)), new_caches
