@@ -68,7 +68,7 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      verdicted, no NaN to a client, healthy requests bit-identical to the
      fault-free run;
   12. ``[tenants]``: coordinated_turn, pendulum (gold) and lorenz96
-     (batch) through one queue, 64 requests, n <= 512, Poisson at 8/s,
+     (batch) through one queue, 16 requests, n <= 512, Poisson at 8/s,
      deadline policy: latency, deadline hit rate, RMSE, log-likelihood
      and kernel launches per tenant; no launch mixes tenants or errs;
   13. ``[surface]``: the single-trajectory surface on the paper's
@@ -124,7 +124,7 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      a 128-token prompt teacher-forced, 128 greedy steps, caches of 512.
      Gates first, on the same weights and prompts, each held against the
      same model computed in float32 (plain attention), whose distance to
-     the plain bf16 path is the bf16 noise: the first 64 teacher-forced
+     the plain bf16 path is the bf16 noise: the first 32 teacher-forced
      steps with the split-K decode kernel (error against float32 within
      `LM_NOISE_FACTOR` times the noise, top-1 equal to float32's on
      `LM_TOP1` of the positions no noise can flip, and every top-1
@@ -171,7 +171,7 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      of 128. The service with the counters zeroed before and read after:
      exactly 28 x 128 decode-kernel launches and nothing else, no plain
      attention. Then, on the same weights, teacher-forced over the
-     service's positions: every decode-kernel call of the first 32 steps
+     service's positions: every decode-kernel call of the first 16 steps
      against plain at the tight bf16 bound (a planted fault, one key too
      few, misses it at every length), the dropped assignments per step
      (a decode step has C = 8 slots per expert for 384 assignments; some
@@ -359,7 +359,7 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      the whole model's). (f) The slice's serve path at full width:
      qwen2-1.5b's ``make_prefill_step`` and ``make_decode_step`` on the
      mesh, tensor-parallel (global batch 16, a prompt of 64 prefilled and
-     teacher-forced, 32 greedy steps, caches of 128 split along their
+     teacher-forced, 16 greedy steps, caches of 128 split along their
      sequence over "model"): exactly 28 ``wgmma`` launches per rank per
      prefill and 28 split-K decode launches per rank per decode step,
      every rank of a "model" line returning the same logits, the logits
@@ -371,7 +371,28 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      against its plain version on the rank's cache block (and its
      log-sum-exps), the same steps with rank 1 reading kv head 0 for one
      of its q heads (planted) missing that bound, and the bytes each rank
-     stages per decode step beside the replicated layout's gathers;
+     stages per decode step beside the replicated layout's gathers. (g)
+     and (h) the same for the hybrid and the encoder-decoder family at
+     full width and depth, tensor-parallel (global batch 16, a prompt of
+     64, 16 greedy steps). (g) hymba-1.5b, caches of 1,088 (each
+     windowed layer's ring of 1,024 whole on every rank, the three
+     global layers' caches split along the sequence): exactly 32
+     ``wgmma`` and 32 ``ssm_scan`` launches per rank per prefill (one
+     chunk of 64 on the rank's ``d_inner`` channels, each scan against
+     plain at the float32 TOL) and 32 split-K launches per decode step,
+     each kernel call of 8 steps past the prompt against plain on the
+     rank's cache block or whole ring; the logits by ``[lm_decode]``'s
+     rules; a float32 copy of the compute model's prefill on the mesh
+     against the one-device float32 prefill within 2^-10 of the largest
+     logit, which rank 1 on its contiguous resting block of every
+     ``in_proj`` (planted, in place of its block of each half) must miss.
+     (h) seamless-m4t-medium on a random frontend of 1,024 rows, caches
+     of 128 (split by kv heads): exactly 36 ``wgmma`` launches per rank
+     per prefill (12 encoder, 12 self, 12 cross; sequence-parallel), 12
+     for the memory's encode on the mesh, 24 split-K per decode step
+     (self and cross), the taps on 8 steps past the prompt, the logits
+     by the same rules, and rank 1's cross-attention reading kv heads off
+     by one (planted) caught by its tap;
   25. ``[dryrun]``: the dry-run's layer on the card (`launch.steps`,
      `launch.cost`, `launch.roofline`). (a) The one-device train plan's
      ``per_chip_argument_bytes`` for ``[train]``'s qwen2-1.5b state (B 8,
@@ -395,9 +416,11 @@ CUDA device or no ``src/repro_torch`` beside it. Phases:
      ``lm_prefill``, ``lm_hybrid``, ``lm_hybrid_prefill``, ``lm_moe``,
      ``lm_moe_prefill``, ``lm_grok``, ``lm_grok_prefill``, ``lm_encdec``,
      ``lm_encdec_prefill``, ``lm_mrope``, ``lm_mrope_prefill``, ``train``,
-     ``mesh``, ``train_mesh``, ``train_mesh_serve``, ``dryrun``; the
-     ``mesh``, ``train_mesh`` and ``train_mesh_serve`` counts summed over
-     the ranks), then the device JSON line, last.
+     ``mesh``, ``train_mesh``, ``train_mesh_serve``, ``tp_serve_hybrid``,
+     ``tp_serve_encdec``, ``dryrun``; ``ssm_scan``'s ``tp_serve_hybrid``
+     too; the ``mesh``, ``train_mesh``, ``train_mesh_serve`` and
+     ``tp_serve_*`` counts summed over the ranks), then the device JSON
+     line, last.
 
 Details (every ptxas line, all timings) go to ``chiprun_out/chip_smoke.json``.
 """
@@ -407,6 +430,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import math
 import subprocess
@@ -1282,6 +1306,10 @@ def phase_adaptive(torch) -> dict:
 STREAM_N_PADS = (256, 512)
 STREAM_B_PADS = (1, 2, 4, 8, 16, 32, 64)
 TENANTS = "coordinated_turn,pendulum:gold,lorenz96:batch"
+#: [tenants]' requests (the stream's 64, cut to keep the script in its
+#: time: the executor runs near capacity, so the phase's wall follows the
+#: request count; the arrival rate, widths and deadline stay the stream's).
+TENANTS_REQUESTS = 16
 #: The [chaos] fault mix: NaN payloads at the headline rate 0.1; the
 #: executor faults at 0.5 per flush, so that the static policy's handful
 #: of flushes meets transient exceptions and stragglers too.
@@ -1675,8 +1703,8 @@ def phase_chaos(torch, stream) -> dict:
 
 def phase_tenants(torch) -> dict:
     """``[tenants]``: `serve_smoother_multitenant` over coordinated_turn,
-    pendulum (gold) and lorenz96 (batch) on the card, 64 requests, n <=
-    512, Poisson at 8/s, deadline policy, counts zeroed before and read
+    pendulum (gold) and lorenz96 (batch) on the card, `TENANTS_REQUESTS`
+    requests, n <= 512, Poisson at 8/s, deadline policy, counts zeroed before and read
     after. No launch mixes tenants and none has an error; each flush's
     launches follow its tenant's measured choice."""
     from repro_torch.kernels.kalman_combine import autotune as kc_at
@@ -1684,7 +1712,7 @@ def phase_tenants(torch) -> dict:
     from repro_torch.launch.serve import TenantSpec, serve_smoother_multitenant
     from repro_torch.scenarios import get_scenario
 
-    cfg = stream_config()
+    cfg = stream_config(requests=TENANTS_REQUESTS)
     tenants = [TenantSpec.parse(t) for t in TENANTS.split(",")]
     # The warmup's autotune probes compare the kernel with its plain
     # version; measured here, before the counters are zeroed, they stay
@@ -1745,11 +1773,12 @@ def phase_tenants(torch) -> dict:
 #: the timed Fig. 1b panel.
 SURFACE_N, SURFACE_ITERS, SURFACE_LM = 4096, 10, 1.0
 SURFACE_SIZES = (128, 1024, 4096)
-#: Timed calls per Fig. 1b point (the median is kept). Sequential passes
-#: at or above `SURFACE_LONG_SEQ` steps (about 50 launches per time step,
-#: seconds each) are timed once, warmed by the n = 128 one (the same ops
-#: at another length), and not profiled.
-SURFACE_REPEATS, SURFACE_LONG_SEQ = 5, 1024
+#: Timed calls per Fig. 1b point (the median is kept; 5 before, cut to
+#: keep the script in its time). Sequential passes at or above
+#: `SURFACE_LONG_SEQ` steps (about 50 launches per time step, seconds
+#: each) are timed once, warmed by the n = 128 one (the same ops at
+#: another length), and not profiled.
+SURFACE_REPEATS, SURFACE_LONG_SEQ = 3, 1024
 
 
 def _deprecations(fn):
@@ -2539,7 +2568,9 @@ def phase_flash(torch) -> dict:
 #: keep the script in its time on a slow host).
 LM_ARCH, LM_SEED = "qwen2-1.5b", 0
 LM_B, LM_PROMPT, LM_GEN, LM_MAX = 64, 128, 128, 512
-LM_GATE_STEPS = 64
+#: Teacher-forced steps whose decode-kernel calls are held to plain (64
+#: before, cut to keep the script in its time).
+LM_GATE_STEPS = 32
 LM_PROFILE_STEPS = 32
 #: The yardstick of the bf16 gates is the same model computed in float32
 #: (the bf16 weights widened, the plain attention): the bf16 noise at this
@@ -2857,6 +2888,55 @@ def _decode_time(torch, fa, B, Hq, Hkv, L, Dh, gen, softcap=0.0) -> dict:
         decode_bound(B, Hq, Hkv, L, Dh), 20)
     t.update(max_abs_err=err, max_err_over_tol=tight)
     del q, k, v, got, sets
+    torch.cuda.empty_cache()
+    return t
+
+
+def _mapped_decode_time(torch, fa, B, hmap, Hkv, L, Dh, gen,
+                        lse=False) -> dict:
+    """The split-K decode kernel as a tensor-parallel rank calls it: q
+    head ``i`` against kv head ``hmap[i]`` of full caches of ``L`` rows
+    (the map passed unless it is the kernel's own grouped map), with the
+    log-sum-exps where ``lse``; against the plain version, and SDPA on the
+    k/v expanded by the map (one kv head per q head, built before the
+    timing). The byte bound reads the kv heads the map reaches."""
+    import torch.nn.functional as F
+
+    Hq, bf16 = len(hmap), torch.bfloat16
+    grouped = Hq % Hkv == 0 and tuple(hmap) == tuple(
+        j // (Hq // Hkv) for j in range(Hq))
+    hm = None if grouped else tuple(hmap)
+    full = torch.tensor(L, dtype=torch.int32, device="cuda")
+    sets = [_qkv(torch, B, Hq, Hkv, 1, L, Dh, bf16, gen) + (full,)
+            for _ in range(4)]
+    idx = torch.tensor(hmap, device="cuda")
+    expanded = [(q, k.index_select(1, idx), v.index_select(1, idx))
+                for q, k, v, _ in sets]
+    kernel = functools.partial(fa.decode_attention_cuda, head_map=hm,
+                               return_lse=lse)
+    plain = functools.partial(fa.decode_attention_plain, head_map=hm)
+    q, k, v, _ = sets[0]
+    got = kernel(q, k, v, full)
+    out = got[0] if lse else got
+    what = (f"mapped decode B={B} map {tuple(hmap)} L={L}"
+            + (" with log-sum-exps" if lse else ""))
+    err = _compare(torch, out, plain(q, k, v, full), FA_TOL["bfloat16"],
+                   what)
+    tight = _excess(out, *_tight_tol(plain, q, k, v, full)).item()
+    if not tight <= 1.0:
+        fail(f"{what}: err/tol {tight:.3f} over the tight bf16 bound")
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v)
+    b_ms, b_by = decode_bound(B, Hq, len(set(hmap)), L, Dh)
+    t = {"ms": _time_ms(torch, kernel, sets, iters=200),
+         "graph_ms": _graph_ms(torch, kernel, sets),
+         "plain_ms": _time_ms(torch, functools.partial(
+             plain, return_lse=lse), sets, iters=20, warmup=1),
+         "library_ms": _time_ms(torch, sdpa, expanded, iters=200),
+         "library_graph_ms": _graph_ms(torch, sdpa, expanded),
+         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+         "max_err_over_tol": tight, "map": list(hmap), "lse": lse}
+    del q, k, v, got, sets, expanded
     torch.cuda.empty_cache()
     return t
 
@@ -3190,6 +3270,7 @@ def phase_lm_hybrid(torch) -> dict:
     from repro_torch.launch.serve import generate
     from repro_torch.models import decode_step, init_model, prefill
     from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.attention import head_map as attention_head_map
     from repro_torch.models.blocks import layer_schedule
 
     tag = "lm_hybrid"
@@ -3435,6 +3516,25 @@ def phase_lm_hybrid(torch) -> dict:
                  decode_time)
     del q, k, v, got, sets
     torch.cuda.empty_cache()
+    # The two calls of the tensor-parallel decode ((g) in [train_mesh]) at
+    # "model" 2: rank 1's 9 real heads through the uneven map on a whole
+    # ring, and every real head against a rank's block of a global layer's
+    # cache of 1,088 rows, with the log-sum-exps the merge takes.
+    full_map = attention_head_map(cfg)[:cfg.num_heads]
+    n_q = cfg.padded_heads // 2
+    tp_times = {
+        "ring": _mapped_decode_time(
+            torch, fa, HY_B, full_map[n_q:], Hkv, W, Dh, gen),
+        "global_block": _mapped_decode_time(
+            torch, fa, HY_B, full_map, Hkv, TP_SERVE["tp_serve_hybrid"][1]
+            // 2, Dh, gen, lse=True)}
+    for part, t in tp_times.items():
+        rows = W if part == "ring" else TP_SERVE["tp_serve_hybrid"][1] // 2
+        _say_lm_time(f"hymba tensor-parallel decode ({part}) B={HY_B} map "
+                     f"{tuple(t['map'])} rows={rows} Dh={Dh} bf16"
+                     + (" with log-sum-exps" if t["lse"] else "")
+                     + ": split-K kernel (sdpa on the k/v expanded by the "
+                     "map)", t)
 
     # ssm_scan at one prefill chunk.
     shape = (HY_PREFILL_B, cfg.scan_chunk, din * n_state)
@@ -3468,7 +3568,8 @@ def phase_lm_hybrid(torch) -> dict:
             "tok_per_s": tok_per_s, "seconds": seconds,
             "ms_per_step": seconds / HY_MAX * 1e3,
             "profile": profile_res, "prefill_attention": prefill_time,
-            "decode_attention": decode_time, "ssm_scan": scan_time}
+            "decode_attention": decode_time, "ssm_scan": scan_time,
+            "tp_decode_attention": tp_times}
 
 
 # ---------------------------------------------------------------------------
@@ -3488,8 +3589,9 @@ def phase_lm_hybrid(torch) -> dict:
 MOE_ARCH, MOE_SEED = "deepseek-moe-16b", 0
 MOE_B, MOE_PROMPT, MOE_GEN = 64, 64, 64
 MOE_MAX = MOE_PROMPT + MOE_GEN
-#: Every decode-kernel call of the first prompt steps is held to plain.
-MOE_GATE_STEPS = 32
+#: Every decode-kernel call of the first prompt steps is held to plain
+#: (32 before, cut to keep the script in its time).
+MOE_GATE_STEPS = 16
 MOE_PREFILL_B = 8
 MOE_PROFILE_STEPS = 32
 #: grok-1-314b (configs/grok_1_314b.py) at full width (d_model 6,144, 48
@@ -6097,15 +6199,27 @@ COMPRESS_BOUND = 0.02
 #: production capacity factor, an odd T (E splits over "model", T does
 #: not), tokens drawn from this few ids (routing crowds a few experts).
 TRAIN_MESH_MOE_T, TRAIN_MESH_MOE_CF, TRAIN_MESH_MOE_IDS = 63, 1.25, 6
-#: (f) The serve plans of qwen2-1.5b at full width on the mesh,
-#: tensor-parallel: a global batch of 16, a prompt of 64 (prefill, then
-#: teacher-forced through the decode plan), 32 greedy steps, caches of
-#: 128 rows (split along the sequence over "model": the 2 kv heads are
-#: replicated); the kernel taps and the planted fault on the first
-#: `TRAIN_MESH_SERVE_TAP` steps.
-TRAIN_MESH_SERVE_B, TRAIN_MESH_SERVE_PROMPT = 16, 64
-TRAIN_MESH_SERVE_GEN, TRAIN_MESH_SERVE_MAX = 32, 128
-TRAIN_MESH_SERVE_TAP = 8
+#: (f), (g) and (h): the tensor-parallel serve plans of the dense, the
+#: hybrid and the encoder-decoder family on the mesh, at full width and
+#: depth, one bf16 model from one seed each: a global batch of 16, a
+#: prompt of 64 (prefill, then teacher-forced through the decode plan),
+#: 16 greedy steps ((f): 32 before, cut to keep the script in its time);
+#: the kernel taps and the planted faults on the first `TP_SERVE_TAP`
+#: steps past the prompt. By path: (arch, cache rows). qwen2-1.5b's
+#: caches of 128 rows split along the sequence over "model" (its 2 kv
+#: heads are replicated); hymba's of 1,088: each windowed layer's ring of
+#: 1,024 whole on every rank, the three global layers' caches split along
+#: the sequence (its 5 kv heads are replicated); seamless's of 128 split
+#: by its kv heads, its random frontend (std 1) at the config's 1,024
+#: rows.
+TP_SERVE = {"train_mesh_serve": (TRAIN_ARCH, 128),
+            "tp_serve_hybrid": ("hymba-1.5b", 1088),
+            "tp_serve_encdec": ("seamless-m4t-medium", 128)}
+TP_SERVE_B, TP_SERVE_PROMPT, TP_SERVE_GEN, TP_SERVE_TAP = 16, 64, 16, 8
+#: (g)'s float32 prefill gate: the mesh's float32 prefill (the kernels'
+#: float32 instances) against the one-device float32 prefill (plain), as
+#: a share of the largest logit (2^-10).
+TP_SERVE_F32_BOUND = 2.0 ** -10
 
 
 def _whole_params(plan, state) -> dict:
@@ -6508,11 +6622,12 @@ class _MappedDecodeTap:
 
 def _parent_serve_bytes(plan, cfg, B, S) -> int:
     """The bytes per rank per decode step the replicated layout of the
-    mesh's decode plan staged through the host before this slice: every
+    mesh's decode plan stages through the host (the layout these families
+    ran in before they were tensor-parallel): every
     parameter gathered whole from its block, and every cache block
     gathered over "model" and its block copied back (each all_gather
     moving its block out and the whole back)."""
-    from repro_torch.distributed import NamedSharding, P
+    from repro_torch.distributed import NamedSharding, P, tree_map
     from repro_torch.models import init_caches
 
     total = 0
@@ -6521,159 +6636,19 @@ def _parent_serve_bytes(plan, cfg, B, S) -> int:
                           .shard_shape(shape)) * dt.itemsize
         whole = math.prod(shape) * dt.itemsize
         total += block + whole if block != whole else 0
-    caches = init_caches(cfg, B, S, device="meta")
-    for c, spec in zip(caches, plan.cache_specs):
-        for t, sp in ((c["attn"].k, spec["attn"].k),
-                      (c["attn"].v, spec["attn"].v)):
-            sh = NamedSharding(plan.mesh, sp)
-            block = math.prod(sh.shard_shape(t.shape)) * t.element_size()
-            rows = math.prod(NamedSharding(plan.mesh, P(*[
-                e if e in ("data", "pod") else None for e in sp]))
-                .shard_shape(t.shape)) * t.element_size()
-            total += block + rows if rows != block else 0
+    caches, specs = [], []
+    tree_map(caches.append, init_caches(cfg, B, S, device="meta"),
+             is_leaf=lambda x: hasattr(x, "shape"))
+    tree_map(specs.append, plan.cache_specs,
+             is_leaf=lambda x: isinstance(x, P))
+    for t, sp in zip(caches, specs):
+        sh = NamedSharding(plan.mesh, sp)
+        block = math.prod(sh.shard_shape(t.shape)) * t.element_size()
+        rows = math.prod(NamedSharding(plan.mesh, P(*[
+            e if e in ("data", "pod") else None for e in sp]))
+            .shard_shape(t.shape)) * t.element_size()
+        total += block + rows if rows != block else 0
     return total
-
-
-def _train_mesh_serve(torch, ctx) -> dict:
-    """(f): the tensor-parallel serve plans of qwen2-1.5b at full width on
-    the 2 x 2 mesh. Every rank builds the same bf16 model (one seed) and
-    binds it to the prefill and decode plans, which cut it to the rank's
-    "model" blocks; the prefill runs on the rank's rows (sequence-parallel,
-    the ``wgmma`` kernel on the rank's heads), then the decode plan
-    teacher-forces the prompt and takes 32 greedy steps, each rank's
-    split-K kernel reading its block of the caches' sequence in place.
-    The ranks at "model" 0 keep a whole copy of the model and run the
-    one-device steps on their rows (the kernels in bf16, and the plain
-    version in float32) on the tokens the mesh fed. The first
-    `TRAIN_MESH_SERVE_TAP` steps past the prompt (where both ranks'
-    blocks of the caches hold keys) run under `_MappedDecodeTap`; then
-    the same steps again, from a copy of the caches taken before them,
-    with the fault planted on the rank at ("data" 0, "model" 1): the
-    first of its q heads reads kv head 0."""
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.launch import steps as st
-    from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.models import (decode_step, init_caches, init_model,
-                                    prefill)
-
-    cfg = get_config(TRAIN_ARCH)
-    vocab = cfg.vocab_size
-    B, Pn = TRAIN_MESH_SERVE_B, TRAIN_MESH_SERVE_PROMPT
-    G, S, tap_steps = (TRAIN_MESH_SERVE_GEN, TRAIN_MESH_SERVE_MAX,
-                       TRAIN_MESH_SERVE_TAP)
-    dev = ctx.device
-    mesh = make_debug_mesh(*TRAIN_MESH_SHAPE)
-    ref = mesh.coords["model"] == 0
-    t0 = time.perf_counter()
-    model = init_model(cfg, LM_SEED, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
-    prompts = torch.randint(0, vocab, (B, Pn), generator=gen, device=dev)
-    whole = copy.deepcopy(model) if ref else None
-    pp = st.make_prefill_step(cfg, mesh, ShapeConfig("p", Pn, B, "prefill"))
-    dp = st.make_decode_step(cfg, mesh, ShapeConfig("d", S, B, "decode"))
-    params_p, params_d = pp.bind(model), dp.bind(model)
-    nb = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
-    res = {"coords": dict(mesh.coords),
-           "tensor_parallel": (pp.tensor_parallel, dp.tensor_parallel),
-           "compute_bytes": nb(model.parameters()),
-           "plan_compute_bytes": dp.compute_param_bytes(),
-           "parent_decode_step_bytes": _parent_serve_bytes(dp, cfg, B, S)}
-    rows = pp.rows(prompts)
-    torch.cuda.synchronize()
-    res["setup_s"] = time.perf_counter() - t0
-
-    reset_counts()
-    t0 = time.perf_counter()
-    lpre = pp(params_p, rows)
-    torch.cuda.synchronize()
-    res["prefill_s"] = time.perf_counter() - t0
-    res["prefill_launches"] = {k: v for k, v in read_counts().items() if v}
-
-    tapped = range(Pn, Pn + tap_steps)
-    clone = lambda c: [{"attn": type(r["attn"])(  # noqa: E731
-        *(t.clone() for t in r["attn"]))} for r in c]
-
-    def decode(steps, caches, feed, tap, first=0):
-        logits, fed, counts, staged, walls, snap = [], [], [], [], [], None
-        tok = feed[:, :1]
-        for i in range(first, first + steps):
-            if i < feed.shape[1]:
-                tok = feed[:, i:i + 1]
-            if i == tapped[0]:
-                snap = clone(caches)
-            fed.append(tok)
-            before = mesh.staged_bytes
-            reset_counts()
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            with tap if i in tapped else contextlib.nullcontext():
-                lg, caches = dp(params_d, caches, tok, i)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t1)
-            staged.append(mesh.staged_bytes - before)
-            counts.append({k: v for k, v in read_counts().items() if v})
-            logits.append(lg)
-            tok = lg[:, :, :vocab].argmax(-1)
-        return logits, torch.cat(fed, dim=1), counts, staged, walls, snap
-
-    tap = _MappedDecodeTap(fa)
-    caches = dp.cache_blocks(init_caches(cfg, B, S, device=dev))
-    logits, fed, counts, staged, walls, snap = decode(Pn + G, caches, rows,
-                                                      tap)
-    res.update(decode_counts=counts, staged_per_step=staged,
-               step_s=walls, tap=tap.result(),
-               cache_rows=int(caches[0]["attn"].k.shape[3]),
-               sums=[float(lg.float().sum()) for lg in logits],
-               tokens=fed[:, Pn:].tolist(), prefill_sum=float(
-                   lpre.float().sum()),
-               finite=bool(all(torch.isfinite(lg).all() for lg in logits)
-                           and torch.isfinite(lpre).all()))
-    del caches
-    # The planted fault: the rank at ("data" 0, "model" 1) maps its first
-    # q head (padded head 8 of 16) to kv head 0.
-    planted = mesh.coords == {"data": 0, "model": 1}
-    ftap = _MappedDecodeTap(fa, plant=(cfg.padded_heads // 2, 0)
-                            if planted else None)
-    flog = decode(tap_steps, snap, fed, ftap, first=tapped[0])[0]
-    res["fault_tap"] = ftap.result()
-    del snap
-    if ref:
-        # The one-device steps on the rank's rows, on the same tokens.
-        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                    compute_dtype="float32")
-        w32 = copy.deepcopy(whole).float()
-        c1 = init_caches(cfg, B // 2, S, device=dev)
-        c32 = init_caches(cfg32, B // 2, S, device=dev)
-        m_vs_ref, one_vs_ref, m_vs_one, f_vs_ref = (
-            _Logits(torch, vocab) for _ in range(4))
-        for i in range(Pn + G):
-            tok = fed[:, i:i + 1]
-            l1, c1 = decode_step(whole, cfg, c1, tok, i)
-            l32, c32 = decode_step(w32, cfg32, c32, tok, i, impl="plain")
-            m_vs_ref.add(logits[i], l32)
-            one_vs_ref.add(l1, l32)
-            m_vs_one.add(logits[i], l1)
-            if i in tapped:
-                f_vs_ref.add(flog[i - tapped[0]], l32)
-        noise = one_vs_ref.result()["max_abs_err"]
-        pre_one = prefill(whole, cfg, rows)
-        pre32 = prefill(w32, cfg32, rows, impl="plain")
-        acc = _Logits(torch, vocab)
-        acc.add(pre_one, pre32)
-        pre_noise = acc.result()["max_abs_err"]
-        acc = _Logits(torch, vocab)
-        acc.add(lpre, pre32)
-        res.update(noise=noise, prefill_noise=pre_noise,
-                   mesh_vs_ref=m_vs_ref.result(noise),
-                   mesh_vs_one=m_vs_one.result(),
-                   fault_vs_ref=f_vs_ref.result(noise),
-                   prefill_vs_ref=acc.result(pre_noise))
-        del w32, c1, c32, whole
-    del model, logits, flog
-    torch.cuda.empty_cache()
-    return res
 
 
 def _train_mesh_rank(ctx, tmp) -> dict:
@@ -6689,12 +6664,16 @@ def _train_mesh_rank(ctx, tmp) -> dict:
     t0 = time.perf_counter()
     res["full"] = _train_mesh_full(torch, ctx)
     res["full_s"] = time.perf_counter() - t0
+    # (The plans' cycles hold their models until the collector runs.)
+    gc.collect()
     torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    with torch.no_grad():
-        res["serve"] = _train_mesh_serve(torch, ctx)
-    res["serve_s"] = time.perf_counter() - t1
-    torch.cuda.empty_cache()
+    for path in TP_SERVE:
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            res[path] = _tp_serve(torch, ctx, path)
+        res[f"{path}_s"] = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.empty_cache()
     reset_counts()
     t1 = time.perf_counter()
     res["families"] = _train_mesh_families(torch, ctx)
@@ -6867,85 +6846,420 @@ def phase_train_mesh(torch, train) -> dict:
            for r in ranks):
         fail(f"[{tag}] the global dispatch's losses differ across ranks")
 
-    serve_launches = _check_train_mesh_serve(tag, ranks)
+    tp_serve_launches = {path: _check_tp_serve(tag, path, ranks)
+                         for path in TP_SERVE}
 
     seconds = time.perf_counter() - t0
     say(f"[{tag}] phase done in {seconds:.1f} s (ranks "
         f"{t_ranks:.1f} s: full width {max(r['full_s'] for r in ranks):.1f}"
-        f" s, serve {max(r['serve_s'] for r in ranks):.1f} s, reduced "
-        f"parts {max(r['reduced_s'] for r in ranks):.1f} s); training "
-        f"kernel launches summed over the ranks {launches}, serve "
-        f"{serve_launches}")
+        f" s, " + ", ".join(f"{path} {max(r[path + '_s'] for r in ranks):.1f}"
+                            " s" for path in TP_SERVE)
+        + f", reduced parts {max(r['reduced_s'] for r in ranks):.1f} s); "
+        f"training kernel launches summed over the ranks {launches}, serve "
+        + ", ".join(f"{path} {n}" for path, n in tp_serve_launches.items()))
     for r in ranks:
         r["full"].pop("log")
-        for k in ("sums", "tokens", "decode_counts"):
-            r["serve"].pop(k)
+        for path in TP_SERVE:
+            for k in ("sums", "tokens", "decode_counts"):
+                r[path].pop(k)
     return {"ranks": ranks, "launches": launches,
-            "serve_launches": serve_launches, "seconds": seconds,
+            "tp_serve_launches": tp_serve_launches, "seconds": seconds,
             "step0_vs_one_device": off, "bf16_noise": noise}
 
 
-def _check_train_mesh_serve(tag, ranks) -> dict:
-    """(f): the gates of `_train_mesh_serve` over the ranks' results;
+class _TpScanTap:
+    """Stands in for `ssm_scan_cuda` while a rank's prefill runs: each
+    call launches the kernel as the model's would, on the rank's
+    channels, and is held against `ssm_scan_plain` on the same ``a, b``
+    at the float32 TOL (error over the allclose tolerance)."""
+
+    def __init__(self, ss):
+        self.ss, self.kernel, self.excess = ss, ss.ssm_scan_cuda, []
+        self.widths = set()
+
+    def __enter__(self):
+        self.ss.ssm_scan_cuda = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ss.ssm_scan_cuda = self.kernel
+
+    def __call__(self, a, b):
+        h = self.kernel(a, b)
+        want = self.ss.ssm_scan_plain(a, b)
+        t = SSM_TOL["float32"]
+        self.excess.append(((h - want).abs() / (
+            t["atol"] + t["rtol"] * want.abs())).amax())
+        self.widths.add(a.shape[-1])
+        return h
+
+    def result(self) -> dict:
+        import torch
+
+        return {"calls": len(self.excess), "widths": sorted(self.widths),
+                "max_err_over_tol": torch.stack(self.excess).amax().item()
+                if self.excess else 0.0}
+
+
+class _CrossTap:
+    """Stands in for `flash_attention_cuda` while a rank's decode steps
+    run: a cross-attention call (non-causal, a query row against the
+    memory's keys: the split-K kernel) launches the kernel as the model's
+    would (``plant``: on k/v whose kv heads are rolled by one, each q head
+    reading its neighbour's) and is held against the plain version on the
+    model's own k/v in float32 at the tight bf16 bound; any other call
+    passes through."""
+
+    def __init__(self, fa, plant=False):
+        self.fa, self.kernel, self.plant = fa, fa.flash_attention_cuda, plant
+        self.excess, self.kernels = [], set()
+
+    def __enter__(self):
+        self.fa.flash_attention_cuda = self
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_cuda = self.kernel
+
+    def __call__(self, q, k, v, *, causal=True, **kw):
+        if causal or q.shape[2] == k.shape[2]:
+            return self.kernel(q, k, v, causal=causal, **kw)
+        kk, vk = ((k.roll(1, dims=1).contiguous(),
+                   v.roll(1, dims=1).contiguous()) if self.plant else (k, v))
+        out = self.kernel(q, kk, vk, causal=False, **kw)
+        want, tol = _tight_tol(functools.partial(
+            self.fa.flash_attention_plain, causal=False, **kw), q, k, v)
+        self.excess.append(_excess(out, want, tol))
+        self.kernels.add(self.fa.select_kernel(q, k))
+        return out
+
+    def result(self) -> dict:
+        import torch
+
+        return {"calls": len(self.excess), "kernels": sorted(self.kernels),
+                "max_err_over_tol": torch.stack(self.excess).amax().item()
+                if self.excess else 0.0}
+
+
+def _tp_serve(torch, ctx, path) -> dict:
+    """(f), (g) and (h): the tensor-parallel serve plans of ``path``'s
+    arch at full width and depth on the 2 x 2 mesh (`TP_SERVE`). Every
+    rank builds the same bf16 model (one seed) and binds it to the
+    prefill and decode plans, which cut it to the rank's "model" blocks
+    (its heads, ``d_ff`` and vocabulary block; hymba's SSM on its
+    ``d_inner`` channels, ``in_proj`` its block of each half; seamless's
+    encoder and cross-attention on its heads); the prefill runs on the
+    rank's rows (sequence-parallel: the ``wgmma`` kernel on the rank's
+    heads, hymba's ``ssm_scan`` on its channels, each scan held to
+    plain), then the decode plan teacher-forces the prompt and takes
+    `TP_SERVE_GEN` greedy steps, the split-K kernel reading the rank's
+    cache block or whole ring in place (seamless's cross-attention: on
+    the rank's kv heads of the memory, which the mesh's own encoder
+    makes). The first `TP_SERVE_TAP` steps past the prompt run under the
+    kernel taps. The ranks at "model" 0 run the one-device steps on
+    their rows (the kernels in bf16, and the plain version in float32) on
+    the tokens the mesh fed. hymba's bf16 noise is of its logits' size,
+    so its layout is also held in float32: a float32 copy of each rank's
+    compute model, bound to a float32 prefill plan on the mesh, against
+    the one-device float32 prefill. The planted faults, on the rank at
+    ("data" 0, "model" 1): for hymba that float32 prefill again with the
+    contiguous reference block of every ``in_proj`` in place of ``[x_r ;
+    z_r]``; for the others the tapped steps again, from a copy of the
+    caches taken before them, qwen2-1.5b's first q head on the rank
+    (padded head 8 of 16) reading kv head 0, seamless's cross-attention
+    reading kv heads off by one."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import tree_map
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssm_scan import ssm_scan as ss
+    from repro_torch.launch import sharding as shard_lib
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import (decode_step, encode, init_caches,
+                                    init_model, prefill)
+
+    arch, S = TP_SERVE[path]
+    cfg = get_config(arch)
+    vocab, encdec = cfg.vocab_size, bool(cfg.encoder_layers)
+    hybrid = cfg.family == "hybrid"
+    B, Pn, G, tap_steps = (TP_SERVE_B, TP_SERVE_PROMPT, TP_SERVE_GEN,
+                           TP_SERVE_TAP)
+    dev = ctx.device
+    mesh = make_debug_mesh(*TRAIN_MESH_SHAPE)
+    ref = mesh.coords["model"] == 0
+    planted = mesh.coords == {"data": 0, "model": 1}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = init_model(cfg, LM_SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompts = torch.randint(0, vocab, (B, Pn), generator=gen, device=dev)
+    enc = torch.randn((B, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16) if encdec else None
+    # The ranks at "model" 0 keep the whole model on the host until the
+    # one-device steps (four ranks share the card's memory).
+    whole = copy.deepcopy(model).cpu() if ref else None
+    pp = st.make_prefill_step(cfg, mesh, ShapeConfig("p", Pn, B, "prefill"))
+    dp = st.make_decode_step(cfg, mesh, ShapeConfig("d", S, B, "decode"))
+    params_p, params_d = pp.bind(model), dp.bind(model)
+    nb = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
+    res = {"coords": dict(mesh.coords), "arch": arch,
+           "tensor_parallel": (pp.tensor_parallel, dp.tensor_parallel),
+           "compute_bytes": nb(model.parameters()),
+           "plan_compute_bytes": dp.compute_param_bytes(),
+           "whole_bytes": nb(whole.parameters()) if ref else None,
+           "parent_decode_step_bytes": _parent_serve_bytes(dp, cfg, B, S)}
+    rows = pp.rows(prompts)
+    extra = [pp.rows(enc)] if encdec else []
+    torch.cuda.synchronize()
+    res["setup_s"] = time.perf_counter() - t0
+
+    scan_tap = _TpScanTap(ss)
+    reset_counts()
+    t0 = time.perf_counter()
+    with scan_tap:
+        lpre = pp(params_p, rows, *extra)
+    torch.cuda.synchronize()
+    res["prefill_s"] = time.perf_counter() - t0
+    res["prefill_launches"] = {k: v for k, v in read_counts().items() if v}
+    res["scan_tap"] = scan_tap.result()
+    kw = {}
+    if encdec:
+        # The memory of the rank's rows from the mesh's own encoder.
+        reset_counts()
+        with mesh:
+            kw["memory"] = encode(dp.model, cfg, extra[0],
+                                  sequence_parallel=True)
+        res["encode_launches"] = {k: v for k, v in read_counts().items()
+                                  if v}
+
+    tapped = range(Pn, Pn + tap_steps)
+    clone = lambda c: tree_map(lambda t: t.clone(), c,  # noqa: E731
+                               is_leaf=lambda x: hasattr(x, "clone"))
+
+    def decode(steps, caches, feed, taps, first=0):
+        logits, fed, counts, staged, walls, snap = [], [], [], [], [], None
+        tok = feed[:, :1]
+        for i in range(first, first + steps):
+            if i < feed.shape[1]:
+                tok = feed[:, i:i + 1]
+            if i == tapped[0]:
+                snap = clone(caches)
+            fed.append(tok)
+            before = mesh.staged_bytes
+            reset_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                if i in tapped:
+                    for tap in taps:
+                        stack.enter_context(tap)
+                lg, caches = dp(params_d, caches, tok, i, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            staged.append(mesh.staged_bytes - before)
+            counts.append({k: v for k, v in read_counts().items() if v})
+            logits.append(lg)
+            tok = lg[:, :, :vocab].argmax(-1)
+        return logits, torch.cat(fed, dim=1), counts, staged, walls, snap
+
+    taps = [_MappedDecodeTap(fa)] + ([_CrossTap(fa)] if encdec else [])
+    caches = dp.cache_blocks(init_caches(cfg, B, S, device=dev))
+    logits, fed, counts, staged, walls, snap = decode(Pn + G, caches, rows,
+                                                      taps)
+    res.update(decode_counts=counts, staged_per_step=staged, step_s=walls,
+               taps=[t.result() for t in taps],
+               cache_rows=sorted({int(c["attn"].k.shape[3])
+                                  for c in caches}),
+               sums=[float(lg.float().sum()) for lg in logits],
+               tokens=fed[:, Pn:].tolist(),
+               prefill_sum=float(lpre.float().sum()),
+               finite=bool(all(torch.isfinite(lg).all() for lg in logits)
+                           and torch.isfinite(lpre).all()))
+    del caches
+    if not hybrid:
+        ftap = _CrossTap(fa, plant=planted) if encdec else _MappedDecodeTap(
+            fa, plant=(cfg.padded_heads // 2, 0) if planted else None)
+        flog = decode(tap_steps, snap, fed, [ftap], first=tapped[0])[0]
+        res["fault_tap"] = ftap.result()
+    else:
+        # hymba's bf16 noise is of the logits' own size, so the layout is
+        # gated in float32: a float32 copy of the rank's compute model
+        # bound to a float32 prefill plan on the same mesh (the kernels'
+        # float32 instances), held against the one-device float32
+        # prefill; then every rank runs it again (the collectives need
+        # all), the planted rank with the contiguous reference block of
+        # each in_proj (its resting block) in place of [x_r ; z_r].
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype="float32")
+        m32 = copy.deepcopy(dp.model).float()
+        pp32 = st.make_prefill_step(cfg32, mesh, ShapeConfig(
+            "p", Pn, B, "prefill"))
+        params32 = pp32.bind(m32)
+        flog = [pp32(params32, rows)]
+        saved = 0
+        with torch.no_grad():
+            for n, p in m32.named_parameters():
+                if planted and shard_lib.split_halves(n):
+                    p.copy_(params32[n])
+                    saved += 1
+        flog.append(pp32(params32, rows))
+        res["fault_layers"] = saved
+        del m32, params32, pp32
+    # A plan and its step refer to each other: the cycle collector frees
+    # the plans, their compute model and their blocks.
+    del snap, pp, dp, params_p, params_d, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if ref:
+        # The one-device steps on the rank's rows, on the same tokens.
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype="float32")
+        whole = whole.to(dev)
+        w32 = copy.deepcopy(whole).float()
+        kw1, kw32 = {}, {}
+        if encdec:
+            kw1["memory"] = encode(whole, cfg, extra[0])
+            kw32["memory"] = encode(w32, cfg32, extra[0].float(),
+                                    impl="plain")
+        c1 = init_caches(cfg, B // 2, S, device=dev)
+        c32 = init_caches(cfg32, B // 2, S, device=dev)
+        m_vs_ref, one_vs_ref, m_vs_one = (_Logits(torch, vocab)
+                                          for _ in range(3))
+        f_vs_ref = _Logits(torch, vocab)
+        for i in range(Pn + G):
+            tok = fed[:, i:i + 1]
+            l1, c1 = decode_step(whole, cfg, c1, tok, i, **kw1)
+            l32, c32 = decode_step(w32, cfg32, c32, tok, i, impl="plain",
+                                   **kw32)
+            m_vs_ref.add(logits[i], l32)
+            one_vs_ref.add(l1, l32)
+            m_vs_one.add(logits[i], l1)
+            if not hybrid and i in tapped:
+                f_vs_ref.add(flog[i - tapped[0]], l32)
+        noise = one_vs_ref.result()["max_abs_err"]
+        pre_one = prefill(whole, cfg, rows, *extra)
+        pre32 = prefill(w32, cfg32, rows,
+                        *[e.float() for e in extra], impl="plain")
+        acc = _Logits(torch, vocab)
+        acc.add(pre_one, pre32)
+        pre_noise = acc.result()["max_abs_err"]
+        acc = _Logits(torch, vocab)
+        acc.add(lpre, pre32)
+        if hybrid:
+            mesh32 = _Logits(torch, vocab)
+            mesh32.add(flog[0], pre32)
+            res["mesh32_vs_ref"] = mesh32.result()
+            f_vs_ref.add(flog[1], pre32)
+        res.update(noise=noise, prefill_noise=pre_noise,
+                   mesh_vs_ref=m_vs_ref.result(noise),
+                   mesh_vs_one=m_vs_one.result(),
+                   fault_vs_ref=f_vs_ref.result(),
+                   prefill_vs_ref=acc.result(pre_noise))
+        del w32, c1, c32, whole, kw1, kw32
+    del logits, flog, kw
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    return res
+
+
+def _check_tp_serve(tag, path, ranks) -> dict:
+    """(f), (g) or (h): the gates of `_tp_serve` over the ranks' results;
     returns the kernel launches summed over the ranks."""
     from repro_torch.configs import get_config
+    from repro_torch.models.blocks import layer_schedule
 
-    layers = get_config(TRAIN_ARCH).num_layers
-    sv = [r["serve"] for r in ranks]
-    steps = TRAIN_MESH_SERVE_PROMPT + TRAIN_MESH_SERVE_GEN
+    arch, S = TP_SERVE[path]
+    cfg = get_config(arch)
+    part = "(" + "fgh"[list(TP_SERVE).index(path)] + ")"
+    L, encdec = cfg.num_layers, bool(cfg.encoder_layers)
+    hybrid = cfg.family == "hybrid"
+    steps = TP_SERVE_PROMPT + TP_SERVE_GEN
+    # Per layer: the self-attention (and a hybrid's scan, an
+    # encoder-decoder's encoder and cross-attention).
+    want_pre = {"flash_attention_wgmma": L + (cfg.encoder_layers + L
+                                              if encdec else 0)}
+    if hybrid:
+        want_pre["ssm_scan"] = L
+    want_step = {"flash_attention_decode": 2 * L if encdec else L}
+    # Each run's cache: the rank's block of its sequence where the kv
+    # heads are replicated and it has the plan's rows (16 or more), else
+    # whole; a windowed ring has min(S, window) rows.
+    rows = {min(S, run.window or S) for run in layer_schedule(cfg)}
+    want_rows = sorted(n // 2 if not cfg.shard_kv_heads and S >= 16
+                       and n == S else n for n in rows)
+    fault = ("cross-attention reading kv heads off by one" if encdec else
+             "map (rank 1's first q head reading kv head 0)")
+    sv = [r[path] for r in ranks]
     launches = {}
     for i, f in enumerate(sv):
-        for k, v in f["prefill_launches"].items():
-            launches[k] = launches.get(k, 0) + v
-        for c in f["decode_counts"]:
-            for k, v in c.items():
+        for counts in [f["prefill_launches"], f.get("encode_launches", {})
+                       ] + f["decode_counts"]:
+            for k, v in counts.items():
                 launches[k] = launches.get(k, 0) + v
-        bad = [c for c in f["decode_counts"]
-               if c != {"flash_attention_decode": layers}]
-        if (f["prefill_launches"] != {"flash_attention_wgmma": layers}
-                or bad or len(f["decode_counts"]) != steps):
-            fail(f"[{tag}] (f) rank {i}: prefill launched "
+        bad = [c for c in f["decode_counts"] if c != want_step]
+        if f["prefill_launches"] != want_pre or bad or \
+                len(f["decode_counts"]) != steps:
+            fail(f"[{tag}] {part} rank {i}: prefill launched "
                  f"{f['prefill_launches']}, decode steps {bad[:2]}; "
-                 f"expected {layers} wgmma launches per prefill and "
-                 f"{layers} split-K decode launches per step")
+                 f"expected {want_pre} per prefill and {want_step} per step")
+        if encdec and f["encode_launches"] != {
+                "flash_attention_wgmma": cfg.encoder_layers}:
+            fail(f"[{tag}] {part} rank {i}: the memory's encode launched "
+                 f"{f['encode_launches']}")
         if not (all(f["tensor_parallel"]) and f["finite"]
                 and f["compute_bytes"] == f["plan_compute_bytes"]
-                and f["cache_rows"] == TRAIN_MESH_SERVE_MAX // 2):
-            fail(f"[{tag}] (f) rank {i}: tensor-parallel "
+                and f["cache_rows"] == want_rows):
+            fail(f"[{tag}] {part} rank {i}: tensor-parallel "
                  f"{f['tensor_parallel']}, finite {f['finite']}, compute "
                  f"model {f['compute_bytes']} bytes vs the plan's "
                  f"{f['plan_compute_bytes']}, cache block rows "
-                 f"{f['cache_rows']}")
+                 f"{f['cache_rows']} (expected {want_rows})")
         line = [g for g in sv if g["coords"]["data"] == f["coords"]["data"]]
         if any(g["sums"] != f["sums"] or g["tokens"] != f["tokens"]
                or g["prefill_sum"] != f["prefill_sum"] for g in line):
-            fail(f"[{tag}] (f) the ranks of a 'model' line return "
+            fail(f"[{tag}] {part} the ranks of a 'model' line return "
                  "different logits")
-        t, ft = f["tap"], f["fault_tap"]
-        if not (t["max_err_over_tol"] <= 1.0 and t["lse_err_over_tol"]
-                <= 1.0 and t["checked"] > 0):
-            fail(f"[{tag}] (f) rank {i}: the split-K kernel on the rank's "
-                 f"cache block misses its plain version: {t}")
+        scan = f["scan_tap"]
+        if scan["calls"] != (L if hybrid else 0) or \
+                not scan["max_err_over_tol"] <= 1.0:
+            fail(f"[{tag}] {part} rank {i}: ssm_scan taps {scan}: every "
+                 "scan on the rank's channels within the float32 TOL")
+        for t in f["taps"]:
+            if not (t["calls"] > 0 and t["max_err_over_tol"] <= 1.0
+                    and t.get("lse_err_over_tol", 0.0) <= 1.0):
+                fail(f"[{tag}] {part} rank {i}: a tapped kernel misses its "
+                     f"plain version: {t}")
         planted = f["coords"] == {"data": 0, "model": 1}
-        if planted and not ft["max_err_over_tol"] > 1.0:
-            fail(f"[{tag}] (f) the planted map (rank 1 reading kv head 0 "
-                 f"for one of its q heads) passes: {ft}")
         stage = sum(f["staged_per_step"]) / steps
-        say(f"[{tag}] (f) rank {i} {f['coords']}: compute model "
-            f"{f['compute_bytes'] / 1e9:.3f} GB (the plan's count); cache "
-            f"block {f['cache_rows']} of {TRAIN_MESH_SERVE_MAX} rows; "
-            f"prefill {f['prefill_s'] * 1e3:.1f} ms, decode step mean "
-            f"{1e3 * sum(f['step_s']) / steps:.1f} ms; staged through the "
-            f"host per decode step {stage / 1e6:.3f} MB (the replicated "
-            f"layout's gathers: {f['parent_decode_step_bytes'] / 1e6:.1f} "
-            f"MB); kernel tap over {t['checked']} calls: max err/tol "
-            f"{t['max_err_over_tol']:.3f}, log-sum-exp err/tol "
-            f"{t['lse_err_over_tol']:.3f}"
-            + (f"; planted map: err/tol {ft['max_err_over_tol']:.3f}"
-               if planted else ""))
+        say(f"[{tag}] {part} {arch} rank {i} {f['coords']}: compute model "
+            f"{f['compute_bytes'] / 1e9:.3f} GB (the plan's count) of "
+            f"{sv[0]['whole_bytes'] / 1e9:.3f} GB; cache blocks "
+            f"{f['cache_rows']} rows (caches of {S}); prefill "
+            f"{f['prefill_s'] * 1e3:.1f} ms {f['prefill_launches']}, "
+            f"decode step mean {1e3 * sum(f['step_s']) / steps:.1f} ms "
+            f"{want_step}; peak {f['peak_bytes'] / 1e9:.2f} GB; staged "
+            f"through the host per decode step "
+            f"{stage:.0f} bytes (the replicated layout's gathers: "
+            f"{f['parent_decode_step_bytes']} bytes); scans vs plain "
+            f"{scan['calls']} max err/tol {scan['max_err_over_tol']:.3f} "
+            f"(widths {scan['widths']}); kernel taps over the "
+            f"{TP_SERVE_TAP} steps past the prompt: "
+            + "; ".join(f"{t['calls']} calls max err/tol "
+                        f"{t['max_err_over_tol']:.3f}"
+                        + (f", log-sum-exp err/tol {t['lse_err_over_tol']:.3f}"
+                           if "lse_err_over_tol" in t else "")
+                        for t in f["taps"])
+            + (f"; planted {fault}: err/tol "
+               f"{f['fault_tap']['max_err_over_tol']:.3f}"
+               if planted and not hybrid else ""))
+        if planted and not hybrid and \
+                not f["fault_tap"]["max_err_over_tol"] > 1.0:
+            fail(f"[{tag}] {part} the planted {fault} passes: "
+                 f"{f['fault_tap']}")
         if f["coords"]["model"] == 0:
-            what = (f"(f) {TRAIN_ARCH} full width on {TRAIN_MESH_SHAPE}, "
-                    f"rows of data {f['coords']['data']}")
+            what = (f"{part} {arch} full width on {TRAIN_MESH_SHAPE}, rows "
+                    f"of data {f['coords']['data']}")
             say(f"[{tag}] {what}: one-device bf16 vs float32 (the noise) "
                 f"{f['noise']:.4e}; prefill {f['prefill_noise']:.4e}")
             _check_noise(f"{what}, prefill (wgmma, sequence-parallel) "
@@ -6956,10 +7270,31 @@ def _check_train_mesh_serve(tag, ranks) -> dict:
             _check_ties(f"{what}, mesh vs one-device bf16 (greedy tokens)",
                         f["mesh_vs_one"], f["noise"], tag)
             fv = f["fault_vs_ref"]
-            times = fv["max_abs_err"] / max(f["noise"], 1e-30)
-            say(f"[{tag}] {what}: the planted map's logits vs float32: max "
-                f"|dlogit| {fv['max_abs_err']:.4e} ({times:.2f} x the "
-                "noise; information)")
+            if hybrid:
+                m32 = f["mesh32_vs_ref"]
+                bound = TP_SERVE_F32_BOUND * m32["max_abs_logit"]
+                say(f"[{tag}] {what}, prefill in float32 (the kernels' "
+                    f"float32 instances) vs the one-device float32 prefill: "
+                    f"max |dlogit| {m32['max_abs_err']:.4e} (bound "
+                    f"{bound:.4e}, {TP_SERVE_F32_BOUND:g} of the largest "
+                    f"logit {m32['max_abs_logit']:.4f}); the planted in_proj "
+                    f"(rank (0, 1) on its contiguous resting block in "
+                    f"{sv[1]['fault_layers']} layers): "
+                    f"{fv['max_abs_err']:.4e} "
+                    f"({fv['max_abs_err'] / bound:.1f} x the bound)")
+                if not m32["max_abs_err"] <= bound:
+                    fail(f"[{tag}] {part} the float32 mesh prefill misses the "
+                         f"one-device float32 prefill: {m32['max_abs_err']:.4e}"
+                         f" over {bound:.4e}")
+                if f["coords"]["data"] == 0 and not fv["max_abs_err"] > bound:
+                    fail(f"[{tag}] {part} the planted in_proj layout passes "
+                         f"the float32 prefill gate ({fv['max_abs_err']:.4e} "
+                         f"within {bound:.4e})")
+            else:
+                say(f"[{tag}] {what}: the planted {fault}: logits vs "
+                    f"float32 max |dlogit| {fv['max_abs_err']:.4e} "
+                    f"({fv['max_abs_err'] / max(f['noise'], 1e-30):.2f} x "
+                    "the noise; information)")
     return launches
 
 
@@ -7212,7 +7547,9 @@ def main() -> int:
                  "lm_xlstm_prefill": xlstm["ssm_launches"],
                  "train": train["launches"]["ssm_scan"],
                  "mesh": mesh["launches"].get("ssm_scan", 0),
-                 "train_mesh": train_mesh["launches"].get("ssm_scan", 0)}
+                 "train_mesh": train_mesh["launches"].get("ssm_scan", 0),
+                 **{path: n.get("ssm_scan", 0) for path, n in
+                    train_mesh["tp_serve_launches"].items()}}
     rows[-2].update(launches=sum(ssm_paths.values()),
                     launches_by_path=ssm_paths,
                     **{path: {k: res["ssm_scan"][k] for k in lm_times}
@@ -7229,9 +7566,10 @@ def main() -> int:
                    "train_mesh": sum(
                        n for k, n in train_mesh["launches"].items()
                        if k.startswith("flash_attention")),
-                   "train_mesh_serve": sum(
-                       n for k, n in train_mesh["serve_launches"].items()
-                       if k.startswith("flash_attention")),
+                   **{path: sum(n for k, n in counts.items()
+                                if k.startswith("flash_attention"))
+                      for path, counts in
+                      train_mesh["tp_serve_launches"].items()},
                    "dryrun": sum(n for k, n in dryrun["launches"].items()
                                  if k.startswith("flash_attention"))}
     rows[-1].update(launches=sum(flash_paths.values()),
@@ -7250,7 +7588,9 @@ def main() -> int:
                            ("lm_encdec", encdec, "decode"),
                            ("lm_encdec_prefill", encdec, "prefill"),
                            ("lm_mrope", mrope, "decode"),
-                           ("lm_mrope_prefill", mrope, "prefill"))})
+                           ("lm_mrope_prefill", mrope, "prefill"))},
+                    **{f"tp_serve_hybrid_{part}": {k: t[k] for k in lm_times}
+                       for part, t in hybrid["tp_decode_attention"].items()})
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, **row}
             for (name, (replaces, source)), row in zip(KERNELS.items(), rows)]

@@ -108,11 +108,12 @@ def lm_params(params, cfg, *, device: Device = None,
     it is for the reduced configs only.
 
     With ``mesh`` (a `repro_torch.distributed.Mesh`, on one of its
-    ranks), a dense config that runs tensor-parallel on it (in every plan,
-    decode's too: `launch.sharding.tensor_parallel`) becomes the rank's
-    compute model: the reference's "model" block of every weight
-    (`launch.sharding.shard_tensor_parallel`), which the plans of that
-    mesh bind as it is. Otherwise every MoE layer keeps only what the
+    ranks), a dense, hybrid or encoder-decoder config that runs
+    tensor-parallel on it (in every plan, decode's too:
+    `launch.sharding.tensor_parallel`) becomes the rank's compute model:
+    the reference's "model" block of every weight, an SSM's ``in_proj``
+    its block of each half (`launch.sharding.shard_tensor_parallel`),
+    which the plans of that mesh bind as it is. Otherwise every MoE layer keeps only what the
     rank's coordinate on "model" holds for the expert-parallel dispatch
     (`moe.shard_model`): its ``E / tp`` experts and its shards of the
     shared experts, and every other weight is whole on every rank."""

@@ -50,6 +50,9 @@ names: `copy_to_region` (`pvary`: identity forward, sum backward) and
 `reduce_from_region` (`psum`: sum forward, identity backward), and for a
 sequence-parallel residual stream `gather_sequence` (all_gather forward,
 reduce-scatter backward) and `scatter_sequence` (`psum_scatter`).
+`exchange_rows` moves a weight's rows, outside autograd, from the layout
+it rests in over an axis to another (the SSM's ``in_proj`` under tensor
+parallelism), point to point.
 
 `PartitionSpec` (``P``) is a tensor's layout on a mesh: per dimension an
 axis name, a tuple of names (split row-major over them) or None (whole).
@@ -363,6 +366,63 @@ def _all_to_all(mesh: Mesh, leaves: List[torch.Tensor], axis_name: str,
         else:
             blocks = [b.squeeze(split_axis) for b in blocks]
             out.append(torch.stack(blocks, dim=concat_axis))
+    return out
+
+
+def exchange_rows(t: torch.Tensor, mesh, axis_name: str,
+                  held: Callable[[int], Sequence[int]],
+                  wanted: Callable[[int], Sequence[int]]) -> torch.Tensor:
+    """Rows of a tensor split over the ranks of ``axis_name`` moved from
+    one layout into another: ``held(i)`` and ``wanted(i)`` are the global
+    row indices axis index ``i`` holds before and after, each row held by
+    one rank of the axis in each layout. ``t`` holds this rank's rows in
+    ``held`` order; the result its rows in ``wanted`` order. Each rank
+    keeps what it holds and wants, and sends each peer, point to point,
+    the rows it holds that the peer wants (an all-to-all of uneven
+    parts). No gradient: the layouts of a weight at rest and in use."""
+    me, D = mesh.coords[axis_name], mesh.shape[axis_name]
+    want = list(wanted(me))
+    at = {g: i for i, g in enumerate(held(me))}
+    out = t.new_empty((len(want),) + tuple(t.shape[1:]))
+    dev = t.device
+
+    def rows(idx):
+        return torch.tensor(idx, dtype=torch.long, device=dev)
+
+    mine = [(k, at[g]) for k, g in enumerate(want) if g in at]
+    if mine:
+        dst, src = zip(*mine)
+        out.index_copy_(0, rows(dst), t.detach().index_select(0, rows(src)))
+    sends, recvs = [], []
+    for j in range(D):
+        if j == me:
+            continue
+        to_j = [at[g] for g in wanted(j) if g in at]
+        theirs = set(held(j))
+        from_j = [k for k, g in enumerate(want) if g in theirs]
+        if to_j:
+            sends.append((j, t.detach().index_select(0, rows(to_j))))
+        if from_j:
+            recvs.append((j, from_j))
+    if D > 1:
+        counting.collective("all-to-all", [out], [t])
+    if mesh.abstract or not (sends or recvs):
+        return out
+    line = mesh.line(axis_name)
+    sent, _ = _host_staged(mesh, [s for _, s in sends])
+    staged = mesh.backend == "gloo" and t.is_cuda
+    got = [torch.empty((len(idx),) + tuple(t.shape[1:]), dtype=t.dtype,
+                       device="cpu" if staged else dev) for _, idx in recvs]
+    ops = [dist.P2POp(dist.isend, s, line[j])
+           for (j, _), s in zip(sends, sent)]
+    ops += [dist.P2POp(dist.irecv, g, line[j])
+            for (j, _), g in zip(recvs, got)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for (_, idx), g in zip(recvs, got):
+        if staged:
+            mesh.staged_bytes += g.numel() * g.element_size()
+        out.index_copy_(0, rows(idx), g.to(dev))
     return out
 
 

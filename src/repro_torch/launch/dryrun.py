@@ -9,8 +9,8 @@ makes the cell's plan (`launch.steps.make_cell_plan`), counts its
 resident bytes per chip (`CellPlan.per_chip_argument_bytes`, the
 reference's count) and the parameter bytes of the rank's compute model
 (`CellPlan.compute_param_bytes`: the "model" block of a tensor-parallel
-dense model, the whole model for the families that run replicated over
-"model"), traces one rank's step on ``meta`` tensors
+dense, hybrid or encoder-decoder model, the whole model for the families
+that run replicated over "model"), traces one rank's step on ``meta`` tensors
 (`launch.cost.count_cell`: FLOPs, HBM bytes and collective bytes per
 chip; nothing allocated) and writes the roofline at the card's peaks
 (`launch.roofline`). ``fits_h100_80gb`` holds where the step's

@@ -19,11 +19,24 @@ allocates nothing (the reference's ``eval_shape``).
 
 Tensor parallelism (`tensor_parallel`, `tp_compute_specs`,
 `shard_tensor_parallel`): on a mesh whose "model" axis has more than one
-rank, a dense model's compute blocks are the reference's parameter specs
-with the batch axes taken out and "model" kept, so each rank holds and
-computes the reference's "model" block of every layer, as GSPMD runs it
-(Megatron's layout: attention heads, the MLP's ``d_ff`` and the padded
-vocabulary of the embedding and head split over "model").
+rank, the compute blocks of a dense, hybrid or encoder-decoder model are
+the reference's parameter specs with the batch axes taken out and
+"model" kept, so each rank holds and computes the reference's "model"
+block of every layer, as GSPMD runs it (Megatron's layout: attention
+heads, the MLP's ``d_ff``, the SSM's ``d_inner`` channels, the encoder's
+blocks and the cross-attention's heads, and the padded vocabulary of the
+embedding and head split over "model").
+
+One weight computes on another block than it rests in: the SSM's
+``in_proj`` ``[d, 2 d_inner]`` (columns ``[x | z]``), which the
+reference splits as one contiguous run of columns over "model" (at
+"model" 2, rank 0 rests with all of ``x`` and rank 1 with all of
+``z``), while a rank computing on its ``d_inner`` channels needs its
+block of each half, ``[x_r ; z_r]`` (`split_halves`). GSPMD moves the
+activations after ``xz[..., :d_inner]``; the port moves the weight
+instead: the compute block is exchanged from the resting block over
+"model" when the compute model is loaded, and a gradient takes the same
+way back (`to_halves`, `from_halves`: `distributed.exchange_rows`).
 """
 from __future__ import annotations
 
@@ -35,7 +48,8 @@ import torch
 from repro_torch import convert
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import (NamedSharding, P, PartitionSpec,
-                                     map_specs, shape_of, widen_spec)
+                                     exchange_rows, map_specs, shape_of,
+                                     widen_spec)
 
 # ---------------------------------------------------------------------------
 # The reference's specs, in its layout
@@ -320,15 +334,21 @@ def train_batch_specs(cfg: ModelConfig, batch_axis=("data",)) -> dict:
 def residual_spec(batch_axis=("data",), seq_axis="model") -> PartitionSpec:
     """Megatron-style sequence-parallel residual stream (train path). A
     layout hint to GSPMD in the reference; in the port a tensor-parallel
-    dense model holds its residual stream so where the train and prefill
-    plans ask for it (``sequence_parallel``, `models.train_loss`), and
-    the other families hold it replicated over "model"."""
+    model (`tensor_parallel`) holds its residual stream so where the
+    train and prefill plans ask for it (``sequence_parallel``,
+    `models.train_loss`; an encoder's stream too), and the other
+    families hold it replicated over "model"."""
     return P(batch_axis, seq_axis, None)
 
 
 # ---------------------------------------------------------------------------
-# Tensor parallelism of the dense family
+# Tensor parallelism
 # ---------------------------------------------------------------------------
+
+#: The families whose layers run tensor-parallel over "model" (the MoE's
+#: experts and xLSTM's mixers keep the replicated compute model).
+TP_FAMILIES = ("dense", "hybrid", "encdec")
+
 
 def kv_heads_split(cfg: ModelConfig, mesh) -> bool:
     """Whether a rank's compute blocks hold its block of the kv heads: the
@@ -340,19 +360,20 @@ def kv_heads_split(cfg: ModelConfig, mesh) -> bool:
 
 
 def tensor_parallel(cfg: ModelConfig, mesh, kind: str = "train") -> bool:
-    """Whether a plan of ``kind`` on ``mesh`` runs the dense layers
-    tensor-parallel over "model": a dense config (no experts, no encoder:
-    the other families keep the replicated compute model), "model" of
-    more than one rank dividing the padded q heads, ``d_ff`` and the
-    padded vocabulary, and in decode kv heads that split over "model" as
-    its caches do (`kv_heads_split`) or rest replicated."""
+    """Whether a plan of ``kind`` on ``mesh`` runs its layers
+    tensor-parallel over "model": a dense, hybrid or encoder-decoder
+    config (`TP_FAMILIES`, no experts), "model" of more than one rank
+    dividing the padded q heads, ``d_ff``, the padded vocabulary and a
+    hybrid's ``d_inner``, and in decode kv heads that split over "model"
+    as its caches do (`kv_heads_split`) or rest replicated."""
     if mesh is None:
         return False
     tp = mesh.shape.get("model", 1)
-    if tp == 1 or cfg.family != "dense" or cfg.num_experts or \
-            cfg.encoder_layers:
+    if tp == 1 or cfg.family not in TP_FAMILIES or cfg.num_experts:
         return False
     if cfg.padded_heads % tp or cfg.d_ff % tp or cfg.padded_vocab % tp:
+        return False
+    if cfg.family == "hybrid" and (cfg.ssm_expand * cfg.d_model) % tp:
         return False
     return kind != "decode" or kv_heads_split(cfg, mesh) == \
         cfg.shard_kv_heads
@@ -364,7 +385,9 @@ def tp_compute_specs(cfg: ModelConfig, mesh,
     """What a tensor-parallel rank's compute model holds of each parameter
     (port specs ``pspecs`` by name): its spec with every axis but "model"
     taken out (an FSDP or multi-pod batch axis is gathered), and the k/v
-    projections whole where the kv heads do not split (`kv_heads_split`)."""
+    projections whole where the kv heads do not split (`kv_heads_split`).
+    A `split_halves` weight's "model" entry there means its block of each
+    half (`halves_block`)."""
     whole_kv = not kv_heads_split(cfg, mesh)
     out = {}
     for n, spec in pspecs.items():
@@ -374,18 +397,71 @@ def tp_compute_specs(cfg: ModelConfig, mesh,
     return out
 
 
+def split_halves(name: str) -> bool:
+    """Whether a tensor-parallel rank computes on its block of each half of
+    the parameter's first dimension, where the reference rests it as one
+    contiguous block over "model": an SSM's ``in_proj`` (module
+    docstring)."""
+    return name.endswith("ssm.in_proj.weight")
+
+
+def _rest_rows(n: int, size: int, i: int) -> range:
+    """The rows of ``n`` that axis index ``i`` of ``size`` rests with: one
+    contiguous block."""
+    return range(i * n // size, (i + 1) * n // size)
+
+
+def _halves_rows(n: int, size: int, i: int) -> list:
+    """The rows of ``n`` that axis index ``i`` of ``size`` computes on:
+    its block of each half."""
+    h, c = n // 2, n // (2 * size)
+    return list(range(i * c, (i + 1) * c)) + list(range(h + i * c,
+                                                        h + (i + 1) * c))
+
+
+def halves_block(full: torch.Tensor, mesh, axis: str = "model"
+                 ) -> torch.Tensor:
+    """A rank's compute block ``[x_r ; z_r]`` of a whole `split_halves`
+    weight: its block of each half of the first dimension (a copy)."""
+    rows = _halves_rows(full.shape[0], mesh.shape[axis], mesh.coords[axis])
+    return full.index_select(0, torch.tensor(rows, device=full.device))
+
+
+def to_halves(rest: torch.Tensor, mesh, axis: str = "model"
+              ) -> torch.Tensor:
+    """A `split_halves` weight's compute block from the rank's resting
+    block over ``axis`` (its contiguous block): an exchange of rows
+    between the ranks of the axis (`distributed.exchange_rows`)."""
+    n, D = rest.shape[0] * mesh.shape[axis], mesh.shape[axis]
+    return exchange_rows(rest, mesh, axis,
+                         lambda i: _rest_rows(n, D, i),
+                         lambda i: _halves_rows(n, D, i))
+
+
+def from_halves(block: torch.Tensor, mesh, axis: str = "model"
+                ) -> torch.Tensor:
+    """The inverse of `to_halves`: the rank's resting block of a
+    `split_halves` weight (or of its gradient) from its compute block."""
+    n, D = block.shape[0] * mesh.shape[axis], mesh.shape[axis]
+    return exchange_rows(block, mesh, axis,
+                         lambda i: _halves_rows(n, D, i),
+                         lambda i: _rest_rows(n, D, i))
+
+
 def shard_tensor_parallel(model, cfg: ModelConfig, mesh,
                           specs: Optional[Dict[str, PartitionSpec]] = None
                           ) -> None:
     """Make ``model`` (whole, on this rank of ``mesh``) the rank's
     tensor-parallel compute model, in place: each parameter cut to its
     block under ``specs`` (default `tp_compute_specs` of the reference's
-    specs), and the model, its blocks, attentions and MLPs marked with the
-    axis (``tp_axis``) they split over. A model marked already is left as
-    it is."""
+    specs; a `split_halves` weight to its block of each half), and the
+    model, its blocks, attentions, MLPs and SSMs marked with the axis
+    (``tp_axis``) they split over. A model marked already is left as it
+    is."""
     from repro_torch.models.attention import Attention
     from repro_torch.models.blocks import Block
     from repro_torch.models.mlp import MLP
+    from repro_torch.models.ssm import SSM
 
     if getattr(model, "tp_axis", None) is not None:
         return
@@ -393,7 +469,10 @@ def shard_tensor_parallel(model, cfg: ModelConfig, mesh,
         specs = tp_compute_specs(cfg, mesh, param_specs(cfg))
     with torch.no_grad():
         for name, p in list(model.named_parameters()):
-            block = NamedSharding(mesh, specs[name]).block(p)
+            if split_halves(name):
+                block = halves_block(p, mesh)
+            else:
+                block = NamedSharding(mesh, specs[name]).block(p)
             if block.shape == p.shape:
                 continue
             owner, _, leaf = name.rpartition(".")
@@ -402,5 +481,5 @@ def shard_tensor_parallel(model, cfg: ModelConfig, mesh,
                 block.clone(), requires_grad=p.requires_grad))
     model.tp_axis = "model"
     for m in model.modules():
-        if isinstance(m, (Attention, Block, MLP)):
+        if isinstance(m, (Attention, Block, MLP, SSM)):
             m.tp_axis = "model"

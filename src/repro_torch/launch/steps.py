@@ -26,27 +26,33 @@ inside ``with mesh:``:
   all-reduce where it does not), and `optim.adamw_update_sharded`
   updates the blocks.
 
-The compute model of a dense config is tensor-parallel
-(`sharding.tensor_parallel`): each rank holds the reference's "model"
-block of every parameter (its specs with the batch axes taken out,
-`sharding.tp_compute_specs`), so a step gathers a parameter over the
-batch axes only (an FSDP-widened one over "data"), the layers run
-Megatron's tensor parallelism as the reference's GSPMD does (with the
-residual stream split along T where ``sequence_parallel`` asks), and a
-gradient is already the rank's "model" block. The other families
-(hybrid, MoE, xLSTM, encoder-decoder) hold every parameter whole on
-every rank, except an expert-parallel MoE's experts, which stay the
-rank's shard, and run the mixers' expert- and sequence-parallel paths:
-their dense layers run replicated over "model" (ROADMAP C). An MoE that
-takes the global dispatch routes the global batch (`models.moe.route`).
+The compute model of a dense, hybrid or encoder-decoder config is
+tensor-parallel (`sharding.tensor_parallel`): each rank holds the
+reference's "model" block of every parameter (its specs with the batch
+axes taken out, `sharding.tp_compute_specs`), so a step gathers a
+parameter over the batch axes only (an FSDP-widened one over "data"),
+the layers run Megatron's tensor parallelism as the reference's GSPMD
+does (with the residual stream split along T where
+``sequence_parallel`` asks), and a gradient is already the rank's
+"model" block. The SSM's ``in_proj`` is the one weight whose compute
+block is not its resting block (`sharding.split_halves`): it is
+exchanged over "model" into the compute model, and its gradient back
+(`CellPlan._load_params`, `CellPlan._reduce_grads`). The other families
+(MoE, xLSTM) hold every parameter whole on every rank, except an
+expert-parallel MoE's experts, which stay the rank's shard, and run the
+mixers' expert- and sequence-parallel paths: their dense layers run
+replicated over "model" (ROADMAP C). An MoE that takes the global
+dispatch routes the global batch (`models.moe.route`).
 
 The prefill and decode plans (`ServePlan`) lay out the compute model in
 the same way on every rank of a mesh, the rank's rows of the batch
 split over the batch axes. A tensor-parallel decode step reads and
 writes the rank's cache blocks in place (its kv heads, its block of the
 caches' sequence, or the whole cache where neither splits: the
-reference's cache specs); the other families gather each cache block
-over the axes besides the batch's, use it, and write it back.
+reference's cache specs: a hybrid's SSM state by its ``d_inner``
+channels); the other families gather each cache block over the axes
+besides the batch's, use it, and write it back. A bound serve plan
+loads its compute model once: its steps move no parameter.
 """
 from __future__ import annotations
 
@@ -183,7 +189,7 @@ def _ep_names(cfg: ModelConfig, mesh, seq_len: int, names) -> set:
 def _plan_compute_specs(cfg: ModelConfig, mesh, pspecs, ep: set,
                         kind: str) -> Tuple[Dict[str, Any], bool]:
     """(the compute specs, whether tensor-parallel) of a plan of ``kind``
-    on ``mesh``: the "model" blocks for the dense family
+    on ``mesh``: the "model" blocks for the families that split over it
     (`sharding.tensor_parallel`), else `_compute_specs`."""
     if shard_lib.tensor_parallel(cfg, mesh, kind):
         return shard_lib.tp_compute_specs(cfg, mesh, pspecs), True
@@ -272,25 +278,58 @@ class CellPlan:
             moe_lib.shard_model(model, self.cfg, self.mesh)
         self.model = model
 
+    def _halves(self, name: str) -> bool:
+        """Whether the compute model holds parameter ``name`` as its block
+        of each half while it rests in one contiguous block
+        (`sharding.split_halves`): its two layouts differ by an exchange
+        over "model"."""
+        return self.tensor_parallel and shard_lib.split_halves(name)
+
     def _blocks_of(self, model: CausalLM) -> Dict[str, torch.Tensor]:
         """The rank's parameter blocks (copies) of ``model``: whole, or a
         tensor-parallel compute model already cut to its "model" blocks."""
         ps = self.shardings(self.param_specs)
         cs = self.shardings(self.compute_specs)
         cut = getattr(model, "tp_axis", None) is not None
+        out = {}
         with torch.no_grad():
-            return {n: (refine_block(p, cs[n], ps[n]) if cut
-                        else ps[n].block(p)).clone()
-                    for n, p in model.named_parameters()}
+            for n, p in model.named_parameters():
+                if not cut:
+                    out[n] = ps[n].block(p).clone()
+                    continue
+                if self._halves(n):
+                    p = shard_lib.from_halves(p, self.mesh)
+                out[n] = refine_block(p, cs[n], ps[n]).clone()
+        return out
 
     def _load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """The compute model's parameters from the rank's blocks
-        (all_gathers over the axes its specs cut)."""
+        (all_gathers over the axes its specs cut; a `_halves` weight then
+        exchanged over "model")."""
         ps, cs = self.shardings(self.param_specs), self.shardings(
             self.compute_specs)
         with torch.no_grad():
             for n, p in self.model.named_parameters():
-                p.copy_(coarsen_block(params[n], ps[n], cs[n]))
+                block = coarsen_block(params[n], ps[n], cs[n])
+                if self._halves(n):
+                    block = shard_lib.to_halves(block, self.mesh)
+                p.copy_(block)
+
+    def _reduce_grads(self, grads: Dict[str, torch.Tensor],
+                      moment_specs: Dict[str, Any], batch: tuple
+                      ) -> Dict[str, torch.Tensor]:
+        """The rank's moment blocks of the whole gradients from its
+        compute model's (`_reduce_grad`), a `_halves` weight's gradient
+        first taken back to its resting block over "model"."""
+        cs, ms = self.shardings(self.compute_specs), self.shardings(
+            moment_specs)
+        blocks = {}
+        for n in list(grads):
+            g = grads.pop(n)
+            if self._halves(n):
+                g = shard_lib.from_halves(g, self.mesh)
+            blocks[n] = _reduce_grad(g, cs[n], ms[n], batch)
+        return blocks
 
 
 @dataclasses.dataclass
@@ -416,9 +455,9 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     (``shape.global_batch`` split over the batch axes, row-major), and
     the step runs on every rank at once (module docstring).
     ``sequence_parallel``: as the reference's ``residual_spec``, a
-    tensor-parallel (dense) model splits its residual stream along T over
-    "model" where T divides (`sharding.residual_spec`); the other
-    families keep it replicated."""
+    tensor-parallel model splits its residual stream along T over
+    "model" where T divides (`sharding.residual_spec`; an encoder's
+    along its own sequence); the other families keep it replicated."""
     if mesh is None or mesh.size == 1:
         return _one_device_plan(cfg, shape, opt_cfg, total_steps,
                                 warmup_steps)
@@ -449,14 +488,11 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                                "state with plan.init_state(model) on every "
                                "rank of the mesh first")
         ps, ms = plan.shardings(pspecs), plan.shardings(opt_specs.m)
-        cs = plan.shardings(cspecs)
         with mesh:
             plan._load_params(state.params)
             loss, metrics, grads = loss_and_grads(
                 model, cfg, batch_rows, sequence_parallel=sequence_parallel)
-            blocks = {}
-            for n in list(grads):
-                blocks[n] = _reduce_grad(grads.pop(n), cs[n], ms[n], batch)
+            blocks = plan._reduce_grads(grads, opt_specs.m, batch)
             lr_scale = warmup_cosine(state.opt.step,
                                      warmup_steps=warmup_steps,
                                      total_steps=total_steps)
@@ -547,7 +583,8 @@ class ServePlan(CellPlan):
     its cache blocks, written in place).
 
     On a mesh the step runs on every rank at once, with the compute model
-    of the train step's layout: a dense config's "model" blocks
+    of the train step's layout: a dense, hybrid or encoder-decoder
+    config's "model" blocks
     (``tensor_parallel``; prefill sequence-parallel where T divides), a
     decode step reading and writing the rank's cache blocks in place
     (`models.attention.caches_split_along_sequence` where the caches'
@@ -566,6 +603,9 @@ class ServePlan(CellPlan):
     arg_leaves: list = None
     cache_specs: Any = None
     row_spec: Any = None
+    #: The parameter blocks the compute model holds now, each with its
+    #: version counter (`_load_params`).
+    loaded: Any = dataclasses.field(default=None, repr=False)
 
     def argument_leaves(self):
         return self.arg_leaves
@@ -576,7 +616,21 @@ class ServePlan(CellPlan):
             return dict(model.named_parameters())
         params = self._blocks_of(model)
         self._use_model(model)
+        self.loaded = _versions(params)
         return params
+
+    def _load_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """As `CellPlan._load_params`, only where ``params`` are not the
+        blocks the compute model holds already: other tensors, or the
+        same written since. A serve step changes no parameter, so a bound
+        plan's steps move none (a `_halves` weight's exchange included)."""
+        now = _versions(params)
+        if self.loaded is not None and len(now) == len(self.loaded) and all(
+                a is b and va == vb for (a, va), (b, vb) in zip(
+                    now, self.loaded)):
+            return
+        super()._load_params(params)
+        self.loaded = now
 
     def cache_blocks(self, caches):
         if self.mesh is None:
@@ -589,6 +643,12 @@ class ServePlan(CellPlan):
         if self.mesh is None:
             return t
         return NamedSharding(self.mesh, P(self.row_spec)).block(t)
+
+
+def _versions(params: Dict[str, torch.Tensor]) -> list:
+    """Each tensor of ``params`` with its version counter (bumped by every
+    in-place write)."""
+    return [(t, t._version) for t in params.values()]
 
 
 def _serve_tables(cfg: ModelConfig, mesh, shape: ShapeConfig, kind: str):

@@ -50,7 +50,13 @@ out, read in place: its kv heads, or the whole cache where the kv heads
 are replicated and the cache is short, or its block of the sequence
 where the plan splits the cache's sequence over the axis
 (`caches_split_along_sequence`): then every rank runs every real q head
-against its rows, and the ranks' rows merge by their log-sum-exps.
+against its rows, and the ranks' rows merge by their log-sum-exps. A
+windowed layer's ring splits so too where it has the plan's rows (a
+window at least as long as the caches); a decode step needs no window
+mask there, as the reference's has none: a ring holds in-window keys
+only. The encoder-decoder's cross-attention runs the rank's q heads
+against the k/v of its kv heads, projected from the memory
+(`cross_attention_layer`).
 """
 from __future__ import annotations
 
@@ -403,17 +409,18 @@ def attention_layer(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, *,
                     cache: Optional[KVCache] = None, window: int = 0,
                     causal: bool = True, impl: str = "auto",
-                    seq_split: bool = False
+                    seq_split: bool = False, entered: bool = False
                     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Full attention sublayer. Returns (output ``[B, T, d]``, updated
     cache): prefill when ``cache`` is None, else one decode step (T == 1)
     against the cache. ``impl``: see the module docstring. Under tensor
     parallelism ``x`` is the residual stream as the rank holds it (its
-    block of the sequence where ``seq_split``) and so is the output."""
+    block of the sequence where ``seq_split``) and so is the output, or
+    ``x`` is the region's input already where ``entered``."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r}; one of {IMPLS}")
     axis = tp_axis(params)
-    if axis is not None:
+    if axis is not None and not entered:
         x = tp_enter(x, axis, seq_split)
     kernel = impl == "auto" and x.is_cuda
     heads = rank_heads(params, cfg)
@@ -448,6 +455,16 @@ def _kv_for_kernel(k: torch.Tensor, v: torch.Tensor,
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
+def _expanded(k: torch.Tensor, v: torch.Tensor, hmap: Tuple[int, ...]):
+    """k/v ``[B, T, n_kv, Dh]`` expanded to one head per q head of
+    ``hmap`` (the reference's `expand_kv_heads`, restated on a rank's
+    heads); k/v themselves where the map is the identity."""
+    if hmap == tuple(range(k.shape[2])):
+        return k, v
+    idx = torch.tensor(hmap, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def _prefill_attention(q, k, v, heads: Heads, cfg: ModelConfig, *,
                        causal: bool, window: int, impl: str, kernel: bool
                        ) -> torch.Tensor:
@@ -469,11 +486,7 @@ def _prefill_attention(q, k, v, heads: Heads, cfg: ModelConfig, *,
             else:
                 ctx = torch.zeros_like(q)
         else:
-            if heads.map == tuple(range(k.shape[2])):
-                ke, ve = k, v
-            else:
-                idx = torch.tensor(heads.map, device=k.device)
-                ke, ve = k.index_select(2, idx), v.index_select(2, idx)
+            ke, ve = _expanded(k, v, heads.map)
             ctx = blockwise_causal_attention(
                 q, ke, ve, chunk=min(cfg.attn_chunk, q.shape[1]),
                 window=window, softcap=cfg.attn_logit_softcap,
@@ -563,31 +576,52 @@ def chunked_cross(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def cross_attention_layer(params: Attention, x: torch.Tensor,
                           memory: torch.Tensor, cfg: ModelConfig, *,
-                          impl: str = "auto") -> torch.Tensor:
+                          impl: str = "auto", seq_split: bool = False
+                          ) -> torch.Tensor:
     """Encoder-decoder cross-attention sublayer: q from ``x [B, T, d]``,
     k/v from ``memory [B, S, d]``, through the layer's own projections
     with no RoPE and no QKV bias (even where the config has one), as the
     reference does; non-causal. The memory's k/v are projected anew on
     every call (in every layer of every decode step), as in the
     reference. Returns ``[B, T, d]``. ``impl``: see the module
-    docstring."""
+    docstring.
+
+    Under tensor parallelism the rank runs its q heads (``wq``
+    column-parallel) against the k/v of its kv heads, projected from the
+    memory (whole on every rank: `models.transformer` enters the region
+    once for every layer) by its block of ``wk``/``wv`` (whole where the
+    kv heads do not split, read through the rank's head map), and leaves
+    with the partial products of ``wo`` summed; ``x`` and the output are
+    the residual stream as the rank holds it (its block of T where
+    ``seq_split``)."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r}; one of {IMPLS}")
+    axis = tp_axis(params)
+    if axis is not None:
+        x = tp_enter(x, axis, seq_split)
     B, T, _ = x.shape
     S = memory.shape[1]
-    dh, H = cfg.resolved_head_dim, cfg.num_heads
-    q = F.linear(x, params.wq.weight).reshape(B, T, cfg.padded_heads, dh)
-    k = F.linear(memory, params.wk.weight).reshape(B, S, cfg.num_kv_heads, dh)
-    v = F.linear(memory, params.wv.weight).reshape(B, S, cfg.num_kv_heads, dh)
-    qh, kh, vh = (t.transpose(1, 2) for t in (q[:, :, :H], k, v))
+    dh = cfg.resolved_head_dim
+    heads = rank_heads(params, cfg)
+    whole_kv = axis is not None and not heads.kv_split
+    q = F.linear(x, params.wq.weight).reshape(B, T, heads.n_q, dh)
+    k, v = (F.linear(memory, tp_weight(lin.weight, axis, whole_kv))
+            .reshape(B, S, heads.n_kv, dh) for lin in (params.wk, params.wv))
+    real, hmap = heads.real, heads.map[:heads.real]
+    kk, vk = _kv_for_kernel(k, v, hmap) if real else (k, v)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q[:, :, :real], kk, vk))
     with _region(impl, kfa.counted_flash(qh, kh, False)):
         if impl == "auto" and x.is_cuda:
-            o = kfa.flash_attention_cuda(
-                qh.contiguous(), kh.contiguous(), vh.contiguous(),
-                causal=False)
-            ctx = _pad_heads(o.transpose(1, 2), cfg)
+            if real:
+                o = kfa.flash_attention_cuda(
+                    qh.contiguous(), kh.contiguous(), vh.contiguous(),
+                    causal=False)
+                ctx = _pad_heads(o.transpose(1, 2), cfg, heads.n_q)
+            else:
+                ctx = torch.zeros_like(q)
         else:
-            ke, ve = expand_kv_heads(k, v, cfg.padded_heads, H)
+            ke, ve = _expanded(k, v, heads.map)
             ctx = chunked_cross(q, ke, ve, chunk=min(cfg.attn_chunk, T))
         ctx = ctx.contiguous()
-    return params.wo(ctx.reshape(B, T, -1))
+    out = params.wo(ctx.reshape(B, T, -1))
+    return out if axis is None else tp_exit(out, axis, seq_split)

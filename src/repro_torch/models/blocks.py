@@ -10,8 +10,8 @@ and an MLP, an SSM beside attention, or an MoE layer), and the xLSTM
 kinds ``mlstm`` and ``slstm`` (a norm and the recurrent layer, no
 attention: their run caches are the recurrent state alone).
 
-A tensor-parallel dense block (``tp_axis`` set by
-`launch.sharding.shard_tensor_parallel`) is Megatron's: each of its two
+A tensor-parallel dense or hybrid block (``tp_axis`` set by
+`launch.sharding.shard_tensor_parallel`) is Megatron's: each of its
 sublayers enters its region from the residual stream and leaves it with
 the partial products summed (`layers.tp_enter`, `layers.tp_exit`). In
 train and prefill the stream may be sequence-parallel (``seq_split``:
@@ -19,7 +19,10 @@ the rank holds its block of T, the reference's ``residual_spec``): the
 norms run on the block, the sublayers gather T before their column
 products and scatter it after their row products. Decode (T = 1) keeps
 the stream whole on every rank, with an all-reduce after each row
-product, as the reference's decode step has no residual spec.
+product, as the reference's decode step has no residual spec. A hybrid
+block's attention and SSM enter their regions from the same normed input
+(one gather), and each leaves on its own: ``ln_ssm`` normalises the
+SSM's whole ``d``-wide output before the average.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import init_rms_norm, rms_norm, tp_axis, \
-    tp_weight
+    tp_enter, tp_weight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,9 +134,9 @@ def apply_block(params: Block, x: torch.Tensor, cfg: ModelConfig, kind: str,
     the whole sequence."""
     _check_kind(kind)
     axis = tp_axis(params)
-    if axis is not None and kind != "dense":
-        raise ValueError(f"tensor parallelism covers the dense block, not "
-                         f"{kind!r}")
+    if axis is not None and kind not in ("dense", "hybrid"):
+        raise ValueError(f"tensor parallelism covers the dense and hybrid "
+                         f"blocks, not {kind!r}")
     # A norm on the rank's block of T: its gradient sums the ranks' parts.
     ln = lambda w: tp_weight(w, axis, seq_split)  # noqa: E731
     h = rms_norm(x, ln(params.ln1), cfg.rmsnorm_eps)
@@ -146,15 +149,19 @@ def apply_block(params: Block, x: torch.Tensor, cfg: ModelConfig, kind: str,
                                              cache=cache)
         return x + y, new_cache, 0.0
     attn_cache = cache["attn"] if cache is not None else None
+    # A hybrid block's two mixers enter their regions from one input.
+    entered = axis is not None and kind == "hybrid"
+    if entered:
+        h = tp_enter(h, axis, seq_split)
     a, new_attn_cache = attn_lib.attention_layer(
         params.attn, h, cfg, positions, cache=attn_cache, window=window,
-        causal=causal, impl=impl, seq_split=seq_split)
+        causal=causal, impl=impl, seq_split=seq_split, entered=entered)
     new_cache = None if cache is None else dict(attn=new_attn_cache)
     if kind == "hybrid":
         s, new_ssm_cache = ssm_lib.ssm_layer(
             params.ssm, h, cfg, cache=cache["ssm"] if cache is not None
-            else None, impl=impl)
-        x = x + 0.5 * (a + rms_norm(s, params.ln_ssm, cfg.rmsnorm_eps))
+            else None, impl=impl, seq_split=seq_split, entered=entered)
+        x = x + 0.5 * (a + rms_norm(s, ln(params.ln_ssm), cfg.rmsnorm_eps))
         if cache is not None:
             new_cache["ssm"] = new_ssm_cache
     else:

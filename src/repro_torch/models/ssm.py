@@ -18,6 +18,23 @@ Where the prefill scan runs (``impl``):
 * ``"plain"`` — `kernels.ssm_scan.ssm_scan_plain` on any device.
 
 Each plain scan adds one to ``PLAIN_CALLS["ssm_scan"]``.
+
+Tensor parallelism (an `SSM` whose ``tp_axis`` names the mesh axis, set
+by `launch.sharding.shard_tensor_parallel`): the rank holds the
+reference's "model" block of the ``d_inner`` channels, Megatron's column
+and row pattern. ``in_proj`` is its block of each half, ``[x_r ; z_r]``
+(`launch.sharding.split_halves`); ``conv_w``, ``dt_w``, ``dt_bias``,
+``A_log`` and ``D`` its channels; ``x_proj`` and ``out_proj`` are
+row-parallel. The layer enters its region from the residual stream
+(`layers.tp_enter`: the whole sequence where the stream is
+sequence-parallel), sums ``x_proj``'s partial products ``dt_bc [B, T,
+dt_rank + 2n]`` over the axis before the softplus (one small all-reduce,
+whose backward pass sums the ranks' partial cotangents), scans the rank's
+``B T (d_inner / tp) n`` elements with no exchange, and leaves with the
+partial products of ``out_proj`` summed (`layers.tp_exit`). A decode step
+reads and writes the rank's block of the cache in place (``h [B, d_inner
+/ tp, n]``, ``conv [B, K-1, d_inner / tp]``: the reference's
+`ssm_cache_spec`).
 """
 from __future__ import annotations
 
@@ -29,9 +46,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import P
+from repro_torch.distributed import P, copy_to_region, reduce_from_region
 from repro_torch.kernels.ssm_scan import ssm_scan as kss
-from repro_torch.models.layers import init_linear, normal_init, silu
+from repro_torch.models.layers import (init_linear, normal_init, silu,
+                                       tp_axis, tp_enter, tp_exit)
 
 IMPLS = ("auto", "plain")
 
@@ -132,14 +150,34 @@ def _out(params: SSM, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
     return params.out_proj((y * silu(z.float())).to(dtype))
 
 
+def _dt_bc(params: SSM, xc: torch.Tensor, axis: Optional[str]
+           ) -> torch.Tensor:
+    """``x_proj`` of the conv'd inputs: under tensor parallelism the
+    ranks' partial products summed over the axis (before the softplus),
+    the sum then used by each rank on its own channels."""
+    dt_bc = params.x_proj(xc)
+    if axis is None:
+        return dt_bc
+    return copy_to_region(reduce_from_region(dt_bc, axis), axis)
+
+
 def ssm_layer(params: SSM, x: torch.Tensor, cfg: ModelConfig, *,
-              cache: Optional[SSMCache] = None, impl: str = "auto"
+              cache: Optional[SSMCache] = None, impl: str = "auto",
+              seq_split: bool = False, entered: bool = False
               ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
     """x ``[B, T, d]`` -> (y ``[B, T, d]``, the cache after the step).
     Prefill when ``cache`` is None (returns no cache, as the reference);
-    else one decode step (T == 1) that writes ``cache`` in place."""
+    else one decode step (T == 1) that writes ``cache`` in place. Under
+    tensor parallelism (module docstring) ``x`` and the output are the
+    residual stream as the rank holds it (its block of T where
+    ``seq_split``), or ``x`` is the region's input already where
+    ``entered`` (a hybrid block enters once for attention and the
+    SSM)."""
     if impl not in IMPLS:
         raise ValueError(f"ssm impl {impl!r}; one of {IMPLS}")
+    axis = tp_axis(params)
+    if axis is not None and not entered:
+        x = tp_enter(x, axis, seq_split)
     B, T, _ = x.shape
     n = cfg.ssm_state
     din = params.D.shape[0]
@@ -148,16 +186,17 @@ def ssm_layer(params: SSM, x: torch.Tensor, cfg: ModelConfig, *,
 
     if cache is not None:
         xc = silu(_causal_conv(xs, params.conv_w, history=cache.conv))
-        a, b, Cc = _elements(params, xc, params.x_proj(xc), n)
+        a, b, Cc = _elements(params, xc, _dt_bc(params, xc, axis), n)
         h = a[:, 0] * cache.h + b[:, 0]                      # [B, din, n]
         y = torch.einsum("bdn,bn->bd", h, Cc[:, 0])[:, None, :]
         new_conv = torch.cat([cache.conv, xs.to(cache.conv.dtype)], dim=1)
         cache.h.copy_(h)
         cache.conv.copy_(new_conv[:, 1:])
-        return _out(params, y, xc, z, x.dtype), cache
+        return _exit(params, _out(params, y, xc, z, x.dtype), axis,
+                     seq_split), cache
 
     xc = silu(_causal_conv(xs, params.conv_w))
-    dt_bc = params.x_proj(xc)
+    dt_bc = _dt_bc(params, xc, axis)
     CT = min(cfg.scan_chunk, T)
     h0 = torch.zeros((B, din * n), dtype=torch.float32, device=x.device)
     ys = []
@@ -172,7 +211,15 @@ def ssm_layer(params: SSM, x: torch.Tensor, cfg: ModelConfig, *,
         del a, b
         ys.append(torch.einsum("btdn,btn->btd", hs.view(B, ct, din, n), Cc))
         h0 = hs[:, -1]
-    return _out(params, torch.cat(ys, dim=1), xc, z, x.dtype), None
+    return _exit(params, _out(params, torch.cat(ys, dim=1), xc, z, x.dtype),
+                 axis, seq_split), None
+
+
+def _exit(params: SSM, y: torch.Tensor, axis: Optional[str],
+          seq_split: bool) -> torch.Tensor:
+    """The layer's output into the residual stream: under tensor
+    parallelism the ranks' partial products of ``out_proj`` summed."""
+    return y if axis is None else tp_exit(y, axis, seq_split)
 
 
 def init_ssm_cache(cfg: ModelConfig, B: int, dtype: torch.dtype,

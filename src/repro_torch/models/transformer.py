@@ -25,7 +25,7 @@ scans run (`models.attention`, `models.ssm`, `models.xlstm`): ``"auto"``
 runs the CUDA kernels on the card. Decode writes the caches in place and
 returns them with the attention caches' lengths advanced.
 
-Tensor parallelism (a dense model sharded by
+Tensor parallelism (a dense, hybrid or encoder-decoder model sharded by
 `launch.sharding.shard_tensor_parallel`, its ``tp_axis`` set, run under
 ``with mesh:``): the embedding and the head split the padded vocabulary
 (`layers.vocab_parallel_embedding`; `train_loss` takes the
@@ -36,7 +36,11 @@ rank of a "model" line returns the same logits as one device. With
 ``sequence_parallel``, `train_loss` and `prefill` keep the residual
 stream split along T over the axis where it divides T (the reference's
 ``residual_spec``); the positions are those of the whole sequence, which
-the sublayers gather before they project q and k.
+the sublayers gather before they project q and k. An encoder's stream
+splits along its own sequence in the same way; its memory reaches every
+rank whole (gathered along the sequence where it was split), entering
+the cross-attention's region once for every decoder layer, whose
+``ln_cross`` runs on the rank's block of the decoder's stream.
 """
 from __future__ import annotations
 
@@ -171,10 +175,12 @@ def _apply_stack(model: CausalLM, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _cross(model: CausalLM, x: torch.Tensor, memory: torch.Tensor,
-           cfg: ModelConfig, gl: int, impl: str) -> torch.Tensor:
-    h = rms_norm(x, model.ln_cross[gl], cfg.rmsnorm_eps)
-    return x + attn_lib.cross_attention_layer(model.cross_attn[gl], h,
-                                              memory, cfg, impl=impl)
+           cfg: ModelConfig, gl: int, impl: str,
+           seq_split: bool = False) -> torch.Tensor:
+    ln = tp_weight(model.ln_cross, tp_axis(model), seq_split)
+    h = rms_norm(x, ln[gl], cfg.rmsnorm_eps)
+    return x + attn_lib.cross_attention_layer(
+        model.cross_attn[gl], h, memory, cfg, impl=impl, seq_split=seq_split)
 
 
 def _layer_fn(model: CausalLM, block, cfg: ModelConfig, run, gl: int, *,
@@ -196,7 +202,7 @@ def _layer_fn(model: CausalLM, block, cfg: ModelConfig, run, gl: int, *,
             block, x, cfg, run.kind, positions=positions, window=run.window,
             causal=causal, impl=impl, seq_split=seq_split)
         if memory is not None:
-            x = _cross(model, x, memory, cfg, gl, impl)
+            x = _cross(model, x, memory, cfg, gl, impl, seq_split)
         return x, a
 
     if remat == "none" or not torch.is_grad_enabled():
@@ -266,27 +272,41 @@ def cache_specs(cfg: ModelConfig, batch_spec=("data",)) -> list:
 
 
 def _encode(model: CausalLM, cfg: ModelConfig, enc_emb: torch.Tensor, *,
-            impl: str = "auto", remat: str = "none") -> torch.Tensor:
+            impl: str = "auto", remat: str = "none",
+            sequence_parallel: bool = False) -> torch.Tensor:
     B, S, _ = enc_emb.shape
     x = enc_emb.to(dtype_of(cfg.compute_dtype))
     positions = _positions(cfg, B, S, device=enc_emb.device)
     run = blocks_lib.Run(kind="dense", count=cfg.encoder_layers, window=0,
                          first_layer=0)
+    axis = tp_axis(model)
+    sp = _seq_split(model, S, sequence_parallel)
+    if sp:
+        Sb = S // axis_size(axis)
+        x = x.narrow(1, axis_index(axis) * Sb, Sb)
     for block in model.encoder:
         x, _ = _layer_fn(model, block, cfg, run, 0, positions=positions,
                          causal=False, memory=None, impl=impl,
-                         remat=remat)(x)
-    return rms_norm(x, model.enc_norm, cfg.rmsnorm_eps)
+                         remat=remat, seq_split=sp)(x)
+    x = rms_norm(x, tp_weight(model.enc_norm, axis, sp), cfg.rmsnorm_eps)
+    # The memory, whole on every rank of the axis, enters the
+    # cross-attention's region here, once for every decoder layer.
+    return x if axis is None else tp_enter(x, axis, sp)
 
 
 @torch.no_grad()
 def encode(model: CausalLM, cfg: ModelConfig, enc_emb: torch.Tensor, *,
-           impl: str = "auto") -> torch.Tensor:
+           impl: str = "auto", sequence_parallel: bool = False
+           ) -> torch.Tensor:
     """The encoder memory ``[B, S, d]`` (compute dtype) of the stub
     frontend's embeddings ``enc_emb [B, S, d]``: the dense encoder blocks
     with RoPE positions and non-causal self-attention, then ``enc_norm``.
-    Builds no graph (`train_loss` runs the same encoder with one)."""
-    return _encode(model, cfg, enc_emb, impl=impl)
+    Builds no graph (`train_loss` runs the same encoder with one). A
+    tensor-parallel model (module docstring) splits the encoder's stream
+    along S where ``sequence_parallel`` asks and S divides; the memory is
+    whole on every rank either way."""
+    return _encode(model, cfg, enc_emb, impl=impl,
+                   sequence_parallel=sequence_parallel)
 
 
 def train_loss(model: CausalLM, cfg: ModelConfig,
@@ -319,7 +339,7 @@ def train_loss(model: CausalLM, cfg: ModelConfig,
     memory = None
     if cfg.encoder_layers:
         memory = _encode(model, cfg, batch["enc_emb"], impl="plain",
-                         remat=cfg.remat)
+                         remat=cfg.remat, sequence_parallel=sequence_parallel)
     sp = _seq_split(model, T, sequence_parallel)
     x = _embed(model, cfg, tokens, sp)
     positions = _positions(cfg, B, T, device=tokens.device)
@@ -370,7 +390,8 @@ def prefill(model: CausalLM, cfg: ModelConfig, tokens: torch.Tensor,
         if enc_emb is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs "
                              "the frontend embeddings (enc_emb=)")
-        memory = encode(model, cfg, enc_emb, impl=impl)
+        memory = encode(model, cfg, enc_emb, impl=impl,
+                        sequence_parallel=sequence_parallel)
     sp = _seq_split(model, T, sequence_parallel)
     x = _embed(model, cfg, tokens, sp)
     positions = _positions(cfg, B, T, device=tokens.device)

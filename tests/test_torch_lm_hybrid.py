@@ -75,6 +75,18 @@ def _jax_model():
     return jcfg, out, j.jax.tree_util.tree_map(j.jnp.asarray, out)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU work here on one thread. Beside the suite's other
+    workers a thread pool per process oversubscribes the cores: the
+    32-layer prefill of `test_bf16_noise_matches_jax` took 30.9 s on
+    eight threads and 1.3 s on one, on a loaded 8-core machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def model():
     cfg = reduced_config(get_config(ARCH))

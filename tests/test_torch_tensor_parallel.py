@@ -46,18 +46,22 @@ from repro_torch import convert
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.distributed import AbstractMesh
 from repro_torch.kernels.flash_attention import flash_attention as kfa
+from repro_torch.kernels.work import attention_pairs
 from repro_torch.launch import sharding as tsharding
 from repro_torch.launch.cost import Counter, count_cell, meta_inputs
 from repro_torch.launch.mesh import run_ranks
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.models import attention as tattn
+from repro_torch.models.blocks import layer_schedule
 from _torch_jax import release_jax_caches  # noqa: F401
 
 RANKS = 4
 TOL = dict(rtol=2e-4, atol=2e-5)
 F64_TOL = dict(rtol=1e-9, atol=1e-10)
 KEYS = list(cases.CASES)
+#: The cases that run the train and prefill plans too.
+FULL = [k for k in KEYS if k not in cases.DECODE_ONLY]
 
 _JAX = r"""
 import dataclasses
@@ -76,7 +80,7 @@ inp = dict(np.load("%(inputs)s"))
 out = {}
 mesh = jax.make_mesh((2, 2), ("data", "model"), devices=jax.devices()[:4],
                      axis_types=(AxisType.Auto,) * 2)
-B, T, STEPS = %(B)d, %(T)d, %(steps)d
+B, T, STEPS = %(B)d, %(T)d, %(default_steps)d
 
 
 def run(plan, args):
@@ -93,7 +97,14 @@ for key, (arch, fields) in %(cases)s.items():
         jnp.asarray(inp[f"params/{key}/{i}"])
         for i in range(treedef.num_leaves)])
     toks = jnp.asarray(inp[f"tokens/{key}"], jnp.int32)
+    enc = ([jnp.asarray(inp[f"enc_emb/{key}"])] if f"enc_emb/{key}" in inp
+           else [])
+    mem = ([jnp.asarray(inp[f"memory/{key}"])] if f"memory/{key}" in inp
+           else [])
+    caps, steps = %(caches)s.get(key, %(default_caches)r), \
+        %(steps)r.get(key, STEPS)
     with mesh:
+      if key not in %(decode_only)r:
         plan = make_train_step(cfg, mesh, ShapeConfig("t", T, B, "train"),
                                opt_cfg=AdamWConfig(lr=%(LR)r),
                                total_steps=%(TOTAL)d, warmup_steps=0)
@@ -101,8 +112,10 @@ for key, (arch, fields) in %(cases)s.items():
         own = jax.tree_util.tree_map(lambda a: jnp.array(a, copy=True),
                                      params)
         state = TrainState(params=own, opt=init_adamw(own))
-        step, flops, args = run(plan, (state, {"tokens": toks,
-                                               "labels": toks}))
+        batch = {"tokens": toks, "labels": toks}
+        if enc:
+            batch["enc_emb"] = enc[0]
+        step, flops, args = run(plan, (state, batch))
         out[f"{key}/train/flops"] = np.asarray(flops)
         new, m = step(*args)
         for k in ("loss", "ce", "grad_norm"):
@@ -112,21 +125,22 @@ for key, (arch, fields) in %(cases)s.items():
 
         plan = make_prefill_step(cfg, mesh, ShapeConfig("p", T, B,
                                                         "prefill"))
-        step, flops, args = run(plan, (params, toks))
+        step, flops, args = run(plan, (params, toks, *enc))
         out[f"{key}/prefill/flops"] = np.asarray(flops)
         out[f"{key}/prefill"] = np.asarray(step(*args))
-        for cap in %(caches)s:
+      for cap in caps:
             plan = make_decode_step(cfg, mesh, ShapeConfig("d", cap, B,
                                                            "decode"))
             caches = models.init_caches(cfg, B, cap)
             step, flops, args = run(plan, (params, caches, toks[:, :1],
-                                           jnp.int32(0)))
+                                           jnp.int32(0), *mem))
             out[f"{key}/decode{cap}/flops"] = np.asarray(flops)
             p, c = args[0], args[1]
             logits = []
-            for i in range(STEPS):
+            for i in range(steps):
+                j = i %% T
                 lg, c = step(*jax.device_put(
-                    (p, c, toks[:, i:i + 1], jnp.int32(i)),
+                    (p, c, toks[:, j:j + 1], jnp.int32(i), *mem),
                     plan.in_shardings))
                 logits.append(np.asarray(lg))
             out[f"{key}/decode{cap}"] = np.stack(logits)
@@ -196,15 +210,26 @@ def _jparams(key):
 
 @functools.lru_cache(maxsize=None)
 def _inputs():
+    """The parameters and tokens of every case; for an encoder-decoder
+    also the frontend's embeddings (train and prefill) and a memory
+    (decode), float32 normals."""
     rng = np.random.default_rng(27)
-    return {"params": {k: _jparams(k)[0] for k in KEYS},
-            "tokens": {k: rng.integers(0, 512, (cases.B, cases.T))
-                       for k in KEYS}}
+    out = {"params": {k: _jparams(k)[0] for k in KEYS},
+           "tokens": {k: rng.integers(0, 512, (cases.B, cases.T))
+                      for k in KEYS}}
+    for k in KEYS:
+        cfg = cases.cfg_of(k)
+        if cfg.encoder_layers:
+            shape = (cases.B, cfg.encoder_seq_len, cfg.d_model)
+            for what in ("enc_emb", "memory"):
+                out[f"{what}/{k}"] = rng.standard_normal(shape).astype(
+                    np.float32)
+    return out
 
 
 def _jax_oracle(tmp) -> dict:
     inp = _inputs()
-    flat = {}
+    flat = {k: v for k, v in inp.items() if "/" in k}
     for k in KEYS:
         flat[f"tokens/{k}"] = inp["tokens"][k]
         leaves = jx().jax.tree_util.tree_leaves(inp["params"][k])
@@ -213,8 +238,9 @@ def _jax_oracle(tmp) -> dict:
     np.savez(path, **flat)
     proc = run_snippet(_JAX % dict(
         inputs=path, outputs=outputs, cases=repr(cases.CASES), B=cases.B,
-        T=cases.T, steps=cases.DECODE_STEPS, LR=cases.LR,
-        TOTAL=cases.TOTAL, caches=repr(cases.CACHES)),
+        T=cases.T, default_steps=cases.DECODE_STEPS, steps=cases.STEPS,
+        LR=cases.LR, TOTAL=cases.TOTAL, caches=repr(cases.DECODE_ONLY),
+        default_caches=cases.CACHES, decode_only=tuple(cases.DECODE_ONLY)),
         n_devices=8, timeout=900, extra_env={"XLA_FLAGS": (
             "--xla_force_host_platform_device_count=8 " + CHEAP_XLA)})
     assert proc.returncode == 0 and "TP_ORACLES_OK" in proc.stdout, (
@@ -258,7 +284,7 @@ def _rows(ranks, key, part):
 # The plans against JAX's sharded steps
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("key", KEYS)
+@pytest.mark.parametrize("key", FULL)
 def test_train_step_matches_jax_sharded_step(sessions, key):
     ranks, oracle = sessions
     for r in ranks:
@@ -277,7 +303,7 @@ def test_train_step_matches_jax_sharded_step(sessions, key):
         np.testing.assert_allclose(got[n], want[n], err_msg=n, **TOL)
 
 
-@pytest.mark.parametrize("key", KEYS)
+@pytest.mark.parametrize("key", FULL)
 def test_prefill_matches_jax_sharded_step(sessions, key):
     ranks, oracle = sessions
     assert all(r[key]["serve"]["lm_params_tp"] == "model" for r in ranks)
@@ -285,21 +311,25 @@ def test_prefill_matches_jax_sharded_step(sessions, key):
                                oracle[f"{key}/prefill"], **TOL)
 
 
-@pytest.mark.parametrize("cap", cases.CACHES)
-@pytest.mark.parametrize("key", KEYS)
+@pytest.mark.parametrize("key,cap", [(k, c) for k in KEYS
+                                     for c in cases.caches_of(k)])
 def test_decode_matches_jax_sharded_step(sessions, key, cap):
     ranks, oracle = sessions
     got = _rows(ranks, key, f"decode{cap}")
     np.testing.assert_allclose(got, oracle[f"{key}/decode{cap}"], **TOL)
     cfg = cases.cfg_of(key)
     split = not cfg.shard_kv_heads and cap >= 16
+    # Each run's caches: ``cap`` rows, or a windowed ring of min(cap,
+    # window), which splits only where it has the plan's rows.
+    rows = [min(cap, run.window or cap) for run in layer_schedule(cfg)]
+    want = [n // 2 if split and n == cap else n for n in rows]
     for r in ranks:
         s = r[key]["serve"]
         # The rank's cache blocks: its block of the sequence where the
         # reference splits it over "model", else every row.
-        assert s[f"cache_rows{cap}"] == (cap // 2 if split else cap)
+        assert s[f"cache_rows{cap}"] == want
         np.testing.assert_array_equal(s[f"lengths{cap}"],
-                                      cases.DECODE_STEPS)
+                                      cases.steps_of(key))
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +356,7 @@ def _model_block_bytes(key) -> int:
     return total
 
 
-@pytest.mark.parametrize("key", KEYS)
+@pytest.mark.parametrize("key", FULL)
 def test_compute_model_holds_the_model_block(sessions, key):
     ranks, _ = sessions
     want = _model_block_bytes(key)
@@ -336,6 +366,64 @@ def test_compute_model_holds_the_model_block(sessions, key):
     for r in ranks:
         t = r[key]["train"]
         assert t["compute_bytes"] == t["plan_compute_bytes"] == want
+
+
+def _whole_in_proj(key) -> dict:
+    """Each layer's SSM ``in_proj`` of the case's JAX parameters in the
+    port's layout ``[2 d_inner, d]`` (rows ``[x ; z]``), by port name."""
+    names = [n for n in _port_names(key) if n.endswith("ssm.in_proj.weight")]
+    return {n: w for n, w in convert.lm_tree(
+        _jparams(key)[0], names).items()}
+
+
+def test_in_proj_computes_on_its_block_of_each_half(sessions):
+    """Reduced hymba at "model" 2: each rank's compute model holds the
+    rows ``[x_r ; z_r]`` of every ``in_proj``, both as the train plan
+    cuts it and as `convert.lm_params(mesh=)` does, while the rank's
+    resting block (the reference's spec, one contiguous block) is all of
+    ``x`` at "model" 0 and all of ``z`` at "model" 1."""
+    ranks, _ = sessions
+    whole = _whole_in_proj("hybrid")
+    assert len(whole) == cases.cfg_of("hybrid").num_layers
+    for r in ranks:
+        m = r["coords"]["model"]
+        train = r["hybrid"]["train"]
+        for part in (train, r["hybrid"]["serve"]):
+            assert set(part["in_proj"]) == set(whole)
+            for n, w in whole.items():
+                din, c = w.shape[0] // 2, w.shape[0] // 4
+                np.testing.assert_array_equal(part["in_proj"][n],
+                                              np.concatenate(
+                    [w[m * c:(m + 1) * c], w[din + m * c:din + (m + 1) * c]]))
+                np.testing.assert_array_equal(
+                    train["in_proj_rest"][n], w[:din] if m == 0 else w[din:])
+
+
+@pytest.mark.parametrize("size", [2, 4])
+def test_in_proj_layouts_exchange_rows(size):
+    """The compute block of a `split_halves` weight is the rank's block of
+    each half, its resting block the reference's contiguous block (the
+    spec `param_specs` gives it), and the two exchange rows alone: the
+    row sets of the ranks' blocks partition the weight both ways."""
+    import types
+
+    cfg = cases.cfg_of("hybrid")
+    spec = tsharding.param_specs(cfg)["runs.0.0.ssm.in_proj.weight"]
+    assert tsharding.split_halves("runs.0.0.ssm.in_proj.weight")
+    assert tuple(spec) == ("model", None)
+    full = torch.arange(2 * 8 * 3).reshape(16, 3)
+    rows, rest = [], []
+    for r in range(size):
+        mesh = types.SimpleNamespace(shape={"model": size},
+                                     coords={"model": r})
+        got = tsharding.halves_block(full, mesh)
+        c = 8 // size
+        want = torch.cat([full[r * c:(r + 1) * c],
+                          full[8 + r * c:8 + (r + 1) * c]])
+        assert torch.equal(got, want)
+        rows += (got[:, 0] // 3).tolist()
+        rest += list(tsharding._rest_rows(16, size, r))
+    assert sorted(rows) == sorted(rest) == list(range(16))
 
 
 def _plan(key, kind, cap=None):
@@ -360,6 +448,7 @@ def _flop_differences(key, kind, cap=None) -> list:
     tp, L, d, dh = cases.SHAPE[1], cfg.num_layers, cfg.d_model, \
         cfg.resolved_head_dim
     Bl, T, H = cases.B // cases.SHAPE[0], cases.T, cfg.num_heads
+    runs = layer_schedule(cfg)
     # Rank 0's real q heads: its block of the padded heads.
     real0 = min(H, cfg.padded_heads // tp)
     out = []
@@ -367,8 +456,11 @@ def _flop_differences(key, kind, cap=None) -> list:
         out.append((
             "prefill attention: XLA multiplies every (query, key) pair of "
             "the diagonal block, the port's kernel formula (the kernel's "
-            "work, `kernels.work.flash_work`) counts the causal ones",
-            -4 * dh * (T * T - T * (T + 1) // 2) * Bl * real0 * L))
+            "work, `kernels.work.flash_work`) counts the causal ones, in "
+            "the window where the layer has one",
+            -4 * dh * Bl * real0 * sum(
+                run.count * (T * T - attention_pairs(T, T, True, run.window))
+                for run in runs)))
     if kind in ("train", "prefill") and not cfg.shard_kv_heads:
         # Forward; in training also the block's recomputation and the
         # backward pass's two products.
@@ -379,20 +471,51 @@ def _flop_differences(key, kind, cap=None) -> list:
             "sequence on every rank of \"model\", GSPMD the rank's block "
             "of the sequence-parallel stream, then gathers k and v",
             passes * kv * L * (tp - 1) // tp))
-    if kind == "decode" and (cfg.shard_kv_heads or cap < 16):
+    if kind == "decode":
+        # A layer's cache is whole on every rank where the kv heads split,
+        # where it is short, or where it is a ring shorter than the plan's.
+        whole = sum(run.count * min(cap, run.window or cap) for run in runs
+                    if cfg.shard_kv_heads or cap < 16
+                    or min(cap, run.window or cap) != cap)
+        if whole:
+            out.append((
+                "decode attention on a cache whole on every rank: rank 0 "
+                "runs the real heads of its block of the padded heads "
+                f"({real0}), GSPMD splits the {H} real heads evenly "
+                f"({-(-H // tp)} a chip)",
+                4 * Bl * dh * whole * (real0 - -(-H // tp))))
+    if cfg.family == "hybrid" and kind in ("train", "prefill"):
+        n_el = Bl * T * cfg.ssm_expand * d // tp * cfg.ssm_state
         out.append((
-            "decode attention on a cache whole on every rank: rank 0 runs "
-            f"the real heads of its block of the padded heads ({real0}), "
-            f"GSPMD splits the {H} real heads evenly "
-            f"({-(-H // tp)} a chip)",
-            4 * Bl * dh * cap * (real0 - -(-H // tp)) * L))
+            "prefill: the port counts ssm_scan by the kernel's formula (2 "
+            "operations a value, `kernels.work.ssm_scan_work`), XLA's "
+            "associative scan has no dot" if kind == "prefill" else
+            "the gradient of the SSM's h from y = einsum(h, C): the port's "
+            "is an outer product as a batched matmul, XLA's an elementwise "
+            "multiply", 2 * n_el * L))
+    if cfg.encoder_layers and kind == "train":
+        S, hq, hkv = (cfg.encoder_seq_len, cfg.padded_heads // tp,
+                      cfg.num_kv_heads // tp)
+        proj = 2 * Bl * d * dh
+        layer = (proj * T * (2 * hq + 2 * hkv)            # wq, wk, wv, wo
+                 + 4 * Bl * hq * T * T * dh               # QK^T and PV
+                 + 3 * 2 * Bl * T * d * cfg.d_ff // tp    # the MLP
+                 + proj * (T * hq + 2 * S * hkv)          # cross wq, wk, wv
+                 + 4 * Bl * hq * T * S * dh)              # cross QK^T, PV
+        out.append((
+            "the decoder's recomputation: the port's block remat recomputes "
+            "each decoder layer with its cross-attention in the backward "
+            "pass, up to the cross wo (torch's non-reentrant checkpoint "
+            "stops at the last saved input); the reference's cross path "
+            "applies the decoder blocks without its jax.checkpoint",
+            layer * L))
     return out
 
 
 @pytest.mark.parametrize("key,kind,cap", [
     (k, kind, cap) for k in KEYS for kind, cap in
-    [("train", None), ("prefill", None)] + [("decode", c)
-                                            for c in cases.CACHES]])
+    ([("train", None), ("prefill", None)] if k in FULL else [])
+    + [("decode", c) for c in cases.caches_of(k)]])
 def test_flops_equal_jax_analyze_hlo(sessions, key, kind, cap,
                                      record_property):
     _, oracle = sessions
@@ -431,9 +554,12 @@ def test_decode_moves_no_cache_block(key):
     carries a cache block (the q rows, the ranks' partial rows, the
     partial sums of the row products and the logits are all it moves).
     Both capacities of each pair lay out their caches alike: split along
-    the sequence over "model" (32, 64 rows) where the kv heads are
-    replicated, or whole (8, 12)."""
-    for caps in ((32, 64), (8, 12)):
+    the sequence over "model" (32, 64 rows; hybrid_w32's rings split at
+    16 and 32 rows, not at 64) where the kv heads are replicated, or
+    whole (8, 12)."""
+    pairs = ((16, 32), (8, 12)) if key == "hybrid_w32" else ((32, 64),
+                                                             (8, 12))
+    for caps in pairs:
         a, b = (_collectives(_plan(key, "decode", c)) for c in caps)
         assert a and a == b, caps
         assert _plan(key, "decode", caps[0]).tensor_parallel
@@ -515,6 +641,25 @@ def test_rank_heads_restate_the_reference_map():
         (2, 2), ("data", "model")))
     assert tsharding.tensor_parallel(cfg, AbstractMesh(
         (2, 2), ("data", "model")), "decode")
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (16, 16), (2, 16, 16)])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "seamless-m4t-medium"])
+def test_hybrid_and_encdec_plans_are_tensor_parallel(arch, shape):
+    """hymba-1.5b's and seamless-m4t-medium's train, prefill and decode
+    plans split over "model" on the 2 x 2 test mesh and both production
+    meshes; grok-1-314b's global dispatch and xlstm-350m keep the
+    replicated compute model."""
+    from repro_torch.configs import get_config
+
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                       "model")
+    mesh = AbstractMesh(shape, names)
+    for kind in ("train", "prefill", "decode"):
+        assert tsharding.tensor_parallel(get_config(arch), mesh, kind)
+        for other in ("grok-1-314b", "xlstm-350m"):
+            assert not tsharding.tensor_parallel(get_config(other), mesh,
+                                                 kind)
 
 
 @pytest.mark.cuda
